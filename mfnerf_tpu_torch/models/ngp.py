@@ -1,0 +1,206 @@
+"""NGP radiance field: LowRank encoder + sigma/rgb MLPs + occupancy grid.
+
+Port of ``mfnerf_tpu/models/ngp.py`` for the LowRank grid. ``NGP`` is an
+``nn.Module`` whose parameters carry the JAX pytree's names
+(``lowrank.lines.<m>.<l>.<d>``, ``lowrank.proj``, ``sigma_mlp.<i>``,
+``rgb_mlp.<i>``), so a JAX checkpoint loads through
+``utils.ckpt.params_from_numpy``. MLPs are bias-free, weights stored
+(fan_in, fan_out) and applied as ``h @ W``.
+
+The Hash/Window/MixedFeature grids, the HDR tonemappers and the TPU-only
+occupancy tables (coarse, neighbourhood, union) are not ported here.
+"""
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..ops.activations import trunc_exp
+from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
+from ..ops.morton import morton3d_invert, packbits
+from ..ops.sh import sh_encode
+
+
+@dataclasses.dataclass(frozen=True)
+class NGPConfig:
+    """The LowRank fields of ``mfnerf_tpu.models.ngp.NGPConfig``, with the
+    same names and defaults."""
+    scale: float = 0.5
+    L: int = 16                   # L * F is the encoder's output width
+    F: int = 2
+    rgb_channels: int = 64
+    rgb_layers: int = 2
+    grid_size: int = 128
+    sigma_neurons: int = 64
+    geo_feat_dim: int = 16
+    sh_degree: int = 4
+    lr_levels: int = 8
+    lr_rank: int = 16
+    lr_frames: int = 2
+    lr_k_min: int = 32
+    lr_k_max: int = 512
+    lr_fused: bool = False
+
+    @property
+    def cascades(self) -> int:
+        return max(1 + int(math.ceil(math.log2(2 * self.scale))), 1)
+
+    @property
+    def lowrank_cfg(self) -> LowRankConfig:
+        return LowRankConfig.create(
+            n_levels=self.lr_levels, k_min=self.lr_k_min,
+            k_max=self.lr_k_max, rank=self.lr_rank,
+            n_frames=self.lr_frames, out_dim=self.L * self.F,
+            fused=self.lr_fused)
+
+    @property
+    def n_cells(self) -> int:
+        return self.grid_size ** 3
+
+
+@dataclasses.dataclass
+class OccupancyState:
+    """Occupancy grid: per-cell density (C, G^3) in Morton order and its
+    packed bitfield (C*G^3//8,) uint8."""
+    density_grid: torch.Tensor
+    density_bitfield: torch.Tensor
+
+    @staticmethod
+    def create(cfg: NGPConfig, device=None) -> "OccupancyState":
+        c, n = cfg.cascades, cfg.n_cells
+        return OccupancyState(
+            density_grid=torch.zeros((c, n), dtype=torch.float32,
+                                     device=device),
+            density_bitfield=torch.zeros((c * n // 8,), dtype=torch.uint8,
+                                         device=device))
+
+
+def _mlp_params(sizes):
+    return nn.ParameterList(
+        [nn.Parameter(torch.empty(fan_in, fan_out))
+         for fan_in, fan_out in zip(sizes[:-1], sizes[1:])])
+
+
+def _mlp_apply(ws, x, sigmoid=False):
+    h = x
+    for w in ws[:-1]:
+        h = torch.relu(h @ w)
+    h = h @ ws[-1]
+    return torch.sigmoid(h) if sigmoid else h
+
+
+class NGP(nn.Module):
+    """The LowRank NGP field. Parameters are drawn by :meth:`init`."""
+
+    def __init__(self, cfg: NGPConfig, generator: torch.Generator = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        lr = cfg.lowrank_cfg
+        self.lowrank_cfg = lr
+        self.lowrank = nn.Module()
+        self.lowrank.lines = nn.ModuleList([
+            nn.ModuleList([
+                nn.ParameterList([nn.Parameter(torch.empty(k, lr.rank))
+                                  for _ in range(3)])
+                for k in lr.levels])
+            for _ in range(lr.n_frames)])
+        self.lowrank.proj = nn.Parameter(
+            torch.empty(lr.n_components, lr.out_dim))
+        self.sigma_mlp = _mlp_params(
+            [cfg.L * cfg.F, cfg.sigma_neurons, cfg.geo_feat_dim])
+        self.rgb_mlp = _mlp_params(
+            [cfg.sh_degree ** 2 + cfg.geo_feat_dim]
+            + [cfg.rgb_channels] * cfg.rgb_layers + [3])
+        self.to(device)
+        self.init(generator if generator is not None
+                  else torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """Draw every parameter from ``generator`` with the JAX init law:
+        lines 1{d=0} + N(0, 0.3), He-uniform projection and MLPs."""
+        lr = init_lowrank_params(self.lowrank_cfg, generator)
+        for m, per_level in enumerate(lr["lines"]):
+            for li, axes in enumerate(per_level):
+                for d, t in enumerate(axes):
+                    self.lowrank.lines[m][li][d].copy_(t)
+        self.lowrank.proj.copy_(lr["proj"])
+        for w in [*self.sigma_mlp, *self.rgb_mlp]:
+            bound = math.sqrt(6.0 / w.shape[0])
+            w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound)
+                    - bound)
+        return self
+
+    @property
+    def device(self):
+        return self.lowrank.proj.device
+
+    def _normalize(self, x):
+        s = self.cfg.scale
+        return torch.clamp((x + s) / (2 * s), 0.0, 1.0)
+
+    def density(self, x, return_feat=False):
+        """sigma (N,) at world positions x (N, 3) [and the (N, 16) sigma-MLP
+        output whose channel 0 is log-sigma]."""
+        enc = lowrank_encode(
+            {"lines": self.lowrank.lines, "proj": self.lowrank.proj},
+            self._normalize(x), self.lowrank_cfg)
+        h = _mlp_apply(self.sigma_mlp, enc)
+        sigmas = trunc_exp(h[:, 0])
+        if return_feat:
+            return sigmas, h
+        return sigmas
+
+    def forward(self, x, d):
+        """(sigma (N,), rgb (N, 3)) at positions x with view directions d."""
+        sigmas, h = self.density(x, return_feat=True)
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        sh = sh_encode((d + 1.0) / 2.0, self.cfg.sh_degree)
+        rgbs = _mlp_apply(self.rgb_mlp, torch.cat([sh, h], dim=1),
+                          sigmoid=True)
+        return sigmas, rgbs
+
+    # ----------------------------------------------------- occupancy helpers
+    def all_cell_coords(self):
+        """(G^3, 3) int32 coords of every cell in Morton storage order."""
+        return morton3d_invert(torch.arange(self.cfg.n_cells,
+                                            device=self.device))
+
+    def _cell_world_coords(self, coords, cascade, noise=None):
+        """Cell coords -> world positions in the cascade's box, jittered by
+        ``noise`` (same shape, uniform in [-1, 1)) times half a cell."""
+        g = self.cfg.grid_size
+        s = min(2 ** (cascade - 1), self.cfg.scale)
+        half_grid_size = s / g
+        xyzs = coords.to(torch.float32) / (g - 1) * 2.0 - 1.0
+        xyzs_w = xyzs * (s - half_grid_size)
+        if noise is not None:
+            xyzs_w = xyzs_w + noise * half_grid_size
+        return xyzs_w
+
+    @torch.no_grad()
+    def update_density_grid(self, occ: OccupancyState, density_threshold,
+                            noise, decay=0.95) -> OccupancyState:
+        """Dense refresh: evaluate sigma at a jittered point of every cell,
+        EMA-merge into the grid, repack the bitfield.
+
+        Args:
+            noise: (C, G^3, 3) uniform jitter in [-1, 1).
+            density_threshold: the training threshold, 0.01*1024/sqrt(3);
+                the bitfield uses min(mean positive density, it).
+        """
+        coords = self.all_cell_coords()
+        tmp = torch.stack([
+            self.density(self._cell_world_coords(coords, c, noise[c]))
+            for c in range(self.cfg.cascades)])
+        grid = occ.density_grid
+        new_grid = torch.where(grid < 0, grid,
+                               torch.maximum(grid * decay, tmp))
+        pos = new_grid > 0
+        mean_density = torch.where(pos, new_grid, 0.0).sum() / \
+            torch.clamp_min(pos.sum(), 1)
+        threshold = torch.clamp_max(mean_density, density_threshold)
+        return OccupancyState(density_grid=new_grid,
+                              density_bitfield=packbits(new_grid, threshold))

@@ -1,0 +1,196 @@
+"""Test-time rendering: the alive-ray renderer and its dense oracle.
+
+Port of the serving half of ``mfnerf_tpu/models/rendering.py``.
+
+* :func:`render_test_dense` is the plain oracle: every ray marches the whole
+  ladder in rank windows of ``s_max_test`` samples, each window is field-
+  evaluated and composited with resumed transmittance. Every renderer is
+  held to its frames.
+* :func:`render_test` is the serving entry. It follows the reference's
+  alive-ray loop (``__render_rays_test``): alive rays are compacted with
+  ``nonzero``; each round marches up to
+  ``N_samples = max(min(N_rays // N_alive, 64), 1)`` occupied samples per
+  alive ray from its ladder cursor, evaluates the field on the valid samples
+  only, and composites from ``1 - opacity``. A ray dies when its
+  transmittance falls to ``T_threshold``, when its ladder passes the box
+  exit, or at ``max_samples`` samples. The JAX package's round schedules,
+  wavefront pool and rasterised prepass are TPU throughput devices and are
+  not ported.
+"""
+import dataclasses
+import math
+
+import torch
+
+from ..ops.composite import composite_test_step
+from ..ops.intersection import ray_aabb_intersect_single
+from ..ops.ray_march import march_rays_train, march_rays_window
+from ..ops.stepping import max_ladder_steps
+
+MAX_SAMPLES = 1024
+NEAR_DISTANCE = 0.01
+SQRT3 = 1.7320508075688772
+# ladder rungs tested per alive-ray round: bounds the march's transient
+# (N_alive, window) tensors; the window grows as rays die
+MARCH_BUDGET = 1 << 25
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """The test-rendering fields of ``mfnerf_tpu``'s RenderConfig."""
+    exp_step_factor: float = 0.0   # 0 synthetic (white bg), 1/256 real
+    T_threshold: float = 1e-4
+    max_samples: int = MAX_SAMPLES
+    s_max_test: int = 256          # oracle rank-window width
+    test_chunk: int = 16384        # oracle rays per chunk
+
+    def n_rungs(self, scale: float, grid_size: int = 128,
+                test: bool = False) -> int:
+        """Ladder length covering the whole scene AABB."""
+        t_end = 2.0 * SQRT3 * scale + NEAR_DISTANCE
+        k = max_ladder_steps(NEAR_DISTANCE, t_end, self.exp_step_factor,
+                             self.max_samples, grid_size,
+                             self._dt_scale(scale, test))
+        return min(k, 4 * self.max_samples)
+
+    def _dt_scale(self, scale, test):
+        # bug parity: the reference test kernel passes `cascades` where
+        # calc_dt expects `scale`
+        if test:
+            return max(1 + int(math.ceil(math.log2(2 * scale))), 1)
+        return scale
+
+
+def _clamp_near(hits_t):
+    """Clamp t_near of hitting rays into [NEAR_DISTANCE, inf)."""
+    t1 = hits_t[:, 0]
+    t1 = torch.where((t1 >= 0) & (t1 < NEAR_DISTANCE), NEAR_DISTANCE, t1)
+    return torch.stack([t1, hits_t[:, 1]], dim=1)
+
+
+def _scene_hits(model, rays_o, rays_d):
+    s = model.cfg.scale
+    return _clamp_near(ray_aabb_intersect_single(
+        rays_o, rays_d, torch.zeros(3), torch.full((3,), s)))
+
+
+def _eval_valid(model, xyzs, rays_d, mask):
+    """Field on the valid samples of a (N, S) block; zeros elsewhere."""
+    n, s = mask.shape
+    sigmas = torch.zeros((n, s), dtype=torch.float32, device=xyzs.device)
+    rgbs = torch.zeros((n, s, 3), dtype=torch.float32, device=xyzs.device)
+    if bool(mask.any()):
+        dirs = rays_d[:, None, :].expand(n, s, 3)
+        sig, col = model(xyzs[mask], dirs[mask])
+        sigmas[mask] = sig
+        rgbs[mask] = col
+    return sigmas, rgbs
+
+
+def _with_background(rcfg, rgb, opacity):
+    bg = 1.0 if rcfg.exp_step_factor == 0 else 0.0   # white / black
+    return rgb + bg * (1.0 - opacity)[:, None]
+
+
+def _render_test_chunk(model, occ, rays_o, rays_d, rcfg):
+    """One oracle chunk: composite every ray's occupied samples in
+    ceil(max_samples / s_max_test) rank windows."""
+    cfg = model.cfg
+    hits_t = _scene_hits(model, rays_o, rays_d)
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    noise = torch.zeros((n,), device=dev)   # test marching is unjittered
+    opacity = torch.zeros((n,), device=dev)
+    depth = torch.zeros((n,), device=dev)
+    rgb = torch.zeros((n, 3), device=dev)
+    alive = hits_t[:, 0] >= 0
+    vr = 0
+    for j in range(-(-rcfg.max_samples // rcfg.s_max_test)):
+        mr = march_rays_train(
+            rays_o, rays_d, hits_t, occ.density_bitfield, cfg.cascades,
+            cfg.scale, rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples,
+            noise, rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True),
+            rcfg.s_max_test, dt_scale=rcfg._dt_scale(cfg.scale, True),
+            rank_start=j * rcfg.s_max_test)
+        # samples of dead rays are masked out by the compositing anyway
+        sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d,
+                                   mr.mask & alive[:, None])
+        vr += int(torch.where(alive, mr.n_samples, 0).sum())
+        opacity, depth, rgb, alive = composite_test_step(
+            sigmas, rgbs, mr.deltas, mr.ts, mr.mask, opacity, depth, rgb,
+            alive, rcfg.T_threshold)
+    return rgb, opacity, depth, vr
+
+
+@torch.no_grad()
+def render_test_dense(model, occ, rays_o, rays_d, rcfg: RenderConfig):
+    """Dense oracle frame: dict(rgb, opacity, depth, total_samples)."""
+    outs = []
+    total_samples = 0
+    for i in range(0, rays_o.shape[0], rcfg.test_chunk):
+        rgb, opacity, depth, vr = _render_test_chunk(
+            model, occ, rays_o[i:i + rcfg.test_chunk],
+            rays_d[i:i + rcfg.test_chunk], rcfg)
+        outs.append((rgb, opacity, depth))
+        total_samples += vr
+    rgb, opacity, depth = (torch.cat(o) for o in zip(*outs))
+    return {"rgb": _with_background(rcfg, rgb, opacity), "opacity": opacity,
+            "depth": depth, "total_samples": total_samples}
+
+
+@torch.no_grad()
+def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig):
+    """Serve one frame with the alive-ray loop.
+
+    Returns dict(rgb (N, 3), opacity (N,), depth (N,), total_samples,
+    rounds): ``total_samples`` counts the samples the field evaluated,
+    ``rounds`` the loop's iterations.
+    """
+    cfg = model.cfg
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    hits_t = _scene_hits(model, rays_o, rays_d)
+    t_start, t2 = hits_t[:, 0], hits_t[:, 1]
+    k_total = rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True)
+    dt_scale = rcfg._dt_scale(cfg.scale, True)
+
+    opacity = torch.zeros((n,), device=dev)
+    depth = torch.zeros((n,), device=dev)
+    rgb = torch.zeros((n, 3), device=dev)
+    cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+    taken = torch.zeros((n,), dtype=torch.int64, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    alive = torch.nonzero(t_start >= 0).squeeze(1)
+    rounds = 0
+    while alive.numel():
+        n_alive = alive.numel()
+        s_cap = max(min(n // n_alive, 64), 1)
+        window = min(k_total, max(s_cap, MARCH_BUDGET // n_alive))
+        rd = rays_d[alive]
+        mr = march_rays_window(
+            rays_o[alive], rd, t_start[alive], t2[alive], cursor[alive],
+            occ.density_bitfield, cfg.cascades, cfg.scale,
+            rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples, window,
+            s_cap, dt_scale)
+        # per-ray cap: a ray composites at most max_samples samples
+        taken_a = taken[alive]
+        room = rcfg.max_samples - taken_a
+        mask = mr.mask & (torch.arange(s_cap, device=dev)[None, :]
+                          < room[:, None])
+        sigmas, rgbs = _eval_valid(model, mr.xyzs, rd, mask)
+        op, de, co, transparent = composite_test_step(
+            sigmas, rgbs, mr.deltas, mr.ts, mask, opacity[alive],
+            depth[alive], rgb[alive], torch.ones_like(mask[:, 0]),
+            rcfg.T_threshold)
+        emitted = mask.sum(dim=1)
+        opacity[alive], depth[alive], rgb[alive] = op, de, co
+        cursor[alive] = mr.cursor
+        taken_a = taken_a + emitted
+        taken[alive] = taken_a
+        total += emitted.sum()
+        keep = transparent & ~mr.exhausted & (mr.cursor < k_total) \
+            & (taken_a < rcfg.max_samples)
+        alive = alive[torch.nonzero(keep).squeeze(1)]
+        rounds += 1
+    return {"rgb": _with_background(rcfg, rgb, opacity), "opacity": opacity,
+            "depth": depth, "total_samples": int(total), "rounds": rounds}
