@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -15,12 +16,26 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    count is reset just before and read just after;
 6. oracle: a strided ~8k-ray subset of frame 0 against the plain dense
    oracle render_test_dense (run on the CPU, where hat_prod is the plain
-   version).
+   version);
+7. kernel_bwd: hat_prod's backward kernel against its plain torch version at
+   the padded training step's largest shapes (N = 8192 x 64 = 2^19 samples,
+   K = 257, R = 128), with both times and the spread of dW between launches;
+8. train_step_oracle: one training step's loss and parameter gradients on
+   the card (both kernels) against the same step on the CPU (the plain
+   versions), same weights, rays and march jitter;
+9. train: the JAX bench's training configuration (bench.py: 8192-ray
+   batches, lr 1e-2, half-dense refresh every 16 steps) on 16 procedural
+   800x800 views for 900 steps through NeRFSystem.fit; both kernels' launch
+   counts are reset just before and read just after;
+10. test_view: the held-out 800x800 view through render_test (T_threshold
+   1e-4) before and after training.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
+import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -38,6 +53,30 @@ T_THRESHOLD = 1e-2
 ORACLE_STRIDE = 78          # 640,000 rays / 78 = 8,206 oracle rays
 KERNEL_TOL = 1e-4           # same bf16 operands; summation order only
 RGB_TOL, DEPTH_TOL = 2e-3, 5e-3
+N_BWD = 8192 * 64           # the padded step's most samples, 2^19
+# dW sums up to 2^19 contributions per row in an order the atomics choose
+DW_TOL = 1e-3               # x max |dW_plain|
+# du off the knots, relative to max(|du_plain|, 1e-3 max |du_plain|): a sum
+# over R columns whose order differs, then a difference of two such sums
+DU_TOL_MOST, DU_TOL_ALL = 1e-4, 1e-2   # on >= 99% of samples / on all
+N_ORACLE_RAYS = 1024
+# the card's step vs the CPU's: XLA-free but still two devices. Frame 1's
+# rotation matmul rounds differently on the card, which moves a few bf16
+# hat weights by one step; sums run in other orders
+LOSS_TOL = 1e-4             # relative
+GRAD_TOL = 1e-2             # relative L2 error of each parameter's gradient
+BENCH_HP = dict(            # bench.py:115-130 (TPU-only knobs dropped)
+    dataset_name="nsvf", scale=0.5, use_exposure=False, distortion_loss_w=0.0,
+    batch_size=8192, num_epochs=1, lr=1e-2, optimize_ext=False,
+    random_bg=False, grid="LowRank", L=16, F=2, rgb_channels=64,
+    rgb_layers=2, seed=1337, s_max_train=64, s_max_test=256,
+    test_chunk=65536, steps_per_epoch=1000, grid_size=128, max_samples=1024,
+    lr_levels=8, lr_rank=16, lr_frames=2, lr_k_max=256, bf16=False,
+    refresh_half=True, lr_fused=True)
+N_TRAIN_VIEWS = 16
+WARM_STEPS, CHUNK, N_CHUNKS = 300, 100, 6   # bench.py: 300 + 600 steps
+TEST_T = 1e-4
+PSNR_MIN, PSNR_GAIN = 20.0, 8.0   # tests/test_e2e_train.py:69-70
 
 
 def check(ok, what):
@@ -71,12 +110,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from mfnerf_tpu_torch import build
+    from mfnerf_tpu_torch.datasets.memory import MemoryDataset
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models.ngp import NGP, NGPConfig, OccupancyState
     from mfnerf_tpu_torch.models.rendering import (RenderConfig, render_test,
-                                                   render_test_dense)
-    from mfnerf_tpu_torch.ops.hatmul import hat_prod, hat_prod_plain
+                                                   render_test_dense,
+                                                   render_train)
+    from mfnerf_tpu_torch.ops.hatmul import (hat_prod, hat_prod_bwd,
+                                             hat_prod_bwd_plain,
+                                             hat_prod_plain)
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
+    from mfnerf_tpu_torch.train import NeRFSystem
+    from mfnerf_tpu_torch.utils.metrics import psnr
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
     dev = torch.device("cuda", 0)
@@ -215,11 +260,198 @@ def main():
     check(errs["rgb"] <= RGB_TOL and errs["opacity"] <= RGB_TOL
           and errs["depth"] <= DEPTH_TOL, f"render_test vs oracle: {errs}")
 
+    del outs, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- 7. backward kernel against its plain version, training shapes
+    u = u[:N_BWD].copy()
+    u3 = torch.from_numpy(u).to(dev)
+    g = torch.from_numpy(rng.standard_normal((N_BWD, w3.shape[2]),
+                                             dtype=np.float32)).to(dev)
+    du, dw = hat_prod_bwd(u3, w3, k, g)
+    du_p, dw_p = hat_prod_bwd_plain(u3, w3, k, g)
+    dw_again = hat_prod_bwd(u3, w3, k, g)[1]
+    torch.cuda.synchronize()
+    check(du.shape == (N_BWD, 3) and dw.shape == w3.shape,
+          f"hat_prod_bwd shapes {tuple(du.shape)} {tuple(dw.shape)}")
+    dw_scale = float(dw_p.abs().max())
+    dw_err = float((dw - dw_p).abs().max())
+    dw_spread = float((dw - dw_again).abs().max())
+    knot = torch.from_numpy(u * np.float32(k - 1)
+                            == np.floor(u * np.float32(k - 1))).to(dev)
+    du_knot = max(float(du[knot].abs().max()), float(du_p[knot].abs().max()))
+    du_scale = float(du_p.abs().max())
+    du_rel = ((du - du_p).abs()
+              / du_p.abs().clamp_min(1e-3 * du_scale))[~knot]
+    du_within = float((du_rel <= DU_TOL_MOST).float().mean())
+    du_rel_max = float(du_rel.max())
+    bwd_ms = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g), 20)
+    bwd_plain_ms = cuda_ms(lambda: hat_prod_bwd_plain(u3, w3, k, g), 5)
+    phase("kernel_bwd", name="hat_prod_bwd", n=N_BWD, k=k, r=w3.shape[2],
+          dw_max_abs_err=dw_err, dw_max_abs=dw_scale, dw_tol=DW_TOL,
+          dw_launch_spread=dw_spread, du_knot_max_abs=du_knot,
+          du_share_within_tol=du_within, du_rel_err_max=du_rel_max,
+          du_tol_99=DU_TOL_MOST, du_tol_all=DU_TOL_ALL, knot_samples=int(
+              knot.any(dim=1).sum()), ms=bwd_ms, plain_ms=bwd_plain_ms,
+          card=card)
+    check(dw_err <= DW_TOL * dw_scale, f"dW vs plain: {dw_err}")
+    check(du_knot == 0.0, f"du on the knots: {du_knot}")
+    check(du_within >= 0.99 and du_rel_max <= DU_TOL_ALL,
+          f"du vs plain: {du_within} within {DU_TOL_MOST}, max {du_rel_max}")
+    del du, dw, du_p, dw_p, dw_again, g, knot, du_rel
+    torch.cuda.empty_cache()
+
+    # ---- 8. one training step on the card against the same step on the CPU
+    train_scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=1, wh=WH,
+                             seed=SEED)
+    hp = argparse.Namespace(**BENCH_HP)
+    system = NeRFSystem(hp, device=dev)
+    system.setup(MemoryDataset.from_scene(train_scene, "train"),
+                 MemoryDataset.from_scene(train_scene, "test"))
+    system.configure(SEED)
+    ds = system.train_dataset
+    occ0 = system.model.mark_invisible_cells(system.occ, ds.K, system.poses,
+                                             ds.img_wh)
+    tcfg = system.model_cfg
+    occ0 = system.model.update_density_grid(
+        occ0, system.density_threshold,
+        torch.rand((tcfg.cascades, tcfg.n_cells, 3),
+                   generator=torch.Generator(device=dev).manual_seed(SEED + 2),
+                   device=dev) * 2 - 1)
+    pick = np.random.default_rng(SEED + 3)
+    img = torch.from_numpy(pick.integers(0, N_TRAIN_VIEWS, N_ORACLE_RAYS))
+    pix = torch.from_numpy(pick.integers(0, WH * WH, N_ORACLE_RAYS))
+    ro, rd = get_rays(torch.from_numpy(ds.directions)[pix],
+                      torch.from_numpy(ds.poses)[img])
+    batch = {"rays_o": ro, "rays_d": rd,
+             "rgb": torch.from_numpy(ds.rays)[img, pix],
+             "noise": torch.from_numpy(pick.random(N_ORACLE_RAYS,
+                                                   dtype=np.float32))}
+    cpu_model = NGP(system.model_cfg)
+    cpu_model.load_state_dict(system.model.state_dict())
+    steps = {}
+    for where, model_, occ_ in (
+            ("card", system.model, occ0),
+            ("cpu", cpu_model, OccupancyState(occ0.density_grid.cpu(),
+                                              occ0.density_bitfield.cpu()))):
+        on = {key: v.to(model_.device) for key, v in batch.items()}
+        res = render_train(model_, occ_, on["rays_o"], on["rays_d"],
+                           on["noise"], system.rcfg)
+        loss = sum(v.mean() for v in system.loss(
+            res, {"rgb": on["rgb"]}).values())
+        model_.zero_grad(set_to_none=True)
+        loss.backward()
+        steps[where] = (float(loss.detach()), int(res["rm_samples"]), {
+            name: p_.grad.detach().cpu() for name, p_
+            in model_.named_parameters()})
+    system.model.zero_grad(set_to_none=True)
+    (loss_c, rm_c, grads_c), (loss_p, rm_p, grads_p) = \
+        steps["card"], steps["cpu"]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    grad_rel = {name: float((grads_c[name] - grads_p[name]).norm()
+                            / grads_p[name].norm()) for name in grads_p}
+    line_norms = [float(v.norm()) for name, v in grads_c.items()
+                  if name.startswith("lowrank.lines.")]
+    phase("train_step_oracle", rays=N_ORACLE_RAYS, samples_card=rm_c,
+          samples_cpu=rm_p, loss_card=loss_c, loss_cpu=loss_p,
+          loss_rel_err=loss_rel, loss_tol=LOSS_TOL,
+          grad_rel_err_max=max(grad_rel.values()),
+          grad_rel_err_worst=max(grad_rel, key=grad_rel.get),
+          grad_tol=GRAD_TOL, line_tables=len(line_norms),
+          line_grad_norm_min=min(line_norms), card=card)
+    check(rm_c == rm_p, f"samples on the card {rm_c} vs cpu {rm_p}")
+    check(loss_rel <= LOSS_TOL, f"loss card {loss_c} vs cpu {loss_p}")
+    check(max(grad_rel.values()) <= GRAD_TOL, f"gradients: {grad_rel}")
+    check(len(line_norms) == 3 * lr.n_frames * len(lr.levels)
+          and min(line_norms) > 0, "a line table got no gradient")
+
+    # ---- 10a. the held-out view before training (culled + one refresh)
+    test_view = system.test_dataset[0]
+    test_rays = get_rays(torch.from_numpy(ds.directions).to(dev),
+                         torch.from_numpy(test_view["pose"]).to(dev))
+    test_rgb = torch.from_numpy(test_view["rgb"]).to(dev)
+    test_rcfg = dataclasses.replace(system.rcfg, T_threshold=TEST_T)
+
+    def render_view():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_test(system.model, system.occ, *test_rays, test_rcfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    system.occ, occ_train = occ0, system.occ
+    out, _ = render_view()
+    psnr_before = float(psnr(out["rgb"], test_rgb))
+    system.occ = occ_train
+    del occ0, out
+
+    # ---- 9. train: 300 steps, then 6 timed chunks of 100
+    hat_prod.launches = hat_prod_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [system.fit(WARM_STEPS)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunk_ms = []
+    for _ in range(N_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(system.fit(CHUNK))
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+    launches_fwd, launches_bwd = hat_prod.launches, hat_prod_bwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = {key: torch.cat([c[key] for c in metrics]) for key in metrics[0]}
+    check(bool(torch.isfinite(m["loss"]).all()), "a training loss is not "
+          "finite")
+    check(launches_fwd > 0 and launches_bwd > 0,
+          f"training launched hat_prod {launches_fwd}, hat_prod_bwd "
+          f"{launches_bwd} times")
+    occ_after = system.occ
+    refresh_ms = []
+    for _ in range(4):                 # the trained field's half refreshes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.update_grid()
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    system.occ = occ_after
+    ms_step = float(np.median(chunk_ms))
+    phase("train", steps=system.global_step, batch=hp.batch_size,
+          ms_per_step=ms_step, chunk_ms_per_step=chunk_ms,
+          warm_seconds=warm_s, rays_per_s=hp.batch_size / ms_step * 1e3,
+          rm_s=float(m["rm_s"][-CHUNK:].mean()),
+          vr_s=float(m["vr_s"][-CHUNK:].mean()),
+          rm_s_first=float(m["rm_s"][0]),
+          train_psnr=float(m["psnr"][-50:].mean()),
+          train_psnr_last_step=float(m["psnr"][-1]),
+          loss_last=float(m["loss"][-1]), refresh_ms=refresh_ms,
+          hat_prod_launches=launches_fwd,
+          hat_prod_bwd_launches=launches_bwd, max_memory_gb=peak_gb,
+          card=card)
+
+    # ---- 10b. the held-out view after training
+    render_view()                                  # warm-up frame
+    out, view_ms = render_view()
+    psnr_after = float(psnr(out["rgb"], test_rgb))
+    phase("test_view", wh=WH, T_threshold=TEST_T, psnr_before=psnr_before,
+          psnr_after=psnr_after, ms_per_frame=view_ms,
+          samples_per_frame=out["total_samples"], rounds=out["rounds"],
+          card=card)
+    check(bool(torch.isfinite(out["rgb"]).all()), "test view not finite")
+    check(psnr_after >= PSNR_MIN and psnr_after >= psnr_before + PSNR_GAIN,
+          f"test PSNR {psnr_before} -> {psnr_after}")
+
     print(json.dumps({"kernels": [{
         "name": "hat_prod", "route": "cuda", "source": src,
-        "replaces": "mfnerf_tpu/ops/hatmul.py:54", "launches": launches,
-        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}]}),
-        flush=True)
+        "replaces": "mfnerf_tpu/ops/hatmul.py:54",
+        "launches": launches_fwd, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms}, {
+        "name": "hat_prod_bwd", "route": "cuda", "source": src,
+        "replaces": "mfnerf_tpu/ops/hatmul.py:68",
+        "launches": launches_bwd, "max_abs_err": dw_err, "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,8 +7,9 @@ Port of ``mfnerf_tpu/models/ngp.py`` for the LowRank grid. ``NGP`` is an
 ``utils.ckpt.params_from_numpy``. MLPs are bias-free, weights stored
 (fan_in, fan_out) and applied as ``h @ W``.
 
-The Hash/Window/MixedFeature grids, the HDR tonemappers and the TPU-only
-occupancy tables (coarse, neighbourhood, union) are not ported here.
+The Hash/Window/MixedFeature grids, the HDR tonemappers, the sampled
+(``sparse``) occupancy refresh and the TPU-only occupancy tables (coarse,
+neighbourhood, union) are not ported here.
 """
 import dataclasses
 import math
@@ -20,6 +21,8 @@ from ..ops.activations import trunc_exp
 from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
 from ..ops.morton import morton3d_invert, packbits
 from ..ops.sh import sh_encode
+
+NEAR_DISTANCE = 0.01  # the reference's models/rendering.py:8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +64,12 @@ class NGPConfig:
 
 @dataclasses.dataclass
 class OccupancyState:
-    """Occupancy grid: per-cell density (C, G^3) in Morton order and its
-    packed bitfield (C*G^3//8,) uint8."""
+    """Occupancy grid: per-cell density (C, G^3) in Morton order, its packed
+    bitfield (C*G^3//8,) uint8, and the fraction of training cameras that see
+    each cell (C, G^3), which ``erode`` reads (None until set)."""
     density_grid: torch.Tensor
     density_bitfield: torch.Tensor
+    count_grid: torch.Tensor = None
 
     @staticmethod
     def create(cfg: NGPConfig, device=None) -> "OccupancyState":
@@ -73,7 +78,9 @@ class OccupancyState:
             density_grid=torch.zeros((c, n), dtype=torch.float32,
                                      device=device),
             density_bitfield=torch.zeros((c * n // 8,), dtype=torch.uint8,
-                                         device=device))
+                                         device=device),
+            count_grid=torch.zeros((c, n), dtype=torch.float32,
+                                   device=device))
 
 
 def _mlp_params(sizes):
@@ -181,26 +188,81 @@ class NGP(nn.Module):
         return xyzs_w
 
     @torch.no_grad()
+    def mark_invisible_cells(self, occ: OccupancyState, K, poses, img_wh,
+                             chunk=64 ** 3) -> OccupancyState:
+        """Frustum culling, once before training: a cell seen by no camera at
+        depth >= NEAR_DISTANCE, or lying closer than that in front of any
+        camera's image, gets density -1; every other cell 0. Also sets
+        ``count_grid``, the fraction of cameras that see each cell.
+
+        Args:
+            K: (3, 3) intrinsics; poses: (N_cams, 3, 4) c2w; img_wh: (W, H).
+        """
+        g = self.cfg.grid_size
+        w, h = int(img_wh[0]), int(img_wh[1])
+        dev = self.device
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+        w2c_r = poses[:, :3, :3].transpose(1, 2)
+        w2c_t = -torch.einsum("nij,nj->ni", w2c_r, poses[:, :3, 3])
+        xyzs = self.all_cell_coords().to(torch.float32) / (g - 1) * 2.0 - 1.0
+        counts, grids = [], []
+        for c in range(self.cfg.cascades):
+            s = min(2 ** (c - 1), self.cfg.scale)
+            xyzs_w = xyzs * (s - s / g)
+            for chunk_xyz in xyzs_w.split(chunk):
+                xc = torch.einsum("nij,kj->nki", w2c_r, chunk_xyz) \
+                    + w2c_t[:, None, :]
+                uvd = torch.einsum("ij,nkj->nki", K, xc)
+                depth = uvd[..., 2]
+                uv = uvd[..., :2] / depth[..., None]
+                in_image = ((depth >= 0) & (uv[..., 0] >= 0) & (uv[..., 0] < w)
+                            & (uv[..., 1] >= 0) & (uv[..., 1] < h))
+                count = ((depth >= NEAR_DISTANCE) & in_image).sum(0) \
+                    .to(torch.float32) / poses.shape[0]
+                too_near = ((depth < NEAR_DISTANCE) & in_image).any(0)
+                counts.append(count)
+                grids.append(torch.where((count > 0) & ~too_near, 0.0, -1.0))
+        shape = (self.cfg.cascades, self.cfg.n_cells)
+        return dataclasses.replace(
+            occ, density_grid=torch.cat(grids).reshape(shape),
+            count_grid=torch.cat(counts).reshape(shape))
+
+    @torch.no_grad()
     def update_density_grid(self, occ: OccupancyState, density_threshold,
-                            noise, decay=0.95) -> OccupancyState:
+                            noise, decay=0.95, half=None,
+                            erode=False) -> OccupancyState:
         """Dense refresh: evaluate sigma at a jittered point of every cell,
         EMA-merge into the grid, repack the bitfield.
 
         Args:
-            noise: (C, G^3, 3) uniform jitter in [-1, 1).
+            noise: (C, M, 3) uniform jitter in [-1, 1) for the M cells
+                evaluated: every cell (M = G^3), or with ``half`` every
+                other one (M = G^3 / 2).
             density_threshold: the training threshold, 0.01*1024/sqrt(3);
                 the bitfield uses min(mean positive density, it).
+            half: 0 or 1 evaluates only the even or odd Morton cells; the
+                skipped half decays like the reference's unsampled cells.
+            erode: decay cells seen by few cameras faster (``count_grid``).
         """
-        coords = self.all_cell_coords()
-        tmp = torch.stack([
-            self.density(self._cell_world_coords(coords, c, noise[c]))
-            for c in range(self.cfg.cascades)])
+        first, step = (0, 1) if half is None else (int(half), 2)
+        coords = morton3d_invert(torch.arange(first, self.cfg.n_cells, step,
+                                              device=self.device))
         grid = occ.density_grid
+        tmp = torch.zeros_like(grid)
+        for c in range(self.cfg.cascades):
+            tmp[c, first::step] = self.density(
+                self._cell_world_coords(coords, c, noise[c]))
+        if erode:
+            decay = torch.clamp(
+                decay ** (1.0 / torch.clamp_min(occ.count_grid, 1e-8)),
+                0.1, 0.95)
         new_grid = torch.where(grid < 0, grid,
                                torch.maximum(grid * decay, tmp))
         pos = new_grid > 0
         mean_density = torch.where(pos, new_grid, 0.0).sum() / \
             torch.clamp_min(pos.sum(), 1)
         threshold = torch.clamp_max(mean_density, density_threshold)
-        return OccupancyState(density_grid=new_grid,
-                              density_bitfield=packbits(new_grid, threshold))
+        return dataclasses.replace(
+            occ, density_grid=new_grid,
+            density_bitfield=packbits(new_grid, threshold))

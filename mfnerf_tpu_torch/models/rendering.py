@@ -1,7 +1,13 @@
-"""Test-time rendering: the alive-ray renderer and its dense oracle.
+"""Rendering: the differentiable training renderer, the alive-ray test
+renderer and its dense oracle.
 
-Port of the serving half of ``mfnerf_tpu/models/rendering.py``.
+Port of ``mfnerf_tpu/models/rendering.py``.
 
+* :func:`render_train` is the padded branch of the JAX ``render_train``
+  (``s_flat == 0``): the exact ``march_rays_train`` with the stratified
+  jitter, the field on the valid samples only, ``composite_train`` and the
+  background. The JAX flat sample layout and its two-level march tables are
+  TPU devices; the padded branch computes the same rays exactly.
 * :func:`render_test_dense` is the plain oracle: every ray marches the whole
   ladder in rank windows of ``s_max_test`` samples, each window is field-
   evaluated and composited with resumed transmittance. Every renderer is
@@ -22,13 +28,13 @@ import math
 
 import torch
 
-from ..ops.composite import composite_test_step
+from ..ops.composite import composite_test_step, composite_train
 from ..ops.intersection import ray_aabb_intersect_single
 from ..ops.ray_march import march_rays_train, march_rays_window
 from ..ops.stepping import max_ladder_steps
+from .ngp import NEAR_DISTANCE
 
 MAX_SAMPLES = 1024
-NEAR_DISTANCE = 0.01
 SQRT3 = 1.7320508075688772
 # ladder rungs tested per alive-ray round: bounds the march's transient
 # (N_alive, window) tensors; the window grows as rays die
@@ -37,11 +43,13 @@ MARCH_BUDGET = 1 << 25
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """The test-rendering fields of ``mfnerf_tpu``'s RenderConfig."""
+    """The fields of ``mfnerf_tpu``'s RenderConfig that the port uses."""
     exp_step_factor: float = 0.0   # 0 synthetic (white bg), 1/256 real
     T_threshold: float = 1e-4
     max_samples: int = MAX_SAMPLES
+    s_max_train: int = 128         # padded per-ray sample budget (train)
     s_max_test: int = 256          # oracle rank-window width
+    random_bg: bool = False        # real scenes: a random training background
     test_chunk: int = 16384        # oracle rays per chunk
 
     def n_rungs(self, scale: float, grid_size: int = 128,
@@ -75,16 +83,53 @@ def _scene_hits(model, rays_o, rays_d):
 
 
 def _eval_valid(model, xyzs, rays_d, mask):
-    """Field on the valid samples of a (N, S) block; zeros elsewhere."""
+    """Field on the valid samples of a (N, S) block; zeros elsewhere. The
+    scatter is out of place, so autograd reaches the field in training."""
     n, s = mask.shape
-    sigmas = torch.zeros((n, s), dtype=torch.float32, device=xyzs.device)
-    rgbs = torch.zeros((n, s, 3), dtype=torch.float32, device=xyzs.device)
-    if bool(mask.any()):
-        dirs = rays_d[:, None, :].expand(n, s, 3)
-        sig, col = model(xyzs[mask], dirs[mask])
-        sigmas[mask] = sig
-        rgbs[mask] = col
-    return sigmas, rgbs
+    flat = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    sig, col = model(xyzs.reshape(-1, 3)[flat], rays_d[flat // s])
+    sigmas = sig.new_zeros(n * s).index_put((flat,), sig)
+    rgbs = col.new_zeros((n * s, 3)).index_put((flat,), col)
+    return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
+
+
+def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
+                 bg_rgb=None):
+    """Differentiable rendering of a training ray batch.
+
+    Args:
+        rays_o, rays_d: (N, 3) world rays.
+        noise: (N,) start jitter in [0, 1) (``jax.random.uniform`` in the JAX
+            package; a tensor here, so callers choose the generator).
+        bg_rgb: (3,) background for ``rcfg.random_bg`` on real scenes
+            (synthetic scenes composite onto white, real ones onto black).
+    Returns:
+        dict(rgb, opacity, depth, ws, deltas, ts, mask, rm_samples,
+        vr_samples); the sample counters are 0-d tensors.
+    """
+    cfg = model.cfg
+    mr = march_rays_train(
+        rays_o, rays_d, _scene_hits(model, rays_o, rays_d),
+        occ.density_bitfield, cfg.cascades, cfg.scale, rcfg.exp_step_factor,
+        cfg.grid_size, rcfg.max_samples, noise,
+        rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train)
+    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mr.mask)
+    comp = composite_train(sigmas, rgbs, mr.deltas, mr.ts, mr.mask,
+                           rcfg.T_threshold)
+    if rcfg.exp_step_factor == 0:       # synthetic scenes: white background
+        bg = 1.0
+    elif rcfg.random_bg:
+        if bg_rgb is None:
+            raise ValueError("random_bg needs bg_rgb")
+        bg = bg_rgb
+    else:
+        bg = 0.0
+    return {
+        "rgb": comp.rgb + bg * (1.0 - comp.opacity)[:, None],
+        "opacity": comp.opacity, "depth": comp.depth, "ws": comp.ws,
+        "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask,
+        "rm_samples": mr.rm_samples, "vr_samples": comp.vr_samples,
+    }
 
 
 def _with_background(rcfg, rgb, opacity):

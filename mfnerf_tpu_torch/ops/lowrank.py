@@ -14,6 +14,7 @@ the hand-written CUDA kernel on the card. Feature order: frame-major, then
 level-major columns of ``rank`` each, as in the JAX package.
 """
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -110,6 +111,19 @@ def _prolongation(k_fine: int, k_coarse: int) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(i - j)).astype(np.float32)
 
 
+@functools.cache
+def _prolongation_on(k_fine: int, k_coarse: int, device) -> torch.Tensor:
+    """:func:`_prolongation` as a tensor on ``device``, made once: a field
+    call would otherwise copy it from the host each time."""
+    return torch.from_numpy(_prolongation(k_fine, k_coarse)).to(device)
+
+
+@functools.cache
+def _rotations_on(n_frames: int, device) -> torch.Tensor:
+    """:func:`_frame_rotations` as a tensor on ``device``, made once."""
+    return torch.from_numpy(_frame_rotations(n_frames)).to(device)
+
+
 def _frame_coords(xf, rots, m):
     """Sample coords in frame m: rotated about the domain centre, rescaled
     into [0, 1] and clipped."""
@@ -125,8 +139,7 @@ def fold_frame(params: dict, cfg: LowRankConfig, m: int) -> torch.Tensor:
     with level-major columns."""
     k_max = cfg.levels[-1]
     lines = params["lines"][m]
-    device = lines[0][0].device
-    prols = [torch.from_numpy(_prolongation(k_max, k)).to(device)
+    prols = [_prolongation_on(k_max, k, lines[0][0].device)
              for k in cfg.levels]
     return torch.stack([
         torch.cat([p @ lines[li][d] for li, p in enumerate(prols)], dim=1)
@@ -140,7 +153,7 @@ def lowrank_encode(params: dict, x: torch.Tensor,
     Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card).
     Unfused: per-level dense hat-basis matmuls in fp32.
     """
-    rots = torch.from_numpy(_frame_rotations(cfg.n_frames)).to(x.device)
+    rots = _rotations_on(cfg.n_frames, x.device)
     xf = x.to(torch.float32)
     feats = []
     for m in range(cfg.n_frames):

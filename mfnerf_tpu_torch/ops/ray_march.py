@@ -1,8 +1,9 @@
 """Occupancy-grid ray marching on the closed-form t-ladder.
 
 Port of ``mfnerf_tpu/ops/ray_march.py``: ``_occupancy_at``,
-``march_rays_train`` (used by the dense test oracle with zero noise and rank
-windows) and ``march_rays_window`` (the cursor-window march of the alive-ray
+``march_rays_train`` (the training march, with the stratified start jitter
+``noise``; the dense test oracle runs it with zero noise and rank windows)
+and ``march_rays_window`` (the cursor-window march of the alive-ray
 renderer). A ray visits the rungs ``t_ladder(t_start, k)``; occupancy only
 selects which rungs emit samples, so marching is: evaluate the rungs, look
 up their cells in the bitfield, keep the first occupied ones.
@@ -25,6 +26,8 @@ class MarchResults(NamedTuple):
     mask: torch.Tensor       # (N, S) bool sample validity
     n_samples: torch.Tensor  # (N,) int64 valid samples per ray (<= S)
     k_idx: torch.Tensor      # (N, S) int64 ladder rung of each sample
+    rm_samples: torch.Tensor  # () int64 marched samples (train/rm_s)
+    t_start: torch.Tensor    # (N,) jittered ladder origin (t at rung 0)
 
 
 class WindowMarchResults(NamedTuple):
@@ -114,7 +117,8 @@ def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
                                    exp_step_factor, max_samples, grid_size,
                                    dt_scale)
     return MarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
-                        n_samples=n_samples, k_idx=k_idx)
+                        n_samples=n_samples, k_idx=k_idx,
+                        rm_samples=n_samples.sum(), t_start=t_start)
 
 
 def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,

@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: in a subprocess where ``jax`` and
 ``mfnerf_tpu`` cannot be imported, import every module of
-``mfnerf_tpu_torch`` and serve a 64-ray frame on the CPU."""
+``mfnerf_tpu_torch``, serve a 64-ray frame and take two training steps on
+the CPU."""
 import os
 import subprocess
 import sys
@@ -33,6 +34,23 @@ ro, rd = get_rays(torch.from_numpy(scene["directions"]),
 out = render_test(model, occ, ro, rd, RenderConfig(T_threshold=1e-2))
 assert out["rgb"].shape == (64, 3) and torch.isfinite(out["rgb"]).all()
 assert out["total_samples"] > 0
+import argparse
+from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+from mfnerf_tpu_torch.train import NeRFSystem
+hp = argparse.Namespace(
+    dataset_name="nsvf", scale=0.5, use_exposure=False, distortion_loss_w=1e-3,
+    batch_size=64, num_epochs=1, lr=1e-2, optimize_ext=False, random_bg=False,
+    grid="LowRank", L=16, F=2, rgb_channels=16, rgb_layers=1, seed=1,
+    s_max_train=16, s_max_test=32, test_chunk=1024, grid_size=16,
+    max_samples=128, lr_levels=2, lr_rank=8, lr_k_max=32, lr_fused=True,
+    refresh_half=True)
+system = NeRFSystem(hp, device="cpu")
+system.setup(MemoryDataset.from_scene(scene, "train"))
+system.configure(0)
+before = system.model.lowrank.lines[0][1][0].detach().clone()
+metrics = system.fit(2)
+assert system.global_step == 2 and torch.isfinite(metrics["loss"]).all()
+assert not torch.equal(before, system.model.lowrank.lines[0][1][0])
 assert not any(m == "jax" or m.startswith(("jax.", "mfnerf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", len(names))
