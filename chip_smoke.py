@@ -18,8 +18,11 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    oracle render_test_dense (run on the CPU, where hat_prod is the plain
    version);
 7. kernel_bwd: hat_prod's backward kernel against its plain torch version at
-   the padded training step's largest shapes (N = 8192 x 64 = 2^19 samples,
-   K = 257, R = 128), with both times and the spread of dW between launches;
+   the padded training step's largest shapes (N = 8192 x 64 = 2^19 samples
+   of uniform u, K = 257, R = 128): dW bitwise equal across launches (with
+   and without du), dW and du against the plain version, the kernel's time
+   beside its bound; then the same checks on ragged edges (R = 40, N =
+   2,100 in two chunks, a strided g);
 8. train_step_oracle: one training step's loss and parameter gradients on
    the card (both kernels) against the same step on the CPU (the plain
    versions), same weights, rays and march jitter;
@@ -28,7 +31,13 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    800x800 views for 900 steps through NeRFSystem.fit; both kernels' launch
    counts are reset just before and read just after;
 10. test_view: the held-out 800x800 view through render_test (T_threshold
-   1e-4) before and after training.
+   1e-4) before and after training;
+7b. kernel_bwd (shape "train"): phase 7's checks and times on the operands
+   of one real training step of the trained field (one LowRank frame's u
+   and g as HatProd.backward receives them: g a column slice of the (N, 2R)
+   feature gradient, read in place), and hat_prod's time on the same u
+   (through its wrapper, so at this size mostly the host's;
+   tools/hat_bwd_ab.py times the kernel alone).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -54,10 +63,11 @@ ORACLE_STRIDE = 78          # 640,000 rays / 78 = 8,206 oracle rays
 KERNEL_TOL = 1e-4           # same bf16 operands; summation order only
 RGB_TOL, DEPTH_TOL = 2e-3, 5e-3
 N_BWD = 8192 * 64           # the padded step's most samples, 2^19
-# dW sums up to 2^19 contributions per row in an order the atomics choose
+# dW sums up to 2^19 contributions per row, in chunk and run order
 DW_TOL = 1e-3               # x max |dW_plain|
-# du off the knots, relative to max(|du_plain|, 1e-3 max |du_plain|): a sum
-# over R columns whose order differs, then a difference of two such sums
+# du off the knots, relative to max(|du_plain|, 1e-3 max |du_plain|): the
+# kernel sums g_d (W[i+1] - W[i]) over R columns, the plain version takes
+# the difference of two such sums
 DU_TOL_MOST, DU_TOL_ALL = 1e-4, 1e-2   # on >= 99% of samples / on all
 N_ORACLE_RAYS = 1024
 # the card's step vs the CPU's: XLA-free but still two devices. Frame 1's
@@ -77,6 +87,9 @@ N_TRAIN_VIEWS = 16
 WARM_STEPS, CHUNK, N_CHUNKS = 300, 100, 6   # bench.py: 300 + 600 steps
 TEST_T = 1e-4
 PSNR_MIN, PSNR_GAIN = 20.0, 8.0   # tests/test_e2e_train.py:69-70
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, fp32 FLOP/s off the
+# tensor cores
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 
 def check(ok, what):
@@ -102,6 +115,114 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes, flops):
+    """(least ms, "bytes" or "operations"): the bytes over HBM's rate or the
+    fp32 operations over the peak, whichever takes longer."""
+    by_bytes, by_ops = n_bytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def fwd_bound(n, k, r):
+    """hat_prod: read u and W once, write out; per (sample, column) three
+    two-row lerps (3 operations each) and two products."""
+    return bound(12 * n + 6 * k * r + 4 * n * r, 11 * n * r)
+
+
+def bwd_bound(n, k, r, need_du):
+    """hat_prod_bwd: read u, g and W once, write dW (and du); per (sample,
+    column, axis) a lerp (3), g_d (2), two row sums (4) and with du a
+    difference and a product (2)."""
+    n_bytes = 12 * n + 4 * n * r + 6 * k * r + 12 * k * r \
+        + (12 * n if need_du else 0)
+    return bound(n_bytes, (11 if need_du else 9) * 3 * n * r)
+
+
+def check_bwd(label, u3, w3, k, g):
+    """Phase 7 on one set of operands: two launches give the same dW bytes,
+    dW within DW_TOL of the plain version, du 0 on the knots and within
+    DU_TOL elsewhere; the kernel's times (with and without du) beside their
+    bounds. Returns the phase's fields."""
+    from mfnerf_tpu_torch.ops.hatmul import hat_prod_bwd, hat_prod_bwd_plain
+    n, r = g.shape
+    du, dw = hat_prod_bwd(u3, w3, k, g)
+    dw_again = hat_prod_bwd(u3, w3, k, g)[1]
+    dw_no_du = hat_prod_bwd(u3, w3, k, g, need_du=False)[1]
+    du_p, dw_p = hat_prod_bwd_plain(u3, w3, k, g)
+    torch.cuda.synchronize()
+    check(du.shape == (n, 3) and dw.shape == w3.shape,
+          f"hat_prod_bwd shapes {tuple(du.shape)} {tuple(dw.shape)}")
+    bitwise = torch.equal(dw, dw_again) and torch.equal(dw, dw_no_du)
+    dw_spread = float((dw - dw_again).abs().max())
+    dw_scale = float(dw_p.abs().max())
+    dw_err = float((dw - dw_p).abs().max())
+    pos = u3 * (k - 1)
+    knot = pos == torch.floor(pos)
+    du_knot = max(float(torch.where(knot, du.abs(), 0.0).max()),
+                  float(torch.where(knot, du_p.abs(), 0.0).max()))
+    du_scale = float(du_p.abs().max())
+    du_rel = ((du - du_p).abs()
+              / du_p.abs().clamp_min(1e-3 * du_scale))[~knot]
+    du_within = float((du_rel <= DU_TOL_MOST).float().mean())
+    du_rel_max = float(du_rel.max())
+    ms = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g), 20)
+    ms_no_du = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g, need_du=False), 20)
+    plain_ms = cuda_ms(lambda: hat_prod_bwd_plain(u3, w3, k, g), 5)
+    bound_ms, bound_by = bwd_bound(n, k, r, True)
+    bound_no_du = bwd_bound(n, k, r, False)[0]
+    fields = dict(
+        shape=label, n=n, k=k, r=r, g_row_stride=g.stride(0),
+        g_contiguous=g.is_contiguous(), dw_bitwise_equal=bitwise,
+        dw_launch_spread=dw_spread, dw_max_abs_err=dw_err,
+        dw_max_abs=dw_scale, dw_tol=DW_TOL, du_knot_max_abs=du_knot,
+        knot_samples=int(knot.any(dim=1).sum()),
+        du_share_within_tol=du_within, du_rel_err_max=du_rel_max,
+        du_tol_99=DU_TOL_MOST, du_tol_all=DU_TOL_ALL, ms=ms,
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        ms_no_du=ms_no_du, bound_ms_no_du=bound_no_du, plain_ms=plain_ms)
+    check(bitwise and dw_spread == 0.0,
+          f"{label}: dW differs between launches by {dw_spread}")
+    check(dw_err <= DW_TOL * dw_scale, f"{label}: dW vs plain: {dw_err}")
+    check(du_knot == 0.0, f"{label}: du on the knots: {du_knot}")
+    check(du_within >= 0.99 and du_rel_max <= DU_TOL_ALL,
+          f"{label}: du vs plain: {du_within} within {DU_TOL_MOST}, "
+          f"max {du_rel_max}")
+    return fields
+
+
+def capture_bwd_operands(system, seed):
+    """One forward and backward of a training step of ``system`` on a ray
+    batch drawn from ``seed`` (weights and optimiser untouched): the
+    (u3, w3, k, g) that each frame's HatProd.backward received."""
+    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+    from mfnerf_tpu_torch.models.rendering import render_train
+    from mfnerf_tpu_torch.ops import hatmul
+    dev, b = system.device, system.hparams.batch_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_img, hw = system.rays.shape[:2]
+    img = torch.randint(n_img, (b,), generator=gen, device=dev)
+    pix = torch.randint(hw, (b,), generator=gen, device=dev)
+    rays_o, rays_d = get_rays(system.directions[pix], system.poses[img])
+    res = render_train(system.model, system.occ, rays_o, rays_d,
+                       torch.rand((b,), generator=gen, device=dev),
+                       system.rcfg)
+    loss = sum(v.mean() for v in system.loss(
+        res, {"rgb": system.rays[img, pix]}).values())
+    captured, launch = [], hatmul._launch_bwd
+
+    def recorder(u3, w3, k_res, g, need_du):
+        captured.append((u3.detach(), w3.detach(), k_res, g))
+        return launch(u3, w3, k_res, g, need_du)
+
+    hatmul._launch_bwd = recorder
+    try:
+        loss.backward()
+    finally:
+        hatmul._launch_bwd = launch
+        system.model.zero_grad(set_to_none=True)
+    return captured
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -117,7 +238,6 @@ def main():
                                                    render_test_dense,
                                                    render_train)
     from mfnerf_tpu_torch.ops.hatmul import (hat_prod, hat_prod_bwd,
-                                             hat_prod_bwd_plain,
                                              hat_prod_plain)
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
     from mfnerf_tpu_torch.train import NeRFSystem
@@ -240,7 +360,7 @@ def main():
           card=card)
 
     # ---- 6. oracle: plain dense renderer on a strided subset of frame 0
-    cpu_model = NGP(cfg)
+    cpu_model = NGP(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     cpu_occ = OccupancyState(occ.density_grid.cpu(),
                              occ.density_bitfield.cpu())
@@ -263,42 +383,23 @@ def main():
     del outs, out, ref
     torch.cuda.empty_cache()
 
-    # ---- 7. backward kernel against its plain version, training shapes
-    u = u[:N_BWD].copy()
-    u3 = torch.from_numpy(u).to(dev)
+    # ---- 7. backward kernel against its plain version, uniform u at 2^19
+    u3 = torch.from_numpy(u[:N_BWD].copy()).to(dev)
     g = torch.from_numpy(rng.standard_normal((N_BWD, w3.shape[2]),
                                              dtype=np.float32)).to(dev)
-    du, dw = hat_prod_bwd(u3, w3, k, g)
-    du_p, dw_p = hat_prod_bwd_plain(u3, w3, k, g)
-    dw_again = hat_prod_bwd(u3, w3, k, g)[1]
-    torch.cuda.synchronize()
-    check(du.shape == (N_BWD, 3) and dw.shape == w3.shape,
-          f"hat_prod_bwd shapes {tuple(du.shape)} {tuple(dw.shape)}")
-    dw_scale = float(dw_p.abs().max())
-    dw_err = float((dw - dw_p).abs().max())
-    dw_spread = float((dw - dw_again).abs().max())
-    knot = torch.from_numpy(u * np.float32(k - 1)
-                            == np.floor(u * np.float32(k - 1))).to(dev)
-    du_knot = max(float(du[knot].abs().max()), float(du_p[knot].abs().max()))
-    du_scale = float(du_p.abs().max())
-    du_rel = ((du - du_p).abs()
-              / du_p.abs().clamp_min(1e-3 * du_scale))[~knot]
-    du_within = float((du_rel <= DU_TOL_MOST).float().mean())
-    du_rel_max = float(du_rel.max())
-    bwd_ms = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g), 20)
-    bwd_plain_ms = cuda_ms(lambda: hat_prod_bwd_plain(u3, w3, k, g), 5)
-    phase("kernel_bwd", name="hat_prod_bwd", n=N_BWD, k=k, r=w3.shape[2],
-          dw_max_abs_err=dw_err, dw_max_abs=dw_scale, dw_tol=DW_TOL,
-          dw_launch_spread=dw_spread, du_knot_max_abs=du_knot,
-          du_share_within_tol=du_within, du_rel_err_max=du_rel_max,
-          du_tol_99=DU_TOL_MOST, du_tol_all=DU_TOL_ALL, knot_samples=int(
-              knot.any(dim=1).sum()), ms=bwd_ms, plain_ms=bwd_plain_ms,
-          card=card)
-    check(dw_err <= DW_TOL * dw_scale, f"dW vs plain: {dw_err}")
-    check(du_knot == 0.0, f"du on the knots: {du_knot}")
-    check(du_within >= 0.99 and du_rel_max <= DU_TOL_ALL,
-          f"du vs plain: {du_within} within {DU_TOL_MOST}, max {du_rel_max}")
-    del du, dw, du_p, dw_p, dw_again, g, knot, du_rel
+    bwd_uniform = check_bwd("uniform", u3, w3, k, g)
+    phase("kernel_bwd", name="hat_prod_bwd", **bwd_uniform, card=card)
+    # ragged edges: a part-filled column tile (R = 40), two chunks of 1,050
+    # samples whose last step holds 10, g a column slice (row stride 80)
+    edge = np.random.default_rng(SEED + 5)
+    u_e = torch.from_numpy(edge.random((2100, 3), dtype=np.float32)).to(dev)
+    w_e = torch.from_numpy(edge.normal(size=(3, 65, 40)).astype(
+        np.float32)).to(dev)
+    g_e = torch.from_numpy(edge.standard_normal(
+        (2100, 80), dtype=np.float32)).to(dev)[:, 40:]
+    phase("kernel_bwd", name="hat_prod_bwd",
+          **check_bwd("edge", u_e, w_e, 65, g_e), card=card)
+    del u3, g, u_e, w_e, g_e
     torch.cuda.empty_cache()
 
     # ---- 8. one training step on the card against the same step on the CPU
@@ -327,7 +428,7 @@ def main():
              "rgb": torch.from_numpy(ds.rays)[img, pix],
              "noise": torch.from_numpy(pick.random(N_ORACLE_RAYS,
                                                    dtype=np.float32))}
-    cpu_model = NGP(system.model_cfg)
+    cpu_model = NGP(system.model_cfg, device="cpu")
     cpu_model.load_state_dict(system.model.state_dict())
     steps = {}
     for where, model_, occ_ in (
@@ -443,15 +544,37 @@ def main():
     check(psnr_after >= PSNR_MIN and psnr_after >= psnr_before + PSNR_GAIN,
           f"test PSNR {psnr_before} -> {psnr_after}")
 
+    # ---- 7b. backward kernel on one real step's operands (trained field)
+    captured = capture_bwd_operands(system, SEED + 4)
+    check(len(captured) == lr.n_frames, f"{len(captured)} hat backward calls")
+    # both frames' g are column slices of the (N, 2R) feature gradient
+    u3, w3_t, k_t, g = captured[0]
+    check(not g.is_contiguous() and g.stride(0) == 2 * g.shape[1],
+          f"g of stride {g.stride()} is not a column slice")
+    bwd_train = check_bwd("train", u3, w3_t, k_t, g)
+    # hat_prod on the same frame's u (the wrapper: host time included)
+    fwd_train_ms = cuda_ms(lambda: hat_prod(u3, w3_t, k_t), 20)
+    fwd_train_bound = fwd_bound(u3.shape[0], k_t, w3_t.shape[2])[0]
+    phase("kernel_bwd", name="hat_prod_bwd", **bwd_train,
+          fwd_ms=fwd_train_ms, fwd_bound_ms=fwd_train_bound,
+          fwd_share_of_bound=fwd_train_bound / fwd_train_ms, card=card)
+    del captured, u3, g
+
+    fwd_bound_ms, fwd_bound_by = fwd_bound(N_KERNEL, k, w3.shape[2])
     print(json.dumps({"kernels": [{
         "name": "hat_prod", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:54",
         "launches": launches_fwd, "max_abs_err": max_abs, "ms": ms,
-        "plain_ms": plain_ms}, {
+        "plain_ms": plain_ms, "bound_ms": fwd_bound_ms,
+        "bound_by": fwd_bound_by, "library_ms": None}, {
         "name": "hat_prod_bwd", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:68",
-        "launches": launches_bwd, "max_abs_err": dw_err, "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms}]}), flush=True)
+        "launches": launches_bwd,
+        "max_abs_err": bwd_uniform["dw_max_abs_err"],
+        "ms": bwd_uniform["ms"], "plain_ms": bwd_uniform["plain_ms"],
+        "bound_ms": bwd_uniform["bound_ms"],
+        "bound_by": bwd_uniform["bound_by"], "library_ms": None}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

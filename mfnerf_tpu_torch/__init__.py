@@ -8,6 +8,8 @@ mirror the JAX package (``ops/``, ``models/``, ``utils/``, ``datasets/``).
 The port imports neither ``jax`` nor ``mfnerf_tpu``: the machine that runs it
 has PyTorch, CUDA and numpy only.
 
-This first slice is the serving path: a LowRank field rendered through the
-alive-ray test renderer (``models.rendering.render_test``).
+It trains a LowRank field (``train.NeRFSystem``) and serves it through the
+alive-ray test renderer (``models.rendering.render_test``). Its entry points
+run on the CUDA device unless the caller passes ``device="cpu"``
+(:func:`device.resolve_device`); they never fall back to the CPU.
 """

@@ -104,120 +104,369 @@ hat_prod_fwd_kernel(const float* __restrict__ u3,
 // subgradient on a knot), including pos = K-1, where the clamped row index
 // i = K-2 lies a whole step below pos.
 //
-// The TPU kernel rebuilds each dense (TN, KP) basis tile and accumulates dW
-// into one output block that the sequential TPU grid revisits. A Hopper
-// grid's blocks run in parallel, so here every (sample, axis) adds its two
-// nonzero basis rows, w0 * g_d and w1 * g_d, into a zeroed fp32 dW with
-// 16-byte vector atomics (atomicAdd(float4*), sm_90). The order of those
-// additions varies from run to run, so dW is not bitwise deterministic; every
-// other output is. a_d and g_d are recomputed exactly as the forward kernel
-// computes them (bf16 hat weights and rows, fp32 products and sums), and
-// w * g_d is exact in fp32, so each sample's contribution equals the dense
-// form's; only the summation order differs.
+// The TPU kernel accumulates dW into one output block that its sequential
+// grid revisits, so its sums run in one fixed order. Hopper's blocks run in
+// parallel, and a scatter with global float atomics adds in another order
+// on every launch. Here dW is bitwise deterministic and no atomics are
+// used, in two stages.
 //
-// The thread layout is the forward's: R/8 threads a sample, 8 columns a
-// thread, whole samples in a block. Each thread sums its 8 columns of
-// g_d . W_d[i] and g_d . W_d[i+1] for du; the sample's first thread adds the
-// R/8 partial sums from shared memory in a fixed order.
+// Stage 1 (hat_prod_bwd_slab_kernel). The grid is (column tile of 32) x
+// (sample chunk). Each block keeps a private fp32 slab of dW for its 32
+// columns, 3 axes and all K rows in shared memory (3 * K * 32 * 4 bytes,
+// 98.7 KB at K = 257: two blocks an SM). Its warps are specialised:
 //
-// What bounds it on Hopper: per sample it reads u (12 B), g (R fp32) and two
-// bf16 rows per axis (L2 hits), and makes 6 * R/4 vector atomics into a
-// 3*K*R fp32 table (395 KB at K=257, R=128) that stays in L2. Samples of one
-// ray sit at neighbouring positions and hit the same rows, so the atomics
-// contend at L2; they, not the bytes read, bound it. Aggregating a block's
-// samples in shared memory first is later work.
+// * 3 walker warps own the slab: warp d owns axis d and lane c column c,
+//   so every slab column has exactly one writer, which walks the chunk's
+//   samples in order; program order fixes the order of the sums. A lane
+//   keeps the two rows it last touched, (row, row + 1), and their running
+//   sums in registers and writes to the slab only when a sample's rows
+//   differ (run-length merging: the samples of one ray sit at neighbouring
+//   positions). A walker only reads, adds and writes shared memory.
+// * 4 producer warps compute g_d for 16 samples a step, 4 each; a lane
+//   takes two adjacent columns of two samples. They find the hat rows and
+//   weights from u, a_0..a_2 from two bf16 rows of each W_d (L2 hits, one
+//   4-byte load a row and column pair), read g in place through its row
+//   stride (the column slice of the (N, 2R) feature gradient needs no
+//   copy), round g_d to bf16, and sum the partial du of each (sample,
+//   axis) over the tile's 32 columns in a fixed order. u and g are loaded
+//   two steps ahead and the W rows one step ahead.
+//
+// They meet in a ring of 4 steps in shared memory (the rows and weights,
+// and g_d as bf16 pairs), handed over with named barriers: a slot is full
+// when the producers have arrived, empty when the walkers have read it.
+//
+// Stage 2 (hat_prod_bwd_reduce_kernel) adds the chunks' slabs in chunk order
+// into dW, writing every element, and the tiles' partial du in tile order,
+// times K-1 (0 on the knots).
+//
+// a_d and g_d are recomputed exactly as the forward kernel computes them
+// (bf16 hat weights and rows, fp32 products and sums), and w * g_d is exact
+// in fp32, so each sample's contribution equals the dense form's. Only the
+// order of the fp32 sums differs from it, and that order depends on N and R
+// alone (the caller's chunking), never on the launch.
+//
+// What bounds it on Hopper: the bytes it must move are g (R fp32 a sample,
+// 268 MB at N = 2^19 and R = 128, 80 us of HBM time), u and du. The slab's
+// size caps a block's residency at two an SM, 14 warps, and at that
+// occupancy the producers' instruction stream is issue- and latency-bound
+// well before the bytes are (PERF.md has the times); the walkers add
+// shared-memory round trips where rows change every sample.
 
-__global__ void __launch_bounds__(kThreads)
-hat_prod_bwd_kernel(const float* __restrict__ u3,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ g, float* __restrict__ du,
-                    float* __restrict__ dw, int n, int k, int r) {
-  extern __shared__ float part[];  // per thread: (g_d.W[i], g_d.W[i+1]) x 3
-  const int lanes = r / kVec;      // threads per sample
-  const int per_block = blockDim.x / lanes;
-  const int local = threadIdx.x / lanes;
-  const int lane = threadIdx.x - local * lanes;
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * per_block + local;
-  const bool live = s < n;
-  const int c0 = lane * kVec;
+constexpr int kBwdCols = 32;      // columns a block: one a lane
+constexpr int kBwdStage = 16;     // samples a step
+constexpr int kBwdSlots = 4;      // steps the producers may run ahead
+constexpr int kWalkers = 3;       // warps: one an axis, the slab's writers
+constexpr int kProducers = 4;     // warps computing g_d
+constexpr int kPerProducer = kBwdStage / kProducers;   // samples a step
+static_assert(kPerProducer == 4, "a producer lane takes 2 of 4 samples");
+constexpr int kBwdThreads = 32 * (kWalkers + kProducers);
+constexpr int kReduceThreads = 256;
+
+// shared memory of stage 1: the hat rows and weights {row, w0, w1, -} of
+// (slot, axis, sample); g_d as bf16 pairs of (slot, axis, sample pair,
+// column); the slab (3, k, 32)
+size_t bwd_smem_bytes(int k) {
+  return sizeof(float4) * kBwdSlots * 3 * kBwdStage
+         + sizeof(uint32_t) * kBwdSlots * 3 * (kBwdStage / 2) * kBwdCols
+         + sizeof(float) * 3 * static_cast<size_t>(k) * kBwdCols;
+}
+
+// Named barriers (0 is __syncthreads): slot j is full at 1 + j, empty at
+// 1 + kBwdSlots + j; every thread of the block takes part in each.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kBwdThreads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kBwdThreads) : "memory");
+}
+
+// One step of a fixed-order sum over the warp: each lane keeps H of its 2H
+// values and adds its partner's (lane ^ 2H) copy of them.
+template <int H>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  const bool hi = lane & (2 * H);
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = hi ? v[j] : v[j + H];
+    const float keep = hi ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
+hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ g, int64_t ldg,
+                         float* __restrict__ slabs, float* __restrict__ part,
+                         int n, int k, int r, int chunk) {
+  extern __shared__ float4 smem4[];
+  float4* par = smem4;
+  uint32_t* ring =
+      reinterpret_cast<uint32_t*>(par + kBwdSlots * 3 * kBwdStage);
+  float* slab = reinterpret_cast<float*>(
+      ring + kBwdSlots * 3 * (kBwdStage / 2) * kBwdCols);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tile = blockIdx.x;
+  const int col0 = tile * kBwdCols;
+  const int col = col0 + lane;
+  const bool live = col < r;
+  const int64_t begin = static_cast<int64_t>(blockIdx.y) * chunk;
+  const int64_t end = begin + chunk < n ? begin + chunk : n;
+  const int steps = end > begin
+      ? static_cast<int>((end - begin + kBwdStage - 1) / kBwdStage) : 0;
   const float scale = static_cast<float>(k - 1);
 
-  bool knot[3];
-  if (live) {
-    int row[3];
-    float w0[3], w1[3];
-    uint4 raw0[3], raw1[3];
-    float a[3][kVec];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float pos = u3[s * 3 + d] * scale;
-      const float fl = floorf(pos);
-      knot[d] = pos == fl;
-      const int i = min(max(static_cast<int>(fl), 0), k - 2);
-      row[d] = i;
-      w0[d] = round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i)));
-      w1[d] = round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))));
-      const __nv_bfloat16* p = w + (static_cast<int64_t>(d) * k + i) * r + c0;
-      raw0[d] = *reinterpret_cast<const uint4*>(p);
-      raw1[d] = *reinterpret_cast<const uint4*>(p + r);
-      float r0[kVec], r1[kVec];
-      unpack_row(raw0[d], r0);
-      unpack_row(raw1[d], r1);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) a[d][j] = w0[d] * r0[j] + w1[d] * r1[j];
-    }
-    float gv[kVec];
-    const float4* gp = reinterpret_cast<const float4*>(g + s * r + c0);
-    const float4 g_lo = gp[0], g_hi = gp[1];
-    gv[0] = g_lo.x; gv[1] = g_lo.y; gv[2] = g_lo.z; gv[3] = g_lo.w;
-    gv[4] = g_hi.x; gv[5] = g_hi.y; gv[6] = g_hi.z; gv[7] = g_hi.w;
+  for (int q = threadIdx.x; q < 3 * k * kBwdCols; q += kBwdThreads) {
+    slab[q] = 0.0f;
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int e = (d + 1) % 3, f = (d + 2) % 3;
-      float gd[kVec];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) gd[j] = round_bf16(gv[j] * a[e][j] * a[f][j]);
-      float4* dst = reinterpret_cast<float4*>(
-          dw + (static_cast<int64_t>(d) * k + row[d]) * r + c0);
-      atomicAdd(dst, make_float4(w0[d] * gd[0], w0[d] * gd[1], w0[d] * gd[2],
-                                 w0[d] * gd[3]));
-      atomicAdd(dst + 1, make_float4(w0[d] * gd[4], w0[d] * gd[5],
-                                     w0[d] * gd[6], w0[d] * gd[7]));
-      dst += r / 4;  // row i + 1
-      atomicAdd(dst, make_float4(w1[d] * gd[0], w1[d] * gd[1], w1[d] * gd[2],
-                                 w1[d] * gd[3]));
-      atomicAdd(dst + 1, make_float4(w1[d] * gd[4], w1[d] * gd[5],
-                                     w1[d] * gd[6], w1[d] * gd[7]));
-      if (du != nullptr) {
-        float r0[kVec], r1[kVec];
-        unpack_row(raw0[d], r0);
-        unpack_row(raw1[d], r1);
-        float p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          p0 += gd[j] * r0[j];
-          p1 += gd[j] * r1[j];
-        }
-        part[threadIdx.x * 6 + 2 * d] = p0;
-        part[threadIdx.x * 6 + 2 * d + 1] = p1;
+  if (warp >= kWalkers) {
+    // ---- producer: samples t0 .. t0 + 3 of every step. Lane 16h + c
+    // computes columns col0 + 2c and + 1 of samples t0 + 2h and + 1, so
+    // that one 4-byte load brings a W row's two columns and one 8-byte load
+    // g's. u and g are loaded two steps ahead, and the W rows of step s + 1
+    // are requested before step s is computed, so that neither HBM's nor
+    // L2's latency stalls the step. A sample past the chunk's end takes the
+    // last sample's u and a zero g and weights, so it changes nothing.
+    const int t0 = (warp - kWalkers) * kPerProducer;
+    const int c2 = lane % 16, h = lane / 16;
+    const int pc = col0 + 2 * c2;       // the lane's first column
+    const bool live2 = pc < r;          // r % 8 == 0: both columns or none
+    const int lp = (live2 ? pc : col0) / 2;   // a dead pair reads a live one
+    const int r2 = r / 2;
+    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(w);  // bf16 pairs
+    struct Ahead {            // u of (t0 + lane / 3, lane % 3); g of 2 rows
+      float u;
+      float2 g[2];
+    };
+    struct Rows {             // this lane's 2 samples x 3 axes
+      uint32_t lo[2][3], hi[2][3];   // W rows i and i+1, 2 columns each
+      float w0[2][3], w1[2][3];
+    };
+    auto load = [&](int step, Ahead& out) {
+      const int64_t s0 = begin + static_cast<int64_t>(step) * kBwdStage;
+      const int64_t cnt = end - s0 < kBwdStage ? end - s0 : kBwdStage;
+      out.u = 0.0f;
+      if (lane < 3 * kPerProducer) {
+        const int64_t t = t0 + lane / 3;
+        out.u = u3[(s0 + (t < cnt ? t : cnt - 1)) * 3 + lane % 3];
       }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = t0 + 2 * h + j;
+        out.g[j] = live2 && t < cnt
+            ? *reinterpret_cast<const float2*>(g + (s0 + t) * ldg + pc)
+            : make_float2(0.0f, 0.0f);
+      }
+    };
+    // the hat rows and weights of step `step` into its slot; then this
+    // lane's weights and W rows of each (sample, axis) into `out`
+    auto stage = [&](int step, float u, Rows& out) {
+      const int slot = step % kBwdSlots;
+      const int64_t s0 = begin + static_cast<int64_t>(step) * kBwdStage;
+      const int64_t cnt = end - s0 < kBwdStage ? end - s0 : kBwdStage;
+      float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lane < 3 * kPerProducer) {
+        const bool in = t0 + lane / 3 < cnt;
+        const float pos = u * scale;
+        const int i = min(max(static_cast<int>(floorf(pos)), 0), k - 2);
+        q = make_float4(
+            __int_as_float(i),
+            in ? round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i))) : 0.0f,
+            in ? round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))))
+               : 0.0f,
+            0.0f);
+      }
+      if (step >= kBwdSlots) bar_sync(1 + kBwdSlots + slot);   // empty
+      float4* sp = par + slot * 3 * kBwdStage;
+      if (lane < 3 * kPerProducer) {
+        sp[(lane % 3) * kBwdStage + t0 + lane / 3] = q;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float4 pq = sp[a * kBwdStage + t0 + 2 * h + j];
+          const uint32_t* p =
+              w2 + (static_cast<int64_t>(a) * k + __float_as_int(pq.x)) * r2
+              + lp;
+          out.lo[j][a] = p[0];
+          out.hi[j][a] = p[r2];
+          out.w0[j][a] = pq.y;
+          out.w1[j][a] = pq.z;
+        }
+      }
+    };
+    auto body = [&](int step, Ahead& a_now, Ahead& a_next, Rows& rw,
+                    Rows& rw_next) {
+      const int slot = step % kBwdSlots;
+      const int64_t s0 = begin + static_cast<int64_t>(step) * kBwdStage;
+      const int64_t cnt = end - s0 < kBwdStage ? end - s0 : kBwdStage;
+      if (step + 1 < steps) stage(step + 1, a_next.u, rw_next);
+      const float2 gv[2] = {a_now.g[0], a_now.g[1]};
+      if (step + 2 < steps) load(step + 2, a_now);
+      // g_d = bf16(g * a_e * a_f), a as the forward computes it; the du
+      // product sum_c g_d[c] (W_d[i+1, c] - W_d[i, c]) of the lane's two
+      // columns at v[2d + j]
+      float gd[2][3][2], v[8];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float av[3][2], df[3][2];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float2 lo = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&rw.lo[j][a]));
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&rw.hi[j][a]));
+          av[a][0] = rw.w0[j][a] * lo.x + rw.w1[j][a] * hi.x;
+          av[a][1] = rw.w0[j][a] * lo.y + rw.w1[j][a] * hi.y;
+          df[a][0] = hi.x - lo.x;
+          df[a][1] = hi.y - lo.y;
+        }
+        const float gc[2] = {gv[j].x, gv[j].y};
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            gd[j][d][c] =
+                round_bf16(gc[c] * av[(d + 1) % 3][c] * av[(d + 2) % 3][c]);
+          }
+          v[2 * d + j] = gd[j][d][0] * df[d][0] + gd[j][d][1] * df[d][1];
+        }
+      }
+      v[6] = v[7] = 0.0f;
+      // g_d of samples (t0 + 2h, + 1) as one bf16 pair a column
+      uint32_t* rs = ring + slot * 3 * (kBwdStage / 2) * kBwdCols;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        __nv_bfloat162 pair[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          pair[c] = __floats2bfloat162_rn(gd[0][d][c], gd[1][d][c]);
+        }
+        *reinterpret_cast<uint2*>(
+            rs + (d * (kBwdStage / 2) + t0 / 2 + h) * kBwdCols + 2 * c2) =
+            *reinterpret_cast<const uint2*>(pair);
+      }
+      bar_arrive(1 + slot);                                     // full
+      if (part != nullptr) {
+        // partial du of (sample, axis): the sum of v over the 16 lanes of
+        // this half-warp, in a fixed order
+        halve<4>(v, lane);       // lanes ^ 8, ^ 4, ^ 2: a value each
+        halve<2>(v, lane);
+        halve<1>(v, lane);
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+        const int q = ((lane >> 3) & 1) * 4 + ((lane >> 2) & 1) * 2
+                      + ((lane >> 1) & 1);
+        const int t = t0 + 2 * h + q % 2;
+        if ((lane & 1) == 0 && q < 6 && t < cnt) {
+          part[(static_cast<int64_t>(tile) * n + s0 + t) * 3 + q / 2] = v[0];
+        }
+      }
+    };
+
+    Ahead a0{}, a1{};
+    Rows rw0{}, rw1{};
+    if (steps > 0) load(0, a0);
+    if (steps > 1) load(1, a1);
+    if (steps > 0) stage(0, a0.u, rw0);
+    for (int step = 0; step < steps; step += 2) {   // buffers alternate
+      body(step, a0, a1, rw0, rw1);
+      if (step + 1 < steps) body(step + 1, a1, a0, rw1, rw0);
+    }
+    return;
+  }
+
+  // ---- walker: axis d, column col; the run-length slab walk
+  const int d = warp;
+  int cur = -2;                  // acc0, acc1 hold rows cur and cur + 1
+  float acc0 = 0.0f, acc1 = 0.0f;
+  float* mine = slab + d * k * kBwdCols + lane;   // row stride kBwdCols
+  for (int step = 0; step < steps; ++step) {
+    const int slot = step % kBwdSlots;
+    bar_sync(1 + slot);                                         // full
+    const float4* sp = par + (slot * 3 + d) * kBwdStage;
+    int rows[kBwdStage];
+    float w0[kBwdStage], w1[kBwdStage], gd[kBwdStage];
+#pragma unroll
+    for (int t = 0; t < kBwdStage; ++t) {
+      const float4 q = sp[t];
+      rows[t] = __float_as_int(q.x);
+      w0[t] = q.y;
+      w1[t] = q.z;
+    }
+    const uint32_t* rs =
+        ring + (slot * 3 + d) * (kBwdStage / 2) * kBwdCols + lane;
+#pragma unroll
+    for (int m = 0; m < kBwdStage / 2; ++m) {
+      const uint32_t bits = rs[m * kBwdCols];
+      const float2 pair =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+      gd[2 * m] = pair.x;
+      gd[2 * m + 1] = pair.y;
+    }
+    if (step + kBwdSlots < steps) bar_arrive(1 + kBwdSlots + slot);  // empty
+    // A sample whose row differs from cur writes the window's rows out
+    // (adding 0 to a row that stays in the window leaves it unchanged);
+    // the branch is the same for the whole warp (the row is the sample's).
+#pragma unroll
+    for (int t = 0; t < kBwdStage; ++t) {
+      const int i = rows[t];
+      if (i != cur) {
+        const bool up = i == cur + 1, down = i == cur - 1;
+        const int lo = cur < 0 ? 0 : cur;   // no window yet: add 0 to row 0
+        const float v0 = mine[lo * kBwdCols];
+        const float v1 = mine[(lo + 1) * kBwdCols];
+        mine[lo * kBwdCols] = v0 + (down ? 0.0f : acc0);
+        mine[(lo + 1) * kBwdCols] = v1 + (up ? 0.0f : acc1);
+        const float keep0 = up ? acc1 : 0.0f;
+        acc1 = down ? acc0 : 0.0f;
+        acc0 = keep0;
+        cur = i;
+      }
+      acc0 += w0[t] * gd[t];
+      acc1 += w1[t] * gd[t];
     }
   }
-  if (du == nullptr) return;  // the same for every thread of the block
-  __syncthreads();
-  if (!live || lane != 0) return;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float db0 = 0.0f, db1 = 0.0f;
-    for (int l = 0; l < lanes; ++l) {
-      db0 += part[(threadIdx.x + l) * 6 + 2 * d];
-      db1 += part[(threadIdx.x + l) * 6 + 2 * d + 1];
+  if (cur >= 0) {
+    mine[cur * kBwdCols] += acc0;
+    mine[(cur + 1) * kBwdCols] += acc1;
+  }
+  if (live) {                    // each lane writes out its own column
+    float* out = slabs + (static_cast<int64_t>(blockIdx.y) * 3 + d) * k * r
+                 + col;
+    for (int row = 0; row < k; ++row) {
+      out[static_cast<int64_t>(row) * r] = mine[row * kBwdCols];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+hat_prod_bwd_reduce_kernel(const float* __restrict__ slabs, int chunks,
+                           float* __restrict__ dw, int64_t dw_size,
+                           const float* __restrict__ u3,
+                           const float* __restrict__ part, int tiles,
+                           float* __restrict__ du, int n, int k) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j < dw_size) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < chunks; ++c) s += slabs[c * dw_size + j];
+    dw[j] = s;
+  }
+  if (du != nullptr && j < 3 * static_cast<int64_t>(n)) {
+    const float scale = static_cast<float>(k - 1);
+    const float pos = u3[j] * scale;
+    float s = 0.0f;
+    for (int t = 0; t < tiles; ++t) {
+      s += part[t * 3 * static_cast<int64_t>(n) + j];
     }
     // dhat is -(K-1) at row i and +(K-1) at row i+1 between knots
-    du[s * 3 + d] = knot[d] ? 0.0f
-                            : __fsub_rn(__fmul_rn(scale, db1),
-                                        __fmul_rn(scale, db0));
+    du[j] = pos == floorf(pos) ? 0.0f : scale * s;
   }
 }
 
@@ -240,25 +489,70 @@ extern "C" int hat_prod_fwd(const void* u3, const void* w, void* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// u3: (n, 3) fp32; w: (3, k, r) bf16; g: (n, r) fp32; dw: (3, k, r) fp32,
-// ZEROED by the caller; du: (n, 3) fp32, or null to skip du. All contiguous
-// on the current device; r a multiple of 8 and at most 8 * 256, k >= 2,
-// w, g and dw 16-byte aligned. Launches on `stream` and returns
-// cudaGetLastError().
+// The backward, both stages, on `stream`. u3: (n, 3) fp32 and w: (3, k, r)
+// bf16, contiguous; g: (n, r) fp32 with row stride ldg floats (a multiple of
+// 4) and unit column stride, 16-byte aligned; dw: (3, k, r) fp32; du:
+// (n, 3) fp32, or null to skip du; scratch, all fp32: slabs
+// (chunks, 3, k, r), and with du part (ceil(r / 32), n, 3). Samples
+// [c * chunk, (c + 1) * chunk) form chunk c; chunks * chunk >= n. r a
+// multiple of 8, k >= 2, 3 * k * 32 * 4 + 15,360 bytes of shared memory
+// within the block's opt-in limit (k <= 565 on H100). Nothing needs zeroing:
+// stage 2 writes every element of dw and du. Returns a cudaError_t: a
+// refused launch, or cudaErrorInvalidValue for a slab too large.
 extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
-                            void* du, void* dw, int n, int k, int r,
-                            void* stream) {
-  const int lanes = r / kVec;
-  const int per_block = lanes >= kThreads ? 1 : kThreads / lanes;
-  const int threads = per_block * lanes;
-  const int64_t blocks = (static_cast<int64_t>(n) + per_block - 1) / per_block;
-  const size_t smem = static_cast<size_t>(threads) * 6 * sizeof(float);
-  if (blocks > 0) {
-    hat_prod_bwd_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(u3), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const float*>(g), static_cast<float*>(du),
-        static_cast<float*>(dw), n, k, r);
+                            long long ldg, void* du, void* dw, void* slabs,
+                            void* part, int n, int k, int r, int chunk,
+                            int chunks, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = bwd_smem_bytes(k);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) {    // all of the SM's shared memory: two blocks
+    err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const int tiles = (r + kBwdCols - 1) / kBwdCols;
+  float* part_f = du == nullptr ? nullptr : static_cast<float*>(part);
+  hat_prod_bwd_slab_kernel<<<dim3(tiles, chunks), kBwdThreads, smem, st>>>(
+      static_cast<const float*>(u3), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(g), static_cast<int64_t>(ldg),
+      static_cast<float*>(slabs), part_f, n, k, r, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t dw_size = static_cast<int64_t>(3) * k * r;
+  const int64_t du_size = du == nullptr ? 0 : static_cast<int64_t>(3) * n;
+  const int64_t m = dw_size > du_size ? dw_size : du_size;
+  const int64_t blocks = (m + kReduceThreads - 1) / kReduceThreads;
+  hat_prod_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), kReduceThreads,
+                               0, st>>>(
+      static_cast<const float*>(slabs), chunks, static_cast<float*>(dw),
+      dw_size, static_cast<const float*>(u3), part_f, tiles,
+      static_cast<float*>(du), n, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 1's resident blocks an SM at K knots on the current device (after
+// a launch has set its attributes), or -1 on an error.
+extern "C" int hat_prod_bwd_blocks_per_sm(int k) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, hat_prod_bwd_slab_kernel, kBwdThreads, bwd_smem_bytes(k))
+      != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }

@@ -17,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..ops.activations import trunc_exp
 from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
 from ..ops.morton import morton3d_invert, packbits
@@ -73,7 +74,10 @@ class OccupancyState:
 
     @staticmethod
     def create(cfg: NGPConfig, device=None) -> "OccupancyState":
+        """An empty grid on ``device`` (default: the CUDA device; raises
+        without one)."""
         c, n = cfg.cascades, cfg.n_cells
+        device = resolve_device(device)
         return OccupancyState(
             density_grid=torch.zeros((c, n), dtype=torch.float32,
                                      device=device),
@@ -98,7 +102,8 @@ def _mlp_apply(ws, x, sigmoid=False):
 
 
 class NGP(nn.Module):
-    """The LowRank NGP field. Parameters are drawn by :meth:`init`."""
+    """The LowRank NGP field on ``device`` (default: the CUDA device;
+    raises without one). Parameters are drawn by :meth:`init`."""
 
     def __init__(self, cfg: NGPConfig, generator: torch.Generator = None,
                  device=None):
@@ -120,7 +125,7 @@ class NGP(nn.Module):
         self.rgb_mlp = _mlp_params(
             [cfg.sh_degree ** 2 + cfg.geo_feat_dim]
             + [cfg.rgb_channels] * cfg.rgb_layers + [3])
-        self.to(device)
+        self.to(resolve_device(device))
         self.init(generator if generator is not None
                   else torch.Generator().manual_seed(0))
 

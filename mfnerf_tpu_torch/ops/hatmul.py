@@ -99,10 +99,41 @@ def _kernels():
     fwd, bwd = lib.hat_prod_fwd, lib.hat_prod_bwd
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+# The backward's stage 1 keeps a (3, K, 32) fp32 slab of dW in a block's
+# shared memory, beside a 15,360-byte ring: K <= 565 fits Hopper's 227 KB a
+# block.
+BWD_MAX_K = 565
+BWD_COLS = 32                  # columns a block of the backward
+# Samples a chunk: at least BWD_MIN_CHUNK, and chunks enough for about
+# BWD_BLOCKS blocks (two on each of an H100's 132 SMs). The order of dW's
+# sums follows the chunks, so it is a function of N and R alone.
+BWD_MIN_CHUNK, BWD_BLOCKS = 1024, 264
+
+
+def bwd_chunking(n, r):
+    """(chunk, chunks) of the backward's stage 1 for N samples, R columns."""
+    tiles = -(-r // BWD_COLS)
+    chunks = max(1, min(n // BWD_MIN_CHUNK, BWD_BLOCKS // tiles))
+    return -(-n // chunks), chunks
+
+
+def _g_in_place(g):
+    """(g as fp32 rows the kernel reads in place, their stride in floats).
+    A column slice of a wider fp32 tensor is read through its row stride;
+    g is copied only when it is not fp32 or its rows are not 16-byte
+    aligned."""
+    g = g.to(torch.float32)
+    ldg = g.stride(0) if g.shape[0] > 1 else g.shape[1]
+    if g.stride(1) != 1 or ldg % 4 or g.data_ptr() % 16:
+        g = g.contiguous()
+        ldg = g.shape[1]
+    return g, ldg
 
 
 def _check_device(u3):
@@ -128,7 +159,7 @@ def _check_operands(u3, w3, k_res):
 
 
 def _check_aligned(*tensors):
-    for t in tensors:                # 16-byte row loads, stores and atomics
+    for t in tensors:                # 16-byte row loads and stores
         if t.data_ptr() % 16:
             raise ValueError("hat_prod needs 16-byte aligned buffers")
 
@@ -159,21 +190,30 @@ def _launch_bwd(u3, w3, k_res, g, need_du):
     if g.shape != (n, r) or g.device != u3.device:
         raise ValueError(f"g must be ({n}, {r}) on {u3.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    if r > 2048:
-        raise ValueError(f"R = {r} exceeds the backward's 256 threads a "
-                         f"sample (R <= 2048)")
+    if k_res > BWD_MAX_K:
+        raise ValueError(f"K = {k_res} exceeds the backward's shared-memory "
+                         f"slab (K <= {BWD_MAX_K})")
     u3 = u3.contiguous()
     w_bf = w3.detach().to(torch.bfloat16).contiguous()
-    g = g.to(torch.float32).contiguous()
-    dw = torch.zeros((3, k_res, r), dtype=torch.float32, device=u3.device)
-    du = (torch.empty((n, 3), dtype=torch.float32, device=u3.device)
-          if need_du else None)
+    g, ldg = _g_in_place(g)
+    dev = u3.device
     if n == 0:
-        return du, dw.to(w3.dtype)
-    _check_aligned(w_bf, g, dw)
-    rc = _kernels()[1](u3.data_ptr(), w_bf.data_ptr(), g.data_ptr(),
+        du = torch.zeros((0, 3), dtype=torch.float32, device=dev)
+        return (du if need_du else None), torch.zeros_like(w3)
+    chunk, chunks = bwd_chunking(n, r)
+    dw = torch.empty((3, k_res, r), dtype=torch.float32, device=dev)
+    slabs = torch.empty((chunks, 3, k_res, r), dtype=torch.float32,
+                        device=dev)
+    du = part = None
+    if need_du:
+        du = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        part = torch.empty((-(-r // BWD_COLS), n, 3), dtype=torch.float32,
+                           device=dev)
+    rc = _kernels()[1](u3.data_ptr(), w_bf.data_ptr(), g.data_ptr(), ldg,
                        None if du is None else du.data_ptr(), dw.data_ptr(),
-                       n, k_res, r, _stream(u3.device))
+                       slabs.data_ptr(),
+                       None if part is None else part.data_ptr(),
+                       n, k_res, r, chunk, chunks, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"hat_prod_bwd launch failed: cudaError {rc}")
     hat_prod_bwd.launches += 1
@@ -214,9 +254,12 @@ def hat_prod(u3, w3, k_res):
 def hat_prod_bwd(u3, w3, k_res, g, need_du=True):
     """(du, dW) of :func:`hat_prod` for the output cotangent ``g`` (N, R).
 
-    CUDA tensors run the backward kernel; CPU tensors run
-    :func:`hat_prod_bwd_plain`. ``hat_prod_bwd.launches`` counts kernel
-    launches. du is None unless ``need_du``.
+    CUDA tensors run the backward kernel, whose dW is bitwise the same on
+    every launch; an fp32 ``g`` with 16-byte aligned rows, such as a column
+    slice of a wider feature gradient, is read in place through its row
+    stride. CPU tensors run :func:`hat_prod_bwd_plain`.
+    ``hat_prod_bwd.launches`` counts kernel launches (both stages are one).
+    du is None unless ``need_du``.
     """
     _check_device(u3)
     if u3.device.type == "cpu":

@@ -20,6 +20,7 @@ import math
 import torch
 
 from .datasets.ray_utils import get_rays
+from .device import resolve_device
 from .losses import NeRFLoss
 from .models.ngp import NGP, NGPConfig, OccupancyState
 from .models.rendering import (MAX_SAMPLES, RenderConfig, render_test,
@@ -48,7 +49,9 @@ def cosine_staircase_lr(lr0, num_epochs, steps_per_epoch=STEPS_PER_EPOCH):
 
 
 class NeRFSystem:
-    """Trainer of a LowRank NGP field on an in-memory dataset."""
+    """Trainer of a LowRank NGP field on an in-memory dataset, on ``device``
+    (default: the CUDA device; raises without one, never falls back to the
+    CPU)."""
 
     def __init__(self, hparams, device=None):
         hp = hparams
@@ -61,8 +64,7 @@ class NeRFSystem:
                 raise NotImplementedError(f"{name}={getattr(hp, name)} is "
                                           f"not ported")
         self.hparams = hp
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.model_cfg = NGPConfig(
             scale=hp.scale, L=hp.L, F=hp.F, rgb_channels=hp.rgb_channels,
             rgb_layers=hp.rgb_layers,

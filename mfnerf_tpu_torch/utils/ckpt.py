@@ -13,6 +13,7 @@ import json
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.ngp import OccupancyState
 
 
@@ -59,8 +60,10 @@ def params_from_numpy(tree):
 
 
 def occupancy_from_numpy(occ, cfg, device=None):
-    """The ``occ`` section of a checkpoint -> ``OccupancyState``. Slim
+    """The ``occ`` section of a checkpoint -> ``OccupancyState`` on
+    ``device`` (default: the CUDA device; raises without one). Slim
     checkpoints keep only the bitfield; their density grid reads as zeros."""
+    device = resolve_device(device)
     grid = occ.get("density_grid")
     if grid is None:
         grid = np.zeros((cfg.cascades, cfg.n_cells), np.float32)

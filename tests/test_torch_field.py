@@ -47,7 +47,7 @@ def _one_torch_thread():
 def _models(**kw):
     jmodel = jngp.NGP(jngp.NGPConfig(grid="LowRank", **kw))
     params = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = tngp.NGP(tngp.NGPConfig(**kw))
+    tmodel = tngp.NGP(tngp.NGPConfig(**kw), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
     return jmodel, params, tmodel
@@ -136,7 +136,7 @@ def test_lowrank_config_and_init_law():
     jmodel, params, tmodel = _models(**BENCH)
     state = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
     fresh = tngp.NGP(tngp.NGPConfig(**BENCH),
-                     torch.Generator().manual_seed(3))
+                     torch.Generator().manual_seed(3), device="cpu")
     assert {k: tuple(v.shape) for k, v in fresh.state_dict().items()} == \
         {k: tuple(v.shape) for k, v in state.items()}
     lines0 = fresh.lowrank.lines[0][7][0].detach()

@@ -24,9 +24,9 @@ from mfnerf_tpu_torch.models.rendering import RenderConfig, render_test
 from mfnerf_tpu_torch.utils.procedural import make_scene
 g = torch.Generator().manual_seed(0)
 cfg = NGPConfig(lr_k_max=256, lr_fused=True, grid_size=16)
-model = NGP(cfg, g)
+model = NGP(cfg, g, device="cpu")
 occ = model.update_density_grid(
-    OccupancyState.create(cfg), 5.77,
+    OccupancyState.create(cfg, "cpu"), 5.77,
     torch.rand((1, cfg.n_cells, 3), generator=g) * 2 - 1)
 scene = make_scene(n_train=1, n_test=1, wh=8, seed=0)
 ro, rd = get_rays(torch.from_numpy(scene["directions"]),

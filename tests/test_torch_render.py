@@ -50,7 +50,7 @@ def _setup(fill=0x33, n=512, miss_every=0, seed=0, scale=0.5):
     jcfg = jngp.NGPConfig(grid="LowRank", scale=scale, **SMALL)
     jmodel = jngp.NGP(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed))
-    tmodel = tngp.NGP(tngp.NGPConfig(scale=scale, **SMALL))
+    tmodel = tngp.NGP(tngp.NGPConfig(scale=scale, **SMALL), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
 
@@ -61,7 +61,7 @@ def _setup(fill=0x33, n=512, miss_every=0, seed=0, scale=0.5):
             rng.integers(0, 256, n_bytes, dtype=np.uint8) & np.uint8(fill))
     occ_j = dataclasses.replace(jngp.OccupancyState.create(jcfg),
                                 density_bitfield=jnp.asarray(bits))
-    occ_t = tngp.OccupancyState.create(tmodel.cfg)
+    occ_t = tngp.OccupancyState.create(tmodel.cfg, "cpu")
     occ_t.density_bitfield = torch.from_numpy(bits)
 
     rays_o = np.tile(np.float32([[0.0, 0.0, -2.8 * scale]]), (n, 1))

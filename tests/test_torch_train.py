@@ -147,6 +147,93 @@ def test_hat_prod_gradient_is_zero_on_knots(u0):
         np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+@pytest.mark.parametrize("frame", [0, 1])
+def test_hat_prod_bwd_reads_column_slice_of_feature_gradient(frame):
+    """g as the fused encoder's backward hands it over: one frame's column
+    slice of the (N, 2R) feature gradient. The slice gives the same (du, dW)
+    as its contiguous copy and as the JAX VJP (Pallas, interpret mode), and
+    the kernel's wrapper reads it in place: no copy, row stride 2R."""
+    k, kp, r, n = 65, 128, 16, jhatmul.TN + 37
+    u3, w, _, knot = _hat_operands(k, kp, r, n)
+    feat_g = np.random.default_rng(11).normal(size=(n, 2 * r)) \
+        .astype(np.float32)
+    g = _t(feat_g)[:, frame * r:(frame + 1) * r]
+    assert not g.is_contiguous() and g.stride() == (2 * r, 1)
+    _, vjp = jax.vjp(lambda u, w_: jhatmul.hat_prod(u, w_, k, True),
+                     jnp.asarray(u3), jnp.asarray(w))
+    du_j, dw_j = (np.asarray(x) for x in vjp(jnp.asarray(
+        feat_g[:, frame * r:(frame + 1) * r])))
+    du_s, dw_s = thatmul.hat_prod_bwd(_t(u3), _t(w[:, :k]), k, g)
+    du_c, dw_c = thatmul.hat_prod_bwd(_t(u3), _t(w[:, :k]), k,
+                                      g.contiguous())
+    assert torch.equal(du_s, du_c) and torch.equal(dw_s, dw_c)
+    _close(dw_s.numpy(), dw_j[:, :k])
+    _close(du_s.numpy(), du_j)
+    assert (du_s.numpy()[knot] == 0).all()
+    rows, ldg = thatmul._g_in_place(g)
+    assert rows.data_ptr() == g.data_ptr() and ldg == 2 * r
+
+
+@pytest.mark.parametrize("case", ["fp64", "unaligned_start",
+                                  "unaligned_stride", "column_stride"])
+def test_hat_prod_bwd_copies_g_only_when_it_must(case):
+    """The wrapper copies g when the kernel cannot read it in place: not
+    fp32, rows not 16-byte aligned, or columns not adjacent."""
+    base = torch.randn(8, 40)
+    g = {"fp64": base[:, :16].double(),
+         "unaligned_start": base[:, 1:17],
+         "unaligned_stride": torch.randn(8, 34)[:, :16],
+         "column_stride": base[:, ::2][:, :16]}[case]
+    rows, ldg = thatmul._g_in_place(g)
+    assert rows.dtype == torch.float32 and rows.is_contiguous()
+    assert rows.data_ptr() != g.data_ptr() and ldg == 16
+    assert torch.equal(rows, g.float())
+
+
+@pytest.mark.parametrize("n", [1, 15, 1023, 1025, 111_056, 1 << 19])
+@pytest.mark.parametrize("r", [16, 128, 136])
+def test_hat_prod_bwd_chunking(n, r):
+    """Stage 1's chunks cover the N samples without an empty chunk, within
+    about two blocks an SM of an H100; the chunking, and so the order of
+    dW's sums, depends on N and R only."""
+    chunk, chunks = thatmul.bwd_chunking(n, r)
+    tiles = -(-r // thatmul.BWD_COLS)
+    assert (chunks - 1) * chunk < n <= chunks * chunk
+    assert chunks == 1 or chunk >= thatmul.BWD_MIN_CHUNK
+    assert tiles * chunks <= max(thatmul.BWD_BLOCKS, tiles)
+    assert thatmul.bwd_chunking(n, r) == (chunk, chunks)
+
+
+def test_lowrank_backward_hands_hat_prod_a_strided_g(monkeypatch):
+    """The fused encoder concatenates the frames' features, so the gradient
+    of torch.cat reaches HatProd.backward as a column slice of the (N, 2R)
+    feature gradient (row stride 2R); the kernel's wrapper reads it in
+    place instead of copying it before every launch."""
+    from mfnerf_tpu_torch.ops import lowrank as tlowrank
+    cfg = tlowrank.LowRankConfig.create(n_levels=2, k_max=64, rank=8,
+                                        n_frames=2, out_dim=16, fused=True)
+    params = tlowrank.init_lowrank_params(cfg,
+                                          torch.Generator().manual_seed(0))
+    for m in params["lines"]:
+        for level in m:
+            for t in level:
+                t.requires_grad_()
+    seen, plain_bwd = [], thatmul.hat_prod_bwd
+
+    def recorder(u3, w3, k_res, g, need_du=True):
+        seen.append((g.shape, g.stride(), g.is_contiguous()))
+        return plain_bwd(u3, w3, k_res, g, need_du)
+
+    monkeypatch.setattr(thatmul, "hat_prod_bwd", recorder)
+    x = torch.from_numpy(np.random.default_rng(12).random(
+        (300, 3), dtype=np.float32))
+    tlowrank.lowrank_encode(params, x, cfg).square().sum().backward()
+    r = cfg.rank * len(cfg.levels)
+    assert seen == [((300, r), (2 * r, 1), False)] * 2
+    assert all(t.grad is not None for m in params["lines"] for level in m
+               for t in level)
+
+
 def test_trunc_exp_gradient_matches_jax():
     rng = np.random.default_rng(3)
     x = np.concatenate([rng.normal(scale=8, size=500),
@@ -244,7 +331,7 @@ def _models(seed=0, **kw):
     cfg = dict(SMALL, **kw)
     jmodel = jngp.NGP(jngp.NGPConfig(grid="LowRank", **cfg))
     params = jmodel.init(jax.random.PRNGKey(seed))
-    tmodel = tngp.NGP(tngp.NGPConfig(**cfg))
+    tmodel = tngp.NGP(tngp.NGPConfig(**cfg), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
     return jmodel, params, tmodel
@@ -308,7 +395,7 @@ def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
 
 
 def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod):
-    occ = tngp.OccupancyState.create(tmodel.cfg)
+    occ = tngp.OccupancyState.create(tmodel.cfg, "cpu")
     occ.density_bitfield = _t(bits)
     tmodel.zero_grad(set_to_none=True)
     res = trendering.render_train(tmodel, occ, _t(rays_o), _t(rays_d),
@@ -331,7 +418,7 @@ def test_train_step_matches_jax(fused):
     loss_t_mod = tlosses.NeRFLoss()
     if fused:
         # keep the rays whose bf16 hat bases agree on both sides
-        occ = tngp.OccupancyState.create(tmodel.cfg)
+        occ = tngp.OccupancyState.create(tmodel.cfg, "cpu")
         occ.density_bitfield = _t(bits)
         with torch.no_grad():
             mr = trendering.march_rays_train(
@@ -379,7 +466,7 @@ def test_render_train_matches_jax_render_train(s_flat, fill):
     jcfg = jngp.NGPConfig(grid="LowRank", **cfg_kw)
     jmodel = jngp.NGP(jcfg)
     params = jmodel.init(jax.random.PRNGKey(1))
-    tmodel = tngp.NGP(tngp.NGPConfig(**SMALL))
+    tmodel = tngp.NGP(tngp.NGPConfig(**SMALL), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
     bits, rays_o, rays_d, _, _ = _batch(n=256, seed=2, fill=fill)
@@ -398,7 +485,7 @@ def test_render_train_matches_jax_render_train(s_flat, fill):
                   jrendering.RenderConfig(s_flat=s_flat, **rcfg_kw))
     noise = np.asarray(jax.random.uniform(jax.random.split(key, 3)[0],
                                           (256,)))
-    occ_t = tngp.OccupancyState.create(tmodel.cfg)
+    occ_t = tngp.OccupancyState.create(tmodel.cfg, "cpu")
     occ_t.density_bitfield = _t(bits)
     with torch.no_grad():
         got = trendering.render_train(tmodel, occ_t, _t(rays_o), _t(rays_d),
@@ -421,7 +508,7 @@ def _occ_models(scale=0.5):
     kw = dict(SMALL, scale=scale)
     jmodel = jngp.NGP(jngp.NGPConfig(grid="LowRank", **kw))
     params = jmodel.init(jax.random.PRNGKey(6))
-    tmodel = tngp.NGP(tngp.NGPConfig(**kw))
+    tmodel = tngp.NGP(tngp.NGPConfig(**kw), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
     return jmodel, params, tmodel
@@ -435,7 +522,7 @@ def test_mark_invisible_cells_matches_jax(scale):
         jngp.OccupancyState.create(jmodel.cfg), scene["K"], scene["poses"],
         scene["img_wh"])
     occ_t = tmodel.mark_invisible_cells(
-        tngp.OccupancyState.create(tmodel.cfg), scene["K"],
+        tngp.OccupancyState.create(tmodel.cfg, "cpu"), scene["K"],
         _t(scene["poses"]), scene["img_wh"], chunk=4096)
     np.testing.assert_array_equal(occ_t.density_grid.numpy(),
                                   np.asarray(occ_j.density_grid))

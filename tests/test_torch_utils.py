@@ -51,7 +51,7 @@ def test_jax_checkpoint_reads_into_identical_tensors(tmp_path):
     for k in state:
         torch.testing.assert_close(state[k], from_tree[k], rtol=0, atol=0)
 
-    model = tngp.NGP(tngp.NGPConfig(**BENCH))
+    model = tngp.NGP(tngp.NGPConfig(**BENCH), device="cpu")
     model.load_state_dict(state)      # strict: every name present
     np.testing.assert_array_equal(
         model.lowrank.lines[1][7][2].detach().numpy(),
@@ -61,12 +61,13 @@ def test_jax_checkpoint_reads_into_identical_tensors(tmp_path):
 
     for name in ("model.npz", "slim.npz"):
         occ_t = tckpt.occupancy_from_numpy(
-            tckpt.load_ckpt(str(tmp_path / name))["occ"], model.cfg)
+            tckpt.load_ckpt(str(tmp_path / name))["occ"], model.cfg, "cpu")
         np.testing.assert_array_equal(occ_t.density_bitfield.numpy(),
                                       np.asarray(occ.density_bitfield))
         assert occ_t.density_grid.shape == (1, 32 ** 3)
     np.testing.assert_array_equal(
-        tckpt.occupancy_from_numpy(ck["occ"], model.cfg).density_grid.numpy(),
+        tckpt.occupancy_from_numpy(ck["occ"], model.cfg,
+                                   "cpu").density_grid.numpy(),
         np.asarray(occ.density_grid))
 
 
