@@ -1,12 +1,13 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU.
+NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc, Triton;
-2. build: compile the hat-product kernel from mfnerf_tpu_torch/csrc/;
+2. build and 11. build_hashgrid: compile the hat-product and the hash-grid
+   kernels from mfnerf_tpu_torch/csrc/, one nvcc each, started together;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
@@ -37,13 +38,36 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    and g as HatProd.backward receives them: g a column slice of the (N, 2R)
    feature gradient, read in place), and hat_prod's time on the same u
    (through its wrapper, so at this size mostly the host's;
-   tools/hat_bwd_ab.py times the kernel alone).
+   tools/hat_bwd_ab.py times the kernel alone);
+12. kernel_hashgrid: the hash-grid kernels against their plain torch
+   versions for the CLI's default Hash grid (L 16, F 2, T 19) and the
+   reference's MixedFeature benchmark grid (T 20, 8 tables), both 5,710,032
+   rows, at N = 2^19 uniform x with points on the box faces: the forward,
+   the backward's d_params bitwise equal across three launches (exact, and
+   sampled at one corner with the same uniforms), d_params, d_x and
+   d_window (window alpha 0.6) against the plain version, the kernels' times
+   beside their bounds and the plain times; then the kernels' generic
+   path (F 4, L 12) at 2^16 points;
+13. train_step_oracle_mf: one step of the MixedFeature bench configuration
+   (benchmarking/benchmark_synthetic_nerf_mf.sh: batch 16384, lr 2e-2, rgb
+   128 x 2) on the card against the same step on the CPU, exact and with
+   the sampled-corner table gradient (the same uniforms);
+14. train_mf: 900 steps of it on the 16 procedural views through
+   NeRFSystem.fit; the hash-grid kernels' launch counts are reset just
+   before and read just after;
+15. test_view_mf: the held-out view through render_test before and after
+   training, with the forward kernel's launch count (a gain of 8 dB over
+   the untrained field, and at least MF_PSNR_MIN);
+12b. kernel_hashgrid (shape "train"): phase 12's checks and times on one
+   real step's operands of the trained MixedFeature field (x and g as
+   HashGridEncode.backward receives them).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -87,6 +111,28 @@ N_TRAIN_VIEWS = 16
 WARM_STEPS, CHUNK, N_CHUNKS = 300, 100, 6   # bench.py: 300 + 600 steps
 TEST_T = 1e-4
 PSNR_MIN, PSNR_GAIN = 20.0, 8.0   # tests/test_e2e_train.py:69-70
+# the reference's MixedFeature benchmark (benchmarking/
+# benchmark_synthetic_nerf_mf.sh:15-17), the rest as BENCH_HP
+MF_HP = dict(BENCH_HP, grid="MixedFeature", L=16, F=2, T=20, N_min=16,
+             N_max=2048, N_tables=8, rgb_channels=128, rgb_layers=2,
+             batch_size=16384, lr=2e-2)
+# the CLI's default grid (mfnerf_tpu/opt.py:89-105)
+HASH_GRID = dict(grid="Hash", L=16, F=2, log2_T=19, N_min=16, N_max=2048,
+                 N_tables=1)
+N_HASH = 1 << 19
+N_FACE = 384                # of them on the box faces (the corner clamp)
+# the forward repeats the plain version's fp32 operations: 0 expected
+HASH_FWD_TOL = 1e-6         # x max |plain|
+# d_params: fixed-point sums against fp32 scatter-adds; d_x and d_window:
+# sums over levels and samples in another order
+HASH_TOL = 1e-5             # x max |plain|
+WINDOW_ALPHA = 0.6
+# The MixedFeature recipe (batch 16384, lr 2e-2, rgb 128 x 2) plateaus on
+# this scene: train PSNR ~22.4 and the held-out view 19.76 dB at 900 steps,
+# 19.81 at 1800, the same with the Hash grid in its place
+# (tools/train_grid.py, PERF.md §6). Its view must gain PSNR_GAIN over the
+# untrained field and stay above this floor; PSNR_MIN is LowRank's.
+MF_PSNR_MIN = 19.0
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, fp32 FLOP/s off the
 # tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -190,13 +236,14 @@ def check_bwd(label, u3, w3, k, g):
     return fields
 
 
-def capture_bwd_operands(system, seed):
+def capture_bwd_operands(system, seed, module):
     """One forward and backward of a training step of ``system`` on a ray
     batch drawn from ``seed`` (weights and optimiser untouched): the
-    (u3, w3, k, g) that each frame's HatProd.backward received."""
+    arguments that each call of ``module._launch_bwd`` received (the hat
+    product's (u3, w3, k, g, need_du), the hash grid's (params, x, cfg, g,
+    window, grad_noise, need_dx))."""
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models.rendering import render_train
-    from mfnerf_tpu_torch.ops import hatmul
     dev, b = system.device, system.hparams.batch_size
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_img, hw = system.rays.shape[:2]
@@ -208,19 +255,306 @@ def capture_bwd_operands(system, seed):
                        system.rcfg)
     loss = sum(v.mean() for v in system.loss(
         res, {"rgb": system.rays[img, pix]}).values())
-    captured, launch = [], hatmul._launch_bwd
+    captured, launch = [], module._launch_bwd
 
-    def recorder(u3, w3, k_res, g, need_du):
-        captured.append((u3.detach(), w3.detach(), k_res, g))
-        return launch(u3, w3, k_res, g, need_du)
+    def recorder(*args):
+        captured.append(tuple(a.detach() if torch.is_tensor(a) else a
+                              for a in args))
+        return launch(*args)
 
-    hatmul._launch_bwd = recorder
+    module._launch_bwd = recorder
     try:
         loss.backward()
     finally:
-        hatmul._launch_bwd = launch
+        module._launch_bwd = launch
         system.model.zero_grad(set_to_none=True)
     return captured
+
+
+def step_oracle(model, cpu_model, occ, rcfg, loss_mod, batch, rows=None):
+    """One training step's loss and parameter gradients on the card and on
+    the CPU, same weights, rays, march jitter and, with ``rows``, the same
+    sampled-corner uniforms (the first rows, one a valid sample). Checks
+    the sample counts, LOSS_TOL and GRAD_TOL; returns the phase's fields and
+    the card's gradients."""
+    from mfnerf_tpu_torch.models.ngp import OccupancyState
+    from mfnerf_tpu_torch.models.rendering import render_train
+    steps = {}
+    for where, model_, occ_ in (
+            ("card", model, occ),
+            ("cpu", cpu_model, OccupancyState(occ.density_grid.cpu(),
+                                              occ.density_bitfield.cpu()))):
+        on = {key: v.to(model_.device) for key, v in batch.items()}
+        grad_noise = None if rows is None else (
+            lambda k, d=model_.device: rows[:k].to(d))
+        res = render_train(model_, occ_, on["rays_o"], on["rays_d"],
+                           on["noise"], rcfg, grad_noise=grad_noise)
+        loss = sum(v.mean() for v in loss_mod(
+            res, {"rgb": on["rgb"]}).values())
+        model_.zero_grad(set_to_none=True)
+        loss.backward()
+        steps[where] = (float(loss.detach()), int(res["rm_samples"]), {
+            name: p_.grad.detach().cpu() for name, p_
+            in model_.named_parameters()})
+        model_.zero_grad(set_to_none=True)
+    (loss_c, rm_c, grads_c), (loss_p, rm_p, grads_p) = \
+        steps["card"], steps["cpu"]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    grad_rel = {name: float((grads_c[name] - grads_p[name]).norm()
+                            / grads_p[name].norm()) for name in grads_p}
+    check(rm_c == rm_p, f"samples on the card {rm_c} vs cpu {rm_p}")
+    check(loss_rel <= LOSS_TOL, f"loss card {loss_c} vs cpu {loss_p}")
+    check(max(grad_rel.values()) <= GRAD_TOL, f"gradients: {grad_rel}")
+    return dict(rays=batch["noise"].shape[0], samples_card=rm_c,
+                samples_cpu=rm_p, loss_card=loss_c, loss_cpu=loss_p,
+                loss_rel_err=loss_rel, loss_tol=LOSS_TOL,
+                grad_rel_err_max=max(grad_rel.values()),
+                grad_rel_err_worst=max(grad_rel, key=grad_rel.get),
+                grad_tol=GRAD_TOL), grads_c
+
+
+def hash_distinct_rows(x, cfg):
+    """The number of distinct table rows the 8 corners of x's cells read
+    (the plain version's indices)."""
+    from mfnerf_tpu_torch.ops import hashgrid as hg
+    arrays, base, frac = hg._cells(x, cfg)
+    rows = torch.cat([hg._corner(c, base, frac, arrays)[0].reshape(-1)
+                      for c in range(8)])
+    return int(torch.unique(rows).numel())
+
+
+def hash_fwd_bound(n, cfg, distinct):
+    """hashgrid fwd: read x and the distinct rows once, write the output;
+    per (sample, level) the cell (6 operations), 8 weights (2 each) and
+    8 blends of F features (2 each)."""
+    return bound(12 * n + 4 * n * cfg.out_dim + 4 * cfg.F * distinct,
+                 n * cfg.L * (6 + 8 * (2 + 2 * cfg.F)))
+
+
+def hash_bwd_bound(n, cfg, distinct, need_dx):
+    """hashgrid bwd: read g and x, write d_params whole; with d_x read the
+    distinct rows and write d_x; operations as the forward's, plus per
+    corner and feature the update (1) and with d_x the row's dot (2) and the
+    weight's partials (6 a corner)."""
+    n_bytes = 12 * n + 4 * n * cfg.out_dim + 4 * cfg.n_params * cfg.F
+    ops = n * cfg.L * (6 + 8 * (2 + 3 * cfg.F))
+    if need_dx:
+        n_bytes += 12 * n + 4 * cfg.F * distinct
+        ops += n * cfg.L * 8 * (2 * cfg.F + 6)
+    return bound(n_bytes, ops)
+
+
+def check_hashgrid(label, cfg, params, x, g, seed):
+    """Phase 12 on one set of operands: the forward against the plain
+    version; the backward's d_params bitwise equal across three launches,
+    exact and sampled at one corner (the same uniforms); d_params, d_x and
+    d_window (window alpha 0.6) within HASH_TOL of the plain version; the
+    kernels' times beside their bounds. Returns the phase's fields."""
+    from mfnerf_tpu_torch.ops.hashgrid import (hashgrid_bwd,
+                                               hashgrid_bwd_plain,
+                                               hashgrid_encode,
+                                               hashgrid_encode_plain,
+                                               window_weights)
+    n = x.shape[0]
+    dev = x.device
+    with torch.no_grad():
+        out = hashgrid_encode(params, x, cfg)
+        want = hashgrid_encode_plain(params, x, cfg)
+    torch.cuda.synchronize()
+    check(out.shape == (n, cfg.out_dim), f"{label}: output {out.shape}")
+    fwd_err = float((out - want).abs().max())
+    fwd_scale = float(want.abs().max())
+    check(fwd_err <= HASH_FWD_TOL * fwd_scale,
+          f"{label}: forward vs plain: {fwd_err} of {fwd_scale}")
+
+    def errs(got, ref):
+        return float((got - ref).abs().max()), float(ref.abs().max())
+
+    fields = dict(shape=label, grid=cfg.grid_type, n=n, levels=cfg.L,
+                  features=cfg.F, rows=cfg.n_params,
+                  fwd_max_abs_err=fwd_err, fwd_max_abs=fwd_scale,
+                  fwd_bitwise_equal=bool(torch.equal(out, want)))
+    del out, want
+    sampled = dataclasses.replace(cfg, grad_corners=1)
+    noise = torch.rand((n, 1), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    window = window_weights(cfg, WINDOW_ALPHA, dev)
+    for name, cfg_, noise_, win in (("exact", cfg, None, None),
+                                    ("sampled", sampled, noise, None),
+                                    ("window", cfg, None, window)):
+        runs = [hashgrid_bwd(params, x, cfg_, g, win, noise_,
+                             need_dx=i == 2) for i in range(3)]
+        dp_p, dx_p, dw_p = hashgrid_bwd_plain(params, x, cfg_, g, win,
+                                              noise_)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(runs[0][0], r[0]) for r in runs[1:])
+        spread = max(float((runs[0][0] - r[0]).abs().max())
+                     for r in runs[1:])
+        dp_err, dp_scale = errs(runs[2][0], dp_p)
+        dx_err, dx_scale = errs(runs[2][1], dx_p)
+        fields.update({f"{name}_dp_bitwise_equal": bitwise,
+                       f"{name}_dp_launch_spread": spread,
+                       f"{name}_dp_max_abs_err": dp_err,
+                       f"{name}_dp_max_abs": dp_scale,
+                       f"{name}_dx_max_abs_err": dx_err,
+                       f"{name}_dx_max_abs": dx_scale})
+        check(bitwise and spread == 0.0,
+              f"{label} {name}: d_params differs between launches")
+        check(dp_err <= HASH_TOL * dp_scale,
+              f"{label} {name}: d_params vs plain: {dp_err} of {dp_scale}")
+        check(dx_err <= HASH_TOL * dx_scale,
+              f"{label} {name}: d_x vs plain: {dx_err} of {dx_scale}")
+        if win is not None:
+            dw_err, dw_scale = errs(runs[2][2], dw_p)
+            fields.update(window_alpha=WINDOW_ALPHA,
+                          window_dw_max_abs_err=dw_err,
+                          window_dw_max_abs=dw_scale)
+            check(dw_err <= HASH_TOL * dw_scale,
+                  f"{label}: d_window vs plain: {dw_err} of {dw_scale}")
+        del runs, dp_p, dx_p, dw_p
+    distinct = hash_distinct_rows(x, cfg)
+    fwd_bound_ms, fwd_bound_by = hash_fwd_bound(n, cfg, distinct)
+    bwd_bound_ms, bwd_bound_by = hash_bwd_bound(n, cfg, distinct, False)
+    fields.update(
+        distinct_rows=distinct, tol=HASH_TOL, fwd_tol=HASH_FWD_TOL,
+        fwd_ms=cuda_ms(lambda: hashgrid_encode(params, x, cfg), 20),
+        fwd_plain_ms=cuda_ms(lambda: hashgrid_encode_plain(params, x, cfg),
+                             5),
+        fwd_bound_ms=fwd_bound_ms, fwd_bound_by=fwd_bound_by,
+        bwd_ms=cuda_ms(lambda: hashgrid_bwd(params, x, cfg, g,
+                                            need_dx=False), 20),
+        bwd_sampled_ms=cuda_ms(lambda: hashgrid_bwd(
+            params, x, sampled, g, None, noise, need_dx=False), 20),
+        bwd_dx_ms=cuda_ms(lambda: hashgrid_bwd(params, x, cfg, g), 20),
+        bwd_plain_ms=cuda_ms(lambda: hashgrid_bwd_plain(
+            params, x, cfg, g, need_dx=False), 5),
+        bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by,
+        bwd_dx_bound_ms=hash_bwd_bound(n, cfg, distinct, True)[0])
+    fields.update(fwd_share_of_bound=fwd_bound_ms / fields["fwd_ms"],
+                  bwd_share_of_bound=bwd_bound_ms / fields["bwd_ms"])
+    return fields
+
+
+def hash_uniform_operands(cfg, seed, n=None):
+    """A seeded N(0, 1) table, n (default N_HASH) uniform points (N_FACE of
+    them on the box faces) and an N(0, 1) cotangent, on the card."""
+    n = N_HASH if n is None else n
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = torch.randn((cfg.n_params, cfg.F), generator=gen,
+                         device="cuda")
+    x = torch.rand((n, 3), generator=gen, device="cuda")
+    third = N_FACE // 3
+    for d in range(3):
+        x[d * third:(d + 1) * third, d] = 1.0
+    x[N_FACE:N_FACE + 16] = 1.0
+    g = torch.randn((n, cfg.out_dim), generator=gen, device="cuda")
+    return params, x, g
+
+
+def start_system(hp, datasets, dev):
+    """A NeRFSystem of the hyperparameters ``hp`` on the (train, test)
+    datasets, its field drawn from SEED."""
+    from mfnerf_tpu_torch.train import NeRFSystem
+    system = NeRFSystem(argparse.Namespace(**hp), device=dev)
+    system.setup(*datasets)
+    system.configure(SEED)
+    return system
+
+
+def culled_state(system, seed):
+    """The untrained field's occupancy: culled to the training cameras, then
+    one dense refresh with jitter drawn from ``seed``."""
+    ds, cfg, dev = system.train_dataset, system.model_cfg, system.device
+    occ = system.model.mark_invisible_cells(system.occ, ds.K, system.poses,
+                                            ds.img_wh)
+    return system.model.update_density_grid(
+        occ, system.density_threshold,
+        torch.rand((cfg.cascades, cfg.n_cells, 3),
+                   generator=torch.Generator(device=dev).manual_seed(seed),
+                   device=dev) * 2 - 1)
+
+
+def oracle_batch(ds, seed):
+    """N_ORACLE_RAYS training rays (CPU tensors) and their march jitter."""
+    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+    pick = np.random.default_rng(seed)
+    img = torch.from_numpy(pick.integers(0, N_TRAIN_VIEWS, N_ORACLE_RAYS))
+    pix = torch.from_numpy(pick.integers(0, WH * WH, N_ORACLE_RAYS))
+    ro, rd = get_rays(torch.from_numpy(ds.directions)[pix],
+                      torch.from_numpy(ds.poses)[img])
+    return {"rays_o": ro, "rays_d": rd,
+            "rgb": torch.from_numpy(ds.rays)[img, pix],
+            "noise": torch.from_numpy(pick.random(N_ORACLE_RAYS,
+                                                  dtype=np.float32))}
+
+
+def held_out_view(system):
+    """(rays, rgb, render config at T_threshold TEST_T) of the test view."""
+    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+    dev, view = system.device, system.test_dataset[0]
+    rays = get_rays(torch.from_numpy(system.train_dataset.directions).to(dev),
+                    torch.from_numpy(view["pose"]).to(dev))
+    return (rays, torch.from_numpy(view["rgb"]).to(dev),
+            dataclasses.replace(system.rcfg, T_threshold=TEST_T))
+
+
+def render_view(system, rays, rcfg, occ=None):
+    """(render_test's output, synced host ms) of one view, with ``occ`` or
+    the system's occupancy."""
+    from mfnerf_tpu_torch.models.rendering import render_test
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render_test(system.model, system.occ if occ is None else occ,
+                      *rays, rcfg)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_steps(system, read_launches):
+    """WARM_STEPS steps of ``system.fit``, then N_CHUNKS chunks of CHUNK
+    steps timed on the host clock; ``read_launches()`` (the kernels' launch
+    counts) just after them; then four half refreshes of the trained field,
+    timed. Returns the train phase's fields."""
+    hp = system.hparams
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [system.fit(WARM_STEPS)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunk_ms = []
+    for _ in range(N_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(system.fit(CHUNK))
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = {key: torch.cat([c[key] for c in metrics]) for key in metrics[0]}
+    check(bool(torch.isfinite(m["loss"]).all()), "a training loss is not "
+          "finite")
+    occ_after = system.occ
+    refresh_ms = []
+    for _ in range(4):                 # the trained field's half refreshes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.update_grid()
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    system.occ = occ_after
+    ms_step = float(np.median(chunk_ms))
+    return dict(
+        grid=hp.grid, steps=system.global_step, batch=hp.batch_size,
+        ms_per_step=ms_step, chunk_ms_per_step=chunk_ms,
+        warm_seconds=warm_s, rays_per_s=hp.batch_size / ms_step * 1e3,
+        rm_s=float(m["rm_s"][-CHUNK:].mean()),
+        vr_s=float(m["vr_s"][-CHUNK:].mean()),
+        rm_s_first=float(m["rm_s"][0]),
+        train_psnr=float(m["psnr"][-50:].mean()),
+        train_psnr_last_step=float(m["psnr"][-1]),
+        loss_last=float(m["loss"][-1]), refresh_ms=refresh_ms,
+        **launches, max_memory_gb=peak_gb)
 
 
 def main():
@@ -235,12 +569,12 @@ def main():
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models.ngp import NGP, NGPConfig, OccupancyState
     from mfnerf_tpu_torch.models.rendering import (RenderConfig, render_test,
-                                                   render_test_dense,
-                                                   render_train)
+                                                   render_test_dense)
+    from mfnerf_tpu_torch.ops import hashgrid, hatmul
+    from mfnerf_tpu_torch.ops.hashgrid import hashgrid_bwd, hashgrid_encode
     from mfnerf_tpu_torch.ops.hatmul import (hat_prod, hat_prod_bwd,
                                              hat_prod_plain)
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
-    from mfnerf_tpu_torch.train import NeRFSystem
     from mfnerf_tpu_torch.utils.metrics import psnr
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
@@ -267,13 +601,25 @@ def main():
           nvcc=nvcc.strip(), triton=triton_version,
           tf32=False)
 
-    # ---- 2. build
+    # ---- 2 and 11. build both kernels' sources, one nvcc each, together
     src = "mfnerf_tpu_torch/csrc/hatmul.cu"
-    fresh = not build.library_path("hatmul").exists()
-    t0 = time.perf_counter()
-    build.load_library("hatmul")
-    phase("build", source=src, built=fresh,
-          seconds=time.perf_counter() - t0, card=card)
+    hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
+
+    def timed_build(lib):
+        fresh = not build.library_path(lib).exists()
+        t0 = time.perf_counter()
+        build.load_library(lib)
+        return fresh, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {lib: pool.submit(timed_build, lib)
+                  for lib in ("hatmul", "hashgrid")}
+        for label, lib, source in (("build", "hatmul", src),
+                                   ("build_hashgrid", "hashgrid",
+                                    hash_src)):
+            fresh, seconds = builds[lib].result()
+            phase(label, source=source, built=fresh, seconds=seconds,
+                  card=card)
 
     # ---- 3. kernel against its plain version, at the serving shapes
     cfg = NGPConfig(lr_k_max=256, lr_fused=True)   # the bench model
@@ -402,139 +748,67 @@ def main():
     del u3, g, u_e, w_e, g_e
     torch.cuda.empty_cache()
 
+    # ---- 12. the hash-grid kernels against their plain versions, 2^19
+    hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
+    hash_uniform = {}
+    for i, grid_kw in enumerate((HASH_GRID, dict(
+            HASH_GRID, grid="MixedFeature", log2_T=20, N_tables=8))):
+        hcfg = NGPConfig(**grid_kw).hash_cfg
+        hash_uniform[hcfg.grid_type] = check_hashgrid(
+            "uniform", hcfg, *hash_uniform_operands(hcfg, SEED + 10 + i),
+            SEED + 20 + i)
+        phase("kernel_hashgrid", **hash_uniform[hcfg.grid_type], card=card)
+    # the kernels' generic path: F = 4 features, L = 12 levels (252-thread
+    # backward blocks), at 2^16 points
+    hcfg = NGPConfig(grid="Hash", L=12, F=4, log2_T=16,
+                     N_max=512).hash_cfg
+    phase("kernel_hashgrid", **check_hashgrid(
+        "generic", hcfg, *hash_uniform_operands(hcfg, SEED + 12, 1 << 16),
+        SEED + 22), card=card)
+    torch.cuda.empty_cache()
+
     # ---- 8. one training step on the card against the same step on the CPU
     train_scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=1, wh=WH,
                              seed=SEED)
-    hp = argparse.Namespace(**BENCH_HP)
-    system = NeRFSystem(hp, device=dev)
-    system.setup(MemoryDataset.from_scene(train_scene, "train"),
-                 MemoryDataset.from_scene(train_scene, "test"))
-    system.configure(SEED)
-    ds = system.train_dataset
-    occ0 = system.model.mark_invisible_cells(system.occ, ds.K, system.poses,
-                                             ds.img_wh)
-    tcfg = system.model_cfg
-    occ0 = system.model.update_density_grid(
-        occ0, system.density_threshold,
-        torch.rand((tcfg.cascades, tcfg.n_cells, 3),
-                   generator=torch.Generator(device=dev).manual_seed(SEED + 2),
-                   device=dev) * 2 - 1)
-    pick = np.random.default_rng(SEED + 3)
-    img = torch.from_numpy(pick.integers(0, N_TRAIN_VIEWS, N_ORACLE_RAYS))
-    pix = torch.from_numpy(pick.integers(0, WH * WH, N_ORACLE_RAYS))
-    ro, rd = get_rays(torch.from_numpy(ds.directions)[pix],
-                      torch.from_numpy(ds.poses)[img])
-    batch = {"rays_o": ro, "rays_d": rd,
-             "rgb": torch.from_numpy(ds.rays)[img, pix],
-             "noise": torch.from_numpy(pick.random(N_ORACLE_RAYS,
-                                                   dtype=np.float32))}
+    datasets = (MemoryDataset.from_scene(train_scene, "train"),
+                MemoryDataset.from_scene(train_scene, "test"))
+    system = start_system(BENCH_HP, datasets, dev)
+    occ0 = culled_state(system, SEED + 2)
     cpu_model = NGP(system.model_cfg, device="cpu")
     cpu_model.load_state_dict(system.model.state_dict())
-    steps = {}
-    for where, model_, occ_ in (
-            ("card", system.model, occ0),
-            ("cpu", cpu_model, OccupancyState(occ0.density_grid.cpu(),
-                                              occ0.density_bitfield.cpu()))):
-        on = {key: v.to(model_.device) for key, v in batch.items()}
-        res = render_train(model_, occ_, on["rays_o"], on["rays_d"],
-                           on["noise"], system.rcfg)
-        loss = sum(v.mean() for v in system.loss(
-            res, {"rgb": on["rgb"]}).values())
-        model_.zero_grad(set_to_none=True)
-        loss.backward()
-        steps[where] = (float(loss.detach()), int(res["rm_samples"]), {
-            name: p_.grad.detach().cpu() for name, p_
-            in model_.named_parameters()})
-    system.model.zero_grad(set_to_none=True)
-    (loss_c, rm_c, grads_c), (loss_p, rm_p, grads_p) = \
-        steps["card"], steps["cpu"]
-    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
-    grad_rel = {name: float((grads_c[name] - grads_p[name]).norm()
-                            / grads_p[name].norm()) for name in grads_p}
+    fields, grads_c = step_oracle(system.model, cpu_model, occ0, system.rcfg,
+                                  system.loss,
+                                  oracle_batch(system.train_dataset,
+                                               SEED + 3))
     line_norms = [float(v.norm()) for name, v in grads_c.items()
                   if name.startswith("lowrank.lines.")]
-    phase("train_step_oracle", rays=N_ORACLE_RAYS, samples_card=rm_c,
-          samples_cpu=rm_p, loss_card=loss_c, loss_cpu=loss_p,
-          loss_rel_err=loss_rel, loss_tol=LOSS_TOL,
-          grad_rel_err_max=max(grad_rel.values()),
-          grad_rel_err_worst=max(grad_rel, key=grad_rel.get),
-          grad_tol=GRAD_TOL, line_tables=len(line_norms),
+    phase("train_step_oracle", **fields, line_tables=len(line_norms),
           line_grad_norm_min=min(line_norms), card=card)
-    check(rm_c == rm_p, f"samples on the card {rm_c} vs cpu {rm_p}")
-    check(loss_rel <= LOSS_TOL, f"loss card {loss_c} vs cpu {loss_p}")
-    check(max(grad_rel.values()) <= GRAD_TOL, f"gradients: {grad_rel}")
     check(len(line_norms) == 3 * lr.n_frames * len(lr.levels)
           and min(line_norms) > 0, "a line table got no gradient")
+    del cpu_model, grads_c
 
     # ---- 10a. the held-out view before training (culled + one refresh)
-    test_view = system.test_dataset[0]
-    test_rays = get_rays(torch.from_numpy(ds.directions).to(dev),
-                         torch.from_numpy(test_view["pose"]).to(dev))
-    test_rgb = torch.from_numpy(test_view["rgb"]).to(dev)
-    test_rcfg = dataclasses.replace(system.rcfg, T_threshold=TEST_T)
-
-    def render_view():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = render_test(system.model, system.occ, *test_rays, test_rcfg)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    system.occ, occ_train = occ0, system.occ
-    out, _ = render_view()
+    test_rays, test_rgb, test_rcfg = held_out_view(system)
+    out, _ = render_view(system, test_rays, test_rcfg, occ0)
     psnr_before = float(psnr(out["rgb"], test_rgb))
-    system.occ = occ_train
     del occ0, out
 
     # ---- 9. train: 300 steps, then 6 timed chunks of 100
     hat_prod.launches = hat_prod_bwd.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = [system.fit(WARM_STEPS)]
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    chunk_ms = []
-    for _ in range(N_CHUNKS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics.append(system.fit(CHUNK))
-        torch.cuda.synchronize()
-        chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
-    launches_fwd, launches_bwd = hat_prod.launches, hat_prod_bwd.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    m = {key: torch.cat([c[key] for c in metrics]) for key in metrics[0]}
-    check(bool(torch.isfinite(m["loss"]).all()), "a training loss is not "
-          "finite")
+    fields = train_steps(system, lambda: dict(
+        hat_prod_launches=hat_prod.launches,
+        hat_prod_bwd_launches=hat_prod_bwd.launches))
+    phase("train", **fields, card=card)
+    launches_fwd = fields["hat_prod_launches"]
+    launches_bwd = fields["hat_prod_bwd_launches"]
     check(launches_fwd > 0 and launches_bwd > 0,
           f"training launched hat_prod {launches_fwd}, hat_prod_bwd "
           f"{launches_bwd} times")
-    occ_after = system.occ
-    refresh_ms = []
-    for _ in range(4):                 # the trained field's half refreshes
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        system.update_grid()
-        torch.cuda.synchronize()
-        refresh_ms.append((time.perf_counter() - t0) * 1e3)
-    system.occ = occ_after
-    ms_step = float(np.median(chunk_ms))
-    phase("train", steps=system.global_step, batch=hp.batch_size,
-          ms_per_step=ms_step, chunk_ms_per_step=chunk_ms,
-          warm_seconds=warm_s, rays_per_s=hp.batch_size / ms_step * 1e3,
-          rm_s=float(m["rm_s"][-CHUNK:].mean()),
-          vr_s=float(m["vr_s"][-CHUNK:].mean()),
-          rm_s_first=float(m["rm_s"][0]),
-          train_psnr=float(m["psnr"][-50:].mean()),
-          train_psnr_last_step=float(m["psnr"][-1]),
-          loss_last=float(m["loss"][-1]), refresh_ms=refresh_ms,
-          hat_prod_launches=launches_fwd,
-          hat_prod_bwd_launches=launches_bwd, max_memory_gb=peak_gb,
-          card=card)
 
     # ---- 10b. the held-out view after training
-    render_view()                                  # warm-up frame
-    out, view_ms = render_view()
+    render_view(system, test_rays, test_rcfg)      # warm-up frame
+    out, view_ms = render_view(system, test_rays, test_rcfg)
     psnr_after = float(psnr(out["rgb"], test_rgb))
     phase("test_view", wh=WH, T_threshold=TEST_T, psnr_before=psnr_before,
           psnr_after=psnr_after, ms_per_frame=view_ms,
@@ -545,10 +819,10 @@ def main():
           f"test PSNR {psnr_before} -> {psnr_after}")
 
     # ---- 7b. backward kernel on one real step's operands (trained field)
-    captured = capture_bwd_operands(system, SEED + 4)
+    captured = capture_bwd_operands(system, SEED + 4, hatmul)
     check(len(captured) == lr.n_frames, f"{len(captured)} hat backward calls")
     # both frames' g are column slices of the (N, 2R) feature gradient
-    u3, w3_t, k_t, g = captured[0]
+    u3, w3_t, k_t, g, _ = captured[0]
     check(not g.is_contiguous() and g.stride(0) == 2 * g.shape[1],
           f"g of stride {g.stride()} is not a column slice")
     bwd_train = check_bwd("train", u3, w3_t, k_t, g)
@@ -558,7 +832,78 @@ def main():
     phase("kernel_bwd", name="hat_prod_bwd", **bwd_train,
           fwd_ms=fwd_train_ms, fwd_bound_ms=fwd_train_bound,
           fwd_share_of_bound=fwd_train_bound / fwd_train_ms, card=card)
-    del captured, u3, g
+    del captured, u3, g, system, out
+    torch.cuda.empty_cache()
+
+    # ---- 13. the MixedFeature bench configuration: one step, card vs CPU,
+    # exact and with the sampled-corner table gradient (one corner)
+    mf = start_system(MF_HP, datasets, dev)
+    occ0 = culled_state(mf, SEED + 6)
+    batch = oracle_batch(mf.train_dataset, SEED + 7)
+    for mode, m_ in (("exact", 8), ("sampled", 1)):
+        mcfg = dataclasses.replace(mf.model_cfg, hash_grad_samples=m_)
+        model_c, model_p = (NGP(mcfg, device=d) for d in (dev, "cpu"))
+        model_c.load_state_dict(mf.model.state_dict())
+        model_p.load_state_dict(mf.model.state_dict())
+        rows = None if m_ == 8 else torch.from_numpy(
+            np.random.default_rng(SEED + 8).random(
+                (N_ORACLE_RAYS * MF_HP["s_max_train"], m_),
+                dtype=np.float32))
+        fields, grads_c = step_oracle(model_c, model_p, occ0, mf.rcfg,
+                                      mf.loss, batch, rows)
+        table_norm = float(grads_c["hash_table"].norm())
+        phase("train_step_oracle_mf", mode=mode, hash_grad_samples=m_,
+              **fields, hash_table_grad_norm=table_norm, card=card)
+        check(table_norm > 0, "the hash table got no gradient")
+        del model_c, model_p, grads_c
+
+    # ---- 15a. the held-out view before training (culled + one refresh)
+    out, _ = render_view(mf, test_rays, test_rcfg, occ0)
+    psnr_before = float(psnr(out["rgb"], test_rgb))
+    del occ0, out
+
+    # ---- 14. train the MixedFeature field: 300 steps, 6 timed chunks of 100
+    hashgrid_encode.launches = hashgrid_bwd.launches = 0
+    fields = train_steps(mf, lambda: dict(
+        hashgrid_fwd_launches=hashgrid_encode.launches,
+        hashgrid_bwd_launches=hashgrid_bwd.launches))
+    phase("train_mf", **fields, card=card)
+    mf_fwd = fields["hashgrid_fwd_launches"]
+    mf_bwd = fields["hashgrid_bwd_launches"]
+    check(mf_fwd > 0 and mf_bwd > 0,
+          f"training launched hashgrid_fwd {mf_fwd}, hashgrid_bwd {mf_bwd} "
+          f"times")
+
+    # ---- 15b. the held-out view after training
+    render_view(mf, test_rays, test_rcfg)          # warm-up frame
+    hashgrid_encode.launches = 0
+    out, view_ms = render_view(mf, test_rays, test_rcfg)
+    view_launches = hashgrid_encode.launches
+    psnr_after = float(psnr(out["rgb"], test_rgb))
+    phase("test_view_mf", wh=WH, T_threshold=TEST_T,
+          psnr_before=psnr_before, psnr_after=psnr_after,
+          psnr_min=MF_PSNR_MIN, psnr_gain=PSNR_GAIN,
+          ms_per_frame=view_ms, samples_per_frame=out["total_samples"],
+          rounds=out["rounds"], hashgrid_fwd_launches=view_launches,
+          card=card)
+    check(bool(torch.isfinite(out["rgb"]).all()), "test view not finite")
+    check(view_launches > 0, "render_test never launched hashgrid_fwd")
+    check(psnr_after >= MF_PSNR_MIN
+          and psnr_after >= psnr_before + PSNR_GAIN,
+          f"MixedFeature test PSNR {psnr_before} -> {psnr_after}")
+    del out
+
+    # ---- 12b. the hash-grid kernels on one real step's operands
+    captured = capture_bwd_operands(mf, SEED + 9, hashgrid)
+    check(len(captured) == 1, f"{len(captured)} hash-grid backward calls")
+    params_t, x_t, cfg_t, g_t, win_t, noise_t, need_dx_t = captured[0]
+    check(win_t is None and noise_t is None and not need_dx_t,
+          "the training step's hash-grid backward is not the exact one "
+          "without d_x")
+    hash_train = check_hashgrid("train", cfg_t, params_t, x_t, g_t,
+                                SEED + 30)
+    phase("kernel_hashgrid", **hash_train, card=card)
+    del captured, params_t, x_t, g_t
 
     fwd_bound_ms, fwd_bound_by = fwd_bound(N_KERNEL, k, w3.shape[2])
     print(json.dumps({"kernels": [{
@@ -573,7 +918,20 @@ def main():
         "max_abs_err": bwd_uniform["dw_max_abs_err"],
         "ms": bwd_uniform["ms"], "plain_ms": bwd_uniform["plain_ms"],
         "bound_ms": bwd_uniform["bound_ms"],
-        "bound_by": bwd_uniform["bound_by"], "library_ms": None}]}),
+        "bound_by": bwd_uniform["bound_by"], "library_ms": None}, {
+        "name": "hashgrid_fwd", "route": "cuda", "source": hash_src,
+        "replaces": "mfnerf_tpu/ops/hashgrid.py:197",
+        "launches": mf_fwd, "max_abs_err": hash_train["fwd_max_abs_err"],
+        "ms": hash_train["fwd_ms"], "plain_ms": hash_train["fwd_plain_ms"],
+        "bound_ms": hash_train["fwd_bound_ms"],
+        "bound_by": hash_train["fwd_bound_by"], "library_ms": None}, {
+        "name": "hashgrid_bwd", "route": "cuda", "source": hash_src,
+        "replaces": "mfnerf_tpu/ops/hashgrid.py:246",
+        "launches": mf_bwd,
+        "max_abs_err": hash_train["exact_dp_max_abs_err"],
+        "ms": hash_train["bwd_ms"], "plain_ms": hash_train["bwd_plain_ms"],
+        "bound_ms": hash_train["bwd_bound_ms"],
+        "bound_by": hash_train["bwd_bound_by"], "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

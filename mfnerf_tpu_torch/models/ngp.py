@@ -1,15 +1,21 @@
-"""NGP radiance field: LowRank encoder + sigma/rgb MLPs + occupancy grid.
+"""NGP radiance field: an encoder + sigma/rgb MLPs + occupancy grid.
 
-Port of ``mfnerf_tpu/models/ngp.py`` for the LowRank grid. ``NGP`` is an
-``nn.Module`` whose parameters carry the JAX pytree's names
-(``lowrank.lines.<m>.<l>.<d>``, ``lowrank.proj``, ``sigma_mlp.<i>``,
-``rgb_mlp.<i>``), so a JAX checkpoint loads through
-``utils.ckpt.params_from_numpy``. MLPs are bias-free, weights stored
-(fan_in, fan_out) and applied as ``h @ W``.
+Port of ``mfnerf_tpu/models/ngp.py``. The encoder is the LowRank grid
+(``ops/lowrank.py``) or one of the Hash, Window and MixedFeature grids
+(``ops/hashgrid.py``). ``NGP`` is an ``nn.Module`` whose parameters carry
+the JAX pytree's names (``lowrank.lines.<m>.<l>.<d>`` and ``lowrank.proj``,
+or ``hash_table``; ``sigma_mlp.<i>``, ``rgb_mlp.<i>``), so a JAX checkpoint
+loads through ``utils.ckpt.params_from_numpy``. MLPs are bias-free, weights
+stored (fan_in, fan_out) and applied as ``h @ W``.
 
-The Hash/Window/MixedFeature grids, the HDR tonemappers, the sampled
-(``sparse``) occupancy refresh and the TPU-only occupancy tables (coarse,
-neighbourhood, union) are not ported here.
+``NGPConfig.grid`` defaults to ``"LowRank"``, where the JAX package's
+default is ``"Hash"``: the port's callers were written for LowRank, and the
+JAX default would turn each of them into a hash-grid model without a word.
+Pass ``grid="Hash"`` (or ``Window``, ``MixedFeature``) for the hash grids.
+
+The HDR tonemappers, the sampled (``sparse``) occupancy refresh and the
+TPU-only occupancy tables (coarse, neighbourhood, union) are not ported
+here.
 """
 import dataclasses
 import math
@@ -19,6 +25,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.activations import trunc_exp
+from ..ops.hashgrid import (HashGridConfig, hashgrid_encode,
+                            init_hashgrid_params, window_weights)
 from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
 from ..ops.morton import morton3d_invert, packbits
 from ..ops.sh import sh_encode
@@ -28,11 +36,19 @@ NEAR_DISTANCE = 0.01  # the reference's models/rendering.py:8
 
 @dataclasses.dataclass(frozen=True)
 class NGPConfig:
-    """The LowRank fields of ``mfnerf_tpu.models.ngp.NGPConfig``, with the
-    same names and defaults."""
+    """The fields of ``mfnerf_tpu.models.ngp.NGPConfig`` that the port uses,
+    with the same names and defaults, except ``grid`` (module docstring)."""
     scale: float = 0.5
+    grid: str = "LowRank"         # LowRank | Hash | Window | MixedFeature
     L: int = 16                   # L * F is the encoder's output width
     F: int = 2
+    log2_T: int = 19
+    N_min: int = 16
+    N_max: int = 2048
+    N_tables: int = 1
+    # hash grids: corners (of 8) that receive the table gradient, drawn by
+    # trilinear weight (ops/hashgrid.HashGridConfig.grad_corners); 8 = exact
+    hash_grad_samples: int = 8
     rgb_channels: int = 64
     rgb_layers: int = 2
     grid_size: int = 128
@@ -49,6 +65,21 @@ class NGPConfig:
     @property
     def cascades(self) -> int:
         return max(1 + int(math.ceil(math.log2(2 * self.scale))), 1)
+
+    @property
+    def per_level_scale(self) -> float:
+        """The growth factor b of the hash grids' level resolutions."""
+        return math.exp(
+            math.log(self.N_max * self.scale / self.N_min) / (self.L - 1))
+
+    @property
+    def hash_cfg(self) -> HashGridConfig:
+        if self.grid == "LowRank":
+            raise ValueError("LowRank grid has no hash config")
+        return HashGridConfig.create(
+            L=self.L, F=self.F, log2_T=self.log2_T, N_min=self.N_min,
+            b=self.per_level_scale, grid_type=self.grid,
+            N_tables=self.N_tables, grad_corners=self.hash_grad_samples)
 
     @property
     def lowrank_cfg(self) -> LowRankConfig:
@@ -102,24 +133,30 @@ def _mlp_apply(ws, x, sigmoid=False):
 
 
 class NGP(nn.Module):
-    """The LowRank NGP field on ``device`` (default: the CUDA device;
-    raises without one). Parameters are drawn by :meth:`init`."""
+    """The NGP field on ``device`` (default: the CUDA device; raises without
+    one). Parameters are drawn by :meth:`init`."""
 
     def __init__(self, cfg: NGPConfig, generator: torch.Generator = None,
                  device=None):
         super().__init__()
         self.cfg = cfg
-        lr = cfg.lowrank_cfg
-        self.lowrank_cfg = lr
-        self.lowrank = nn.Module()
-        self.lowrank.lines = nn.ModuleList([
-            nn.ModuleList([
-                nn.ParameterList([nn.Parameter(torch.empty(k, lr.rank))
-                                  for _ in range(3)])
-                for k in lr.levels])
-            for _ in range(lr.n_frames)])
-        self.lowrank.proj = nn.Parameter(
-            torch.empty(lr.n_components, lr.out_dim))
+        self.is_lowrank = cfg.grid == "LowRank"
+        self.lowrank_cfg = cfg.lowrank_cfg if self.is_lowrank else None
+        self.hash_cfg = None if self.is_lowrank else cfg.hash_cfg
+        if self.is_lowrank:
+            lr = self.lowrank_cfg
+            self.lowrank = nn.Module()
+            self.lowrank.lines = nn.ModuleList([
+                nn.ModuleList([
+                    nn.ParameterList([nn.Parameter(torch.empty(k, lr.rank))
+                                      for _ in range(3)])
+                    for k in lr.levels])
+                for _ in range(lr.n_frames)])
+            self.lowrank.proj = nn.Parameter(
+                torch.empty(lr.n_components, lr.out_dim))
+        else:
+            self.hash_table = nn.Parameter(
+                torch.empty(self.hash_cfg.n_params, self.hash_cfg.F))
         self.sigma_mlp = _mlp_params(
             [cfg.L * cfg.F, cfg.sigma_neurons, cfg.geo_feat_dim])
         self.rgb_mlp = _mlp_params(
@@ -132,13 +169,18 @@ class NGP(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator):
         """Draw every parameter from ``generator`` with the JAX init law:
-        lines 1{d=0} + N(0, 0.3), He-uniform projection and MLPs."""
-        lr = init_lowrank_params(self.lowrank_cfg, generator)
-        for m, per_level in enumerate(lr["lines"]):
-            for li, axes in enumerate(per_level):
-                for d, t in enumerate(axes):
-                    self.lowrank.lines[m][li][d].copy_(t)
-        self.lowrank.proj.copy_(lr["proj"])
+        lines 1{d=0} + N(0, 0.3) and a He-uniform projection, or a
+        U(-1e-4, 1e-4) hash table; He-uniform MLPs."""
+        if self.is_lowrank:
+            lr = init_lowrank_params(self.lowrank_cfg, generator)
+            for m, per_level in enumerate(lr["lines"]):
+                for li, axes in enumerate(per_level):
+                    for d, t in enumerate(axes):
+                        self.lowrank.lines[m][li][d].copy_(t)
+            self.lowrank.proj.copy_(lr["proj"])
+        else:
+            self.hash_table.copy_(init_hashgrid_params(self.hash_cfg,
+                                                       generator))
         for w in [*self.sigma_mlp, *self.rgb_mlp]:
             bound = math.sqrt(6.0 / w.shape[0])
             w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound)
@@ -147,27 +189,43 @@ class NGP(nn.Module):
 
     @property
     def device(self):
-        return self.lowrank.proj.device
+        return self.sigma_mlp[0].device
 
     def _normalize(self, x):
         s = self.cfg.scale
         return torch.clamp((x + s) / (2 * s), 0.0, 1.0)
 
-    def density(self, x, return_feat=False):
+    def density(self, x, return_feat=False, window_alpha=None,
+                grad_noise=None):
         """sigma (N,) at world positions x (N, 3) [and the (N, 16) sigma-MLP
-        output whose channel 0 is log-sigma]."""
-        enc = lowrank_encode(
-            {"lines": self.lowrank.lines, "proj": self.lowrank.proj},
-            self._normalize(x), self.lowrank_cfg)
+        output whose channel 0 is log-sigma].
+
+        ``window_alpha``: the Window grid's level window (none when None).
+        ``grad_noise``: optional (N, hash_grad_samples) uniforms for the hash
+        grids' sampled-corner table gradient (training only).
+        """
+        xn = self._normalize(x)
+        if self.is_lowrank:
+            enc = lowrank_encode(
+                {"lines": self.lowrank.lines, "proj": self.lowrank.proj},
+                xn, self.lowrank_cfg)
+        else:
+            win = None
+            if self.cfg.grid == "Window" and window_alpha is not None:
+                win = window_weights(self.hash_cfg, window_alpha, xn.device)
+            enc = hashgrid_encode(self.hash_table, xn, self.hash_cfg, win,
+                                  grad_noise)
         h = _mlp_apply(self.sigma_mlp, enc)
         sigmas = trunc_exp(h[:, 0])
         if return_feat:
             return sigmas, h
         return sigmas
 
-    def forward(self, x, d):
+    def forward(self, x, d, window_alpha=None, grad_noise=None):
         """(sigma (N,), rgb (N, 3)) at positions x with view directions d."""
-        sigmas, h = self.density(x, return_feat=True)
+        sigmas, h = self.density(x, return_feat=True,
+                                 window_alpha=window_alpha,
+                                 grad_noise=grad_noise)
         d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         sh = sh_encode((d + 1.0) / 2.0, self.cfg.sh_degree)
         rgbs = _mlp_apply(self.rgb_mlp, torch.cat([sh, h], dim=1),

@@ -82,19 +82,25 @@ def _scene_hits(model, rays_o, rays_d):
         rays_o, rays_d, torch.zeros(3), torch.full((3,), s)))
 
 
-def _eval_valid(model, xyzs, rays_d, mask):
+def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None):
     """Field on the valid samples of a (N, S) block; zeros elsewhere. The
-    scatter is out of place, so autograd reaches the field in training."""
+    scatter is out of place, so autograd reaches the field in training.
+    ``grad_noise``: the hash grids' per-sample uniforms for the valid
+    samples in row-major order, or a function of their count that draws
+    them."""
     n, s = mask.shape
     flat = torch.nonzero(mask.reshape(-1)).squeeze(1)
-    sig, col = model(xyzs.reshape(-1, 3)[flat], rays_d[flat // s])
+    if callable(grad_noise):
+        grad_noise = grad_noise(flat.numel())
+    sig, col = model(xyzs.reshape(-1, 3)[flat], rays_d[flat // s],
+                     grad_noise=grad_noise)
     sigmas = sig.new_zeros(n * s).index_put((flat,), sig)
     rgbs = col.new_zeros((n * s, 3)).index_put((flat,), col)
     return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
 
 
 def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
-                 bg_rgb=None):
+                 bg_rgb=None, grad_noise=None):
     """Differentiable rendering of a training ray batch.
 
     Args:
@@ -103,6 +109,10 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
             package; a tensor here, so callers choose the generator).
         bg_rgb: (3,) background for ``rcfg.random_bg`` on real scenes
             (synthetic scenes composite onto white, real ones onto black).
+        grad_noise: the hash grids' sampled-corner uniforms (the JAX
+            ``hash_grad_noise``): (N_valid, hash_grad_samples) rows for the
+            valid samples in row-major order of ``mask``, or a function of
+            N_valid that draws them; None for the exact table gradient.
     Returns:
         dict(rgb, opacity, depth, ws, deltas, ts, mask, rm_samples,
         vr_samples); the sample counters are 0-d tensors.
@@ -113,7 +123,7 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         occ.density_bitfield, cfg.cascades, cfg.scale, rcfg.exp_step_factor,
         cfg.grid_size, rcfg.max_samples, noise,
         rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train)
-    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mr.mask)
+    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mr.mask, grad_noise)
     comp = composite_train(sigmas, rgbs, mr.deltas, mr.ts, mr.mask,
                            rcfg.T_threshold)
     if rcfg.exp_step_factor == 0:       # synthetic scenes: white background

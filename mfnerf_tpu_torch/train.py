@@ -4,16 +4,17 @@
 ``configure()``, then ``fit()``: the same entry points, hyperparameter names
 and step as the JAX package. A step samples a batch of rays on the device,
 renders it with :func:`models.rendering.render_train`, takes ``NeRFLoss`` and
-its gradient by autograd (through the hand-written hat-product kernels on the
-card) and applies Adam (eps 1e-15) on the cosine-staircase learning rate. The
-occupancy grid is culled to the training cameras once, then refreshed every
-``UPDATE_INTERVAL`` steps (alternating even/odd Morton halves with
-``refresh_half``).
+its gradient by autograd (through the hand-written encoder kernels on the
+card: the hat product of the LowRank grid, or the hash-grid encoder of the
+Hash, Window and MixedFeature grids) and applies Adam (eps 1e-15) on the
+cosine-staircase learning rate. The occupancy grid is culled to the training
+cameras once, then refreshed every ``UPDATE_INTERVAL`` steps (alternating
+even/odd Morton halves with ``refresh_half``).
 
 The JAX package's fused multi-step runner exists to spare TPU dispatch round
 trips and is not ported; the port runs one step per call. Not ported yet:
 the on-disk dataset loaders and the CLI, ``optimize_ext``, HDR exposure,
-the Hash grids, data parallelism and the sampled (``sparse``) refresh.
+data parallelism and the sampled (``sparse``) refresh.
 """
 import math
 
@@ -32,6 +33,7 @@ from .utils.metrics import psnr as psnr_fn
 WARMUP_STEPS = 256
 UPDATE_INTERVAL = 16      # steps between occupancy refreshes
 STEPS_PER_EPOCH = 1000
+GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
 
 
 def cosine_staircase_lr(lr0, num_epochs, steps_per_epoch=STEPS_PER_EPOCH):
@@ -49,13 +51,13 @@ def cosine_staircase_lr(lr0, num_epochs, steps_per_epoch=STEPS_PER_EPOCH):
 
 
 class NeRFSystem:
-    """Trainer of a LowRank NGP field on an in-memory dataset, on ``device``
+    """Trainer of an NGP field on an in-memory dataset, on ``device``
     (default: the CUDA device; raises without one, never falls back to the
     CPU)."""
 
     def __init__(self, hparams, device=None):
         hp = hparams
-        unported = {"grid": hp.grid != "LowRank",
+        unported = {"grid": hp.grid not in GRIDS,
                     "use_exposure": hp.use_exposure,
                     "optimize_ext": hp.optimize_ext,
                     "bf16": getattr(hp, "bf16", False)}
@@ -66,8 +68,12 @@ class NeRFSystem:
         self.hparams = hp
         self.device = resolve_device(device)
         self.model_cfg = NGPConfig(
-            scale=hp.scale, L=hp.L, F=hp.F, rgb_channels=hp.rgb_channels,
-            rgb_layers=hp.rgb_layers,
+            scale=hp.scale, grid=hp.grid, L=hp.L, F=hp.F,
+            log2_T=getattr(hp, "T", 19), N_min=getattr(hp, "N_min", 16),
+            N_max=getattr(hp, "N_max", 2048),
+            N_tables=getattr(hp, "N_tables", 1),
+            hash_grad_samples=getattr(hp, "hash_grad_samples", 8),
+            rgb_channels=hp.rgb_channels, rgb_layers=hp.rgb_layers,
             grid_size=getattr(hp, "grid_size", 128),
             lr_levels=getattr(hp, "lr_levels", 8),
             lr_rank=getattr(hp, "lr_rank", 16),
@@ -141,8 +147,13 @@ class NeRFSystem:
         rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
         target = {"rgb": self.rays[img, pix]}
         bg = self._rand(3) if self.rcfg.random_bg else None
+        m = self.model_cfg.hash_grad_samples
+        grad_noise = None       # the exact table gradient (and LowRank)
+        if self.model_cfg.grid != "LowRank" and m < 8:
+            def grad_noise(n_valid):
+                return self._rand(n_valid, m)
         results = render_train(self.model, self.occ, rays_o, rays_d,
-                               self._rand(b), self.rcfg, bg)
+                               self._rand(b), self.rcfg, bg, grad_noise)
         loss = sum(v.mean() for v in self.loss(results, target).values())
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()

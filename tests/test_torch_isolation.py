@@ -1,7 +1,7 @@
 """The port runs where JAX is absent: in a subprocess where ``jax`` and
 ``mfnerf_tpu`` cannot be imported, import every module of
-``mfnerf_tpu_torch``, serve a 64-ray frame and take two training steps on
-the CPU."""
+``mfnerf_tpu_torch``, serve a 64-ray frame and take two training steps of a
+LowRank and of a MixedFeature field on the CPU."""
 import os
 import subprocess
 import sys
@@ -51,6 +51,14 @@ before = system.model.lowrank.lines[0][1][0].detach().clone()
 metrics = system.fit(2)
 assert system.global_step == 2 and torch.isfinite(metrics["loss"]).all()
 assert not torch.equal(before, system.model.lowrank.lines[0][1][0])
+hp.grid, hp.L, hp.T, hp.N_max, hp.hash_grad_samples = "MixedFeature", 4, 12, 64, 1
+system = NeRFSystem(hp, device="cpu")
+system.setup(MemoryDataset.from_scene(scene, "train"))
+system.configure(0)
+before = system.model.hash_table.detach().clone()
+metrics = system.fit(2)
+assert torch.isfinite(metrics["loss"]).all()
+assert not torch.equal(before, system.model.hash_table)
 assert not any(m == "jax" or m.startswith(("jax.", "mfnerf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", len(names))

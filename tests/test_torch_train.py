@@ -60,6 +60,8 @@ from test_torch_field import _same_bf16_basis
 
 SMALL = dict(lr_levels=2, lr_rank=8, lr_k_max=64, grid_size=32,
              rgb_channels=16, rgb_layers=1)
+# the hash grids at a small size: 8 levels of 2 features, T 14, N_max 128
+HASH = dict(L=8, log2_T=14, N_max=128)
 
 
 @pytest.fixture(autouse=True)
@@ -327,9 +329,11 @@ def test_nerf_loss_matches_jax():
 
 
 # ------------------------------------------------------ a whole training step
-def _models(seed=0, **kw):
-    cfg = dict(SMALL, **kw)
-    jmodel = jngp.NGP(jngp.NGPConfig(grid="LowRank", **cfg))
+def _models(seed=0, grid="LowRank", **kw):
+    cfg = dict(SMALL, grid=grid, **kw)
+    if grid != "LowRank":
+        cfg.update(HASH)
+    jmodel = jngp.NGP(jngp.NGPConfig(**cfg))
     params = jmodel.init(jax.random.PRNGKey(seed))
     tmodel = tngp.NGP(tngp.NGPConfig(**cfg), device="cpu")
     tmodel.load_state_dict(params_from_numpy(
@@ -352,14 +356,18 @@ def _batch(n=128, seed=0, fill=0x33, grid=32):
 
 
 def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
-              loss_mod):
+              loss_mod, grad_noise=None):
     """The padded branch of the JAX render_train, assembled from the JAX
     package's own functions, then NeRFLoss: (loss, grads, mask).
+    ``grad_noise``: the hash grids' (N*S, m) uniforms for every padded slot,
+    as the JAX padded branch draws them.
 
     The march runs op by op (see the module docstring). So does the fused
     encoder's step: under jit XLA fuses frame 1's rotation and rounds it
     otherwise, which moves many more bf16 hat weights than the exception
-    (computed op by op) admits. The unfused fp32 step runs under jit."""
+    (computed op by op) admits. So does a hash grid's step: under jit XLA
+    may contract x * scale + 0.5 into a fused multiply-add, which can move a
+    sample across a cell. The unfused fp32 LowRank step runs under jit."""
     cfg = jmodel.cfg
     ro, rd = jnp.asarray(rays_o), jnp.asarray(rays_d)
     with jax.disable_jit():
@@ -374,7 +382,9 @@ def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
 
     def loss_fn(p):
         sig, col = jmodel(p, mr.xyzs.reshape(n * s, 3), jnp.broadcast_to(
-            mr.dirs[:, None, :], (n, s, 3)).reshape(-1, 3))
+            mr.dirs[:, None, :], (n, s, 3)).reshape(-1, 3),
+            grad_noise=None if grad_noise is None
+            else jnp.asarray(grad_noise))
         sig = jnp.where(mr.mask.reshape(-1), sig, 0.0).reshape(n, s)
         comp = jcomposite.composite_train(sig, col.reshape(n, s, 3),
                                           mr.deltas, mr.ts, mr.mask,
@@ -386,7 +396,7 @@ def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
             results, {"rgb": jnp.asarray(target)}).values())
 
     step = jax.value_and_grad(loss_fn)
-    if cfg.lr_fused:
+    if cfg.lr_fused or cfg.grid != "LowRank":
         with jax.disable_jit():
             loss, grads = step(params)
     else:
@@ -394,12 +404,13 @@ def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
     return float(loss), grads, np.asarray(mr.mask)
 
 
-def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod):
+def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod,
+                grad_noise=None):
     occ = tngp.OccupancyState.create(tmodel.cfg, "cpu")
     occ.density_bitfield = _t(bits)
     tmodel.zero_grad(set_to_none=True)
     res = trendering.render_train(tmodel, occ, _t(rays_o), _t(rays_d),
-                                  _t(noise), rcfg)
+                                  _t(noise), rcfg, grad_noise=grad_noise)
     loss = sum(v.mean() for v in loss_mod(
         res, {"rgb": _t(target)}).values())
     loss.backward()
@@ -407,9 +418,21 @@ def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod):
     return float(loss.detach()), grads, res
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_train_step_matches_jax(fused):
-    jmodel, params, tmodel = _models(lr_fused=fused)
+@pytest.mark.parametrize("grid,fused,m", [
+    pytest.param("LowRank", False, 8, id="False"),
+    pytest.param("LowRank", True, 8, id="True"),
+    pytest.param("Hash", False, 8, id="Hash"),
+    pytest.param("MixedFeature", False, 8, id="MixedFeature"),
+    pytest.param("MixedFeature", False, 1, id="MixedFeature-sampled")])
+def test_train_step_matches_jax(grid, fused, m):
+    """A whole step's loss and every parameter gradient, for the LowRank
+    encoder (unfused fp32 and fused bf16) and the hash grids (MixedFeature
+    with N_tables 2: salted shared tables), exact and with the sampled-corner
+    table gradient. The JAX padded branch draws the sampled corners'
+    uniforms for all N*S slots; the port is handed the valid samples' rows."""
+    kw = dict(N_tables=2, hash_grad_samples=m) if grid == "MixedFeature" \
+        else {}
+    jmodel, params, tmodel = _models(grid=grid, lr_fused=fused, **kw)
     bits, rays_o, rays_d, noise, target = _batch()
     rcfg_kw = dict(s_max_train=32, max_samples=256)
     rcfg_j = jrendering.RenderConfig(**rcfg_kw)
@@ -435,10 +458,16 @@ def test_train_step_matches_jax(fused):
         assert keep.mean() > 0.9, keep.mean()
         rays_o, rays_d, noise, target = (x[keep] for x in
                                          (rays_o, rays_d, noise, target))
+    grad_noise = None
+    if m < 8:
+        grad_noise = np.random.default_rng(1).random(
+            (len(rays_o) * rcfg_kw["s_max_train"], m), dtype=np.float32)
     loss_j, grads_j, mask_j = _jax_step(jmodel, params, bits, rays_o, rays_d,
-                                        noise, target, rcfg_j, loss_j_mod)
-    loss_t, grads_t, res = _torch_step(tmodel, bits, rays_o, rays_d, noise,
-                                       target, rcfg_t, loss_t_mod)
+                                        noise, target, rcfg_j, loss_j_mod,
+                                        grad_noise)
+    loss_t, grads_t, res = _torch_step(
+        tmodel, bits, rays_o, rays_d, noise, target, rcfg_t, loss_t_mod,
+        None if grad_noise is None else _t(grad_noise[mask_j.reshape(-1)]))
     np.testing.assert_array_equal(res["mask"].numpy(), mask_j)
     assert 1000 < mask_j.sum() and int(res["rm_samples"]) == mask_j.sum()
     np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)

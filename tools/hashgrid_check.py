@@ -1,0 +1,71 @@
+"""Check and time the hash-grid kernels alone on the card.
+
+    python3 tools/hashgrid_check.py [--n N] [--ptxas]
+
+Builds ``mfnerf_tpu_torch/csrc/hashgrid.cu``, then runs ``chip_smoke.py``'s
+phase 12 (``check_hashgrid``: the forward against its plain version, the
+backward's d_params bitwise across launches, exact and sampled, d_params,
+d_x and d_window against the plain version, the kernels' times beside their
+bounds) for the CLI's default Hash grid and the MixedFeature benchmark grid
+at N uniform points. ``--ptxas`` first prints what ``nvcc -Xptxas -v`` says
+of each kernel (registers, shared memory, spills). Prints one JSON line a
+check; exits non-zero on a failed check or without a CUDA device.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 19)
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("hashgrid_check: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from mfnerf_tpu_torch import build
+    from mfnerf_tpu_torch.models.ngp import NGPConfig
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    if args.ptxas:
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(build.BUILD_DIR / "hashgrid-ptxas.so"),
+             str(build.CSRC / "hashgrid.cu")], capture_output=True,
+            text=True)
+        print(proc.stdout + proc.stderr, flush=True)
+        if proc.returncode != 0:
+            return proc.returncode
+    t0 = time.perf_counter()
+    build.load_library("hashgrid")
+    print(json.dumps({"build_seconds": time.perf_counter() - t0}),
+          flush=True)
+    chip_smoke.N_HASH = args.n
+    for i, grid_kw in enumerate((chip_smoke.HASH_GRID, dict(
+            chip_smoke.HASH_GRID, grid="MixedFeature", log2_T=20,
+            N_tables=8))):
+        cfg = NGPConfig(**grid_kw).hash_cfg
+        fields = chip_smoke.check_hashgrid(
+            "uniform", cfg, *chip_smoke.hash_uniform_operands(
+                cfg, chip_smoke.SEED + 10 + i), chip_smoke.SEED + 20 + i)
+        print(json.dumps({"phase": "kernel_hashgrid", **fields,
+                          "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

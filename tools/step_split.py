@@ -1,0 +1,216 @@
+"""Where a training step's time goes, stage by stage, on the card.
+
+    python3 tools/step_split.py [--config mf|bench] [--warm 300] [--steps 64]
+
+Trains ``chip_smoke.py``'s configuration (``mf``: MF_HP, the MixedFeature
+benchmark grid; ``bench``: BENCH_HP, the LowRank bench model) on its 16
+procedural 800x800 views for ``--warm`` steps through ``NeRFSystem.fit``,
+then runs ``--steps`` more steps of ``NeRFSystem.train_step``'s body with
+``torch.cuda.synchronize()`` between the stages and times each on the host
+clock:
+
+  ray sampling + get_rays, the march, the field forward (``_eval_valid``),
+  composite + loss forward, composite + loss backward (to the field's
+  outputs), the field backward, Adam + LambdaLR, and the occupancy refresh
+  every 16 steps (amortised);
+
+and, inside the field stages, the encoder kernels' wrappers with CUDA
+events (host gaps included). Then ``torch.profiler`` over 16 unsynced steps
+gives the kernels launched a step and the device's busy time. Prints one
+JSON line per part and the card's name and power limit; exits non-zero
+without a CUDA device.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+class KernelClock:
+    """Device time between CUDA events around every call of a wrapper."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.pairs = []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(*args, **kw)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+    def take_ms(self):
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.pairs)
+        n = len(self.pairs)
+        self.pairs = []
+        return ms, n
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("mf", "bench"), default="mf")
+    ap.add_argument("--warm", type=int, default=300)
+    ap.add_argument("--steps", type=int, default=64)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("step_split: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import chip_smoke
+    from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+    from mfnerf_tpu_torch.models import rendering
+    from mfnerf_tpu_torch.ops import hashgrid, hatmul
+    from mfnerf_tpu_torch.train import UPDATE_INTERVAL
+    from mfnerf_tpu_torch.utils.procedural import make_scene
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    hp = chip_smoke.MF_HP if args.config == "mf" else chip_smoke.BENCH_HP
+    scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS, n_test=1,
+                       wh=chip_smoke.WH, seed=chip_smoke.SEED)
+    system = chip_smoke.start_system(
+        hp, (MemoryDataset.from_scene(scene, "train"),
+             MemoryDataset.from_scene(scene, "test")), torch.device("cuda"))
+    system.fit(args.warm)
+    torch.cuda.synchronize()
+
+    stages = ("sampling", "march", "field_fwd", "composite_loss_fwd",
+              "composite_loss_bwd", "field_bwd", "adam", "refresh")
+    total = dict.fromkeys(stages, 0.0)
+    kernel = {"fwd_ms": 0.0, "fwd_calls": 0, "bwd_ms": 0.0, "bwd_calls": 0}
+    samples = 0
+    mod = hashgrid if system.model_cfg.grid != "LowRank" else hatmul
+    fwd_name = "_launch_fwd" if mod is hashgrid else "_launch"
+    rcfg, b, dev = system.rcfg, hp["batch_size"], system.device
+    with KernelClock(mod, fwd_name) as kf, \
+            KernelClock(mod, "_launch_bwd") as kb:
+        for _ in range(args.steps):
+            t = [time.perf_counter()]
+
+            def mark():
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+
+            if system.global_step % UPDATE_INTERVAL == 0:
+                system.update_grid()
+            mark()
+            kf.take_ms()               # the refresh's launches: not a step's
+            n_img, hw = system.rays.shape[:2]
+            img = torch.randint(n_img, (b,), generator=system.generator,
+                                device=dev)
+            pix = torch.randint(hw, (b,), generator=system.generator,
+                                device=dev)
+            rays_o, rays_d = get_rays(system.directions[pix],
+                                      system.poses[img])
+            noise = system._rand(b)
+            mark()
+            cfg = system.model_cfg
+            mr = rendering.march_rays_train(
+                rays_o, rays_d, rendering._scene_hits(system.model, rays_o,
+                                                      rays_d),
+                system.occ.density_bitfield, cfg.cascades, cfg.scale,
+                rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples,
+                noise, rcfg.n_rungs(cfg.scale, cfg.grid_size),
+                rcfg.s_max_train)
+            mark()
+            sigmas, rgbs = rendering._eval_valid(system.model, mr.xyzs,
+                                                 rays_d, mr.mask)
+            mark()
+            comp = rendering.composite_train(sigmas, rgbs, mr.deltas, mr.ts,
+                                             mr.mask, rcfg.T_threshold)
+            results = {"rgb": comp.rgb + (1.0 - comp.opacity)[:, None],
+                       "opacity": comp.opacity, "ws": comp.ws,
+                       "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask}
+            loss = sum(v.mean() for v in system.loss(
+                results, {"rgb": system.rays[img, pix]}).values())
+            mark()
+            d_sig, d_rgb = torch.autograd.grad(loss, [sigmas, rgbs])
+            mark()
+            system.optimizer.zero_grad(set_to_none=True)
+            torch.autograd.backward([sigmas, rgbs], [d_sig, d_rgb])
+            mark()
+            system.optimizer.step()
+            system.scheduler.step()
+            system.global_step += 1
+            mark()
+            samples += int(mr.mask.sum())
+            order = ("refresh", "sampling", "march", "field_fwd",
+                     "composite_loss_fwd", "composite_loss_bwd",
+                     "field_bwd", "adam")
+            for name, t0, t1 in zip(order, t[:-1], t[1:]):
+                total[name] += (t1 - t0) * 1e3
+            for key, clock in (("fwd", kf), ("bwd", kb)):
+                ms, calls = clock.take_ms()
+                kernel[f"{key}_ms"] += ms
+                kernel[f"{key}_calls"] += calls
+    per_step = {k: v / args.steps for k, v in total.items()}
+    print(json.dumps({
+        "part": "stages", "config": args.config, "grid": hp["grid"],
+        "steps_from": args.warm, "steps": args.steps,
+        "samples_per_step": samples / args.steps,
+        "ms_per_step": per_step, "total_ms": sum(per_step.values()),
+        "kernel_fwd_ms_per_step": kernel["fwd_ms"] / args.steps,
+        "kernel_fwd_calls_per_step": kernel["fwd_calls"] / args.steps,
+        "kernel_bwd_ms_per_step": kernel["bwd_ms"] / args.steps,
+        "kernel_bwd_calls_per_step": kernel["bwd_calls"] / args.steps,
+        "card": card}), flush=True)
+
+    # unsynced steps, then the same under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.fit(args.steps)
+    torch.cuda.synchronize()
+    unsynced = (time.perf_counter() - t0) * 1e3 / args.steps
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 16
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.fit(n_prof)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "device_time_total", 0.0))
+    print(json.dumps({
+        "part": "profile", "config": args.config,
+        "unsynced_ms_per_step": unsynced, "profiled_steps": n_prof,
+        "profiled_ms_per_step": span_ms / n_prof,
+        "device_kernels_per_step": len(events) / n_prof,
+        "device_busy_ms_per_step": busy_ms / n_prof,
+        "device_idle_share": (1 - busy_ms / span_ms) if events else None,
+        "top_kernels_ms_per_step": [
+            (e.key[:80], getattr(e, "device_time_total", 0.0) / 1e3 / n_prof)
+            for e in top[:12]],
+        "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
