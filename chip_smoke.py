@@ -1,13 +1,15 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field.
+NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, and
+the encoder formulation probes (mfnerf_tpu_torch/benchmarking/).
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc, Triton;
-2. build and 11. build_hashgrid: compile the hat-product and the hash-grid
-   kernels from mfnerf_tpu_torch/csrc/, one nvcc each, started together;
+2. build, 11. build_hashgrid and 16a. build_linetable: compile the
+   hat-product, the hash-grid and the line-table kernels from
+   mfnerf_tpu_torch/csrc/, one nvcc each, started together;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
@@ -60,7 +62,22 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    the untrained field, and at least MF_PSNR_MIN);
 12b. kernel_hashgrid (shape "train"): phase 12's checks and times on one
    real step's operands of the trained MixedFeature field (x and g as
-   HashGridEncode.backward receives them).
+   HashGridEncode.backward receives them);
+16. probe_gather: the port of benchmarking/probe_pallas_gather.py, run()
+   at its shape (N = 2^20, RANK 8, K 128): table_lerp in idx mode bit for
+   bit against its plain version, beside grid_sample; then at a ragged N;
+17. probe_gather2: the port of probe_pallas_gather2.py (N = 2^19, K 513,
+   R 128): table_lerp in u mode the same way, and hat_basis_dw's dW
+   bitwise equal across three launches and within 1e-4 x max of its plain
+   version; then at a ragged N;
+18. probe_hatmul: the port of probe_pallas_hatmul.py, hat_prod at N = 2^19,
+   K 513, R 128 bit for bit against hat_prod_plain; then at a ragged N.
+   Each probe's run() is its kernels' path: their launch counts are reset
+   just before it and read just after.
+
+Each phase that times a kernel prints it beside its bound (bytes at
+3.35 TB/s or fp32 operations at 67 TFLOP/s), its plain version's time and,
+where one PyTorch call computes the same function, that call's time.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -77,6 +94,8 @@ import time
 
 import numpy as np
 import torch
+
+from mfnerf_tpu_torch.benchmarking import bound, cuda_ms
 
 SEED = 0
 N_KERNEL = 1 << 20
@@ -133,9 +152,7 @@ WINDOW_ALPHA = 0.6
 # (tools/train_grid.py, PERF.md §6). Its view must gain PSNR_GAIN over the
 # untrained field and stay above this floor; PSNR_MIN is LowRank's.
 MF_PSNR_MIN = 19.0
-# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, fp32 FLOP/s off the
-# tensor cores
-HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+N_RAGGED = (1 << 16) + 37   # the probes' ragged size: part-filled tiles
 
 
 def check(ok, what):
@@ -145,28 +162,6 @@ def check(ok, what):
 
 def phase(label, **fields):
     print(json.dumps({"phase": label, **fields}), flush=True)
-
-
-def cuda_ms(fn, iters):
-    """Mean device milliseconds per call, timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes, flops):
-    """(least ms, "bytes" or "operations"): the bytes over HBM's rate or the
-    fp32 operations over the peak, whichever takes longer."""
-    by_bytes, by_ops = n_bytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                          "operations")
 
 
 def fwd_bound(n, k, r):
@@ -565,6 +560,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from mfnerf_tpu_torch import build
+    from mfnerf_tpu_torch.benchmarking import (probe_gather, probe_gather2,
+                                               probe_hatmul)
     from mfnerf_tpu_torch.datasets.memory import MemoryDataset
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models.ngp import NGP, NGPConfig, OccupancyState
@@ -574,6 +571,7 @@ def main():
     from mfnerf_tpu_torch.ops.hashgrid import hashgrid_bwd, hashgrid_encode
     from mfnerf_tpu_torch.ops.hatmul import (hat_prod, hat_prod_bwd,
                                              hat_prod_plain)
+    from mfnerf_tpu_torch.ops.linetable import hat_basis_dw, table_lerp
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
     from mfnerf_tpu_torch.utils.metrics import psnr
     from mfnerf_tpu_torch.utils.procedural import make_scene
@@ -601,9 +599,10 @@ def main():
           nvcc=nvcc.strip(), triton=triton_version,
           tf32=False)
 
-    # ---- 2 and 11. build both kernels' sources, one nvcc each, together
+    # ---- 2, 11 and 16a. build the kernels' sources, one nvcc each, together
     src = "mfnerf_tpu_torch/csrc/hatmul.cu"
     hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
+    line_src = "mfnerf_tpu_torch/csrc/linetable.cu"
 
     def timed_build(lib):
         fresh = not build.library_path(lib).exists()
@@ -611,12 +610,13 @@ def main():
         build.load_library(lib)
         return fresh, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = {lib: pool.submit(timed_build, lib)
-                  for lib in ("hatmul", "hashgrid")}
+                  for lib in ("hatmul", "hashgrid", "linetable")}
         for label, lib, source in (("build", "hatmul", src),
-                                   ("build_hashgrid", "hashgrid",
-                                    hash_src)):
+                                   ("build_hashgrid", "hashgrid", hash_src),
+                                   ("build_linetable", "linetable",
+                                    line_src)):
             fresh, seconds = builds[lib].result()
             phase(label, source=source, built=fresh, seconds=seconds,
                   card=card)
@@ -749,7 +749,6 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 12. the hash-grid kernels against their plain versions, 2^19
-    hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
     hash_uniform = {}
     for i, grid_kw in enumerate((HASH_GRID, dict(
             HASH_GRID, grid="MixedFeature", log2_T=20, N_tables=8))):
@@ -903,7 +902,32 @@ def main():
     hash_train = check_hashgrid("train", cfg_t, params_t, x_t, g_t,
                                 SEED + 30)
     phase("kernel_hashgrid", **hash_train, card=card)
-    del captured, params_t, x_t, g_t
+    del captured, params_t, x_t, g_t, mf
+    torch.cuda.empty_cache()
+
+    # ---- 16-18. the encoder formulation probes: each run() at the probe's
+    # shape is its kernels' path, then a run at a ragged size
+    probes = {}
+    for label, probe, kernels in (
+            ("probe_gather", probe_gather, (table_lerp,)),
+            ("probe_gather2", probe_gather2, (table_lerp, hat_basis_dw)),
+            ("probe_hatmul", probe_hatmul, (hat_prod,))):
+        for fn in kernels:
+            fn.launches = 0
+        res = probe.run(dev, SEED)
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        ragged = probe.run(dev, SEED + 1, N_RAGGED)
+        phase(label, **res["kernels"], launches=counts,
+              ragged=ragged["kernels"], failed=res["failed"]
+              + ragged["failed"], card=card)
+        check(not res["failed"] and not ragged["failed"],
+              f"{label}: {res['failed'] + ragged['failed']}")
+        check(min(counts.values()) > 0, f"{label} launched {counts}")
+        probes[label] = dict(res["kernels"], launches=counts)
+    lerp_idx = probes["probe_gather"]["table_lerp"]
+    lerp_u = probes["probe_gather2"]["table_lerp"]
+    probe_dw = probes["probe_gather2"]["hat_basis_dw"]
+    probe_hat = probes["probe_hatmul"]["hat_prod"]
 
     fwd_bound_ms, fwd_bound_by = fwd_bound(N_KERNEL, k, w3.shape[2])
     print(json.dumps({"kernels": [{
@@ -931,8 +955,33 @@ def main():
         "max_abs_err": hash_train["exact_dp_max_abs_err"],
         "ms": hash_train["bwd_ms"], "plain_ms": hash_train["bwd_plain_ms"],
         "bound_ms": hash_train["bwd_bound_ms"],
-        "bound_by": hash_train["bwd_bound_by"], "library_ms": None}]}),
-        flush=True)
+        "bound_by": hash_train["bwd_bound_by"], "library_ms": None}, {
+        "name": "table_lerp", "route": "cuda", "source": line_src,
+        "replaces": "benchmarking/probe_pallas_gather.py:60, "
+                    "benchmarking/probe_pallas_gather.py:105, "
+                    "benchmarking/probe_pallas_gather2.py:88",
+        "launches": probes["probe_gather"]["launches"]["table_lerp"]
+        + probes["probe_gather2"]["launches"]["table_lerp"],
+        "max_abs_err": max(lerp_idx["max_abs_err"], lerp_u["max_abs_err"]),
+        "ms": lerp_u["ms"], "plain_ms": lerp_u["plain_ms"],
+        "bound_ms": lerp_u["bound_ms"], "bound_by": lerp_u["bound_by"],
+        "library_ms": lerp_u["library_ms"], "shape": "probe_gather2, u mode",
+        "idx_mode": {key: lerp_idx[key] for key in (
+            "n", "ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err")}}, {
+        "name": "hat_basis_dw", "route": "cuda", "source": line_src,
+        "replaces": "benchmarking/probe_pallas_gather2.py:143",
+        "launches": probes["probe_gather2"]["launches"]["hat_basis_dw"],
+        "max_abs_err": probe_dw["max_abs_err"], "ms": probe_dw["ms"],
+        "plain_ms": probe_dw["plain_ms"], "bound_ms": probe_dw["bound_ms"],
+        "bound_by": probe_dw["bound_by"], "library_ms": None}, {
+        "name": "hat_prod_probe", "route": "cuda", "source": src,
+        "replaces": "benchmarking/probe_pallas_hatmul.py:89",
+        "launches": probes["probe_hatmul"]["launches"]["hat_prod"],
+        "max_abs_err": probe_hat["max_abs_err"], "ms": probe_hat["ms"],
+        "plain_ms": probe_hat["plain_ms"], "bound_ms": probe_hat["bound_ms"],
+        "bound_by": probe_hat["bound_by"], "library_ms": None,
+        "shape": "probe_hatmul: N 2^19, K 513, R 128"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

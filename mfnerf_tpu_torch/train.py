@@ -9,12 +9,15 @@ card: the hat product of the LowRank grid, or the hash-grid encoder of the
 Hash, Window and MixedFeature grids) and applies Adam (eps 1e-15) on the
 cosine-staircase learning rate. The occupancy grid is culled to the training
 cameras once, then refreshed every ``UPDATE_INTERVAL`` steps (alternating
-even/odd Morton halves with ``refresh_half``).
+even/odd Morton halves with ``refresh_half``). Rays come from all images, or
+with ``ray_sampling_strategy="same_image"`` from one image a batch.
 
 The JAX package's fused multi-step runner exists to spare TPU dispatch round
 trips and is not ported; the port runs one step per call. Not ported yet:
 the on-disk dataset loaders and the CLI, ``optimize_ext``, HDR exposure,
-data parallelism and the sampled (``sparse``) refresh.
+the ``weight_path`` warm start, data parallelism (``num_gpus`` > 1) and the
+sampled (``sparse``) refresh; the trainer raises ``NotImplementedError`` for
+those of its hyperparameters.
 """
 import math
 
@@ -34,6 +37,7 @@ WARMUP_STEPS = 256
 UPDATE_INTERVAL = 16      # steps between occupancy refreshes
 STEPS_PER_EPOCH = 1000
 GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
+SAMPLING = ("all_images", "same_image")    # ray_sampling_strategy
 
 
 def cosine_staircase_lr(lr0, num_epochs, steps_per_epoch=STEPS_PER_EPOCH):
@@ -60,11 +64,18 @@ class NeRFSystem:
         unported = {"grid": hp.grid not in GRIDS,
                     "use_exposure": hp.use_exposure,
                     "optimize_ext": hp.optimize_ext,
-                    "bf16": getattr(hp, "bf16", False)}
+                    "bf16": getattr(hp, "bf16", False),
+                    "weight_path": getattr(hp, "weight_path", None),
+                    "num_gpus": getattr(hp, "num_gpus", 1) > 1}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"{name}={getattr(hp, name)} is "
                                           f"not ported")
+        strategy = getattr(hp, "ray_sampling_strategy", "all_images")
+        if strategy not in SAMPLING:
+            raise ValueError(f"ray_sampling_strategy={strategy!r}: not one "
+                             f"of {SAMPLING}")
+        self.same_image = strategy == "same_image"
         self.hparams = hp
         self.device = resolve_device(device)
         self.model_cfg = NGPConfig(
@@ -137,13 +148,22 @@ class NeRFSystem:
             erode=self.erode)
         self.n_refresh += 1
 
+    def sample_batch(self):
+        """(image, pixel) indices of a ray batch, drawn on the device: an
+        image a ray, or with ``ray_sampling_strategy="same_image"`` one image
+        a batch (``mfnerf_tpu/train.py:353-358``); pixels uniform."""
+        b, dev = self.hparams.batch_size, self.device
+        n_img, hw = self.rays.shape[:2]
+        img = torch.randint(n_img, (1 if self.same_image else b,),
+                            generator=self.generator, device=dev).expand(b)
+        pix = torch.randint(hw, (b,), generator=self.generator, device=dev)
+        return img, pix
+
     def train_step(self):
         """One optimiser step on a fresh ray batch; its metrics as 0-d
         tensors on the device (the learning rate as a float)."""
-        b, dev = self.hparams.batch_size, self.device
-        n_img, hw = self.rays.shape[:2]
-        img = torch.randint(n_img, (b,), generator=self.generator, device=dev)
-        pix = torch.randint(hw, (b,), generator=self.generator, device=dev)
+        b = self.hparams.batch_size
+        img, pix = self.sample_batch()
         rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
         target = {"rgb": self.rays[img, pix]}
         bg = self._rand(3) if self.rcfg.random_bg else None

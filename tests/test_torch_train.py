@@ -687,3 +687,50 @@ def test_fit_procedural_scene():
     assert torch.isfinite(metrics["loss"]).all()
     assert metrics["loss"][-20:].mean() < metrics["loss"][:20].mean() / 4
     assert after > before + 8.0 and after > 20.0, (before, after)
+
+
+def _sampling_system(**kw):
+    """A CPU NeRFSystem on 8 small procedural views (configured, untrained)."""
+    scene = make_scene(n_train=8, n_test=1, wh=8, seed=0)
+    system = ttrain.NeRFSystem(_hparams(**kw), device="cpu")
+    system.setup(MemoryDataset.from_scene(scene, "train"))
+    system.configure(0)
+    return system
+
+
+def test_same_image_draws_one_image_a_batch():
+    """ray_sampling_strategy="same_image" (mfnerf_tpu/train.py:353-358): one
+    image a batch, uniform over the views (chi-square, 7 degrees of freedom,
+    under its p = 0.001 point over 800 batches); pixels still a ray each."""
+    system = _sampling_system(ray_sampling_strategy="same_image",
+                              batch_size=64)
+    draws = []
+    for _ in range(800):
+        img, pix = system.sample_batch()
+        assert img.shape == pix.shape == (64,)
+        assert bool((img == img[0]).all())
+        draws.append(int(img[0]))
+    counts = np.bincount(draws, minlength=8)
+    assert ((counts - 100.0) ** 2 / 100.0).sum() < 24.32, counts
+    assert len(set(pix.tolist())) > 32
+
+
+def test_default_sampling_draws_an_image_a_ray():
+    """Without the knob the trainer draws as before: an image and a pixel a
+    ray, from the hparams seed's generator in that order."""
+    system = _sampling_system()
+    img, pix = system.sample_batch()
+    gen = torch.Generator().manual_seed(1337)
+    assert torch.equal(img, torch.randint(8, (512,), generator=gen))
+    assert torch.equal(pix, torch.randint(64, (512,), generator=gen))
+    assert len(set(img.tolist())) == 8
+
+
+@pytest.mark.parametrize("knob,error", [
+    (dict(weight_path="warm.ckpt.npz"), NotImplementedError),
+    (dict(num_gpus=2), NotImplementedError),
+    (dict(ray_sampling_strategy="one_ray"), ValueError)])
+def test_unported_trainer_knobs_raise(knob, error):
+    with pytest.raises(error):
+        ttrain.NeRFSystem(_hparams(**knob), device="cpu")
+    ttrain.NeRFSystem(_hparams(weight_path=None, num_gpus=1), device="cpu")
