@@ -44,11 +44,18 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 12. kernel_hashgrid: the hash-grid kernels against their plain torch
    versions for the CLI's default Hash grid (L 16, F 2, T 19) and the
    reference's MixedFeature benchmark grid (T 20, 8 tables), both 5,710,032
-   rows, at N = 2^19 uniform x with points on the box faces: the forward,
-   the backward's d_params bitwise equal across three launches (exact, and
-   sampled at one corner with the same uniforms), d_params, d_x and
-   d_window (window alpha 0.6) against the plain version, the kernels' times
-   beside their bounds and the plain times; then the kernels' generic
+   rows, at N = 2^19 uniform x with points on the box faces; for the
+   MixedFeature grid also at 2^19 samples along 40,330 rays (13 consecutive
+   samples a ray at the march step, as training orders them) and at a
+   degenerate set in which each warp's 32 samples share one point: the
+   forward bit for bit, the backward's d_params bitwise equal across three
+   launches and to the fixed-point model hashgrid_bwd_fixed_plain (exact,
+   sampled at one corner with the same uniforms, and windowed), d_params,
+   d_x and d_window (window alpha 0.6) within HASH_TOL of the plain
+   version, the fixed-point scale 2^k, the backward's atomics with one an
+   update and after the warp's merge of equal rows, the kernels' device
+   times by CUDA-graph replay beside their bounds (and, host time included,
+   through their wrappers) and the plain times; then the kernels' generic
    path (F 4, L 12) at 2^16 points;
 13. train_step_oracle_mf: one step of the MixedFeature bench configuration
    (benchmarking/benchmark_synthetic_nerf_mf.sh: batch 16384, lr 2e-2, rgb
@@ -95,7 +102,7 @@ import time
 import numpy as np
 import torch
 
-from mfnerf_tpu_torch.benchmarking import bound, cuda_ms
+from mfnerf_tpu_torch.benchmarking import bound, cuda_ms, graph_ms
 
 SEED = 0
 N_KERNEL = 1 << 20
@@ -140,6 +147,9 @@ HASH_GRID = dict(grid="Hash", L=16, F=2, log2_T=19, N_min=16, N_max=2048,
                  N_tables=1)
 N_HASH = 1 << 19
 N_FACE = 384                # of them on the box faces (the corner clamp)
+# the "rays" set: 13 samples a ray (the MixedFeature step's mean, PERF.md
+# §5) at the march step sqrt(3) / 1024 of the unit box
+RAY_SAMPLES, RAY_STEP = 13, math.sqrt(3) / 1024
 # the forward repeats the plain version's fp32 operations: 0 expected
 HASH_FWD_TOL = 1e-6         # x max |plain|
 # d_params: fixed-point sums against fp32 scatter-adds; d_x and d_window:
@@ -318,6 +328,36 @@ def hash_distinct_rows(x, cfg):
     return int(torch.unique(rows).numel())
 
 
+def hash_atomics(x, cfg):
+    """The exact table gradient's atomics (the plain version's indices): one
+    an update, 8 L F a sample; one a distinct (sample // 32, level, round,
+    row) and feature, where round r takes each sample's corner
+    r ^ (base & 1), the vertex of parity r (what merging all of a warp's
+    equal rows would leave); and the backward kernel's, one a run of
+    consecutive lanes with the same row in a (warp, level, round) and
+    feature. Returns the three counts."""
+    from mfnerf_tpu_torch.ops import hashgrid as hg
+    arrays, base, frac = hg._cells(x, cfg)
+    n = x.shape[0]
+    warps = -(-n // 32)
+    rows = torch.stack([hg._corner(c, base, frac, arrays)[0]
+                        for c in range(8)])                      # (8, L, N)
+    par = (base[..., 0] & 1) | (base[..., 1] & 1) << 1 \
+        | (base[..., 2] & 1) << 2                                # (L, N)
+    # (level, warp) a key, then the row: below 2^5 * 2^26 * 2^31
+    lw = (torch.arange(cfg.L, device=x.device)[:, None] * warps
+          + torch.arange(n, device=x.device)[None, :] // 32)
+    first = torch.arange(n, device=x.device) % 32 == 0
+    distinct = runs = 0
+    for r in range(8):
+        rows_r = rows.gather(0, (r ^ par)[None])[0]             # (L, N)
+        distinct += int(torch.unique(lw * cfg.n_params + rows_r).numel())
+        new_row = torch.ones_like(rows_r, dtype=torch.bool)
+        new_row[:, 1:] = rows_r[:, 1:] != rows_r[:, :-1]
+        runs += int((first | new_row).sum())
+    return n * cfg.L * 8 * cfg.F, distinct * cfg.F, runs * cfg.F
+
+
 def hash_fwd_bound(n, cfg, distinct):
     """hashgrid fwd: read x and the distinct rows once, write the output;
     per (sample, level) the cell (6 operations), 8 weights (2 each) and
@@ -340,12 +380,17 @@ def hash_bwd_bound(n, cfg, distinct, need_dx):
 
 
 def check_hashgrid(label, cfg, params, x, g, seed):
-    """Phase 12 on one set of operands: the forward against the plain
-    version; the backward's d_params bitwise equal across three launches,
-    exact and sampled at one corner (the same uniforms); d_params, d_x and
-    d_window (window alpha 0.6) within HASH_TOL of the plain version; the
-    kernels' times beside their bounds. Returns the phase's fields."""
-    from mfnerf_tpu_torch.ops.hashgrid import (hashgrid_bwd,
+    """Phase 12 on one set of operands: the forward bit for bit against the
+    plain version; the backward's d_params bitwise equal across three
+    launches and to the fixed-point model, exact, sampled at one corner (the
+    same uniforms) and windowed (alpha 0.6); d_params, d_x and d_window
+    within HASH_TOL of the plain version; the atomics before and after the
+    merge; the kernels' device times by CUDA-graph replay beside their
+    bounds, and through their wrappers call by call (host time included).
+    Returns the phase's fields."""
+    from mfnerf_tpu_torch.ops.hashgrid import (fixed_point_scale,
+                                               hashgrid_bwd,
+                                               hashgrid_bwd_fixed_plain,
                                                hashgrid_bwd_plain,
                                                hashgrid_encode,
                                                hashgrid_encode_plain,
@@ -359,8 +404,10 @@ def check_hashgrid(label, cfg, params, x, g, seed):
     check(out.shape == (n, cfg.out_dim), f"{label}: output {out.shape}")
     fwd_err = float((out - want).abs().max())
     fwd_scale = float(want.abs().max())
-    check(fwd_err <= HASH_FWD_TOL * fwd_scale,
-          f"{label}: forward vs plain: {fwd_err} of {fwd_scale}")
+    fwd_bitwise = bool(torch.equal(out, want))
+    check(fwd_err <= HASH_FWD_TOL * fwd_scale and fwd_bitwise,
+          f"{label}: forward vs plain: {fwd_err} of {fwd_scale}, bitwise "
+          f"{fwd_bitwise}")
 
     def errs(got, ref):
         return float((got - ref).abs().max()), float(ref.abs().max())
@@ -368,7 +415,7 @@ def check_hashgrid(label, cfg, params, x, g, seed):
     fields = dict(shape=label, grid=cfg.grid_type, n=n, levels=cfg.L,
                   features=cfg.F, rows=cfg.n_params,
                   fwd_max_abs_err=fwd_err, fwd_max_abs=fwd_scale,
-                  fwd_bitwise_equal=bool(torch.equal(out, want)))
+                  fwd_bitwise_equal=fwd_bitwise)
     del out, want
     sampled = dataclasses.replace(cfg, grad_corners=1)
     noise = torch.rand((n, 1), generator=torch.Generator(
@@ -381,20 +428,29 @@ def check_hashgrid(label, cfg, params, x, g, seed):
                              need_dx=i == 2) for i in range(3)]
         dp_p, dx_p, dw_p = hashgrid_bwd_plain(params, x, cfg_, g, win,
                                               noise_)
+        dp_fixed = hashgrid_bwd_fixed_plain(params, x, cfg_, g, win, noise_)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(runs[0][0], r[0]) for r in runs[1:])
         spread = max(float((runs[0][0] - r[0]).abs().max())
                      for r in runs[1:])
+        fixed_equal = bool(torch.equal(runs[0][0], dp_fixed))
+        log2_scale = math.log2(fixed_point_scale(g, cfg_, win))
         dp_err, dp_scale = errs(runs[2][0], dp_p)
         dx_err, dx_scale = errs(runs[2][1], dx_p)
         fields.update({f"{name}_dp_bitwise_equal": bitwise,
                        f"{name}_dp_launch_spread": spread,
+                       f"{name}_dp_fixed_model_equal": fixed_equal,
+                       f"{name}_log2_fixed_scale": log2_scale,
                        f"{name}_dp_max_abs_err": dp_err,
                        f"{name}_dp_max_abs": dp_scale,
                        f"{name}_dx_max_abs_err": dx_err,
                        f"{name}_dx_max_abs": dx_scale})
         check(bitwise and spread == 0.0,
               f"{label} {name}: d_params differs between launches")
+        # a ratio of exactly 2 would be S on a power of two, not the merge
+        check(fixed_equal, f"{label} {name}: d_params vs the fixed-point "
+              f"model (2^{log2_scale}): max abs diff "
+              f"{float((runs[0][0] - dp_fixed).abs().max())}")
         check(dp_err <= HASH_TOL * dp_scale,
               f"{label} {name}: d_params vs plain: {dp_err} of {dp_scale}")
         check(dx_err <= HASH_TOL * dx_scale,
@@ -406,21 +462,33 @@ def check_hashgrid(label, cfg, params, x, g, seed):
                           window_dw_max_abs=dw_scale)
             check(dw_err <= HASH_TOL * dw_scale,
                   f"{label}: d_window vs plain: {dw_err} of {dw_scale}")
-        del runs, dp_p, dx_p, dw_p
+        del runs, dp_p, dx_p, dw_p, dp_fixed
     distinct = hash_distinct_rows(x, cfg)
+    atomics, atomics_distinct, merged = hash_atomics(x, cfg)
     fwd_bound_ms, fwd_bound_by = hash_fwd_bound(n, cfg, distinct)
     bwd_bound_ms, bwd_bound_by = hash_bwd_bound(n, cfg, distinct, False)
+
+    def fwd():
+        return hashgrid_encode(params, x, cfg)
+
+    def bwd():
+        return hashgrid_bwd(params, x, cfg, g, need_dx=False)
+
     fields.update(
-        distinct_rows=distinct, tol=HASH_TOL, fwd_tol=HASH_FWD_TOL,
-        fwd_ms=cuda_ms(lambda: hashgrid_encode(params, x, cfg), 20),
+        distinct_rows=distinct, atomics_per_update=atomics,
+        atomics_distinct=atomics_distinct, atomics_merged=merged,
+        atomics_merged_share=merged / atomics,
+        tol=HASH_TOL, fwd_tol=HASH_FWD_TOL,
+        fwd_ms=graph_ms(fwd, 20),
+        fwd_wrapper_ms_host_inclusive=cuda_ms(fwd, 20),
         fwd_plain_ms=cuda_ms(lambda: hashgrid_encode_plain(params, x, cfg),
                              5),
         fwd_bound_ms=fwd_bound_ms, fwd_bound_by=fwd_bound_by,
-        bwd_ms=cuda_ms(lambda: hashgrid_bwd(params, x, cfg, g,
-                                            need_dx=False), 20),
-        bwd_sampled_ms=cuda_ms(lambda: hashgrid_bwd(
+        bwd_ms=graph_ms(bwd, 20),
+        bwd_wrapper_ms_host_inclusive=cuda_ms(bwd, 20),
+        bwd_sampled_ms=graph_ms(lambda: hashgrid_bwd(
             params, x, sampled, g, None, noise, need_dx=False), 20),
-        bwd_dx_ms=cuda_ms(lambda: hashgrid_bwd(params, x, cfg, g), 20),
+        bwd_dx_ms=graph_ms(lambda: hashgrid_bwd(params, x, cfg, g), 20),
         bwd_plain_ms=cuda_ms(lambda: hashgrid_bwd_plain(
             params, x, cfg, g, need_dx=False), 5),
         bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by,
@@ -438,12 +506,65 @@ def hash_uniform_operands(cfg, seed, n=None):
     params = torch.randn((cfg.n_params, cfg.F), generator=gen,
                          device="cuda")
     x = torch.rand((n, 3), generator=gen, device="cuda")
+    _on_faces(x)
+    g = torch.randn((n, cfg.out_dim), generator=gen, device="cuda")
+    return params, x, g
+
+
+def _on_faces(x):
+    """Put the first N_FACE + 16 points on the box faces and corner."""
     third = N_FACE // 3
     for d in range(3):
         x[d * third:(d + 1) * third, d] = 1.0
     x[N_FACE:N_FACE + 16] = 1.0
+
+
+def hash_ray_operands(cfg, seed, n=None):
+    """As hash_uniform_operands, but the points lie along rays, ray by ray
+    as a training step hands them to the encoder: RAY_SAMPLES consecutive
+    samples a ray RAY_STEP apart, from a uniform origin (inside the box by
+    the ray's length) in a uniform direction; then the box-face points."""
+    n = N_HASH if n is None else n
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = torch.randn((cfg.n_params, cfg.F), generator=gen,
+                         device="cuda")
+    rays = -(-n // RAY_SAMPLES)
+    reach = RAY_SAMPLES * RAY_STEP
+    o = reach + torch.rand((rays, 3), generator=gen, device="cuda") * (
+        1 - 2 * reach)
+    d = torch.randn((rays, 3), generator=gen, device="cuda")
+    d = d / d.norm(dim=1, keepdim=True)
+    t = torch.arange(RAY_SAMPLES, device="cuda") * RAY_STEP
+    x = (o[:, None] + d[:, None] * t[None, :, None]).reshape(-1, 3)[:n]
+    x = x.clamp(0.0, 1.0).contiguous()
+    _on_faces(x)
     g = torch.randn((n, cfg.out_dim), generator=gen, device="cuda")
     return params, x, g
+
+
+def hash_degenerate_operands(cfg, seed, n=None):
+    """As hash_uniform_operands, but the 32 samples of each warp share one
+    uniform point (every corner row of a warp is one group)."""
+    params, x, g = hash_uniform_operands(cfg, seed, n)
+    x = x[::32].repeat_interleave(32, dim=0)[:x.shape[0]].contiguous()
+    return params, x, g
+
+
+def hash_operand_sets():
+    """Phase 12's operand sets: (label, config, operands maker, seed); the
+    last is the kernels' generic path (F 4, L 12) at 2^16 points."""
+    from mfnerf_tpu_torch.models.ngp import NGPConfig
+    hash_cfg = NGPConfig(**HASH_GRID).hash_cfg
+    mf_cfg = NGPConfig(**dict(HASH_GRID, grid="MixedFeature", log2_T=20,
+                              N_tables=8)).hash_cfg
+    generic = NGPConfig(grid="Hash", L=12, F=4, log2_T=16,
+                        N_max=512).hash_cfg
+    return [("uniform", hash_cfg, hash_uniform_operands, SEED + 10),
+            ("uniform", mf_cfg, hash_uniform_operands, SEED + 11),
+            ("rays", mf_cfg, hash_ray_operands, SEED + 13),
+            ("degenerate", mf_cfg, hash_degenerate_operands, SEED + 14),
+            ("generic", generic, lambda cfg, seed: hash_uniform_operands(
+                cfg, seed, 1 << 16), SEED + 12)]
 
 
 def start_system(hp, datasets, dev):
@@ -748,23 +869,11 @@ def main():
     del u3, g, u_e, w_e, g_e
     torch.cuda.empty_cache()
 
-    # ---- 12. the hash-grid kernels against their plain versions, 2^19
-    hash_uniform = {}
-    for i, grid_kw in enumerate((HASH_GRID, dict(
-            HASH_GRID, grid="MixedFeature", log2_T=20, N_tables=8))):
-        hcfg = NGPConfig(**grid_kw).hash_cfg
-        hash_uniform[hcfg.grid_type] = check_hashgrid(
-            "uniform", hcfg, *hash_uniform_operands(hcfg, SEED + 10 + i),
-            SEED + 20 + i)
-        phase("kernel_hashgrid", **hash_uniform[hcfg.grid_type], card=card)
-    # the kernels' generic path: F = 4 features, L = 12 levels (252-thread
-    # backward blocks), at 2^16 points
-    hcfg = NGPConfig(grid="Hash", L=12, F=4, log2_T=16,
-                     N_max=512).hash_cfg
-    phase("kernel_hashgrid", **check_hashgrid(
-        "generic", hcfg, *hash_uniform_operands(hcfg, SEED + 12, 1 << 16),
-        SEED + 22), card=card)
-    torch.cuda.empty_cache()
+    # ---- 12. the hash-grid kernels against their plain versions
+    for label, hcfg, operands, seed in hash_operand_sets():
+        phase("kernel_hashgrid", **check_hashgrid(
+            label, hcfg, *operands(hcfg, seed), seed + 10), card=card)
+        torch.cuda.empty_cache()
 
     # ---- 8. one training step on the card against the same step on the CPU
     train_scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=1, wh=WH,

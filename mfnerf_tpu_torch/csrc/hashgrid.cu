@@ -18,12 +18,21 @@
 // floor(pos) across a cell and change the corner rows, not only the last
 // bit. So the forward equals the plain torch version bit for bit.
 //
-// Forward (hashgrid_fwd_kernel): one thread per (sample, level), the level
-// fastest, so the (N, L*F) output is written coalesced. At F = 2, every
-// configuration the repo ships, a corner row is one 8-byte load. What bounds
-// it on Hopper: the bytes of x, of the output and of the distinct table rows
-// the launch reads (PERF.md); the 8 row loads of a thread are random, and
-// the coarse levels' rows are L2 hits.
+// Both kernels put one level of 32 consecutive samples in a warp (a lane a
+// sample). In training the samples arrive ray by ray (~13 consecutive
+// samples a ray), so at the coarse levels, whose cells span several march
+// steps, the lanes of a warp share cells and so corner rows.
+//
+// Forward (hashgrid_fwd_kernel): a block holds 32 samples; warp w computes
+// levels w, w + 8, ... of them. Lanes that share a cell load the same 8-byte
+// rows in one request, and at F = 2 so do lanes in adjacent cells: a lane
+// loads its corners in the order of their vertex's parity (as the backward
+// below visits them), then blends them in corner order. The block's
+// (32, L*F) output tile goes through shared memory (row stride L*F | 1, so
+// a warp's stores of one level hit 32 banks) and out as whole contiguous
+// rows. What bounds it on Hopper: the bytes of
+// x, of the output and of the distinct table rows the launch reads
+// (PERF.md); the fine levels' 8 row loads a sample are random.
 //
 // Backward, three passes, with d_params bitwise equal from launch to launch:
 //
@@ -39,29 +48,45 @@
 //   segmented sum (the other deterministic design) would move the 8 * L
 //   updates of every sample through memory twice more and need a radix sort
 //   by hand; the atomics keep the updates in L2.
-// * hashgrid_bwd_scatter_kernel: a block holds (256 / L) samples x L levels;
-//   blocks walk the sample tiles in a fixed stride. A thread finds its 8
-//   corner rows and weights as the forward does, and adds w_c * g (or, given
-//   the per-sample uniforms and m < 8, the unweighted g / m at m corners
-//   drawn by inverse CDF, min(count(cumsum(w) < u), 7)) to the fixed-point
-//   table. With d_x or a window it also reads the 8 rows: d_x sums each
-//   level's part in shared memory in level order, and the level's
-//   un-windowed output dotted with g goes into the block's d_window partial
-//   (fp64: a sum over every sample, most of whose terms cancel).
-//   Updates of one sample go to L different levels, so a warp's atomics hit
-//   different rows even where consecutive samples of a ray share the coarse
-//   levels' few rows.
+// * hashgrid_bwd_scatter_kernel: a warp holds 32 consecutive samples, a
+//   lane a sample, and walks their L levels in order; blocks walk tiles of
+//   spb samples in a fixed stride. A lane finds its 8
+//   corner rows and weights as the forward does and rounds each update
+//   w_c * g (or, given the per-sample uniforms and m < 8, the unweighted
+//   g / m at m corners drawn by inverse CDF, min(count(cumsum(w) < u), 7))
+//   to its integer. Then the warp merges equal rows before the atomics
+//   (add_row): a run of consecutive lanes with the same row sums its
+//   integers by a segmented suffix sum in shuffles, and the run's first
+//   lane adds the sum, one RED a run and feature. Lanes past N take part
+//   with the row kNoRow and add nothing. The exact gradient visits a lane's
+//   corners in the order of their vertex's parity: round r takes corner
+//   r ^ (base & 1) (per axis), the vertex base + (r ^ (base & 1)), whose
+//   parity is r whatever the cell. So the cells that share a vertex, along
+//   a ray the cells a few steps apart, offer its row in the same round, in
+//   consecutive lanes, and merge across corners as well as across lanes.
+//   Equal rows that are not adjacent (two rays through one cell) are not
+//   merged: __match_any_sync would find them too, but it and the group's
+//   shared-memory sum cost more SM time than the atomics they save (PERF.md,
+//   PR 7).
+//   Integer addition is exact and associative and every update is rounded
+//   before any sum, so the table holds the same integers as with one atomic
+//   an update: d_params is unchanged to the bit. Nor can a merge overflow:
+//   a group's sum is a partial sum of one row's updates, bounded by the same
+//   S * 2^k < 2^61 as the row's total. With d_x or a window the lane also
+//   reads the 8 rows: d_x sums each level's part in registers in level
+//   order, and the level's un-windowed output dotted with g goes into the
+//   warp's fp64 d_window partial (lanes summed in sample order).
 // * hashgrid_bwd_finish_kernel converts the table to fp32 and sums the
 //   blocks' d_window partials in block order.
 //
-// What bounds the backward: the updates, 8 * L * F 64-bit atomics a sample
-// (2^19 samples, L = 16, F = 2: 134M), resolved in L2 at ~48G a second on
-// an H100, 2.8 ms, far above the bytes of g, x, the fixed-point table
-// (zeroed, read) and d_params (PERF.md). A level-major order, which keeps
-// the rows in flight to one level's, measured the same: the atomics' rate,
-// not the 91 MB table's L2 misses, sets the time. Fewer atomics (merging a
-// warp's updates of one row, shared-memory sums of the coarse levels) is
-// the way to make it faster.
+// What bounds the backward: at uniform random points the atomics, ~48G a
+// second in L2 on an H100 (2.8 ms at 2^19 samples, 8 * L * F a sample),
+// which the merge barely thins there. The merge issues one a run of equal
+// rows (warp, level, round) and feature: on training's ray-ordered samples
+// about a third of 8 * L * F, and the SM's own work (rows, weights, the
+// updates' fp64 conversions, the shuffles) then weighs about as much as
+// the atomics (PERF.md, PR 7). The fixed part, zeroing and reading the
+// (rows, F) int64 table and writing d_params, is ~0.07 ms at 5.7M rows.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,7 +96,10 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kPrime1 = 2654435761u, kPrime2 = 805459861u;
+constexpr uint32_t kNoRow = 0xffffffffu;   // a lane past N (rows < 2^31)
+constexpr unsigned kAll = 0xffffffffu;
 
 struct Level {
   float scale;
@@ -121,6 +149,19 @@ __device__ __forceinline__ float corner_weight(const float frac[3], int c,
   return __fmul_rn(__fmul_rn(wb[0], wb[1]), wb[2]);
 }
 
+// The cell's parity, bit d = base[d] & 1. Corner r ^ parity of the cell is
+// its vertex of parity r (per axis, vertex mod 2), whichever of the up to 8
+// cells around that vertex it is.
+__device__ __forceinline__ int cell_parity(const int base[3]) {
+  return (base[0] & 1) | (base[1] & 1) << 1 | (base[2] & 1) << 2;
+}
+
+// Row stride of the forward's output tile: odd, so that the 32 lanes of a
+// warp, 32 rows apart, store to 32 different banks.
+__host__ __device__ __forceinline__ int tile_ld(int width) {
+  return width | 1;
+}
+
 template <int FC>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_fwd_kernel(const float* __restrict__ params,
@@ -128,48 +169,82 @@ hashgrid_fwd_kernel(const float* __restrict__ params,
                     const float* __restrict__ window,
                     float* __restrict__ out, int64_t n, int levels,
                     int f_dim, Levels lvs) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= n * levels) return;
-  const int64_t s = t / levels;
-  const int l = static_cast<int>(t - s * levels);
-  const Level lv = lvs.lv[l];
-  int base[3];
-  float frac[3], wb[3];
-  locate(x + s * 3, lv.scale, base, frac);
-  uint32_t rows[8];
-  float w[8];
+  extern __shared__ float tile[];    // (32, levels * F), row stride ld
+  const int F = FC > 0 ? FC : f_dim;
+  const int width = levels * F, ld = tile_ld(width);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * 32;
+  // lanes past N redo sample n - 1; their rows are never stored
+  const int64_t smp = first + lane < n ? first + lane : n - 1;
+  for (int l = warp; l < levels; l += kWarps) {
+    const Level lv = lvs.lv[l];
+    int base[3];
+    float frac[3], wb[3];
+    locate(x + smp * 3, lv.scale, base, frac);
+    float w[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    rows[c] = corner_row(lv, base, c);
-    w[c] = corner_weight(frac, c, wb);
-  }
-  if constexpr (FC == 2) {
-    const float2* p2 = reinterpret_cast<const float2*>(params);
-    float2 acc = make_float2(0.0f, 0.0f);
+    for (int c = 0; c < 8; ++c) w[c] = corner_weight(frac, c, wb);
+    float* dst = tile + lane * ld + l * F;
+    if constexpr (FC == 2) {
+      // load r takes the vertex of parity r, corner r ^ par, so that lanes
+      // in adjacent cells read a shared vertex in the same request; then
+      // conditional swaps put corner c's row at v[c] for the blend, which
+      // runs in corner order
+      const float2* p2 = reinterpret_cast<const float2*>(params);
+      const int par = cell_parity(base);
+      float2 v[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float2 v = __ldg(p2 + rows[c]);
-      acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], v.x));
-      acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], v.y));
-    }
-    if (window != nullptr) {
-      const float wl = __ldg(window + l);
-      acc.x = __fmul_rn(acc.x, wl);
-      acc.y = __fmul_rn(acc.y, wl);
-    }
-    reinterpret_cast<float2*>(out)[t] = acc;
-  } else {
-    for (int f = 0; f < f_dim; ++f) {
-      float acc = 0.0f;
+      for (int r = 0; r < 8; ++r) {
+        v[r] = __ldg(p2 + corner_row(lv, base, r ^ par));
+      }
+#pragma unroll
+      for (int b = 1; b < 8; b <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if ((i & b) == 0) {
+            const float2 lo = v[i], hi = v[i | b];
+            v[i] = (par & b) ? hi : lo;
+            v[i | b] = (par & b) ? lo : hi;
+          }
+        }
+      }
+      float2 acc = make_float2(0.0f, 0.0f);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        acc = __fadd_rn(acc, __fmul_rn(w[c], __ldg(params +
-            static_cast<int64_t>(rows[c]) * f_dim + f)));
+        acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], v[c].x));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], v[c].y));
       }
-      if (window != nullptr) acc = __fmul_rn(acc, __ldg(window + l));
-      out[t * f_dim + f] = acc;
+      if (window != nullptr) {
+        const float wl = __ldg(window + l);
+        acc.x = __fmul_rn(acc.x, wl);
+        acc.y = __fmul_rn(acc.y, wl);
+      }
+      dst[0] = acc.x;
+      dst[1] = acc.y;
+    } else {
+      uint32_t rows[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) rows[c] = corner_row(lv, base, c);
+      for (int f = 0; f < f_dim; ++f) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc = __fadd_rn(acc, __fmul_rn(w[c], __ldg(params +
+              static_cast<int64_t>(rows[c]) * f_dim + f)));
+        }
+        if (window != nullptr) acc = __fmul_rn(acc, __ldg(window + l));
+        dst[f] = acc;
+      }
     }
+  }
+  __syncthreads();
+  // the tile's valid rows are one contiguous run of the output
+  const int count = (n - first < 32 ? static_cast<int>(n - first) : 32) *
+                    width;
+  float* o = out + first * width;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int s = i / width;
+    o[i] = tile[s * ld + (i - s * width)];
   }
 }
 
@@ -178,7 +253,7 @@ hashgrid_fwd_kernel(const float* __restrict__ params,
 template <typename T>
 __device__ T block_sum(T v, T* scratch) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
   const int warp = threadIdx.x >> 5, warps = (blockDim.x + 31) >> 5;
   if ((threadIdx.x & 31) == 0) scratch[warp] = v;
   __syncthreads();
@@ -221,60 +296,99 @@ __device__ double fixed_scale(double s) {
   return ldexp(1.0, max(-1000, min(1000, 61 - e)));
 }
 
-__device__ __forceinline__ void add_fixed(unsigned long long* acc, float v,
-                                          double scale) {
-  atomicAdd(acc, static_cast<unsigned long long>(
-                     __double2ll_rn(static_cast<double>(v) * scale)));
+__device__ __forceinline__ long long to_fixed(float v, double scale) {
+  return __double2ll_rn(static_cast<double>(v) * scale);
 }
 
-// One (sample, level)'s table gradient into the fixed-point table: w_c * g
-// at the 8 corners, or with m > 0 the unweighted g / m at m corners drawn
-// by the uniforms u[0..m) (inverse CDF of the weights in corner order).
-template <int FC>
-__device__ __forceinline__ void add_table_grad(
-    const Level& lv, const float* __restrict__ x,
-    const float* __restrict__ gp, float win, int f_dim,
-    const float* __restrict__ u, int m, unsigned long long* acc,
-    double scale) {
-  const int F = FC > 0 ? FC : f_dim;
-  int base[3];
-  float frac[3], wb[3];
-  locate(x, lv.scale, base, frac);
-  if (m == 0) {
+// Add this lane's fixed-point updates of `row` (one a feature) to the
+// table, merged: a run of consecutive lanes with the same row (a ray's
+// samples in one cell, or in cells that share the vertex) sums its updates
+// by a segmented suffix sum in shuffles, and the run's first lane adds the
+// sum, one RED a run and feature. Lanes past N pass kNoRow and add
+// nothing. Every lane of the warp must call it.
+__device__ __forceinline__ void add_row(uint32_t row, const float* vals,
+                                        int F, double scale,
+                                        unsigned long long* acc) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t prev = __shfl_up_sync(kAll, row, 1);
+  const unsigned heads = __ballot_sync(kAll, lane == 0 || prev != row);
+  // the lanes after this one in its run
+  const unsigned after = lane == 31 ? 0u : heads >> (lane + 1);
+  const int run = after == 0u ? 31 - lane : __ffs(after) - 1;
+  const bool head = (heads >> lane) & 1u;
+  for (int f = 0; f < F; ++f) {
+    unsigned long long v =
+        static_cast<unsigned long long>(to_fixed(vals[f], scale));
+    if (heads != kAll) {             // a run longer than one lane
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int64_t row = corner_row(lv, base, c);
-      const float w = corner_weight(frac, c, wb);
-      for (int f = 0; f < F; ++f) {
-        add_fixed(acc + row * F + f,
-                  __fmul_rn(w, __fmul_rn(__ldg(gp + f), win)), scale);
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long w = __shfl_down_sync(kAll, v, o);
+        if (o <= run) v += w;
       }
+    }
+    if (head && row != kNoRow) {
+      atomicAdd(acc + static_cast<int64_t>(row) * F + f, v);
+    }
+  }
+}
+
+// Features the backward takes; its kernels' FC is F = 2, or 0 for any F.
+constexpr int kMaxF = 16;
+
+// One level's table gradient of the warp's 32 samples (lane: sample sr,
+// `valid` unless past N) into the fixed-point table: w_c * g at the 8
+// corners, or with m > 0 g / m at m corners drawn by the uniforms. Writes
+// the level's cell (base, frac) and g * window (gw). Every lane of the warp
+// must call it.
+template <int FC>
+__device__ __forceinline__ void scatter_level(
+    const Level& lv, const float* __restrict__ xs,
+    const float* __restrict__ gp, float win,
+    const float* __restrict__ noise, int m, int64_t sr, bool valid, int F,
+    double scale, unsigned long long* acc,
+    int base[3], float frac[3], float* gw) {
+  float wb[3];
+  for (int f = 0; f < F; ++f) gw[f] = __fmul_rn(__ldg(gp + f), win);
+  locate(xs, lv.scale, base, frac);
+  float vals[FC > 0 ? FC : kMaxF];
+  if (m == 0) {
+    // in round r the corner whose vertex has parity r: every cell of a
+    // vertex takes it in the same round, so adjacent cells merge too
+    const int par = cell_parity(base);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int c = r ^ par;
+      const uint32_t row = valid ? corner_row(lv, base, c) : kNoRow;
+      const float w = corner_weight(frac, c, wb);
+      for (int f = 0; f < F; ++f) vals[f] = __fmul_rn(w, gw[f]);
+      add_row(row, vals, F, scale, acc);
     }
     return;
   }
   float cumw[8];
-  float run = 0.0f;
+  float sum = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    run = __fadd_rn(run, corner_weight(frac, c, wb));
-    cumw[c] = run;
+    sum = __fadd_rn(sum, corner_weight(frac, c, wb));
+    cumw[c] = sum;
+  }
+  for (int f = 0; f < F; ++f) {
+    vals[f] = __fdiv_rn(gw[f], static_cast<float>(m));
   }
   for (int j = 0; j < m; ++j) {
-    const float uj = __ldg(u + j);
+    const float uj = __ldg(noise + sr * m + j);
     int cstar = 0;
 #pragma unroll
     for (int c = 0; c < 8; ++c) cstar += cumw[c] < uj ? 1 : 0;
-    const int64_t row = corner_row(lv, base, min(cstar, 7));
-    for (int f = 0; f < F; ++f) {
-      add_fixed(acc + row * F + f,
-                __fdiv_rn(__fmul_rn(__ldg(gp + f), win),
-                          static_cast<float>(m)),
-                scale);
-    }
+    const uint32_t row = valid ? corner_row(lv, base, min(cstar, 7)) : kNoRow;
+    add_row(row, vals, F, scale, acc);
   }
 }
 
-template <int FC>
+// FEATS: d_x or d_window wanted. A warp holds 32 consecutive samples and
+// walks their levels in order (d_x sums them in registers); blocks walk
+// tiles of spb samples in a fixed stride.
+template <int FC, bool FEATS>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_bwd_scatter_kernel(
     const float* __restrict__ params, const float* __restrict__ x,
@@ -284,42 +398,45 @@ hashgrid_bwd_scatter_kernel(
     int prep_blocks, float* __restrict__ d_x, double* __restrict__ win_part,
     int64_t n, int levels, int f_dim, int spb, Levels lvs) {
   __shared__ double s_scale;
-  __shared__ float s_dx[kThreads * 3];
-  __shared__ double s_win[kThreads];
+  __shared__ double s_win[kWarps][kMaxLevels];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x < 32) {            // S from the prep blocks, fixed order
     double v = 0.0;
     for (int i = threadIdx.x; i < prep_blocks; i += 32) v += sums[i];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      v += __shfl_xor_sync(0xffffffffu, v, o);
-    }
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
     if (threadIdx.x == 0) {
       s_scale = fixed_scale(v);
       if (blockIdx.x == 0) sums[prep_blocks] = s_scale;
     }
   }
+  if (lane < kMaxLevels) s_win[warp][lane] = 0.0;
   __syncthreads();
   const double scale = s_scale;
   const int F = FC > 0 ? FC : f_dim;
-  // (spb samples) x (levels) a block, the level fastest.
-  const int s = threadIdx.x / levels, l = threadIdx.x - s * levels;
-  const Level lv = lvs.lv[l];
-  const float win = window != nullptr ? __ldg(window + l) : 1.0f;
-  const bool feats = d_x != nullptr || window != nullptr;
-  double dwin = 0.0;
+  const int warps = spb >> 5;
   const int64_t tiles = (n + spb - 1) / spb;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t smp = tile * spb + s;
-    const float* gp = g + (smp * levels + l) * F;
+    const int64_t first = tile * spb + warp * 32;
+    if (first >= n) continue;        // the whole warp past N
+    const int64_t smp = first + lane;
+    const bool valid = smp < n;
+    const int64_t sr = valid ? smp : n - 1;   // a lane past N: any sample
+    const float* xs = x + sr * 3;
     float dx[3] = {0.0f, 0.0f, 0.0f};
-    if (smp < n) {
-      add_table_grad<FC>(lv, x + smp * 3, gp, win, f_dim, noise + smp * m,
-                         m, acc, scale);
-    }
-    if (smp < n && feats) {          // the rows again, for d_x and d_window
+    for (int l = 0; l < levels; ++l) {
+      const Level lv = lvs.lv[l];
+      const float* gp = g + (sr * levels + l) * F;
       int base[3];
-      float frac[3], wb[3];
-      locate(x + smp * 3, lv.scale, base, frac);
+      float frac[3];
+      float gw[FC > 0 ? FC : kMaxF];   // g * window, the table's cotangent
+      scatter_level<FC>(lv, xs, gp,
+                        window != nullptr ? __ldg(window + l) : 1.0f, noise,
+                        m, sr, valid, F, scale, acc, base, frac, gw);
+      if constexpr (!FEATS) continue;
+      // the rows again, for d_x and d_window
+      float wb[3];
+      float dxl[3] = {0.0f, 0.0f, 0.0f};
       float out[FC > 0 ? FC : 1] = {};  // the un-windowed output (F = FC)
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
@@ -328,21 +445,23 @@ hashgrid_bwd_scatter_kernel(
         float gdot = 0.0f;
         for (int f = 0; f < F; ++f) {
           const float ft = __ldg(params + row * F + f);
-          gdot = __fadd_rn(gdot, __fmul_rn(ft, __fmul_rn(__ldg(gp + f),
-                                                         win)));
+          gdot = __fadd_rn(gdot, __fmul_rn(ft, gw[f]));
           if constexpr (FC > 0) out[f] = __fadd_rn(out[f], __fmul_rn(w, ft));
         }
         const float sgn0 = (c & 1) ? 1.0f : -1.0f;
         const float sgn1 = ((c >> 1) & 1) ? 1.0f : -1.0f;
         const float sgn2 = ((c >> 2) & 1) ? 1.0f : -1.0f;
-        dx[0] = __fadd_rn(dx[0], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
+        dxl[0] = __fadd_rn(dxl[0], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
             __fmul_rn(sgn0, wb[1]), wb[2])), lv.scale));
-        dx[1] = __fadd_rn(dx[1], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
+        dxl[1] = __fadd_rn(dxl[1], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
             __fmul_rn(sgn1, wb[0]), wb[2])), lv.scale));
-        dx[2] = __fadd_rn(dx[2], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
+        dxl[2] = __fadd_rn(dxl[2], __fmul_rn(__fmul_rn(gdot, __fmul_rn(
             __fmul_rn(sgn2, wb[0]), wb[1])), lv.scale));
       }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dx[d] = __fadd_rn(dx[d], dxl[d]);
       if (window != nullptr) {       // the un-windowed output, dotted with g
+        double dwin = 0.0;
         for (int f = 0; f < F; ++f) {
           float o;
           if constexpr (FC > 0) {
@@ -357,33 +476,23 @@ hashgrid_bwd_scatter_kernel(
           }
           dwin += static_cast<double>(__fmul_rn(o, __ldg(gp + f)));
         }
+        dwin = valid ? dwin : 0.0;
+        double total = 0.0;          // the warp's lanes in sample order
+        for (int i = 0; i < 32; ++i) total += __shfl_sync(kAll, dwin, i);
+        if (lane == 0) s_win[warp][l] += total;
       }
     }
-    if (d_x != nullptr) {            // sum the levels in level order
+    if (FEATS && d_x != nullptr && valid) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) s_dx[threadIdx.x * 3 + d] = dx[d];
-      __syncthreads();
-      if (l == 0 && smp < n) {
-        float sum[3] = {0.0f, 0.0f, 0.0f};
-        for (int li = 0; li < levels; ++li) {
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            sum[d] = __fadd_rn(sum[d], s_dx[(threadIdx.x + li) * 3 + d]);
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < 3; ++d) d_x[smp * 3 + d] = sum[d];
-      }
-      __syncthreads();
+      for (int d = 0; d < 3; ++d) d_x[smp * 3 + d] = dx[d];
     }
   }
-  if (window != nullptr) {           // this block's d_window, sample order
-    s_win[threadIdx.x] = dwin;
+  if (FEATS && window != nullptr) {  // this block's d_window, warp order
     __syncthreads();
-    if (s == 0) {
+    if (threadIdx.x < levels) {
       double sum = 0.0;
-      for (int si = 0; si < spb; ++si) sum += s_win[si * levels + l];
-      win_part[static_cast<int64_t>(blockIdx.x) * levels + l] = sum;
+      for (int w = 0; w < warps; ++w) sum += s_win[w][threadIdx.x];
+      win_part[static_cast<int64_t>(blockIdx.x) * levels + threadIdx.x] = sum;
     }
   }
 }
@@ -435,37 +544,82 @@ unsigned blocks_for(int64_t threads, int64_t cap) {
   return static_cast<unsigned>(b < 1 ? 1 : b);
 }
 
+// The forward's dynamic shared memory: the (32, levels * f) tile.
+constexpr int kMaxSmem = 232448;     // a block's most on an H100
+
+size_t fwd_smem(int levels, int f) {
+  return sizeof(float) * 32 * static_cast<size_t>(tile_ld(levels * f));
+}
+
+template <int FC>
+int launch_fwd(const float* p, const float* xs, const float* win, float* o,
+               long long n, int levels, int f, const Levels& lvs,
+               cudaStream_t st) {
+  const size_t smem = fwd_smem(levels, f);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hashgrid_fwd_kernel<FC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
+  hashgrid_fwd_kernel<FC><<<blocks, kThreads, smem, st>>>(p, xs, win, o, n,
+                                                         levels, f, lvs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct ScatterArgs {
+  const float* params;
+  const float* x;
+  const float* g;
+  const float* window;
+  const float* noise;
+  int m;
+  unsigned long long* acc;
+  double* sums;
+  int prep_blocks;
+  float* d_x;
+  double* win_part;
+  int64_t n;
+  int levels, f_dim, spb;
+  Levels lvs;
+};
+
+template <int FC, bool FEATS>
+cudaError_t launch_scatter(const ScatterArgs& a, int blocks,
+                           cudaStream_t st) {
+  hashgrid_bwd_scatter_kernel<FC, FEATS><<<blocks, a.spb, 0, st>>>(
+      a.params, a.x, a.g, a.window, a.noise, a.m, a.acc, a.sums,
+      a.prep_blocks, a.d_x, a.win_part, a.n, a.levels, a.f_dim, a.spb,
+      a.lvs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // params: (n_params, f) fp32; x: (n, 3) fp32; window: (levels,) fp32 or
 // null; out: (n, levels * f) fp32; all contiguous on the current device,
 // params 8-byte aligned. table: host (levels, 6) uint32 rows {scale's fp32
-// bits, res, offset, size - 1, salt, dense}, levels <= 32. Launches on
+// bits, res, offset, size - 1, salt, dense}, levels <= 32, and a 32-sample
+// output tile, 32 * (levels * f | 1) fp32, of at most 227 KB. Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int hashgrid_fwd(const void* params, const void* x,
                             const void* window, void* out, long long n,
                             int levels, int f, const void* table,
                             void* stream) {
-  if (levels < 1 || levels > kMaxLevels || f < 1) {
+  if (levels < 1 || levels > kMaxLevels || f < 1 ||
+      fwd_smem(levels, f) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n <= 0) return static_cast<int>(cudaSuccess);
   const Levels lvs = unpack_levels(table, levels);
-  const int64_t threads = static_cast<int64_t>(n) * levels;
-  if (threads <= 0) return static_cast<int>(cudaSuccess);
-  const unsigned blocks = blocks_for(threads, INT32_MAX);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(params);
   const float* xs = static_cast<const float*>(x);
   const float* win = static_cast<const float*>(window);
   float* o = static_cast<float*>(out);
-  if (f == 2) {
-    hashgrid_fwd_kernel<2><<<blocks, kThreads, 0, st>>>(p, xs, win, o, n,
-                                                        levels, f, lvs);
-  } else {
-    hashgrid_fwd_kernel<0><<<blocks, kThreads, 0, st>>>(p, xs, win, o, n,
-                                                        levels, f, lvs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return f == 2 ? launch_fwd<2>(p, xs, win, o, n, levels, f, lvs, st)
+                : launch_fwd<0>(p, xs, win, o, n, levels, f, lvs, st);
 }
 
 // The backward's three passes on `stream`. params, x, window as for the
@@ -474,9 +628,9 @@ extern "C" int hashgrid_fwd(const void* params, const void* x,
 // Outputs: d_params (n_params, f) fp32; d_x (n, 3) fp32 or null to skip it;
 // d_window (levels,) fp32, written when window is given. Scratch: acc
 // (n_params, f) int64 (zeroed here), sums (prep_blocks + 1) fp64, win_part
-// (blocks, levels) fp64 when window is given. spb samples a block, spb *
-// levels <= 256; blocks walk the sample tiles in a fixed stride. Returns a
-// cudaError_t.
+// (blocks, levels) fp64 when window is given. spb samples a block (a
+// multiple of 32, at most 256: a warp a 32 samples), f <= 16; blocks walk
+// the sample tiles in a fixed stride. Returns a cudaError_t.
 extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
                             const void* window, const void* noise, int m,
                             void* d_params, void* acc, void* sums,
@@ -484,9 +638,9 @@ extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
                             long long n, long long n_params, int levels,
                             int f, int spb, int blocks, int prep_blocks,
                             const void* table, void* stream) {
-  if (levels < 1 || levels > kMaxLevels || f < 1 || spb < 1 ||
-      spb * levels > kThreads || blocks < 1 || prep_blocks < 1 || m < 0 ||
-      m >= 8 || (m > 0 && noise == nullptr)) {
+  if (levels < 1 || levels > kMaxLevels || f < 1 || f > kMaxF ||
+      spb < 32 || spb % 32 != 0 || spb > kThreads || blocks < 1 ||
+      prep_blocks < 1 || m < 0 || m >= 8 || (m > 0 && noise == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Levels lvs = unpack_levels(table, levels);
@@ -506,16 +660,16 @@ extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
   const float* u = static_cast<const float*>(noise);
   float* dx = static_cast<float*>(d_x);
   double* part = static_cast<double*>(win_part);
+  const ScatterArgs a = {p, xs, gs, win, u, m, fixed, s, prep_blocks, dx,
+                         part, n, levels, f, spb, lvs};
+  const bool feats = dx != nullptr || win != nullptr;
   if (f == 2) {
-    hashgrid_bwd_scatter_kernel<2><<<blocks, spb * levels, 0, st>>>(
-        p, xs, gs, win, u, m, fixed, s, prep_blocks, dx, part, n, levels, f,
-        spb, lvs);
+    err = feats ? launch_scatter<2, true>(a, blocks, st)
+                : launch_scatter<2, false>(a, blocks, st);
   } else {
-    hashgrid_bwd_scatter_kernel<0><<<blocks, spb * levels, 0, st>>>(
-        p, xs, gs, win, u, m, fixed, s, prep_blocks, dx, part, n, levels, f,
-        spb, lvs);
+    err = feats ? launch_scatter<0, true>(a, blocks, st)
+                : launch_scatter<0, false>(a, blocks, st);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   hashgrid_bwd_finish_kernel<<<blocks_for(n_acc, 132 * 16), kThreads, 0,
                                st>>>(

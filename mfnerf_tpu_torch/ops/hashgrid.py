@@ -16,7 +16,8 @@ with ``grad_noise`` and ``grad_corners < 8``, the unweighted ``g / m`` to
 launch the hand-written kernels of ``csrc/hashgrid.cu``, whose table
 gradient is bitwise the same on every launch; on CPU tensors they compute
 :func:`hashgrid_encode_plain` and :func:`hashgrid_bwd_plain`, which repeat
-the JAX functions operation for operation.
+the JAX functions operation for operation. :func:`hashgrid_bwd_fixed_plain`
+models the backward kernel's fixed-point table gradient bit for bit.
 
 Torch has no wrapping uint32 multiply, so corner rows are hashed in int64:
 a product or XOR of int64 values has the same low 32 bits as its uint32
@@ -265,10 +266,73 @@ def hashgrid_bwd_plain(params, x, cfg: HashGridConfig, g, window=None,
             d_x.to(x.dtype) if need_dx else None, d_window)
 
 
+def fixed_point_scale(g, cfg: HashGridConfig, window=None) -> float:
+    """2^k, the backward kernel's fixed-point scale: the power of two with
+    S * 2^k < 2^61 for S = sum |g * window| in fp64 (1 for S = 0, NaN for
+    an S that is not finite). The exponent is clamped to [-1000, 1000]."""
+    n = g.shape[0]
+    gl = g.to(torch.float32).reshape(n, cfg.L, cfg.F)
+    if window is not None:
+        gl = gl * window.to(torch.float32)[None, :, None]
+    s = float(gl.abs().to(torch.float64).sum())
+    if not math.isfinite(s):
+        return math.nan
+    if s == 0.0:
+        return 1.0
+    e = math.frexp(s)[1]                       # s < 2^e
+    return math.ldexp(1.0, max(-1000, min(1000, 61 - e)))
+
+
+def hashgrid_bwd_fixed_plain(params, x, cfg: HashGridConfig, g, window=None,
+                             grad_noise=None):
+    """d_params as the backward kernel computes it, in 64-bit fixed point.
+
+    Each update ``w_c * (g * window)`` (or ``(g * window) / m`` at the m
+    drawn corners) is rounded in fp32 operation by operation as in
+    :func:`hashgrid_bwd_plain`, scaled by :func:`fixed_point_scale` and
+    rounded half to even to an int64; the updates are summed with an int64
+    ``index_add_`` and the sums converted to fp32. Integer sums do not
+    depend on their order, so the result is bitwise the same for any order
+    of the samples, as the kernel's is for any grouping of its atomics.
+    """
+    arrays, base, frac = _cells(x, cfg)
+    n, nl, nf = x.shape[0], cfg.L, cfg.F
+    gl = g.to(torch.float32).reshape(n, nl, nf).transpose(0, 1)  # (L, N, F)
+    gl_tab = gl if window is None else gl * window[:, None, None]
+    scale = fixed_point_scale(g, cfg, window)
+    if not math.isfinite(scale):
+        return torch.full(params.shape, math.nan, dtype=torch.float32,
+                          device=params.device)
+    acc = torch.zeros(params.shape, dtype=torch.int64, device=params.device)
+
+    def add(idx, upd):
+        q = torch.round(upd.to(torch.float64) * scale).to(torch.int64)
+        acc.index_add_(0, idx.reshape(-1), q.reshape(-1, nf))
+
+    if grad_noise is not None and cfg.grad_corners < 8:
+        m = cfg.grad_corners
+        ws = [_corner(c, base, frac, arrays)[1] for c in range(8)]
+        cumw = torch.cumsum(torch.stack(ws), dim=0)             # (8, L, N)
+        u = grad_noise.to(torch.float32).T                      # (m, N)
+        cstar = torch.clamp_max(
+            (cumw[None] < u[:, None, None, :]).sum(1), 7)       # (m, L, N)
+        upd = gl_tab / m
+        for j in range(m):
+            bits = torch.stack([cstar[j] & 1, (cstar[j] >> 1) & 1,
+                                (cstar[j] >> 2) & 1], dim=-1)   # (L, N, 3)
+            add(_corner_index(base + bits, *arrays[1:]), upd)
+    else:
+        for c in range(8):
+            idx, w, _, _ = _corner(c, base, frac, arrays)
+            add(idx, w[..., None] * gl_tab)
+    return (acc.to(torch.float64) * (1.0 / scale)).to(torch.float32)
+
+
 # ------------------------------------------------------------------ kernels
 MAX_LEVELS = 32        # csrc/hashgrid.cu's level table
-BWD_THREADS = 256      # threads a backward block: (BWD_THREADS // L) samples
-BWD_BLOCKS = 1056      # backward blocks at most: eight an H100 SM
+MAX_F = 16             # features the backward kernel takes
+BWD_SAMPLES = 128      # samples a backward block: a warp a 32 of them
+BWD_BLOCKS = 2112      # backward blocks at most: sixteen an H100 SM
 PREP_BLOCKS = 264      # blocks of the pass that sums |g|: two an SM
 
 
@@ -297,12 +361,12 @@ def level_table(cfg: HashGridConfig) -> np.ndarray:
     return table
 
 
-def bwd_grid(n, levels):
-    """(samples a block, blocks) of the backward's scatter for N samples of
-    L levels. Blocks walk the sample tiles in a fixed stride, and each keeps
-    one partial of d_window, so their order is a function of N and L."""
-    spb = max(1, BWD_THREADS // levels)
-    return spb, max(1, min(-(-n // spb), BWD_BLOCKS))
+def bwd_grid(n):
+    """(samples a block, blocks) of the backward's scatter for N samples: a
+    warp holds 32 consecutive samples and walks the levels in order. Blocks
+    walk the sample tiles in a fixed stride, and each keeps one partial of
+    d_window a level, so their order is a function of N and L alone."""
+    return BWD_SAMPLES, max(1, min(-(-n // BWD_SAMPLES), BWD_BLOCKS))
 
 
 def _stream(device):
@@ -312,9 +376,10 @@ def _stream(device):
 
 def _check(params, x, cfg, window, extra=()):
     """Shape, type and device checks shared by both kernels."""
-    if cfg.L > MAX_LEVELS or cfg.n_params >= 2 ** 31:
-        raise ValueError(f"the kernels take L <= {MAX_LEVELS} and fewer than "
-                         f"2^31 rows, got L={cfg.L}, {cfg.n_params} rows")
+    if cfg.L > MAX_LEVELS or cfg.F > MAX_F or cfg.n_params >= 2 ** 31:
+        raise ValueError(f"the kernels take L <= {MAX_LEVELS}, F <= {MAX_F} "
+                         f"and fewer than 2^31 rows, got L={cfg.L}, "
+                         f"F={cfg.F}, {cfg.n_params} rows")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"x must be (N, 3) float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -384,7 +449,7 @@ def _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx):
     if n == 0:
         return (d_params.zero_(), d_x,
                 None if d_window is None else d_window.zero_())
-    spb, blocks = bwd_grid(n, nl)
+    spb, blocks = bwd_grid(n)
     acc = torch.empty((cfg.n_params, cfg.F), dtype=torch.int64, device=dev)
     sums = torch.empty((PREP_BLOCKS + 1,), dtype=torch.float64, device=dev)
     win_part = None if window is None else torch.empty(

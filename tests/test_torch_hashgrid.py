@@ -17,6 +17,7 @@ port's plain versions. Tolerances:
 """
 import argparse
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -241,11 +242,112 @@ def test_level_table_for_the_kernels():
         assert row[:1].view(np.float32)[0] == np.float32(m.scale)
         assert tuple(row[1:]) == (m.res, m.offset, m.size - 1, m.salt,
                                   int(m.dense))
-    for n, levels in ((1, 16), (15, 16), (1 << 19, 16), (110_000, 8),
-                      (10 ** 7, 12)):
-        spb, blocks = thash.bwd_grid(n, levels)
-        assert 1 <= spb * levels <= thash.BWD_THREADS
+    # the backward's block shape: a warp a 32 consecutive samples, which
+    # walks the levels; the blocks (and so the d_window partials) depend on
+    # N alone
+    for n in (1, 15, 202_522, 1 << 19, 110_000, 10 ** 7):
+        spb, blocks = thash.bwd_grid(n)
+        assert spb % 32 == 0 and 32 <= spb <= 256
         assert 1 <= blocks <= thash.BWD_BLOCKS and (blocks - 1) * spb < n
+        assert blocks == min(-(-n // spb), thash.BWD_BLOCKS)
+
+
+def test_kernel_checks_refuse_what_the_kernels_do_not_take():
+    """The wrappers' checks: the level table's 32 levels, the backward's
+    16 features."""
+    x = torch.zeros((4, 3))
+    for kw in (dict(L=33, F=2), dict(L=4, F=17)):
+        _, tcfg = _cfgs("Hash", **dict(SMALL, log2_T=10, **kw))
+        params = torch.zeros((tcfg.n_params, tcfg.F))
+        with pytest.raises(ValueError, match="the kernels take"):
+            thash._check(params, x, tcfg, None)
+    _, tcfg = _cfgs("Hash", **dict(SMALL, log2_T=10, L=32, F=16))
+    thash._check(torch.zeros((tcfg.n_params, 16)), x, tcfg, None)
+
+
+FIXED_CASES = [("Hash", 1, None, 8), ("Window", 1, 0.6, 8),
+               ("MixedFeature", 2, None, 8), ("Hash", 1, None, 1),
+               ("Window", 1, 0.6, 1), ("MixedFeature", 2, None, 1)]
+
+
+def _fixed_operands(grid, n_tables, alpha, m, seed=6):
+    jcfg, tcfg = _cfgs(grid, n_tables, grad_corners=m)
+    params, x, g = _operands(jcfg, seed)
+    noise = None if m == 8 else np.random.default_rng(seed + 1).random(
+        (N, m), dtype=np.float32)
+    return jcfg, tcfg, params, x, g, noise, alpha
+
+
+@pytest.mark.parametrize("grid,n_tables,alpha,m", FIXED_CASES)
+def test_fixed_point_model_matches_jax(grid, n_tables, alpha, m):
+    """hashgrid_bwd_fixed_plain, the backward kernel's d_params in 64-bit
+    fixed point, against the JAX VJP's d_params: within 1e-5 of the largest
+    value (each update rounded by at most S 2^-62)."""
+    jcfg, tcfg, params, x, g, noise, alpha = _fixed_operands(
+        grid, n_tables, alpha, m)
+    win_j = None if alpha is None else jhash.window_weights(jcfg, alpha)
+    dp_j = _jax_vjp(jcfg, params, x, g, win_j, noise)[0]
+    win_t = None if alpha is None else thash.window_weights(tcfg, alpha)
+    t = torch.from_numpy
+    dp = thash.hashgrid_bwd_fixed_plain(
+        t(params), t(x), tcfg, t(g), win_t,
+        None if noise is None else t(noise))
+    assert dp.shape == params.shape and dp.dtype == torch.float32
+    np.testing.assert_allclose(dp.numpy(), np.asarray(dp_j), rtol=0,
+                               atol=1e-5 * float(np.abs(dp_j).max()))
+    assert (dp != 0).any(dim=1).sum() > 1000
+
+
+@pytest.mark.parametrize("grid,n_tables,alpha,m", FIXED_CASES[:3]
+                         + FIXED_CASES[4:])
+def test_fixed_point_model_ignores_sample_order(grid, n_tables, alpha, m):
+    """The fixed-point d_params is bitwise the same for any order of the
+    samples: integer sums do not depend on their order. The backward
+    kernel's merge of a warp's equal rows relies on it."""
+    _, tcfg, params, x, g, noise, alpha = _fixed_operands(
+        grid, n_tables, alpha, m, seed=7)
+    win = None if alpha is None else thash.window_weights(tcfg, alpha)
+    t = torch.from_numpy
+    perm = t(np.random.default_rng(8).permutation(N))
+    args = [t(x), t(g), None if noise is None else t(noise)]
+    want = thash.hashgrid_bwd_fixed_plain(t(params), args[0], tcfg, args[1],
+                                          win, args[2])
+    got = thash.hashgrid_bwd_fixed_plain(
+        t(params), args[0][perm], tcfg, args[1][perm], win,
+        None if noise is None else args[2][perm])
+    assert torch.equal(got, want)
+    # the float scatter of hashgrid_bwd_plain is only close
+    plain = thash.hashgrid_bwd_plain(t(params), args[0], tcfg, args[1], win,
+                                     args[2], need_dx=False)[0]
+    assert float((plain - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_fixed_point_scale():
+    """2^k with S 2^k < 2^61 <= 2 S 2^k, for S = sum |g window| in fp64;
+    1 for S = 0 and NaN for an S that is not finite."""
+    _, tcfg = _cfgs("Window")
+    n = 64
+    win = thash.window_weights(tcfg, 0.6)
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(n, tcfg.out_dim)).astype(np.float32))
+    s = float((g.reshape(n, tcfg.L, tcfg.F) * win[None, :, None]).abs()
+              .double().sum())
+    scale = thash.fixed_point_scale(g, tcfg, win)
+    assert math.log2(scale).is_integer()
+    assert s * scale < 2.0 ** 61 <= 2 * s * scale
+    assert thash.fixed_point_scale(g, tcfg) != scale     # window ignored
+    # S exactly on a power of two: 2^k halves
+    one = torch.zeros((1, tcfg.out_dim))
+    one[0, 0] = 1.0
+    assert thash.fixed_point_scale(one, tcfg) == 2.0 ** 60
+    assert thash.fixed_point_scale(one * 0.75, tcfg) == 2.0 ** 61
+    assert thash.fixed_point_scale(torch.zeros_like(g), tcfg) == 1.0
+    one[0, 1] = math.inf
+    assert math.isnan(thash.fixed_point_scale(one, tcfg))
+    assert torch.isnan(thash.hashgrid_bwd_fixed_plain(
+        torch.zeros((tcfg.n_params, tcfg.F)), torch.zeros((1, 3)), tcfg,
+        one)).all()
 
 
 @pytest.mark.parametrize("grid,n_tables", [("Hash", 1), ("MixedFeature", 8)])

@@ -3,13 +3,17 @@
     python3 tools/hashgrid_check.py [--n N] [--ptxas]
 
 Builds ``mfnerf_tpu_torch/csrc/hashgrid.cu``, then runs ``chip_smoke.py``'s
-phase 12 (``check_hashgrid``: the forward against its plain version, the
-backward's d_params bitwise across launches, exact and sampled, d_params,
-d_x and d_window against the plain version, the kernels' times beside their
-bounds) for the CLI's default Hash grid and the MixedFeature benchmark grid
-at N uniform points. ``--ptxas`` first prints what ``nvcc -Xptxas -v`` says
-of each kernel (registers, shared memory, spills). Prints one JSON line a
-check; exits non-zero on a failed check or without a CUDA device.
+phase 12 (``check_hashgrid``: the forward bit for bit against its plain
+version, the backward's d_params bitwise across launches and to the
+fixed-point model, exact, sampled and windowed, d_params, d_x and d_window
+against the plain version, the atomics before and after the warps' merge,
+the kernels' device times by CUDA-graph replay beside their bounds) on its
+operand sets at N points (the CLI's default Hash grid and the MixedFeature
+benchmark grid at uniform points; the MixedFeature grid along rays and at
+the degenerate set), then the generic path (F 4, L 12) at 2^16 points.
+``--ptxas`` first prints what ``nvcc -Xptxas -v`` says of each kernel
+(registers, shared memory, spills). Prints one JSON line a check; exits
+non-zero on a failed check or without a CUDA device.
 """
 import argparse
 import json
@@ -34,7 +38,6 @@ def main():
         return 1
     import chip_smoke
     from mfnerf_tpu_torch import build
-    from mfnerf_tpu_torch.models.ngp import NGPConfig
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -55,15 +58,12 @@ def main():
     print(json.dumps({"build_seconds": time.perf_counter() - t0}),
           flush=True)
     chip_smoke.N_HASH = args.n
-    for i, grid_kw in enumerate((chip_smoke.HASH_GRID, dict(
-            chip_smoke.HASH_GRID, grid="MixedFeature", log2_T=20,
-            N_tables=8))):
-        cfg = NGPConfig(**grid_kw).hash_cfg
-        fields = chip_smoke.check_hashgrid(
-            "uniform", cfg, *chip_smoke.hash_uniform_operands(
-                cfg, chip_smoke.SEED + 10 + i), chip_smoke.SEED + 20 + i)
+    for label, cfg, operands, seed in chip_smoke.hash_operand_sets():
+        fields = chip_smoke.check_hashgrid(label, cfg, *operands(cfg, seed),
+                                           seed + 10)
         print(json.dumps({"phase": "kernel_hashgrid", **fields,
                           "card": card}), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 
