@@ -75,8 +75,11 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    bit against its plain version, beside grid_sample; then at a ragged N;
 17. probe_gather2: the port of probe_pallas_gather2.py (N = 2^19, K 513,
    R 128): table_lerp in u mode the same way, and hat_basis_dw's dW
-   bitwise equal across three launches and within 1e-4 x max of its plain
-   version; then at a ragged N;
+   bitwise equal across three launches, within 1e-4 x max of its plain
+   version and bit for bit equal to the model of its sums
+   (hat_basis_dw_order_plain); then at a ragged N, and dW the same way on
+   2^19 sorted u and 2^19 u on the knots, each set's time by CUDA-graph
+   replay beside its bound;
 18. probe_hatmul: the port of probe_pallas_hatmul.py, hat_prod at N = 2^19,
    K 513, R 128 bit for bit against hat_prod_plain; then at a ragged N.
    Each probe's run() is its kernels' path: their launch counts are reset
@@ -1026,13 +1029,19 @@ def main():
         res = probe.run(dev, SEED)
         counts = {fn.__name__: fn.launches for fn in kernels}
         ragged = probe.run(dev, SEED + 1, N_RAGGED)
+        failed = res["failed"] + ragged["failed"]
+        dw_sets = {}
+        if probe is probe_gather2:     # hat_basis_dw on sorted u and knots
+            for kind in ("sorted", "knots"):
+                u_set, g_set = probe.dw_operands(kind, probe.N, SEED + 2, dev)
+                dw_sets[kind] = probe.dw_row(u_set, g_set, failed,
+                                             f"hat_basis_dw ({kind})")
+                del u_set, g_set
         phase(label, **res["kernels"], launches=counts,
-              ragged=ragged["kernels"], failed=res["failed"]
-              + ragged["failed"], card=card)
-        check(not res["failed"] and not ragged["failed"],
-              f"{label}: {res['failed'] + ragged['failed']}")
+              ragged=ragged["kernels"], **dw_sets, failed=failed, card=card)
+        check(not failed, f"{label}: {failed}")
         check(min(counts.values()) > 0, f"{label} launched {counts}")
-        probes[label] = dict(res["kernels"], launches=counts)
+        probes[label] = dict(res["kernels"], launches=counts, **dw_sets)
     lerp_idx = probes["probe_gather"]["table_lerp"]
     lerp_u = probes["probe_gather2"]["table_lerp"]
     probe_dw = probes["probe_gather2"]["hat_basis_dw"]
@@ -1083,7 +1092,10 @@ def main():
         "launches": probes["probe_gather2"]["launches"]["hat_basis_dw"],
         "max_abs_err": probe_dw["max_abs_err"], "ms": probe_dw["ms"],
         "plain_ms": probe_dw["plain_ms"], "bound_ms": probe_dw["bound_ms"],
-        "bound_by": probe_dw["bound_by"], "library_ms": None}, {
+        "bound_by": probe_dw["bound_by"], "library_ms": None,
+        "sets": {kind: {key: probes["probe_gather2"][kind][key] for key in (
+            "ms", "bound_ms", "max_abs_err", "order_model_equal")}
+            for kind in ("sorted", "knots")}}, {
         "name": "hat_prod_probe", "route": "cuda", "source": src,
         "replaces": "benchmarking/probe_pallas_hatmul.py:89",
         "launches": probes["probe_hatmul"]["launches"]["hat_prod"],

@@ -20,16 +20,19 @@ The JAX probe (line by line):
 Here probe A is ``ops/linetable.py::table_lerp`` in u mode and probe B is
 ``ops/linetable.py::hat_basis_dw`` (both ``csrc/linetable.cu``), on the
 table's K rows. The lerp is checked bit for bit against its plain version
-and timed beside grid_sample; dW is checked bitwise across three launches
-and within DW_TOL of its plain version (the dense bf16 product in fp32). No
-single PyTorch call computes dW from u.
+and timed beside grid_sample; dW is checked bitwise across three launches,
+within DW_TOL of its plain version (the dense bf16 product in fp32) and bit
+for bit against the model of its sums (``hat_basis_dw_order_plain``), by
+:func:`dw_row`, which also takes the other sets of :func:`dw_operands`
+(sorted u, u on the knots). No single PyTorch call computes dW from u.
 """
 import sys
 
 import numpy as np
 import torch
 
-from ..ops.linetable import (hat_basis_dw, hat_basis_dw_plain, table_lerp,
+from ..ops.linetable import (hat_basis_dw, hat_basis_dw_order_plain,
+                             hat_basis_dw_plain, table_lerp,
                              table_lerp_plain)
 from . import (bound, card_device, card_name, graph_ms, lerp_row, max_err,
                probe_main)
@@ -53,6 +56,59 @@ def operands(n, seed, device):
     return (torch.from_numpy(a).to(device) for a in (u, w, g))
 
 
+def dw_operands(kind, n, seed, device):
+    """(u, g) of one set of hat_basis_dw's checks: :func:`operands`'s u and g
+    ("uniform"), the same u sorted ("sorted": a chunk's samples on a few
+    rows), or moved to its nearest knot ("knots": weights 1 and 0)."""
+    u, _, g = operands(n, seed, device)
+    if kind == "sorted":
+        u = torch.sort(u).values
+    elif kind == "knots":
+        u = torch.round(u * (K - 1)) / (K - 1)
+    elif kind != "uniform":
+        raise ValueError(f"no dW set {kind!r}")
+    return u, g
+
+
+def dw_bound(n, r=R):
+    """(ms, by) of hat_basis_dw's bound: read u and g once, write dW; per
+    sample the rows and weights (8), per (sample, column) two products and
+    two sums."""
+    return bound(4 * n + 4 * n * r + 4 * K * r, 4 * n * r + 8 * n)
+
+
+def dw_row(u, g, failed, label="hat_basis_dw"):
+    """Check hat_basis_dw on (u, g): dW bitwise equal across three launches,
+    within DW_TOL of the plain version and bit for bit equal to the model of
+    its sums; then time it. Appends what failed to ``failed``; returns the
+    kernel's row."""
+    n = u.shape[0]
+    runs = [hat_basis_dw(u, g, K) for _ in range(3)]
+    want = hat_basis_dw_plain(u, g, K)
+    model = hat_basis_dw_order_plain(u, g, K)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(runs[0], r) for r in runs[1:])
+    spread = max(float((runs[0] - r).abs().max()) for r in runs[1:])
+    err, scale = max_err(runs[0], want)
+    model_equal = bool(torch.equal(runs[0], model))
+    if not bitwise:
+        failed.append(f"{label}: dW differs between launches by {spread}")
+    if err > DW_TOL * scale:
+        failed.append(f"{label} vs plain: {err} of {scale}")
+    if not model_equal:
+        failed.append(f"{label} vs hat_basis_dw_order_plain: max abs err "
+                      f"{max_err(runs[0], model)[0]}")
+    del runs, want, model
+    ms = graph_ms(lambda: hat_basis_dw(u, g, K), 20)
+    bound_ms, bound_by = dw_bound(n, g.shape[1])
+    return dict(n=n, k=K, r=g.shape[1], dw_bitwise_equal=bitwise,
+                dw_launch_spread=spread, order_model_equal=model_equal,
+                max_abs_err=err, max_abs=scale, tol=DW_TOL, ms=ms,
+                plain_ms=graph_ms(lambda: hat_basis_dw_plain(u, g, K), 3),
+                library=None, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms)
+
+
 def run(device="cuda", seed=0, n=None):
     """Kernel 5 (table_lerp, u mode) and kernel 6 (hat_basis_dw) at the
     probe's shape (or ``n`` samples). Returns {"card", "kernels":
@@ -70,29 +126,7 @@ def run(device="cuda", seed=0, n=None):
         4 * n + 4 * K * R + 4 * n * R, 3 * n * R + 4 * n, failed,
         "table_lerp (u)")
 
-    runs = [hat_basis_dw(u, g, K) for _ in range(3)]
-    want = hat_basis_dw_plain(u, g, K)
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(runs[0], r) for r in runs[1:])
-    spread = max(float((runs[0] - r).abs().max()) for r in runs[1:])
-    err, scale = max_err(runs[0], want)
-    if not bitwise:
-        failed.append(f"hat_basis_dw: dW differs between launches by "
-                      f"{spread}")
-    if err > DW_TOL * scale:
-        failed.append(f"hat_basis_dw vs plain: {err} of {scale}")
-    del runs, want
-    ms = graph_ms(lambda: hat_basis_dw(u, g, K), 20)
-    # read u and g once, write dW; per sample the rows and weights (8), per
-    # (sample, column) two products and two sums
-    bound_ms, bound_by = bound(4 * n + 4 * n * R + 4 * K * R,
-                               4 * n * R + 8 * n)
-    dw = dict(n=n, k=K, r=R, dw_bitwise_equal=bitwise,
-              dw_launch_spread=spread, max_abs_err=err, max_abs=scale,
-              tol=DW_TOL, ms=ms,
-              plain_ms=graph_ms(lambda: hat_basis_dw_plain(u, g, K), 3),
-              library=None, library_ms=None, bound_ms=bound_ms,
-              bound_by=bound_by, share_of_bound=bound_ms / ms)
+    dw = dw_row(u, g, failed)
     return {"card": card_name(), "kernels": {
         "table_lerp": dict(lerp, mode="u"), "hat_basis_dw": dw},
         "failed": failed}

@@ -26,7 +26,8 @@
 // on neighbouring addresses, R/4 threads a sample.
 //
 // hat_basis_dw (two stages) replaces benchmarking/probe_pallas_gather2.py::
-// k_bwd, one axis of the hat backward's table gradient with g_d = bf16(g):
+// k_bwd (:143-173), one axis of the hat backward's table gradient with
+// g_d = bf16(g):
 //
 //     dW[k, :] = sum_n bf16(max(0, 1 - |u_n (K-1) - k|)) * bf16(g[n, :])
 //
@@ -39,26 +40,39 @@
 // The TPU kernel sums dW into one output block that its sequential grid
 // revisits. Hopper's blocks run in parallel, and float atomics would add in
 // another order on every launch. Here dW is bitwise the same on every
-// launch, in two stages, as the hat-CP backward (hatmul.cu) takes them:
+// launch, in two stages:
 //
 // * Stage 1 (hat_basis_dw_slab_kernel): the grid is (column tile of 32) x
-//   (sample chunk); a block is one warp and keeps a private fp32 slab (K, 32)
-//   of dW in shared memory (65.7 KB at K = 513: three blocks an SM). Lane c
-//   is the only writer of slab column c and walks the chunk's samples in
-//   order. A batch of 32 samples is read ahead: each lane finds the hat row
-//   and weights of one sample (one coalesced load of u) and loads g of the
-//   32 samples at its column (a 128-byte row segment a sample); the lanes
-//   then take the batch's rows and weights from each other by shuffles. A
-//   lane keeps the two rows it last touched and their running sums in
-//   registers, and writes to the slab only when a sample's rows differ
-//   (run-length merging).
+//   (sample chunk). A block is kDwWarps walker warps sharing one fp32 slab
+//   (K, 32) of dW in shared memory (65.7 KB at K = 513: three blocks, 24
+//   walkers, an SM). Warp w owns the slab rows [w S, (w + 1) S), S =
+//   ceil(K / kDwWarps), and lane c of it is the only reader and writer of
+//   column c of those rows: no barrier, no atomics. A sample of hat row i
+//   gives its w0 term to the owner of row i and its w1 term to the owner of
+//   row i + 1; both walk it (the same warp but at a range's edge). Each
+//   warp reads the chunk's u in 32-sample batches (coalesced; L1 serves
+//   the block's other warps), keeps the samples that touch its rows (a
+//   ballot), and takes them kDwSlots at a time in sample order: each lane
+//   loads g of every slot at its column (kDwSlots loads in flight a lane,
+//   a 128-byte row segment a slot), then the warp walks the slots, their
+//   rows and weights passed by shuffles. Two slab rows (i, i + 1) stay in
+//   registers while consecutive slots share them; a slot on other rows
+//   writes them back and reads its own (rows of other warps: never read or
+//   written). A row's value is always the slab element's running sum, so
+//   each element adds its chunk's products one by one in sample order,
+//   from 0: no run-length merging, and the order does not depend on the
+//   warps.
 // * Stage 2 (hat_basis_dw_reduce_kernel) adds the chunks' slabs in chunk
-//   order into dW, writing every element.
+//   order into dW, from 0, writing every element.
 //
-// The order of the sums depends on N and R alone (the caller's chunking),
-// never on the launch. What bounds it: the bytes of g (R fp32 a sample, 268
-// MB at N = 2^19, R = 128); the slabs add chunks x K x R x 4 bytes, written
-// once and read once.
+// ops/linetable.py::hat_basis_dw_order_plain repeats these sums and equals
+// the kernel bit for bit; the order depends on N and R alone (the caller's
+// chunking), never on the launch. What bounds it: the bytes of g (R fp32 a
+// sample, 268 MB at N = 2^19, R = 128; 0.0808 ms with u and dW at 3.35
+// TB/s); the slabs add chunks x K x R x 4 bytes, written once and read
+// once. PR 6's kernel (one walker warp a block, three an SM) took 0.5598 ms
+// there (NVIDIA H100 80GB HBM3, 700 W): its walk's serial latency, not the
+// bytes, set it (PERF.md §6).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +82,10 @@ namespace {
 constexpr int kLerpCols = 4;       // columns a thread: one float4
 constexpr int kLerpThreads = 256;
 constexpr int kDwCols = 32;        // slab columns a block: one a lane
-constexpr int kDwBatch = 32;       // samples read ahead: one a lane
+constexpr int kDwWarps = 8;        // walker warps a block
+constexpr int kDwSlots = 32;       // selected samples a walk: one a lane
+constexpr int kDwBlocksPerSm = 3;  // the slabs at K = 513
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -110,104 +127,107 @@ table_lerp_kernel(const float* __restrict__ table,
       lerp_rn(t0.z, t1.z, f), lerp_rn(t0.w, t1.w, f));
 }
 
-// One batch read ahead: u of sample s0 + lane, g of samples s0 .. s0 + 31
-// at the lane's column (0 past the chunk's end or past the last column).
-struct Batch {
-  float u;
-  float g[kDwBatch];
-};
-
-__device__ __forceinline__ void load_batch(const float* __restrict__ u,
-                                           const float* __restrict__ g,
-                                           int64_t s0, int64_t end, int r,
-                                           int col, bool live, int lane,
-                                           Batch& b) {
-  const int64_t cnt = end - s0 < kDwBatch ? end - s0 : kDwBatch;
-  b.u = lane < cnt ? u[s0 + lane] : 0.0f;
-#pragma unroll
-  for (int j = 0; j < kDwBatch; ++j) {
-    b.g[j] = live && j < cnt ? g[(s0 + j) * r + col] : 0.0f;
-  }
+// A sample's hat row i = clamp(floor(pos), 0, K-2).
+__device__ __forceinline__ int hat_row(float pos, int k) {
+  return min(max(static_cast<int>(floorf(pos)), 0), k - 2);
 }
 
-__global__ void __launch_bounds__(kDwCols)
+__device__ __forceinline__ bool in_rows(int row, int lo, int hi) {
+  return row >= lo && row < hi;
+}
+
+__global__ void __launch_bounds__(kDwWarps * 32, kDwBlocksPerSm)
 hat_basis_dw_slab_kernel(const float* __restrict__ u,
                          const float* __restrict__ g,
                          float* __restrict__ slabs, int n, int k, int r,
                          int chunk) {
   extern __shared__ float slab[];    // (k, kDwCols)
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int col = blockIdx.x * kDwCols + lane;
   const bool live = col < r;
   const int64_t begin = static_cast<int64_t>(blockIdx.y) * chunk;
   const int64_t end = begin + chunk < n ? begin + chunk : n;
   const float scale = static_cast<float>(k - 1);
-
-  for (int q = lane; q < k * kDwCols; q += kDwCols) slab[q] = 0.0f;
-  __syncwarp();
-
-  int cur = -2;                      // acc0, acc1 hold rows cur and cur + 1
-  float acc0 = 0.0f, acc1 = 0.0f;
+  const int span = (k + kDwWarps - 1) / kDwWarps;
+  const int lo = min(warp * span, k), hi = min(lo + span, k);
   float* mine = slab + lane;         // row stride kDwCols
 
-  // the batch at s0: this lane's sample's hat row and weights, then the
-  // run-length walk over the batch's samples in order
-  auto walk = [&](int64_t s0, const Batch& b) {
-    const int cnt =
-        static_cast<int>(end - s0 < kDwBatch ? end - s0 : kDwBatch);
-    const float pos = __fmul_rn(b.u, scale);
-    const int i0 = min(max(static_cast<int>(floorf(pos)), 0), k - 2);
-    const float w0_own = round_bf16(
-        fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)i0)))));
-    const float w1_own = round_bf16(
-        fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)(i0 + 1))))));
-#pragma unroll
-    for (int j = 0; j < kDwBatch; ++j) {
-      const int i = __shfl_sync(0xffffffffu, i0, j);
-      const float w0 = __shfl_sync(0xffffffffu, w0_own, j);
-      const float w1 = __shfl_sync(0xffffffffu, w1_own, j);
-      if (j < cnt) {                 // the same for the whole warp
-        // A sample whose row differs from cur writes the window's rows out
-        // (adding 0 to a row that stays in the window leaves it unchanged)
-        if (i != cur) {
-          const bool up = i == cur + 1, down = i == cur - 1;
-          const int lo = cur < 0 ? 0 : cur;   // no window yet: add 0 to row 0
-          const float v0 = mine[lo * kDwCols];
-          const float v1 = mine[(lo + 1) * kDwCols];
-          mine[lo * kDwCols] = __fadd_rn(v0, down ? 0.0f : acc0);
-          mine[(lo + 1) * kDwCols] = __fadd_rn(v1, up ? 0.0f : acc1);
-          const float keep0 = up ? acc1 : 0.0f;
-          acc1 = down ? acc0 : 0.0f;
-          acc0 = keep0;
-          cur = i;
-        }
-        const float gd = round_bf16(b.g[j]);
-        acc0 = __fadd_rn(acc0, __fmul_rn(w0, gd));
-        acc1 = __fadd_rn(acc1, __fmul_rn(w1, gd));
-      }
-    }
-  };
+  for (int row = lo; row < hi; ++row) mine[row * kDwCols] = 0.0f;
 
-  Batch b0, b1;                      // buffers alternate
-  if (begin < end) load_batch(u, g, begin, end, r, col, live, lane, b0);
-  for (int64_t s0 = begin; s0 < end; s0 += 2 * kDwBatch) {
-    const int64_t s1 = s0 + kDwBatch;
-    if (s1 < end) load_batch(u, g, s1, end, r, col, live, lane, b1);
-    walk(s0, b0);
-    if (s1 < end) {
-      if (s1 + kDwBatch < end) {
-        load_batch(u, g, s1 + kDwBatch, end, r, col, live, lane, b0);
+  // the filter: the next batch to read (its u already loaded, one a lane),
+  // and the batch being taken (its first sample, its selected samples not
+  // yet taken)
+  int64_t scan = begin;
+  float u_next = begin + lane < end ? u[begin + lane] : 0.0f;
+  int64_t base = begin;
+  unsigned rest = 0u;
+
+  int cur = -2;                      // v0, v1: slab rows cur and cur + 1
+  float v0 = 0.0f, v1 = 0.0f;
+  for (;;) {
+    // the next kDwSlots selected samples in order: lane t keeps slot t's
+    int cnt = 0, mine_s = static_cast<int>(begin);
+    while (cnt < kDwSlots) {
+      if (rest == 0u) {
+        if (scan >= end) break;
+        const int64_t s = scan + lane;
+        const int i = hat_row(__fmul_rn(u_next, scale), k);
+        rest = __ballot_sync(kFull, s < end && i + 1 >= lo && i < hi);
+        base = scan;
+        scan += 32;
+        u_next = scan + lane < end ? u[scan + lane] : 0.0f;
+        continue;
       }
-      walk(s1, b1);
+      const int j = __ffs(rest) - 1;
+      rest &= rest - 1u;
+      if (lane == cnt) mine_s = static_cast<int>(base + j);
+      ++cnt;
     }
+    if (cnt == 0) break;
+
+    // this lane's slot: its row and bf16 weights (w0 in the low half)
+    const float pos = __fmul_rn(lane < cnt ? u[mine_s] : 0.0f, scale);
+    const int i_own = hat_row(pos, k);
+    const float w0_own = round_bf16(
+        fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)i_own)))));
+    const float w1_own = round_bf16(fmaxf(
+        0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)(i_own + 1))))));
+    const unsigned w_own = (__float_as_uint(w0_own) >> 16) |
+                           (__float_as_uint(w1_own) & 0xffff0000u);
+
+    // g of every slot at the lane's column, all loads in flight at once
+    float gs[kDwSlots];
+#pragma unroll
+    for (int t = 0; t < kDwSlots; ++t) {
+      const int s = __shfl_sync(kFull, mine_s, t);
+      gs[t] = live && t < cnt ? g[static_cast<int64_t>(s) * r + col] : 0.0f;
+    }
+
+    // the walk, in sample order
+#pragma unroll
+    for (int t = 0; t < kDwSlots; ++t) {
+      if (t == cnt) break;           // the same for the whole warp
+      const int i = __shfl_sync(kFull, i_own, t);
+      const unsigned w = __shfl_sync(kFull, w_own, t);
+      if (i != cur) {
+        if (in_rows(cur, lo, hi)) mine[cur * kDwCols] = v0;
+        if (in_rows(cur + 1, lo, hi)) mine[(cur + 1) * kDwCols] = v1;
+        v0 = in_rows(i, lo, hi) ? mine[i * kDwCols] : 0.0f;
+        v1 = in_rows(i + 1, lo, hi) ? mine[(i + 1) * kDwCols] : 0.0f;
+        cur = i;
+      }
+      const float gd = round_bf16(gs[t]);
+      v0 = __fadd_rn(v0, __fmul_rn(__uint_as_float(w << 16), gd));
+      v1 = __fadd_rn(v1, __fmul_rn(__uint_as_float(w & 0xffff0000u), gd));
+    }
+    if (cnt < kDwSlots) break;
   }
-  if (cur >= 0) {
-    mine[cur * kDwCols] = __fadd_rn(mine[cur * kDwCols], acc0);
-    mine[(cur + 1) * kDwCols] = __fadd_rn(mine[(cur + 1) * kDwCols], acc1);
-  }
+  if (in_rows(cur, lo, hi)) mine[cur * kDwCols] = v0;
+  if (in_rows(cur + 1, lo, hi)) mine[(cur + 1) * kDwCols] = v1;
   if (live) {                        // each lane writes out its own column
     float* dst = slabs + static_cast<int64_t>(blockIdx.y) * k * r + col;
-    for (int row = 0; row < k; ++row) {
+    for (int row = lo; row < hi; ++row) {
       dst[static_cast<int64_t>(row) * r] = mine[row * kDwCols];
     }
   }
@@ -283,7 +303,8 @@ extern "C" int hat_basis_dw(const void* u, const void* g, void* dw,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const int tiles = (r + kDwCols - 1) / kDwCols;
-    hat_basis_dw_slab_kernel<<<dim3(tiles, chunks), kDwCols, smem, st>>>(
+    hat_basis_dw_slab_kernel<<<dim3(tiles, chunks), kDwWarps * 32, smem,
+                               st>>>(
         static_cast<const float*>(u), static_cast<const float*>(g),
         static_cast<float*>(slabs), n, k, r, chunk);
     err = cudaGetLastError();

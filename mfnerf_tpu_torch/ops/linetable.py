@@ -23,8 +23,8 @@ On CUDA tensors the wrappers launch the hand-written kernels of
 :func:`table_lerp_plain` and :func:`hat_basis_dw_plain`. The kernel of
 :func:`table_lerp` repeats the plain version's fp32 operations one by one and
 equals it bit for bit; that of :func:`hat_basis_dw` sums in another order,
-the same on every launch. No probe differentiates, so neither is an
-autograd function.
+the same on every launch, which :func:`hat_basis_dw_order_plain` repeats
+bit for bit. No probe differentiates, so neither is an autograd function.
 """
 import ctypes
 import functools
@@ -38,6 +38,7 @@ from .hatmul import _bf16, _pos_basis, _stream
 # memory: K <= 1,816 fits Hopper's 227 KB a block.
 DW_MAX_K = 1816
 DW_COLS = 32                   # columns a block of stage 1
+DW_WARPS = 8                   # walker warps a block (kDwWarps)
 # Samples a chunk: at least DW_MIN_CHUNK, and chunks enough for about
 # DW_BLOCKS blocks (three slabs of K = 513 on each of an H100's 132 SMs).
 # The order of dW's sums follows the chunks, so it is a function of N and R.
@@ -70,6 +71,73 @@ def hat_basis_dw_plain(u, g, k):
     fp32."""
     ks = torch.arange(k, dtype=torch.float32, device=u.device)
     return _pos_basis(u, k, ks)[1].T @ _bf16(g)
+
+
+def hat_rows(u, k):
+    """(i, w0, w1) of each sample, as the kernel computes them: its hat row
+    ``i = clamp(floor(u (K-1)), 0, K-2)`` (int64) and the bf16 weights of
+    rows i and i + 1 (the dense basis's two nonzeros, fp32)."""
+    pos = u * (k - 1)
+    i = torch.floor(pos).clamp(0, k - 2)
+    w0 = _bf16(torch.clamp_min(1.0 - (pos - i).abs(), 0.0))
+    w1 = _bf16(torch.clamp_min(1.0 - (pos - (i + 1)).abs(), 0.0))
+    return i.long(), w0, w1
+
+
+def dw_row_ranges(k):
+    """The slab rows [lo, hi) each walker warp of stage 1 owns, in warp
+    order, as the kernel splits K: contiguous spans of ceil(K / DW_WARPS)
+    rows (empty past K)."""
+    span = -(-k // DW_WARPS)
+    return [(min(w * span, k), min((w + 1) * span, k))
+            for w in range(DW_WARPS)]
+
+
+def dw_walks(i, lo, hi):
+    """Whether the warp that owns rows [lo, hi) walks a sample of hat row
+    i: one of rows i, i + 1 is its own."""
+    return (i + 1 >= lo) & (i < hi)
+
+
+def hat_basis_dw_order_plain(u, g, k):
+    """:func:`hat_basis_dw`'s kernel, sum for sum: within each chunk of
+    :func:`dw_chunking`, every dW element adds its samples' bf16 products in
+    sample order to an fp32 sum from 0; stage 2 adds the chunks' sums in
+    chunk order, from 0. Equal to the kernel's dW bit for bit."""
+    n, r = g.shape
+    dw = torch.zeros((k, r), dtype=torch.float32, device=g.device)
+    if n == 0:
+        return dw
+    chunk, chunks = dw_chunking(n, r)
+    i, w0, w1 = hat_rows(u, k)
+    s = torch.arange(n, device=g.device).repeat(2)
+    row, w = torch.cat([i, i + 1]), torch.cat([w0, w1])
+    key = s // chunk * k + row              # the slab element (chunk, row)
+    # each element's contributions in sample order; then the p-th of every
+    # element together, p = 0, 1, ...
+    key, order = torch.sort(key * n + s)
+    key, s, w = key // n, s[order], w[order]
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    start = torch.cummax(torch.where(first, torch.arange(
+        key.numel(), device=g.device), 0), 0).values
+    rank = torch.arange(key.numel(), device=g.device) - start
+    rank, order = torch.sort(rank, stable=True)
+    key, s, w = key[order], s[order], w[order]
+    slabs = torch.zeros((chunks * k, r), dtype=torch.float32, device=g.device)
+    gd = _bf16(g)
+    for a, b in _runs(rank):
+        slabs[key[a:b]] = slabs[key[a:b]] + w[a:b, None] * gd[s[a:b]]
+    for c in range(chunks):
+        dw = dw + slabs[c * k:(c + 1) * k]
+    return dw
+
+
+def _runs(sorted_vals):
+    """[(start, end)] of the runs of equal values of a sorted 1-D tensor."""
+    counts = torch.unique_consecutive(sorted_vals, return_counts=True)[1]
+    ends = torch.cumsum(counts, 0).tolist()
+    return list(zip([0] + ends[:-1], ends))
 
 
 @functools.cache

@@ -12,10 +12,14 @@ back. Tolerances:
 * the lerp (kernels 3-5): rtol 1e-6, atol 1e-6 (fp32 operations that XLA may
   fuse into FMAs);
 * dW (kernel 6): 1e-5 x max |dW_JAX| (the same bf16 products summed in
-  another order);
+  another order); the model of the kernel's sums
+  (``hat_basis_dw_order_plain``) bit for bit against a sample-by-sample
+  loop;
 * the hat product (kernel 7): atol and rtol 1e-4, as
   ``tests/test_torch_ops.py::test_hat_prod_plain_matches_jax``.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -290,6 +294,140 @@ def test_hat_basis_dw_on_the_knots():
     for row, gi in zip((0, 8, 4, 2), g_bf):
         want[row] += gi
     assert torch.equal(got, want)
+
+
+def _dw_order_loop(u, g, k):
+    """The kernel's sums written out: per chunk, each sample in order adds
+    its products to slab rows i and i + 1 (fp32); then the chunks in
+    order."""
+    n, r = g.shape
+    chunk, chunks = tline.dw_chunking(n, r)
+    i, w0, w1 = (x.numpy() for x in tline.hat_rows(torch.from_numpy(u), k))
+    gd = torch.from_numpy(g).to(torch.bfloat16).float().numpy()
+    dw = np.zeros((k, r), np.float32)
+    for c in range(chunks):
+        slab = np.zeros((k, r), np.float32)
+        for s in range(c * chunk, min(n, (c + 1) * chunk)):
+            slab[i[s]] = slab[i[s]] + w0[s] * gd[s]
+            slab[i[s] + 1] = slab[i[s] + 1] + w1[s] * gd[s]
+        dw = dw + slab
+    return dw
+
+
+def _dw_set(kind, n, k, seed):
+    """u and g of one dW set: uniform with the edges, sorted, or on the
+    knots."""
+    u, g = _u_operands(n, k, seed, (n, 16))
+    if kind == "sorted":
+        u = np.sort(u)
+    elif kind == "knots":
+        u = (np.round(u * (k - 1)) / (k - 1)).astype(np.float32)
+    return u, g
+
+
+@pytest.mark.parametrize("kind", ["uniform", "sorted", "knots"])
+@pytest.mark.parametrize("n,k", [(549, 65), (3 * 1024 + 37, 513),
+                                 (2100, 9)])
+def test_hat_basis_dw_order_model_is_the_loop(n, k, kind):
+    """hat_basis_dw_order_plain (vectorised, as the card runs it) equals
+    the sample-by-sample loop bit for bit, over one chunk or several."""
+    u, g = _dw_set(kind, n, k, 5)
+    want = _dw_order_loop(u, g, k)
+    got = tline.hat_basis_dw_order_plain(torch.from_numpy(u),
+                                         torch.from_numpy(g), k)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ref", ["k_bwd", "xla_ref"])
+@pytest.mark.parametrize("k,kp,r", SHAPES2)
+def test_hat_basis_dw_order_model_matches_probe_gather2(k, kp, r, ref):
+    """The kernel's order of sums computes the probe's dW, within DW_TOL,
+    over several chunks."""
+    tb = 256
+    n = 9 * tb + 37
+    u, g = _u_operands(n, k, 6, (n, r))
+    if ref == "xla_ref":
+        want = np.asarray(_gather2_ref_bwd(jnp.asarray(u), jnp.asarray(g), k,
+                                           kp))
+    else:
+        want = np.asarray(_run_bwd(jnp.asarray(_pad(u, tb)),
+                                   jnp.asarray(_pad(g, tb)), k, kp, tb))
+    assert tline.dw_chunking(n, r)[1] > 1
+    got = tline.hat_basis_dw_order_plain(torch.from_numpy(u),
+                                         torch.from_numpy(g), k)
+    np.testing.assert_allclose(got.numpy(), want[:k], rtol=0,
+                               atol=DW_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("k", [2, 9, 65, 513, 1000, tline.DW_MAX_K])
+def test_hat_rows_are_the_dense_basis_nonzeros(k):
+    """hat_rows' row and weights are the dense bf16 basis's two nonzeros,
+    bit for bit, and the basis has no other."""
+    u, _ = _dw_set("uniform", 300, k, 7)
+    ut = torch.from_numpy(u)
+    i, w0, w1 = tline.hat_rows(ut, k)
+    dense = thatmul._pos_basis(ut, k, torch.arange(k, dtype=torch.float32))[1]
+    rows = torch.arange(len(u))
+    assert torch.equal(dense[rows, i], w0) and torch.equal(dense[rows, i + 1],
+                                                           w1)
+    dense[rows, i] = 0
+    dense[rows, i + 1] = 0
+    assert not dense.any()
+
+
+def test_dw_warps_are_the_kernels():
+    """The Python mirror's constants are csrc/linetable.cu's."""
+    src = (Path(tline.__file__).resolve().parents[1] / "csrc"
+           / "linetable.cu").read_text()
+    for name, value in (("kDwWarps", tline.DW_WARPS),
+                        ("kDwCols", tline.DW_COLS)):
+        assert f"constexpr int {name} = {value};" in src, name
+
+
+@pytest.mark.parametrize("k", [2, 3, 9, 100, 513, tline.DW_MAX_K])
+def test_dw_row_ranges_take_each_contribution_once(k):
+    """Every (sample, row) term of stage 1 has exactly one writer: the
+    walker warps' rows tile [0, K), and of the warps that walk a sample
+    (``dw_walks``) exactly one owns each of its rows i and i + 1. Samples:
+    u = 0, u = 1, every knot, and both sides of every range's edges."""
+    ranges = tline.dw_row_ranges(k)
+    assert len(ranges) == tline.DW_WARPS
+    owned = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+    np.testing.assert_array_equal(owned, np.arange(k))
+    edges = np.array([e for lo, hi in ranges if hi > lo for e in (lo, hi)])
+    pos = np.concatenate([[0.0, k - 1.0], np.arange(k), edges - 0.5,
+                          edges + 0.5, edges - 1e-3, edges + 1e-3])
+    u = np.clip(pos / (k - 1), 0.0, 1.0).astype(np.float32)
+    u = np.concatenate([u, np.float32([0.0, 1.0])])
+    i = tline.hat_rows(torch.from_numpy(u), k)[0].numpy()
+    assert i.min() == 0 and i.max() == k - 2
+    lo = np.array([r[0] for r in ranges])[:, None]
+    hi = np.array([r[1] for r in ranges])[:, None]
+    walks = tline.dw_walks(i[None, :], lo, hi)         # (warps, samples)
+    for row in (i, i + 1):
+        takes = walks & (row[None, :] >= lo) & (row[None, :] < hi)
+        np.testing.assert_array_equal(takes.sum(0), 1)
+    # a warp walks a sample only for a row of its own
+    mine = ((i[None, :] >= lo) & (i[None, :] < hi)) \
+        | ((i[None, :] + 1 >= lo) & (i[None, :] + 1 < hi))
+    np.testing.assert_array_equal(walks, mine)
+
+
+@pytest.mark.parametrize("n,r", [(0, 128), (1, 8), (31, 40), (1023, 128),
+                                 (1024, 32), (65573, 128), (1 << 19, 128),
+                                 (1 << 19, 40), (12345, 200)])
+def test_dw_chunking_gives_each_sample_one_chunk(n, r):
+    """Stage 1's chunks cover [0, N) once, none empty but the only one at
+    N = 0, with about DW_BLOCKS blocks of DW_WARPS walkers."""
+    chunk, chunks = tline.dw_chunking(n, r)
+    starts = np.arange(chunks) * chunk
+    ends = np.minimum(starts + chunk, n)
+    assert starts[0] == 0 and ends[-1] == n
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    assert n == 0 or (ends > starts).all()
+    tiles = -(-r // tline.DW_COLS)
+    assert chunks * tiles <= max(tline.DW_BLOCKS, tiles)
+    assert n < 2 * tline.DW_MIN_CHUNK or chunk >= tline.DW_MIN_CHUNK
 
 
 # ------------------------------- probe_pallas_hatmul.py (kernel 7)
