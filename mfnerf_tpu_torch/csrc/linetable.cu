@@ -136,6 +136,16 @@ __device__ __forceinline__ bool in_rows(int row, int lo, int hi) {
   return row >= lo && row < hi;
 }
 
+// The position of the q-th (from 0) set bit of m; q < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int q) {
+  int p = 0;                         // the largest p with popc(m below p) <= q
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (__popc(m & ((1u << (p + step)) - 1u)) <= q) p += step;
+  }
+  return p;
+}
+
 __global__ void __launch_bounds__(kDwWarps * 32, kDwBlocksPerSm)
 hat_basis_dw_slab_kernel(const float* __restrict__ u,
                          const float* __restrict__ g,
@@ -166,7 +176,8 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
   int cur = -2;                      // v0, v1: slab rows cur and cur + 1
   float v0 = 0.0f, v1 = 0.0f;
   for (;;) {
-    // the next kDwSlots selected samples in order: lane t keeps slot t's
+    // the next kDwSlots selected samples in order: lane t keeps slot t's,
+    // a batch's selected samples compacted into lanes at once
     int cnt = 0, mine_s = static_cast<int>(begin);
     while (cnt < kDwSlots) {
       if (rest == 0u) {
@@ -179,22 +190,35 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
         u_next = scan + lane < end ? u[scan + lane] : 0.0f;
         continue;
       }
-      const int j = __ffs(rest) - 1;
-      rest &= rest - 1u;
-      if (lane == cnt) mine_s = static_cast<int>(base + j);
-      ++cnt;
+      const int take = min(__popc(rest), kDwSlots - cnt);
+      const int q = lane - cnt;
+      if (q >= 0 && q < take) {
+        mine_s = static_cast<int>(base + nth_set_bit(rest, q));
+      }
+      rest = __ballot_sync(kFull, ((rest >> lane) & 1u) &&
+                                      __popc(rest & ((1u << lane) - 1u)) >=
+                                          take);
+      cnt += take;
     }
     if (cnt == 0) break;
 
-    // this lane's slot: its row and bf16 weights (w0 in the low half)
-    const float pos = __fmul_rn(lane < cnt ? u[mine_s] : 0.0f, scale);
-    const int i_own = hat_row(pos, k);
+    // this lane's slot: its row and bf16 weights (w0 in the low half). A
+    // lane past cnt repeats the last slot's row with weights 0, so the walk
+    // below runs all kDwSlots slots without a branch: it adds +0, which
+    // leaves a sum unchanged (a sum from +0 is never -0)
+    const float pos = __fmul_rn(u[mine_s], scale);
+    int i_own = hat_row(pos, k);
     const float w0_own = round_bf16(
         fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)i_own)))));
     const float w1_own = round_bf16(fmaxf(
         0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)(i_own + 1))))));
-    const unsigned w_own = (__float_as_uint(w0_own) >> 16) |
-                           (__float_as_uint(w1_own) & 0xffff0000u);
+    unsigned w_own = (__float_as_uint(w0_own) >> 16) |
+                     (__float_as_uint(w1_own) & 0xffff0000u);
+    const int i_last = __shfl_sync(kFull, i_own, cnt - 1);
+    if (lane >= cnt) {
+      i_own = i_last;
+      w_own = 0u;
+    }
 
     // g of every slot at the lane's column, all loads in flight at once
     float gs[kDwSlots];
@@ -207,7 +231,6 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
     // the walk, in sample order
 #pragma unroll
     for (int t = 0; t < kDwSlots; ++t) {
-      if (t == cnt) break;           // the same for the whole warp
       const int i = __shfl_sync(kFull, i_own, t);
       const unsigned w = __shfl_sync(kFull, w_own, t);
       if (i != cur) {
