@@ -84,6 +84,7 @@ constexpr int kLerpThreads = 256;
 constexpr int kDwCols = 32;        // slab columns a block: one a lane
 constexpr int kDwWarps = 8;        // walker warps a block
 constexpr int kDwSlots = 32;       // selected samples a walk: one a lane
+constexpr int kDwGroup = 4;        // u batches of 32 a filter step
 constexpr int kDwBlocksPerSm = 3;  // the slabs at K = 513
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kReduceThreads = 256;
@@ -165,47 +166,77 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
 
   for (int row = lo; row < hi; ++row) mine[row * kDwCols] = 0.0f;
 
-  // the filter: the next batch to read (its u already loaded, one a lane),
-  // and the batch being taken (its first sample, its selected samples not
-  // yet taken)
-  int64_t scan = begin;
-  float u_next = begin + lane < end ? u[begin + lane] : 0.0f;
-  int64_t base = begin;
-  unsigned rest = 0u;
+  // the filter: the next group of kDwGroup batches to read and the group
+  // being taken (its first sample; each batch's selected samples not yet
+  // taken)
+  int64_t scan = begin, base = begin;
+  unsigned rest[kDwGroup];
+#pragma unroll
+  for (int b = 0; b < kDwGroup; ++b) rest[b] = 0u;
 
-  int cur = -2;                      // v0, v1: slab rows cur and cur + 1
+  int cur = -2;                      // v0, v1: slab rows cur and cur + 1,
+  bool own0 = false, own1 = false;   // and whether they are this warp's
   float v0 = 0.0f, v1 = 0.0f;
   for (;;) {
-    // the next kDwSlots selected samples in order: lane t keeps slot t's,
-    // a batch's selected samples compacted into lanes at once
+    // the next kDwSlots selected samples in order: lane t keeps slot t's.
+    // A group's are taken at once: each lane finds the batch and the rank
+    // in it of its own slot
     int cnt = 0, mine_s = static_cast<int>(begin);
     while (cnt < kDwSlots) {
-      if (rest == 0u) {
+      unsigned any = 0u;
+#pragma unroll
+      for (int b = 0; b < kDwGroup; ++b) any |= rest[b];
+      if (any == 0u) {
         if (scan >= end) break;
-        const int64_t s = scan + lane;
-        const int i = hat_row(__fmul_rn(u_next, scale), k);
-        rest = __ballot_sync(kFull, s < end && i + 1 >= lo && i < hi);
+        float us[kDwGroup];
+#pragma unroll
+        for (int b = 0; b < kDwGroup; ++b) {
+          const int64_t s = scan + b * 32 + lane;
+          us[b] = s < end ? u[s] : 0.0f;
+        }
+#pragma unroll
+        for (int b = 0; b < kDwGroup; ++b) {
+          const int64_t s = scan + b * 32 + lane;
+          const int i = hat_row(__fmul_rn(us[b], scale), k);
+          rest[b] = __ballot_sync(kFull, s < end && i + 1 >= lo && i < hi);
+        }
         base = scan;
-        scan += 32;
-        u_next = scan + lane < end ? u[scan + lane] : 0.0f;
+        scan += kDwGroup * 32;
         continue;
       }
-      const int take = min(__popc(rest), kDwSlots - cnt);
-      const int q = lane - cnt;
-      if (q >= 0 && q < take) {
-        mine_s = static_cast<int>(base + nth_set_bit(rest, q));
+      unsigned sel = 0u;
+      int rank = -1, batch = 0;
+#pragma unroll
+      for (int b = 0; b < kDwGroup; ++b) {
+        const int c = __popc(rest[b]);
+        const int take = min(c, kDwSlots - cnt);
+        const int q = lane - cnt;
+        if (q >= 0 && q < take) {
+          sel = rest[b];
+          rank = q;
+          batch = b;
+        }
+        if (take == c) {
+          rest[b] = 0u;
+        } else if (take > 0) {       // the batch's first `take` are taken
+          rest[b] = __ballot_sync(
+              kFull, ((rest[b] >> lane) & 1u) &&
+                         __popc(rest[b] & ((1u << lane) - 1u)) >= take);
+        }
+        cnt += take;
       }
-      rest = __ballot_sync(kFull, ((rest >> lane) & 1u) &&
-                                      __popc(rest & ((1u << lane) - 1u)) >=
-                                          take);
-      cnt += take;
+      if (rank >= 0) {
+        mine_s = static_cast<int>(base + batch * 32 + nth_set_bit(sel, rank));
+      }
     }
     if (cnt == 0) break;
 
-    // this lane's slot: its row and bf16 weights (w0 in the low half). A
-    // lane past cnt repeats the last slot's row with weights 0, so the walk
-    // below runs all kDwSlots slots without a branch: it adds +0, which
-    // leaves a sum unchanged (a sum from +0 is never -0)
+    // this lane's slot: its row, whether rows i and i + 1 are this warp's,
+    // and the bf16 weights: w0 in bits 0-15, w1 in 16-31, the two flags in
+    // their sign bits 15 and 31 (the weights are >= 0). A lane past cnt
+    // repeats the last slot's row with weights 0, so the walk below runs
+    // all kDwSlots slots without a branch: it adds +0, which leaves a sum
+    // unchanged (a sum from +0 is never -0)
     const float pos = __fmul_rn(u[mine_s], scale);
     int i_own = hat_row(pos, k);
     const float w0_own = round_bf16(
@@ -213,7 +244,9 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
     const float w1_own = round_bf16(fmaxf(
         0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, (float)(i_own + 1))))));
     unsigned w_own = (__float_as_uint(w0_own) >> 16) |
-                     (__float_as_uint(w1_own) & 0xffff0000u);
+                     (__float_as_uint(w1_own) & 0xffff0000u) |
+                     (in_rows(i_own, lo, hi) ? 0x8000u : 0u) |
+                     (in_rows(i_own + 1, lo, hi) ? 0x80000000u : 0u);
     const int i_last = __shfl_sync(kFull, i_own, cnt - 1);
     if (lane >= cnt) {
       i_own = i_last;
@@ -234,20 +267,23 @@ hat_basis_dw_slab_kernel(const float* __restrict__ u,
       const int i = __shfl_sync(kFull, i_own, t);
       const unsigned w = __shfl_sync(kFull, w_own, t);
       if (i != cur) {
-        if (in_rows(cur, lo, hi)) mine[cur * kDwCols] = v0;
-        if (in_rows(cur + 1, lo, hi)) mine[(cur + 1) * kDwCols] = v1;
-        v0 = in_rows(i, lo, hi) ? mine[i * kDwCols] : 0.0f;
-        v1 = in_rows(i + 1, lo, hi) ? mine[(i + 1) * kDwCols] : 0.0f;
+        if (own0) mine[cur * kDwCols] = v0;
+        if (own1) mine[(cur + 1) * kDwCols] = v1;
+        own0 = (w & 0x8000u) != 0u;
+        own1 = (w & 0x80000000u) != 0u;
+        v0 = own0 ? mine[i * kDwCols] : 0.0f;
+        v1 = own1 ? mine[(i + 1) * kDwCols] : 0.0f;
         cur = i;
       }
       const float gd = round_bf16(gs[t]);
-      v0 = __fadd_rn(v0, __fmul_rn(__uint_as_float(w << 16), gd));
-      v1 = __fadd_rn(v1, __fmul_rn(__uint_as_float(w & 0xffff0000u), gd));
+      v0 = __fadd_rn(v0, __fmul_rn(fabsf(__uint_as_float(w << 16)), gd));
+      v1 = __fadd_rn(v1,
+                     __fmul_rn(fabsf(__uint_as_float(w & 0xffff0000u)), gd));
     }
     if (cnt < kDwSlots) break;
   }
-  if (in_rows(cur, lo, hi)) mine[cur * kDwCols] = v0;
-  if (in_rows(cur + 1, lo, hi)) mine[(cur + 1) * kDwCols] = v1;
+  if (own0) mine[cur * kDwCols] = v0;
+  if (own1) mine[(cur + 1) * kDwCols] = v1;
   if (live) {                        // each lane writes out its own column
     float* dst = slabs + static_cast<int64_t>(blockIdx.y) * k * r + col;
     for (int row = lo; row < hi; ++row) {
