@@ -43,36 +43,44 @@
 // launch, in two stages:
 //
 // * Stage 1 (hat_basis_dw_slab_kernel): the grid is (column tile of 32) x
-//   (sample chunk). A block is kDwWarps walker warps sharing one fp32 slab
-//   (K, 32) of dW in shared memory (65.7 KB at K = 513: three blocks, 24
-//   walkers, an SM). Warp w owns the slab rows [w S, (w + 1) S), S =
-//   ceil(K / kDwWarps), and lane c of it is the only reader and writer of
-//   column c of those rows: no barrier, no atomics. A sample of hat row i
-//   gives its w0 term to the owner of row i and its w1 term to the owner of
-//   row i + 1; both walk it (the same warp but at a range's edge). Each
-//   warp reads the chunk's u in 32-sample batches (coalesced; L1 serves
-//   the block's other warps), keeps the samples that touch its rows (a
-//   ballot), and takes them kDwSlots at a time in sample order: each lane
-//   loads g of every slot at its column (kDwSlots loads in flight a lane,
-//   a 128-byte row segment a slot), then the warp walks the slots, their
-//   rows and weights passed by shuffles. Two slab rows (i, i + 1) stay in
-//   registers while consecutive slots share them; a slot on other rows
-//   writes them back and reads its own (rows of other warps: never read or
-//   written). A row's value is always the slab element's running sum, so
-//   each element adds its chunk's products one by one in sample order,
-//   from 0: no run-length merging, and the order does not depend on the
-//   warps.
+//   (sample chunk). A block is kDwWarps = 8 walker warps sharing one fp32
+//   slab (K, 32) of dW in shared memory (65.7 KB at K = 513: three blocks,
+//   24 walkers, an SM). Ownership: warp w owns the slab rows [w S,
+//   (w + 1) S), S = ceil(K / 8) (65 at K = 513), and lane c of it is the
+//   only reader and writer of column c of those rows: no barrier, no
+//   atomics. A sample of hat row i gives its w0 term to the owner of row i
+//   and its w1 term to the owner of row i + 1; both walk it (one warp but
+//   at a range's edge), each adding only to its own rows.
+//   Filter: each warp reads the chunk's u, 4 batches of 32 a step
+//   (coalesced; L1 serves the block's other warps), keeps the samples that
+//   touch its rows (a ballot a batch) and compacts them into slots in
+//   sample order, lane t finding its slot's sample by a binary search over
+//   its batch's ballot. Read-ahead: 32 selected samples at a time, each
+//   lane loading g of all 32 at its column (32 loads in flight a lane, a
+//   128-byte row segment a slot). Walk: the slots' rows and weights
+//   (with the two rows' ownership in the weights' sign bits) come by
+//   shuffles; rows i and i + 1 stay in registers while consecutive slots
+//   share them, and a slot on other rows writes them back and reads its
+//   own. No run-length merging: each slab element adds its chunk's
+//   products one by one in sample order, from 0, and the order does not
+//   depend on the warps.
 // * Stage 2 (hat_basis_dw_reduce_kernel) adds the chunks' slabs in chunk
 //   order into dW, from 0, writing every element.
 //
 // ops/linetable.py::hat_basis_dw_order_plain repeats these sums and equals
 // the kernel bit for bit; the order depends on N and R alone (the caller's
-// chunking), never on the launch. What bounds it: the bytes of g (R fp32 a
-// sample, 268 MB at N = 2^19, R = 128; 0.0808 ms with u and dW at 3.35
-// TB/s); the slabs add chunks x K x R x 4 bytes, written once and read
-// once. PR 6's kernel (one walker warp a block, three an SM) took 0.5598 ms
-// there (NVIDIA H100 80GB HBM3, 700 W): its walk's serial latency, not the
-// bytes, set it (PERF.md §6).
+// chunking), never on the launch.
+//
+// What bounds it. The function's bytes: g (R fp32 a sample, 268 MB at N =
+// 2^19, R = 128), u and dW once, 0.0808 ms at 3.35 TB/s; the slabs add
+// chunks x K x R x 4 bytes, written once and read once. The earlier
+// design (one walker warp a block, three an SM) took 0.5598 ms there
+// (NVIDIA H100 80GB HBM3, 700 W), and 0.4654 ms with g made in registers:
+// its serial walk set it. This one takes 0.188 ms at uniform u (43% of the bound; 0.450
+// ms at sorted u, where a chunk's few rows fall to one warp of a block),
+// 0.161 ms with g made in registers and 0.064 ms without loads or walk
+// (tools/dw_ab.py, PERF.md §6): the SM's instructions, about 30 a slot in
+// the walk and the 8-fold filter, now set it, not g's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -53,8 +53,9 @@ SETS = (("uniform", probe_gather2.N), ("sorted", probe_gather2.N),
 
 
 def parent_chunking(n, r):
-    """(chunk, chunks) of the kernel of PR 6 and PR 7: 32 columns a block,
-    at least 1,024 samples a chunk, about 396 blocks."""
+    """(chunk, chunks) of the one-warp-a-block kernel that the redesign
+    replaced: 32 columns a block, at least 1,024 samples a chunk, about 396
+    blocks."""
     tiles = -(-r // 32)
     chunks = max(1, min(n // 1024, 396 // tiles))
     return -(-n // chunks), chunks
