@@ -76,11 +76,12 @@
 // chunks x K x R x 4 bytes, written once and read once. The earlier
 // design (one walker warp a block, three an SM) took 0.5598 ms there
 // (NVIDIA H100 80GB HBM3, 700 W), and 0.4654 ms with g made in registers:
-// its serial walk set it. This one takes 0.188 ms at uniform u (43% of the bound; 0.450
-// ms at sorted u, where a chunk's few rows fall to one warp of a block),
-// 0.161 ms with g made in registers and 0.064 ms without loads or walk
-// (tools/dw_ab.py, PERF.md §6): the SM's instructions, about 30 a slot in
-// the walk and the 8-fold filter, now set it, not g's bytes.
+// its serial walk set it. This one takes 0.188 ms at uniform u (43% of
+// the bound; 0.450 ms at sorted u, where a chunk's few rows fall to one
+// warp of a block), 0.161 ms with g made in registers and 0.064 ms
+// without loads or walk (tools/dw_ab.py, PERF.md §6): the SM's
+// instructions, about 30 a slot in the walk and the 8-fold filter, now
+// set it, not g's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -257,7 +257,8 @@ def hat_basis_dw(u, g, k):
         k: the knot count K >= 2.
 
     CUDA tensors run the two-stage kernel (``csrc/linetable.cu``), whose dW
-    is bitwise the same on every launch; CPU tensors run
+    is bitwise the same on every launch and equals
+    :func:`hat_basis_dw_order_plain`; CPU tensors run
     :func:`hat_basis_dw_plain`. ``hat_basis_dw.launches`` counts kernel
     launches (both stages are one).
     """

@@ -47,7 +47,6 @@ from mfnerf_tpu_torch.benchmarking import (card_name, graph_ms,  # noqa: E402
 from mfnerf_tpu_torch.ops import linetable  # noqa: E402
 
 ORDER = ("parent", "change", "change", "parent")
-TOL = 1e-4                     # x max |dW_parent|: sums in another order
 SETS = (("uniform", probe_gather2.N), ("sorted", probe_gather2.N),
         ("knots", probe_gather2.N), ("uniform", chip_smoke.N_RAGGED))
 
@@ -132,7 +131,7 @@ def ab(kind, n, parent, iters, card):
     return dict(set=kind, n=n, k=probe_gather2.K, r=probe_gather2.R,
                 bitwise_across_launches=bitwise,
                 change_vs_parent_max_abs_err=err, parent_max_abs=scale,
-                within_tol=err <= TOL * scale,
+                within_tol=err <= probe_gather2.DW_TOL * scale,
                 change_equals_order_model=bool(torch.equal(got, model)),
                 parent_ms=times["parent"], change_ms=times["change"],
                 speedup=parent_ms / change_ms, bound_ms=bound_ms,
