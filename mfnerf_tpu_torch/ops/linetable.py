@@ -95,7 +95,13 @@ def dw_row_ranges(k):
 
 def dw_walks(i, lo, hi):
     """Whether the warp that owns rows [lo, hi) walks a sample of hat row
-    i: one of rows i, i + 1 is its own."""
+    i: one of rows i, i + 1 is its own.
+
+    This and :func:`dw_row_ranges` mirror the kernel's map so that a CPU
+    test can show it takes each contribution once; on the card the kernel
+    itself is held to the map by its bit-for-bit equality with
+    :func:`hat_basis_dw_order_plain`, which a missed or doubled
+    contribution would break."""
     return (i + 1 >= lo) & (i < hi)
 
 

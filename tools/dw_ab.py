@@ -7,16 +7,16 @@ built from that version's source.
 OLD is an unpacked earlier commit whose ``hat_basis_dw`` has this tree's C
 signature; it is compiled with this tree's nvcc flags under a name that
 carries a hash of its source. Both versions are called through their C
-entries with preallocated dW and slabs: the parent with the chunking of the
-source it was written for (``parent_chunking``), the change with this
-tree's ``dw_chunking``. The sets are those of ``chip_smoke.py`` phase 17
-(``probe_gather2.dw_operands``, K 513, R 128): uniform u, the same u
-sorted, u on the knots, all at N = 2^19, and uniform u at the ragged N =
-65,573. On each set each version's dW must be bitwise equal across three
-launches, the change's within 1e-4 x max of the parent's and bit for bit
-equal to ``hat_basis_dw_order_plain``; then the two are timed in turns
-parent, change, change, parent by CUDA-graph replay
-(``benchmarking.graph_ms``, ``--iters`` calls).
+entries with preallocated dW and slabs and with this tree's
+``dw_chunking`` (the C entry takes the chunking as arguments). The sets
+are those of ``chip_smoke.py`` phase 17 (``probe_gather2.dw_operands``,
+K 513, R 128): uniform u, the same u sorted, u on the knots, all at
+N = 2^19, and uniform u at the ragged N = 65,573. On each set each
+version's dW must be bitwise equal across three launches, the change's
+within 1e-4 x max of the parent's and bit for bit equal to
+``hat_basis_dw_order_plain``; then the two are timed in turns parent,
+change, change, parent by CUDA-graph replay (``benchmarking.graph_ms``,
+20 calls, as ``probe_gather2.dw_row``).
 
 ``--timing-only`` times a parent that computes something else (a
 diagnostic cut of a kernel, kept out of the repo): the checks are printed
@@ -51,15 +51,6 @@ SETS = (("uniform", probe_gather2.N), ("sorted", probe_gather2.N),
         ("knots", probe_gather2.N), ("uniform", chip_smoke.N_RAGGED))
 
 
-def parent_chunking(n, r):
-    """(chunk, chunks) of the one-warp-a-block kernel that the redesign
-    replaced: 32 columns a block, at least 1,024 samples a chunk, about 396
-    blocks."""
-    tiles = -(-r // 32)
-    chunks = max(1, min(n // 1024, 396 // tiles))
-    return -(-n // chunks), chunks
-
-
 def load_parent(src):
     """ctypes entry of the earlier hat_basis_dw, compiled with this tree's
     nvcc flags into the build directory."""
@@ -85,11 +76,11 @@ def ptxas_report():
             if "registers" in line or "spill" in line or "Compiling" in line]
 
 
-def launcher(fn, chunking, u, g):
+def launcher(fn, u, g):
     """(launch, dW) of one version on (u, g), its scratch preallocated."""
     n, r = g.shape
     k = probe_gather2.K
-    chunk, chunks = chunking(n, r)
+    chunk, chunks = linetable.dw_chunking(n, r)
     dw = torch.empty((k, r), dtype=torch.float32, device=u.device)
     slabs = torch.empty((chunks, k, r), dtype=torch.float32, device=u.device)
 
@@ -102,14 +93,13 @@ def launcher(fn, chunking, u, g):
     return launch, dw
 
 
-def ab(kind, n, parent, iters, card):
+def ab(kind, n, parent, card):
     """Check both versions on one set, then time them in turns. Returns
     the set's row."""
     u, g = probe_gather2.dw_operands(kind, n, chip_smoke.SEED + 2,
                                      torch.device("cuda"))
-    versions = {"parent": launcher(parent, parent_chunking, u, g),
-                "change": launcher(linetable._kernels()[1],
-                                   linetable.dw_chunking, u, g)}
+    versions = {"parent": launcher(parent, u, g),
+                "change": launcher(linetable._kernels()[1], u, g)}
     bitwise = {}
     for name, (launch, dw) in versions.items():
         outs = []
@@ -125,7 +115,7 @@ def ab(kind, n, parent, iters, card):
     model = linetable.hat_basis_dw_order_plain(u, g, probe_gather2.K)
     times = {"parent": [], "change": []}
     for version in ORDER:
-        times[version].append(graph_ms(versions[version][0], iters))
+        times[version].append(graph_ms(versions[version][0], 20))
     parent_ms, change_ms = (float(np.mean(times[v])) for v in times)
     bound_ms, bound_by = probe_gather2.dw_bound(n)
     return dict(set=kind, n=n, k=probe_gather2.K, r=probe_gather2.R,
@@ -145,7 +135,6 @@ def main():
     ap.add_argument("--timing-only", action="store_true",
                     help="time a parent that computes something else (a "
                          "diagnostic cut of the kernel): checks not enforced")
-    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("dw_ab: no CUDA device", file=sys.stderr)
@@ -157,7 +146,7 @@ def main():
     parent = load_parent(args.parent_src)
     rows, failed = [], []
     for kind, n in SETS:
-        row = ab(kind, n, parent, args.iters, card)
+        row = ab(kind, n, parent, card)
         print(json.dumps(row), flush=True)
         rows.append(row)
         for check in ("within_tol", "change_equals_order_model"):
