@@ -7,9 +7,18 @@ cameras as the JAX package's ``bench.py``. Scenes are checker-textured
 shaded spheres on a white background, seen from cameras on a ring of radius
 1.5 around [-0.5, 0.5]^3, with the Blender/NSVF camera conventions
 ([right down front]).
+
+``write_nsvf_scene`` and ``write_blender_scene`` put a scene on disk in the
+NSVF and Blender layouts for the loaders (``datasets/nsvf.py``,
+``datasets/nerf.py``), with ``datasets/png.py`` as the PNG writer: pixels
+are ``(img * 255).astype(uint8)``, as the JAX package writes them.
 """
+import json
+import os
+
 import numpy as np
 
+from ..datasets.png import write_png
 from ..datasets.ray_utils import get_ray_directions
 
 
@@ -200,3 +209,66 @@ def make_scene(n_train=20, n_test=2, wh=64, cam_radius=1.5, fov_scale=1.0,
         "test_images": render_all(test_poses), "img_wh": (wh, wh),
     }
 
+
+
+def _to_uint8(img, wh):
+    w, h = wh
+    return (img.reshape(h, w, 3) * 255).astype(np.uint8)
+
+
+def write_nsvf_scene(root, scene=None, **kwargs):
+    """Write a procedural scene (``make_scene(**kwargs)`` unless given) in
+    the NSVF layout: bbox.txt, intrinsics.txt, rgb/{0_,2_}NNNN.png and
+    pose/{0_,2_}NNNN.txt, as ``mfnerf_tpu.utils.procedural.write_nsvf_scene``
+    writes it. Returns the scene."""
+    scene = scene or make_scene(**kwargs)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "pose"), exist_ok=True)
+    w, h = scene["img_wh"]
+    # the scene fits inside the sphere bbox; NSVF shifts/scales it to
+    # [-.5,.5]
+    np.savetxt(os.path.join(root, "bbox.txt"),
+               np.array([[-0.5, -0.5, -0.5, 0.5, 0.5, 0.5, 0.01]]))
+    with open(os.path.join(root, "intrinsics.txt"), "w") as f:
+        fx = scene["K"][0, 0]
+        f.write(f"{fx} 0 {w / 2} 0\n0 {fx} {h / 2} 0\n0 0 1 0\n0 0 0 1\n")
+    for prefix, poses, images in (("0_", scene["poses"], scene["images"]),
+                                  ("2_", scene["test_poses"],
+                                   scene["test_images"])):
+        for i, (pose, img) in enumerate(zip(poses, images)):
+            write_png(os.path.join(root, "rgb", f"{prefix}{i:04d}.png"),
+                      _to_uint8(img, (w, h)))
+            mat = np.eye(4)
+            mat[:3] = pose
+            np.savetxt(os.path.join(root, "pose", f"{prefix}{i:04d}.txt"),
+                       mat)
+    return scene
+
+
+def write_blender_scene(root, scene=None, **kwargs):
+    """Write a procedural scene (``make_scene(**kwargs)`` unless given) in
+    the Blender layout: transforms_{train,test}.json with {train,test}/
+    rNNN.png. Poses are stored [right up back] as 4x4 ``transform_matrix``;
+    ``camera_angle_x`` is the scene's field of view, so the loader's
+    ``downsample`` = W / 800 gives back the scene's intrinsics. Returns the
+    scene."""
+    scene = scene or make_scene(**kwargs)
+    w, h = scene["img_wh"]
+    angle_x = 2 * np.arctan(0.5 * w / float(scene["K"][0, 0]))
+    for split, poses, images in (("train", scene["poses"], scene["images"]),
+                                 ("test", scene["test_poses"],
+                                  scene["test_images"])):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i, (pose, img) in enumerate(zip(poses, images)):
+            write_png(os.path.join(root, split, f"r_{i:03d}.png"),
+                      _to_uint8(img, (w, h)))
+            mat = np.eye(4)
+            mat[:3] = pose
+            mat[:3, 1:3] *= -1                    # rdf -> rub
+            frames.append({"file_path": f"./{split}/r_{i:03d}",
+                           "transform_matrix": mat.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(angle_x), "frames": frames},
+                      f)
+    return scene

@@ -727,9 +727,10 @@ def test_default_sampling_draws_an_image_a_ray():
 
 
 @pytest.mark.parametrize("knob,error", [
-    (dict(weight_path="warm.ckpt.npz"), NotImplementedError),
+    (dict(eval_lpips=True), NotImplementedError),
     (dict(num_gpus=2), NotImplementedError),
-    (dict(ray_sampling_strategy="one_ray"), ValueError)])
+    (dict(ray_sampling_strategy="one_ray"), ValueError),
+    (dict(profile=True), NotImplementedError)])
 def test_unported_trainer_knobs_raise(knob, error):
     with pytest.raises(error):
         ttrain.NeRFSystem(_hparams(**knob), device="cpu")
