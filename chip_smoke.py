@@ -73,7 +73,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 19. cli: the command line (mfnerf_tpu_torch/train.py main, CLI_ARGS: the
    bench.py LowRank model, 600 steps) on the 800x800 procedural scene
    (16 train and 2 test views) written in the NSVF layout under a temporary
-   working directory: the image decoder and the load time, the loaded rays
+   working directory: the load time (datasets/png.py), the loaded rays
    against the in-memory images (CLI_LOAD_TOL), main in process (ms/step
    synced around fit, both hat kernels' launch counts over the run, test
    PSNR at least PSNR_MIN and SSIM, the checkpoints' sizes, the result
@@ -182,16 +182,11 @@ WINDOW_ALPHA = 0.6
 MF_PSNR_MIN = 19.0
 N_RAGGED = (1 << 16) + 37   # the probes' ragged size: part-filled tiles
 # the cli phase: the README's command line on the procedural scene written
-# to disk (the bench.py LowRank model at full width, 600 steps). --seed 0
-# draws the field as bench.py:139 and phases 8-10 do; the CLI ties the
-# init and the ray batches to one seed. The field's init moves the test
-# PSNR at 600 steps from 18.4 to 25.6 dB over nine seeds, and the default
-# --seed 1337 is the worst of them (tools/seed_sweep.py, PERF.md §6,
-# ROADMAP Queue 3): the phase's 20 dB bar is met by seed 0's draw.
+# to disk (the bench.py LowRank model at full width, 600 steps), at the
+# command line's default --seed
 CLI_ARGS = ("--dataset_name", "nsvf", "--exp_name", "cli", "--grid",
             "LowRank", "--lr_k_max", "256", "--num_epochs", "1",
-            "--steps_per_epoch", "600", "--batch_size", "8192", "--lr", "1e-2",
-            "--seed", "0")
+            "--steps_per_epoch", "600", "--batch_size", "8192", "--lr", "1e-2")
 CLI_TEST_VIEWS = 2
 # the loaded rays against the in-memory images: the PNG's uint8 truncation
 CLI_LOAD_TOL = 1 / 255 + 1e-6
@@ -717,7 +712,6 @@ def cli_phase(dev, read_launches):
     procedural scene (N_TRAIN_VIEWS train and CLI_TEST_VIEWS test views)
     written in the NSVF layout under a temporary directory, which is also
     the working directory of both runs. Returns the phase's fields."""
-    from mfnerf_tpu_torch.datasets import color_utils
     from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import main as train_main
@@ -774,7 +768,7 @@ def cli_phase(dev, read_launches):
     val_psnr = float(re.search(r"^test/psnr: ([0-9.]+)$", proc.stdout,
                                re.M).group(1))
     return dict(
-        decoder=color_utils.DECODER, write_seconds=write_s,
+        write_seconds=write_s,
         load_seconds=load_s, load_max_abs_err=load_err,
         load_tol=CLI_LOAD_TOL, argv=argv, ms_per_step=metrics[
             "train/ms_per_step"], test_psnr=metrics["test/psnr"],

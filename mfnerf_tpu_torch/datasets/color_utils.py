@@ -4,20 +4,16 @@ Port of ``mfnerf_tpu/datasets/color_utils.py``: uint8 to [0, 1], alpha
 blended onto white (``blend_a=False`` onto black, as the COLMAP loader
 wants), a bilinear resize, flattened to (H*W, 3).
 
-The decoder is the native loader (``native.py``: libpng/libjpeg, built with
-g++) where it builds, else ``png.py`` (PNG only). Which one ran is
-``DECODER``, printed once at the first read. It runs on the host, where the
+The decoder is ``png.py`` (8-bit PNG only). It runs on the host, where the
 loaders run; it stands in for no device kernel.
 """
 import numpy as np
 import torch
 
-from .. import native
 from .png import read_png
 
-DECODER = None      # "native" or "png.py", set at the first read_image
-# uint8 -> [0, 1] as the native loader scales (a product with the float32
-# reciprocal), so that both decoders give the same floats bit for bit
+# uint8 -> [0, 1] as the JAX package's native loader scales (a product with
+# the float32 reciprocal)
 INV_255 = np.float32(1) / np.float32(255)
 
 
@@ -43,21 +39,9 @@ def resize_bilinear(img, img_wh):
     return y[0].permute(1, 2, 0).numpy()
 
 
-def _decoder():
-    global DECODER
-    if DECODER is None:
-        DECODER = "native" if native.available() else "png.py"
-        why = "" if DECODER == "native" else \
-            f" (native loader: {native.unavailable_reason()})"
-        print(f"image decoder: {DECODER}{why}", flush=True)
-    return DECODER
-
-
 def read_image(img_path, img_wh, blend_a=True):
     """Read an image to a flattened (H*W, 3) float32 array in [0, 1], at
     ``img_wh`` = (W, H)."""
-    if _decoder() == "native":
-        return native.load_images([img_path], img_wh, blend_a=blend_a)[0]
     img = read_png(img_path).astype(np.float32) * INV_255
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)

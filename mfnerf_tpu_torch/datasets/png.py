@@ -1,14 +1,15 @@
 """PNG reader and writer in plain Python, ``zlib`` and numpy.
 
 The machine that runs the port has no imageio, PIL or cv2. This module is
-the image decoder that runs everywhere: ``color_utils.read_image`` uses it
-where the native loader (``native.py``) cannot be built.
+the port's image decoder: ``color_utils.read_image`` reads through it.
 
 :func:`read_png` decodes 8-bit gray, gray+alpha, RGB and RGBA files, not
-interlaced, with any of the five row filters. None, Sub (a cumulative sum
-mod 256 along the row) and Up are vectorised; Average and Paeth depend on
-the pixel to their left after it is decoded and loop along x in Python,
-so files that use them (as Blender writes them) decode slowly. It raises
+interlaced, with any of the five row filters. A file of None, Sub (a
+cumulative sum mod 256 along the row) and Up rows is decoded a row at a
+time. Average and Paeth need the decoded pixel to their left, so a file
+that uses them (as Blender writes them) is decoded an anti-diagonal of
+pixels at a time: a pixel depends only on its left, upper and upper-left
+neighbours, which lie on the two diagonals before its own. It raises
 ``ValueError``, naming the file, on 16-bit, palette and interlaced files.
 
 :func:`write_png` writes 8-bit files with filter type 0 or 1 on every row.
@@ -43,19 +44,43 @@ def _chunks(data, path):
     raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
 
 
-def _unfilter_loop(kind, row, prev, bpp):
-    """Average (3) or Paeth (4) row in place, one byte at a time."""
-    for x in range(len(row)):
-        a = row[x - bpp] if x >= bpp else 0
-        b = prev[x]
-        if kind == 3:
-            row[x] = (row[x] + ((a + b) >> 1)) & 0xFF
-            continue
-        c = prev[x - bpp] if x >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        row[x] = (row[x] + pred) & 0xFF
+def _unfilter_rows(filters, out, w, c):
+    """None, Sub and Up rows of ``out`` ((H, W*C) uint8) in place."""
+    prev = np.zeros(w * c, np.uint8)
+    for kind, row in zip(filters, out):
+        if kind == 1:
+            row[:] = np.cumsum(row.reshape(w, c), 0, dtype=np.uint8).ravel()
+        elif kind == 2:
+            row += prev
+        prev = row
+
+
+def _unfilter_diagonals(filters, out, w, c):
+    """Rows of any filter in ``out`` ((H, W*C) uint8) in place, the pixels
+    of each anti-diagonal y + x = d together."""
+    h = len(filters)
+    # skewed: pixel (y, x) at [y + x + 2, y + 1], so a diagonal is a row
+    # and its left, upper and upper-left neighbours are slices of the two
+    # rows before it; the untouched entries stand for the zero bytes left
+    # of and above the image
+    px = np.zeros((h + w + 1, h + 1, c), np.int32)
+    raw = np.zeros((h + w - 1, h, c), np.int32)
+    rows = out.reshape(h, w, c)
+    for y in range(h):
+        raw[y:y + w, y] = rows[y]
+    kinds = filters.astype(np.int32)[:, None]
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h, d + 1)
+        a, b = px[d + 1, y0 + 1:y1 + 1], px[d + 1, y0:y1]
+        ul, k = px[d, y0:y1], kinds[y0:y1]
+        # Paeth: the neighbour nearest a + b - ul, ties to a, then b
+        pa, pb, pc = np.abs(b - ul), np.abs(a - ul), np.abs(a + b - 2 * ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        pred = np.select([k == 1, k == 2, k == 3, k == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        px[d + 2, y0 + 1:y1 + 1] = (raw[d, y0:y1] + pred) & 0xFF
+    for y in range(h):
+        rows[y] = px[y + 2:y + 2 + w, y + 1]
 
 
 def read_png(path):
@@ -89,18 +114,10 @@ def read_png(path):
     filters, out = rows[:, 0], rows[:, 1:].copy()
     if filters.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown row filter {filters.max()}")
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, row = filters[y], out[y]
-        if kind == 1:
-            row[:] = np.cumsum(row.reshape(w, c), 0, dtype=np.uint8).ravel()
-        elif kind == 2:
-            row += prev
-        elif kind in (3, 4):
-            line = bytearray(row.tobytes())
-            _unfilter_loop(kind, line, prev.tobytes(), c)
-            row[:] = np.frombuffer(line, np.uint8)
-        prev = row
+    if filters.max(initial=0) > 2:
+        _unfilter_diagonals(filters, out, w, c)
+    else:
+        _unfilter_rows(filters, out, w, c)
     return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
 
 

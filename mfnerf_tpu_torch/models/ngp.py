@@ -61,6 +61,12 @@ class NGPConfig:
     lr_k_min: int = 32
     lr_k_max: int = 512
     lr_fused: bool = False
+    # bound on |rays_d| (directions are unnormalized): sizes the training
+    # march's strata (ops/ray_march.twolevel_stratum)
+    dir_norm: float = 1.0
+    # the strata's stage-A grid is the fine grid pooled pool_a to a side
+    # (0: 2, the JAX coarse table)
+    pool_a: int = 0
 
     @property
     def cascades(self) -> int:

@@ -3,11 +3,14 @@ renderer and its dense oracle.
 
 Port of ``mfnerf_tpu/models/rendering.py``.
 
-* :func:`render_train` is the padded branch of the JAX ``render_train``
-  (``s_flat == 0``): the exact ``march_rays_train`` with the stratified
-  jitter, the field on the valid samples only, ``composite_train`` and the
-  background. The JAX flat sample layout and its two-level march tables are
-  TPU devices; the padded branch computes the same rays exactly.
+* :func:`render_train` is the JAX ``render_train``: the march with the
+  stratified jitter and, on single-cascade synthetic scenes, the two-level
+  march's strata budget (``ops/ray_march.py``; ``rcfg.s_strata`` strata a
+  ray, taken evenly along it when it crosses more), the field on the valid
+  samples only, ``composite_train`` and the background. With ``s_flat`` the
+  batch keeps its first ``N * s_flat`` samples in ray order, as the JAX
+  flat layout's budget does. The JAX neighbourhood-row tables and flat
+  gathers are TPU devices; the samples are the same.
 * :func:`render_test_dense` is the plain oracle: every ray marches the whole
   ladder in rank windows of ``s_max_test`` samples, each window is field-
   evaluated and composited with resumed transmittance. Every renderer is
@@ -30,7 +33,8 @@ import torch
 
 from ..ops.composite import composite_test_step, composite_train
 from ..ops.intersection import ray_aabb_intersect_single
-from ..ops.ray_march import march_rays_train, march_rays_window
+from ..ops.ray_march import (Strata, march_rays_train, march_rays_window,
+                             stage_a_grid, twolevel_stratum)
 from ..ops.stepping import max_ladder_steps
 from .ngp import NEAR_DISTANCE
 
@@ -51,6 +55,8 @@ class RenderConfig:
     s_max_test: int = 256          # oracle rank-window width
     random_bg: bool = False        # real scenes: a random training background
     test_chunk: int = 16384        # oracle rays per chunk
+    s_strata: int = 32             # two-level march: live strata a ray
+    s_flat: int = 0                # flat layout: samples a ray on average
 
     def n_rungs(self, scale: float, grid_size: int = 128,
                 test: bool = False) -> int:
@@ -118,14 +124,29 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         vr_samples); the sample counters are 0-d tensors.
     """
     cfg = model.cfg
+    stratum = twolevel_stratum(rcfg.exp_step_factor, rcfg.max_samples,
+                               cfg.scale, cfg.grid_size, cfg.cascades,
+                               cfg.dir_norm)
+    strata = None if not stratum else Strata(
+        stage_a_grid(occ.density_bitfield, cfg.grid_size, cfg.pool_a or 2),
+        stratum, rcfg.s_strata, cfg.dir_norm)
     mr = march_rays_train(
         rays_o, rays_d, _scene_hits(model, rays_o, rays_d),
         occ.density_bitfield, cfg.cascades, cfg.scale, rcfg.exp_step_factor,
         cfg.grid_size, rcfg.max_samples, noise,
-        rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train)
-    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mr.mask, grad_noise)
-    comp = composite_train(sigmas, rgbs, mr.deltas, mr.ts, mr.mask,
-                           rcfg.T_threshold)
+        rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train,
+        strata=strata)
+    mask, ts, deltas = mr.mask, mr.ts, mr.deltas
+    if rcfg.s_flat:
+        # the flat layout's budget: the batch's samples in ray order, the
+        # first N * s_flat of them
+        n, s = mask.shape
+        first = torch.cumsum(mr.n_samples, 0) - mr.n_samples
+        rank = torch.arange(s, device=mask.device)
+        mask = mask & (first[:, None] + rank < n * rcfg.s_flat)
+        ts, deltas = torch.where(mask, ts, 0.0), torch.where(mask, deltas, 0.0)
+    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise)
+    comp = composite_train(sigmas, rgbs, deltas, ts, mask, rcfg.T_threshold)
     if rcfg.exp_step_factor == 0:       # synthetic scenes: white background
         bg = 1.0
     elif rcfg.random_bg:
@@ -137,7 +158,7 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
     return {
         "rgb": comp.rgb + bg * (1.0 - comp.opacity)[:, None],
         "opacity": comp.opacity, "depth": comp.depth, "ws": comp.ws,
-        "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask,
+        "deltas": deltas, "ts": ts, "mask": mask,
         "rm_samples": mr.rm_samples, "vr_samples": comp.vr_samples,
     }
 

@@ -3,17 +3,18 @@
 The same 52 flags, with the JAX package's names, defaults and choices, so
 the reference's scripts (``benchmarking/benchmark_synthetic_nerf*.sh``) run
 against the port unchanged. Flags marked ``[tpu]`` there keep their
-defaults here. Those that only choose a TPU formulation (``TPU_ONLY``) are
-parsed and ignored: ``NeRFSystem`` prints one line for each that is set to
-another value. Those that the port has not ported make ``NeRFSystem``
+defaults here. ``--s_flat`` and ``--pool_a`` change which samples a
+training step keeps, and the port honours them (``models/rendering.py``).
+Those that only choose a TPU formulation (``TPU_ONLY``) are parsed and
+ignored: ``train.main`` prints one line for each that is set to another
+value. Those that the port has not ported make ``NeRFSystem``
 raise ``NotImplementedError`` (``train.py``).
 """
 import argparse
 
 # [tpu] formulation flags: name -> default. The port has no counterpart
 # (ROADMAP, Queue 1 #8); a non-default value is reported and ignored.
-TPU_ONLY = {"s_flat": 16, "pool_a": 4, "wavefront": "auto",
-            "multihost": False}
+TPU_ONLY = {"wavefront": "auto", "multihost": False}
 
 
 def get_opts(argv=None):

@@ -26,16 +26,19 @@ and its slim copy, validates the test views (PSNR and SSIM) and writes
 working directory; ``--val_only --ckpt_path`` validates a checkpoint. The
 checkpoints are the JAX package's format (``utils/ckpt.py``).
 
-The JAX package's fused multi-step runner exists to spare TPU dispatch round
-trips and is not ported; the port runs one step per call. Nor does
-``setup`` rebuild the model for the cameras' largest ``|d|`` (``dir_norm``)
-as the JAX one does: only the JAX two-level march strata read it, and they
-are not ported. Not ported yet: ``optimize_ext``, HDR exposure
-(``use_exposure``), ``bf16``, data parallelism (``num_gpus`` > 1), LPIPS
-(``eval_lpips``), the profiler (``profile``), the sampled (``sparse``)
-refresh and the mp4 assembly; the trainer raises ``NotImplementedError``
-for those of its hyperparameters.
+The march keeps the JAX package's strata budget on synthetic scenes
+(``models/rendering.py``): ``setup`` sizes the strata from the cameras'
+largest ``|d|`` (``dir_norm``) and ``--s_max_train``, their coarse grid
+pools ``--pool_a`` cells to a side, and from step ``FLAT_AFTER`` a batch
+keeps ``--s_flat`` samples a ray on average. The JAX package's fused
+multi-step runner exists to spare TPU dispatch round trips and is not
+ported; the port runs one step per call. Not ported yet: ``optimize_ext``,
+HDR exposure (``use_exposure``), ``bf16``, data parallelism (``num_gpus`` >
+1), LPIPS (``eval_lpips``), the profiler (``profile``), the sampled
+(``sparse``) refresh and the mp4 assembly; the trainer raises
+``NotImplementedError`` for those of its hyperparameters.
 """
+import dataclasses
 import math
 import os
 import time
@@ -51,6 +54,7 @@ from .losses import NeRFLoss
 from .models.ngp import NGP, NGPConfig, OccupancyState
 from .models.rendering import (MAX_SAMPLES, RenderConfig, render_test,
                                render_train)
+from .ops.ray_march import twolevel_stratum
 from .opt import TPU_ONLY, get_opts
 from .utils.ckpt import (adam_state_from_numpy, adam_state_to_numpy,
                          load_ckpt, load_params, occupancy_from_numpy,
@@ -63,6 +67,7 @@ from .utils.metrics import ssim as ssim_fn
 # warm-up and steady-state refreshes the same program, as in the JAX package
 WARMUP_STEPS = 256
 UPDATE_INTERVAL = 16      # steps between occupancy refreshes
+FLAT_AFTER = 512          # the first step with the --s_flat budget
 STEPS_PER_EPOCH = 1000
 GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
 SAMPLING = ("all_images", "same_image")    # ray_sampling_strategy
@@ -132,11 +137,6 @@ class NeRFSystem:
             if on:
                 raise NotImplementedError(f"{name}={getattr(hp, name)} is "
                                           f"not ported")
-        for name, default in TPU_ONLY.items():
-            if getattr(hp, name, default) != default:
-                print(f"--{name} {getattr(hp, name)}: a TPU formulation "
-                      f"flag of the JAX package; the port ignores it",
-                      flush=True)
         strategy = getattr(hp, "ray_sampling_strategy", "all_images")
         if strategy not in SAMPLING:
             raise ValueError(f"ray_sampling_strategy={strategy!r}: not one "
@@ -157,13 +157,17 @@ class NeRFSystem:
             lr_frames=getattr(hp, "lr_frames", 2),
             lr_k_min=getattr(hp, "lr_k_min", 32),
             lr_k_max=getattr(hp, "lr_k_max", 512),
-            lr_fused=getattr(hp, "lr_fused", False))
+            lr_fused=getattr(hp, "lr_fused", False),
+            pool_a=(getattr(hp, "pool_a", 0) if getattr(hp, "grid_size", 128)
+                    % max(getattr(hp, "pool_a", 0), 1) == 0 else 0))
         self.rcfg = RenderConfig(
             exp_step_factor=1 / 256 if hp.scale > 0.5 else 0.0,
             random_bg=hp.random_bg,
             max_samples=getattr(hp, "max_samples", MAX_SAMPLES),
             s_max_train=hp.s_max_train, s_max_test=hp.s_max_test,
-            test_chunk=hp.test_chunk)
+            test_chunk=hp.test_chunk,
+            # multi-cascade scenes march ~50 samples a ray: no flat budget
+            s_flat=0 if hp.scale > 0.5 else getattr(hp, "s_flat", 0))
         self.loss = NeRFLoss(lambda_distortion=hp.distortion_loss_w)
         self.density_threshold = 0.01 * MAX_SAMPLES / (3 ** 0.5)
         self.steps_per_epoch = getattr(hp, "steps_per_epoch",
@@ -184,6 +188,22 @@ class NeRFSystem:
             test_dataset = dataset(split="test", **kwargs)
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
+        # the strata's bound on |rays_d| (directions are unnormalized), to
+        # 1/16 above the cameras' largest, and their budget: about 2.25 x
+        # s_max_train rungs (mfnerf_tpu/train.py:170-209)
+        dn = max([1.0] + [
+            float(np.linalg.norm(ds.directions, axis=-1).max())
+            for ds in (train_dataset, test_dataset)
+            if getattr(ds, "directions", None) is not None])
+        cfg = self.model_cfg = dataclasses.replace(
+            self.model_cfg, dir_norm=math.ceil(dn * 16.0) / 16.0)
+        stratum = twolevel_stratum(self.rcfg.exp_step_factor,
+                                   self.rcfg.max_samples, cfg.scale,
+                                   cfg.grid_size, cfg.cascades, cfg.dir_norm)
+        s_max = self.rcfg.s_max_train
+        self.rcfg = dataclasses.replace(self.rcfg, s_strata=(
+            max(4, -(-(9 * s_max // 4) // stratum)) if stratum
+            else max(4, s_max // 8)))
 
     def configure(self, seed=0):
         """Draw the field from ``seed`` (then, with ``--weight_path``, load
@@ -251,8 +271,10 @@ class NeRFSystem:
         if self.model_cfg.grid != "LowRank" and m < 8:
             def grad_noise(n_valid):
                 return self._rand(n_valid, m)
+        rcfg = self.rcfg if self.global_step >= FLAT_AFTER \
+            else dataclasses.replace(self.rcfg, s_flat=0)
         results = render_train(self.model, self.occ, rays_o, rays_d,
-                               self._rand(b), self.rcfg, bg, grad_noise)
+                               self._rand(b), rcfg, bg, grad_noise)
         loss = sum(v.mean() for v in self.loss(results, target).values())
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -379,6 +401,10 @@ def main(hparams, device=None):
     t_start = time.time()
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
+    for name, default in TPU_ONLY.items():
+        if getattr(hparams, name) != default:
+            print(f"--{name} {getattr(hparams, name)}: a TPU formulation "
+                  f"flag of the JAX package; the port ignores it", flush=True)
 
     system = NeRFSystem(hparams, device=device)
     system.setup()

@@ -70,15 +70,14 @@ def save_ckpt(path, params, occ=None, opt_state=None, step=0):
     _write(path, sections, step)
 
 
-def slim_ckpt(path, out_path, save_poses=False):
+def slim_ckpt(path, out_path):
     """Strip a full checkpoint for serving: drop the optimiser state, the
-    density and count grids (and the poses unless ``save_poses``); keep the
-    parameters and the density bitfield. As ``mfnerf_tpu.utils.ckpt``."""
+    density and count grids and the poses; keep the parameters and the
+    density bitfield. As ``mfnerf_tpu.utils.ckpt``."""
     ck = load_ckpt(path)
     step = ck.pop("step")
     ck.pop("opt_state", None)
-    if not save_poses:
-        ck.pop("poses", None)
+    ck.pop("poses", None)
     if "occ" in ck:
         ck["occ"] = {k: v for k, v in ck["occ"].items()
                      if "density_grid" not in k and "count_grid" not in k}

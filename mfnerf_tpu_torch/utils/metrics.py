@@ -22,19 +22,21 @@ def psnr(image_pred, image_gt, valid_mask=None, reduction="mean"):
                                    reduction))
 
 
-def _gaussian_kernel(size=11, sigma=1.5):
-    x = np.arange(size, dtype=np.float64) - (size - 1) / 2
-    g = np.exp(-(x ** 2) / (2 * sigma ** 2))
+SSIM_WINDOW, SSIM_SIGMA = 11, 1.5
+SSIM_C1, SSIM_C2 = 0.01 ** 2, 0.03 ** 2     # (k * data_range) ** 2, range 1
+
+
+def _gaussian_kernel():
+    x = np.arange(SSIM_WINDOW, dtype=np.float64) - (SSIM_WINDOW - 1) / 2
+    g = np.exp(-(x ** 2) / (2 * SSIM_SIGMA ** 2))
     g /= g.sum()
     return torch.from_numpy(np.outer(g, g).astype(np.float32))
 
 
-def ssim(img_pred, img_gt, data_range=1.0, kernel_size=11, sigma=1.5):
-    """Mean SSIM of two (H, W, C) float images (a 0-d tensor)."""
-    k1, k2 = 0.01, 0.03
-    c1 = (k1 * data_range) ** 2
-    c2 = (k2 * data_range) ** 2
-    kern = _gaussian_kernel(kernel_size, sigma).to(img_pred.device)[None, None]
+def ssim(img_pred, img_gt):
+    """Mean SSIM of two (H, W, C) float images in [0, 1] (a 0-d tensor)."""
+    c1, c2 = SSIM_C1, SSIM_C2
+    kern = _gaussian_kernel().to(img_pred.device)[None, None]
 
     def filt(x):  # (H, W, C) -> (C, H', W') local means over VALID windows
         x = x.to(torch.float32).permute(2, 0, 1)[:, None]

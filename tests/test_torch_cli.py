@@ -439,8 +439,10 @@ def test_unported_flags_raise(cli_dir, flag):
 
 
 def test_tpu_formulation_flags_are_ignored_with_a_line(cli_dir, capsys):
-    _main(_argv("--s_flat", "0", "--wavefront", "none", "--no_save_test"))
+    _main(_argv("--s_flat", "0", "--pool_a", "0", "--wavefront", "none",
+                "--multihost", "--no_save_test"))
     out = capsys.readouterr().out
-    assert "--s_flat 0: a TPU formulation flag" in out
     assert "--wavefront none: a TPU formulation flag" in out
-    assert "--pool_a" not in out
+    assert "--multihost True: a TPU formulation flag" in out
+    # the sample budgets are honoured, not reported
+    assert "--s_flat" not in out and "--pool_a" not in out

@@ -4,7 +4,7 @@ The scenes are procedural (``make_scene``) at the loaders' 800x800: the
 NSVF one written by the JAX package's ``write_nsvf_scene`` (imageio), the
 Blender one by the port's ``write_blender_scene`` plus the test's own
 ``transforms_val.json``. Both loaders read the same files; the port
-decodes with ``png.py`` (and with the native loader where it builds).
+decodes with ``png.py``.
 
 Tolerances: K, directions and poses 1e-6 (the same float32 arithmetic);
 rays 1e-6 at the files' size and 2e-3 resized (``downsample`` 0.5: a
@@ -22,8 +22,7 @@ from mfnerf_tpu.datasets.nerf import NeRFDataset as JNeRF
 from mfnerf_tpu.datasets.nsvf import NSVFDataset as JNSVF
 from mfnerf_tpu.utils.procedural import write_nsvf_scene as jwrite_nsvf
 
-from mfnerf_tpu_torch import native
-from mfnerf_tpu_torch.datasets import color_utils, dataset_dict
+from mfnerf_tpu_torch.datasets import dataset_dict
 from mfnerf_tpu_torch.datasets.nerf import NeRFDataset as TNeRF
 from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset as TNSVF
 from mfnerf_tpu_torch.utils.procedural import (make_scene,
@@ -64,10 +63,6 @@ def scenes(tmp_path_factory):
             "blender": blender, "port_nsvf": port_nsvf}
 
 
-def _decoders():
-    return ["png.py"] + (["native"] if native.available() else [])
-
-
 def _same(got, want, tol):
     assert got.img_wh == want.img_wh
     assert len(got) == len(want.poses)     # JAX's train split counts steps
@@ -88,33 +83,27 @@ def _same(got, want, tol):
 @pytest.mark.parametrize("split", ["train", "trainval", "test"])
 @pytest.mark.parametrize("downsample,tol", [(1.0, 1e-6), (0.5, RESIZE_TOL)])
 @pytest.mark.parametrize("root", ["Spheres", "Lego"])
-def test_nsvf_loader_matches_jax(scenes, monkeypatch, split, downsample,
-                                 tol, root):
-    for decoder in _decoders():
-        monkeypatch.setattr(color_utils, "DECODER", decoder)
-        got = TNSVF(scenes[root], split=split, downsample=downsample)
-        want = JNSVF(scenes[root], split=split, downsample=downsample)
-        _same(got, want, tol)
-        assert got.scale == pytest.approx(want.scale, rel=1e-12)
-        assert (got.scale > 0.55) == (root == "Lego")       # the bound fix
+def test_nsvf_loader_matches_jax(scenes, split, downsample, tol, root):
+    got = TNSVF(scenes[root], split=split, downsample=downsample)
+    want = JNSVF(scenes[root], split=split, downsample=downsample)
+    _same(got, want, tol)
+    assert got.scale == pytest.approx(want.scale, rel=1e-12)
+    assert (got.scale > 0.55) == (root == "Lego")       # the bound fix
 
 
 @pytest.mark.parametrize("split", ["train", "trainval", "test"])
 @pytest.mark.parametrize("downsample,tol", [(1.0, 1e-6), (0.5, RESIZE_TOL)])
-def test_blender_loader_matches_jax(scenes, monkeypatch, split, downsample,
-                                    tol):
-    monkeypatch.setattr(color_utils, "DECODER", "png.py")
+def test_blender_loader_matches_jax(scenes, split, downsample, tol):
     got = TNeRF(scenes["blender"], split=split, downsample=downsample)
     want = JNeRF(scenes["blender"], split=split, downsample=downsample)
     _same(got, want, tol)
     assert len(got) == {"train": 2, "trainval": 3, "test": 1}[split]
 
 
-def test_blender_writer_gives_back_the_scene(scenes, monkeypatch):
+def test_blender_writer_gives_back_the_scene(scenes):
     """write_blender_scene's files load back to the scene's cameras (the
     loader's radius normalisation keeps the ring of radius 1.5) and
     pixels (uint8 truncation)."""
-    monkeypatch.setattr(color_utils, "DECODER", "png.py")
     scene = scenes["scene"]
     ds = TNeRF(scenes["blender"], split="train")
     np.testing.assert_allclose(ds.poses, scene["poses"], atol=1e-5)

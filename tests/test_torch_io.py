@@ -2,10 +2,8 @@
 
 * ``datasets/png.py`` decodes what imageio (PIL's adaptive row filters)
   writes, and files whose rows the test filters itself with each of the
-  five PNG filters, bit for bit as imageio reads them; imageio reads what
-  ``png.py`` writes bit for bit.
-* The native loader and ``png.py`` give ``read_image`` the same floats bit
-  for bit (both scale by the float32 reciprocal of 255).
+  five PNG filters, one filter a file or a random one a row, bit for bit
+  as imageio reads them; imageio reads what ``png.py`` writes bit for bit.
 * ``read_image`` against the JAX ``read_image``: 1e-6 at the file's size,
   2e-3 resized (cv2's ``INTER_LINEAR`` on float32 and a bilinear torch
   resize agree to about 1e-3; tests/test_native.py allows the JAX native
@@ -24,7 +22,7 @@ from PIL import Image
 from mfnerf_tpu import train as jtrain
 from mfnerf_tpu.datasets import color_utils as jcolor
 
-from mfnerf_tpu_torch import native, train as ttrain
+from mfnerf_tpu_torch import train as ttrain
 from mfnerf_tpu_torch.datasets import color_utils as tcolor
 from mfnerf_tpu_torch.datasets import png
 
@@ -94,13 +92,13 @@ def _predict(kind, a, b, c):
     return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
 
 
-def _write_filtered(path, img, kind):
-    """An 8-bit PNG of ``img`` ((h, w, c) uint8) whose rows all use filter
-    ``kind``, filtered here by the PNG specification's definition."""
+def _write_filtered(path, img, kinds):
+    """An 8-bit PNG of ``img`` ((h, w, c) uint8) whose row y uses filter
+    ``kinds[y]``, filtered here by the PNG specification's definition."""
     h, w, c = img.shape
     flat = img.reshape(h, w * c).astype(np.int64)
     rows = []
-    for y in range(h):
+    for y, kind in enumerate(kinds):
         up = flat[y - 1] if y else np.zeros(w * c, np.int64)
         out = [kind]
         for x in range(w * c):
@@ -140,8 +138,25 @@ def test_png_reads_every_row_filter(tmp_path, kind, channels):
                                                dtype=np.uint8)
     img[3:6] //= 4                 # smooth rows: carries below and above
     path = str(tmp_path / "f.png")
-    _write_filtered(path, img, kind)
+    _write_filtered(path, img, [kind] * len(img))
     assert _row_filters(path) == {kind}
+    np.testing.assert_array_equal(png.read_png(path), imageio.imread(path))
+    np.testing.assert_array_equal(png.read_png(path), _squeeze(img))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("hw", [(17, 6), (5, 23)])
+def test_png_reads_mixed_row_filters(tmp_path, channels, hw):
+    """A random filter a row, in images taller and wider than square: the
+    anti-diagonal decode, rows of Average and Paeth among the others."""
+    rng = np.random.default_rng(channels)
+    img = rng.integers(0, 256, (*hw, channels), dtype=np.uint8)
+    img[1::3] //= 8                # smooth rows: carries below and above
+    kinds = rng.integers(0, 5, hw[0])
+    kinds[:5] = [0, 1, 2, 3, 4]
+    path = str(tmp_path / "m.png")
+    _write_filtered(path, img, kinds)
+    assert _row_filters(path) == {0, 1, 2, 3, 4}
     np.testing.assert_array_equal(png.read_png(path), imageio.imread(path))
     np.testing.assert_array_equal(png.read_png(path), _squeeze(img))
 
@@ -193,33 +208,10 @@ def _rgba_image(h=20, w=24, seed=0):
     return img
 
 
-@pytest.mark.parametrize("channels", [2, 3, 4])
-@pytest.mark.parametrize("blend_a", [True, False])
-def test_native_decoder_equals_png_decoder(tmp_path, monkeypatch, channels,
-                                           blend_a):
-    if not native.available():
-        pytest.skip(f"native loader: {native.unavailable_reason()}")
-    img = _rgba_image()
-    img = np.concatenate([img[..., :1], img[..., 3:]], -1) if channels == 2 \
-        else img[..., :channels]
-    path = str(tmp_path / "n.png")
-    imageio.imwrite(path, img)
-    got = {}
-    for decoder in ("native", "png.py"):
-        monkeypatch.setattr(tcolor, "DECODER", decoder)
-        got[decoder] = tcolor.read_image(path, (24, 20), blend_a)
-    np.testing.assert_array_equal(got["native"], got["png.py"])
-
-
-@pytest.mark.parametrize("decoder", ["native", "png.py"])
 @pytest.mark.parametrize("blend_a", [True, False])
 @pytest.mark.parametrize("wh,tol", [((24, 20), 1e-6), ((13, 9), RESIZE_TOL),
                                     ((40, 36), RESIZE_TOL)])
-def test_read_image_matches_jax(tmp_path, monkeypatch, decoder, blend_a, wh,
-                                tol):
-    if decoder == "native" and not native.available():
-        pytest.skip(f"native loader: {native.unavailable_reason()}")
-    monkeypatch.setattr(tcolor, "DECODER", decoder)
+def test_read_image_matches_jax(tmp_path, blend_a, wh, tol):
     for name, img in (("rgba", _rgba_image(seed=1)),
                       ("rgb", _rgba_image(seed=2)[..., :3]),
                       ("gray", _rgba_image(seed=3)[..., 0])):

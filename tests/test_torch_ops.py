@@ -228,6 +228,59 @@ def test_march_rays_train_bit_exact(rank_start):
     assert got.n_samples.sum() > 0
 
 
+@pytest.mark.parametrize("g,max_samples,pool_a", [(32, 256, 0), (64, 512, 0),
+                                                   (64, 512, 4)])
+@pytest.mark.parametrize("s_strata,fill", [(4, 0xFF), (4, 0x11),
+                                           (32, 0x33)])
+def test_march_rays_train_strata_bit_exact(g, max_samples, pool_a, s_strata,
+                                           fill):
+    """The exact march under the strata budget against the JAX two-level
+    march, sample for sample on every ray: rays over the budget (a full
+    grid) take their strata at even ranks, rays under it march exactly.
+    Camera-like rays with |d| up to 1.25, the training jitter."""
+    scale, dir_norm, n = 0.5, 1.25, 384
+    rays_o, rays_d = _rays(n, 11, miss_every=13)
+    rays_d = rays_d * np.random.default_rng(12).uniform(
+        1.0, dir_norm, (n, 1)).astype(np.float32)
+    bits = _bitfield(g, 13, fill)
+    rcfg = jrendering.RenderConfig(max_samples=max_samples)
+    n_rungs = rcfg.n_rungs(scale, g)
+    stratum, _ = jmarch.twolevel_stratum(0.0, max_samples, scale, g, 1,
+                                         dir_norm)
+    assert stratum == tmarch.twolevel_stratum(0.0, max_samples, scale, g, 1,
+                                              dir_norm) > 1
+    hits = _np(jrendering._clamp_near(jinter.ray_aabb_intersect_single(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.zeros(3),
+        jnp.full(3, scale))))
+    noise = np.random.default_rng(14).random(n, dtype=np.float32)
+    tables = jmorton.occupancy_nbr_tables(jnp.asarray(bits), g,
+                                          pool_a=pool_a)
+    pool_kw = dict(nbr_a=tables[2], g_a=g // pool_a) if pool_a else {}
+    want = jmarch.march_rays_train_twolevel(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.asarray(hits),
+        tables[1], tables[0], scale, 0.0, g, max_samples,
+        jnp.asarray(noise), n_rungs, 64, stratum, s_strata=s_strata,
+        dir_norm=dir_norm, **pool_kw)
+    strata = tmarch.Strata(tmarch.stage_a_grid(_t(bits), g, pool_a or 2),
+                           stratum, s_strata, dir_norm)
+    got = tmarch.march_rays_train(
+        _t(rays_o), _t(rays_d), _t(hits), _t(bits), 1, scale, 0.0, g,
+        max_samples, _t(noise), n_rungs, 64, strata=strata)
+    np.testing.assert_array_equal(got.n_samples.numpy(),
+                                  _np(want.n_samples))
+    np.testing.assert_array_equal(got.mask.numpy(), _np(want.mask))
+    np.testing.assert_array_equal(got.k_idx.numpy()[got.mask.numpy()],
+                                  _np(want.k_idx)[_np(want.mask)])
+    np.testing.assert_allclose(got.xyzs.numpy(), _np(want.xyzs), atol=1e-6)
+    exact = tmarch.march_rays_train(
+        _t(rays_o), _t(rays_d), _t(hits), _t(bits), 1, scale, 0.0, g,
+        max_samples, _t(noise), n_rungs, 64)
+    cut = (exact.n_samples != got.n_samples).numpy()
+    # a full grid puts every hitting ray over a budget of 4 strata
+    assert cut.any() == (s_strata == 4), cut.sum()
+    assert got.n_samples.sum() > 0
+
+
 def test_march_rays_window_bit_exact():
     g, max_samples = 32, 1024
     rays_o, rays_d = _rays(300, 10)

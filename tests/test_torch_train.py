@@ -481,16 +481,18 @@ def test_train_step_matches_jax(grid, fused, m):
                rel_atol=1e-4 if fused else 1e-5)
 
 
-@pytest.mark.parametrize("s_flat,fill", [(0, 0x33), (16, 0x01)])
-def test_render_train_matches_jax_render_train(s_flat, fill):
+@pytest.mark.parametrize("s_flat,s_strata,fill", [
+    (0, 32, 0x33), (16, 32, 0x01), (4, 32, 0x33), (0, 4, 0xFF)])
+def test_render_train_matches_jax_render_train(s_flat, s_strata, fill):
     """The JAX package's own render_train marches synthetic scenes with the
-    two-level (coarse-strata) tables, which drop a ray's samples only when
-    its occupied strata overflow their budget
+    two-level (coarse-strata) tables, which take a ray's strata at even
+    ranks when they overflow the ``s_strata`` budget
     (tests/test_twolevel_march.py:92-121); with ``s_flat`` it also
-    evaluates the field on a flat ragged batch. On the rays whose sample
-    counts agree with the port's exact march, which must be at least 95% of
-    them, the frames agree. The JAX side runs under jit here: a sample that
-    an ulp moved across a cell would change its ray's count."""
+    evaluates the field on a flat ragged batch cut at ``N * s_flat``
+    samples. The port's render_train keeps the same samples (a full grid
+    over a budget of 4 strata; a flat budget of 4 that cuts the batch): the
+    sample counts agree on every ray, and so do the frames. The JAX side
+    runs under jit here."""
     cfg_kw = dict(SMALL, max_samples=256)
     jcfg = jngp.NGPConfig(grid="LowRank", **cfg_kw)
     jmodel = jngp.NGP(jcfg)
@@ -503,15 +505,12 @@ def test_render_train_matches_jax_render_train(s_flat, fill):
                                 density_bitfield=jnp.asarray(bits)
                                 ).refresh_coarse(jcfg)
     assert jmarch.twolevel_stratum(0.0, 256, 0.5, 32, 1, 1.0)[0] > 0
-    rcfg_kw = dict(s_max_train=32, max_samples=256)
+    rcfg_kw = dict(s_max_train=32, max_samples=256, s_strata=s_strata,
+                   s_flat=s_flat)
     key = jax.random.PRNGKey(3)
     render = jax.jit(jrendering.render_train, static_argnums=(0, 6))
-    padded = render(jmodel, params, occ_j, jnp.asarray(rays_o),
-                    jnp.asarray(rays_d), key,
-                    jrendering.RenderConfig(**rcfg_kw))
     want = render(jmodel, params, occ_j, jnp.asarray(rays_o),
-                  jnp.asarray(rays_d), key,
-                  jrendering.RenderConfig(s_flat=s_flat, **rcfg_kw))
+                  jnp.asarray(rays_d), key, jrendering.RenderConfig(**rcfg_kw))
     noise = np.asarray(jax.random.uniform(jax.random.split(key, 3)[0],
                                           (256,)))
     occ_t = tngp.OccupancyState.create(tmodel.cfg, "cpu")
@@ -520,16 +519,20 @@ def test_render_train_matches_jax_render_train(s_flat, fill):
         got = trendering.render_train(tmodel, occ_t, _t(rays_o), _t(rays_d),
                                       _t(noise),
                                       trendering.RenderConfig(**rcfg_kw))
-    counts_j = np.asarray(padded["mask"]).sum(axis=1)
     counts_t = got["mask"].numpy().sum(axis=1)
-    agree = counts_j == counts_t
-    assert agree.mean() >= 0.95, agree.mean()
+    if s_flat:
+        counts_j = np.bincount(np.asarray(want["ray_id_flat"])[
+            :int(got["mask"].sum())], minlength=256)
+    else:
+        counts_j = np.asarray(want["mask"]).sum(axis=1)
+    np.testing.assert_array_equal(counts_t, counts_j)
     assert counts_t.sum() > 1000
-    if s_flat:   # a batch the flat budget does not truncate
-        assert counts_j.sum() <= 256 * s_flat
+    assert int(got["rm_samples"]) == int(want["rm_samples"])
+    if s_flat == 4:     # the flat budget cut the batch
+        assert int(got["rm_samples"]) > counts_t.sum() == 256 * s_flat
     for key_ in ("rgb", "opacity", "depth"):
-        np.testing.assert_allclose(got[key_].numpy()[agree],
-                                   np.asarray(want[key_])[agree], atol=1e-5)
+        np.testing.assert_allclose(got[key_].numpy(), np.asarray(want[key_]),
+                                   atol=1e-5)
 
 
 # --------------------------------------------------------------- occupancy
