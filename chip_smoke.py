@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, and
-the encoder formulation probes (mfnerf_tpu_torch/benchmarking/).
+NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, on
+a synthetic scene and on a multi-cascade COLMAP scene, and the encoder
+formulation probes (mfnerf_tpu_torch/benchmarking/).
 
     python3 chip_smoke.py
 
@@ -80,6 +81,23 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    PNGs), then "python -m mfnerf_tpu_torch.train --val_only --ckpt_path"
    as a subprocess, whose test PSNR must equal the in-process one within
    CLI_PSNR_TOL;
+20. colmap_scene and train_step_oracle_cascades: the multi-cascade path's
+   scene (make_scene at COLMAP_SPREAD, 800x800, 16 train and 3 test views)
+   written as a COLMAP reconstruction (write_colmap_scene) under a
+   temporary working directory and loaded (datasets/colmap.py), its rays
+   against the in-memory images; then for the LowRank model and the
+   MixedFeature mip-NeRF 360 recipe (with its --random_bg) at --scale 8
+   (five cascades; see MF360_ARGS): the culled, refreshed untrained
+   field, one training step on the card (the recipe's kernels) against
+   the CPU (step_oracle, the same rays, jitter and background), marched
+   with the cascade strata (the union grid), which keep fewer samples than
+   the exact march; and render_test at five cascades against the CPU's
+   dense oracle on ~1,000 rays of a test view (phase 6's tolerances);
+21. cli_colmap: main on that scene, 600 steps, for the MixedFeature recipe,
+   the same without --random_bg and the LowRank model: ms/step, the last
+   step's rm_s and vr_s, test PSNR and SSIM (reported: see MF360_ARGS),
+   and the kernels' launch counts over the run (the hash-grid pair for
+   MixedFeature, the hat pair for LowRank);
 16. probe_gather: the port of benchmarking/probe_pallas_gather.py, run()
    at its shape (N = 2^20, RANK 8, K 128): table_lerp in idx mode bit for
    bit against its plain version, beside grid_sample; then at a ragged N;
@@ -191,6 +209,32 @@ CLI_TEST_VIEWS = 2
 # the loaded rays against the in-memory images: the PNG's uint8 truncation
 CLI_LOAD_TOL = 1 / 255 + 1e-6
 CLI_PSNR_TOL = 1e-3         # --val_only in a subprocess against in process
+# the multi-cascade phases: the MF-NeRF paper's mip-NeRF 360 recipe
+# (benchmarking/benchmark_mipnerf360_mf.sh:7-9 on benchmark_mipnerf360.sh:
+# 7-11: colmap, --scale 8 as for bonsai, counter, kitchen and room, batch
+# 16384, lr 2e-2, --random_bg), the same without --random_bg, and the
+# bench.py LowRank model of CLI_ARGS on the same scene and scale. Cuts: a
+# procedural scene for mip-NeRF 360 (no dataset ships; make_scene at
+# COLMAP_SPREAD, whose background is black, written as a COLMAP
+# reconstruction of 16 train and 3 test views), --downsample 1.0 on its
+# 800x800 views (the recipe's 0.25 of ~5000x3300 photos), 600 steps of the
+# recipe's 20 epochs. On this scene --random_bg drives both packages'
+# trainers to an opaque black first sample on every ray (vr_s 1), and the
+# held-out views stay far below the train views (PERF.md §6): the
+# runs' quality is reported, not gated; phase 20 holds the path's steps
+# and serving loop to their oracles.
+COLMAP_ROOT = os.path.join("360_v2", "spheres")
+COLMAP_SPREAD, COLMAP_TEST_VIEWS = 5.0, 3
+COLMAP_ORACLE_STRIDE = 641  # 640,000 rays / 641 = 999 oracle rays
+REAL_ARGS = ("--dataset_name", "colmap", "--scale", "8")
+MF360_BLACK_ARGS = (*CLI_ARGS, *REAL_ARGS, "--exp_name", "colmap_mf",
+                    "--grid", "MixedFeature", "--L", "16", "--F", "2",
+                    "--T", "20", "--N_min", "16", "--N_tables", "8",
+                    "--rgb_channels", "128", "--rgb_layers", "2",
+                    "--batch_size", "16384", "--lr", "2e-2")
+MF360_ARGS = (*MF360_BLACK_ARGS, "--random_bg", "--exp_name",
+              "colmap_mf_random_bg")
+LR360_ARGS = (*CLI_ARGS, *REAL_ARGS, "--exp_name", "colmap_lowrank")
 
 
 def check(ok, what):
@@ -306,22 +350,21 @@ def capture_bwd_operands(system, seed, module):
 
 def step_oracle(model, cpu_model, occ, rcfg, loss_mod, batch, rows=None):
     """One training step's loss and parameter gradients on the card and on
-    the CPU, same weights, rays, march jitter and, with ``rows``, the same
-    sampled-corner uniforms (the first rows, one a valid sample). Checks
-    the sample counts, LOSS_TOL and GRAD_TOL; returns the phase's fields and
-    the card's gradients."""
-    from mfnerf_tpu_torch.models.ngp import OccupancyState
+    the CPU, same weights, rays, march jitter, background (``batch["bg"]``
+    where the scene draws one) and, with ``rows``, the same sampled-corner
+    uniforms (the first rows, one a valid sample). Checks the sample
+    counts, LOSS_TOL and GRAD_TOL; returns the phase's fields and the
+    card's gradients."""
     from mfnerf_tpu_torch.models.rendering import render_train
     steps = {}
-    for where, model_, occ_ in (
-            ("card", model, occ),
-            ("cpu", cpu_model, OccupancyState(occ.density_grid.cpu(),
-                                              occ.density_bitfield.cpu()))):
+    for where, model_, occ_ in (("card", model, occ),
+                                ("cpu", cpu_model, occ.to("cpu"))):
         on = {key: v.to(model_.device) for key, v in batch.items()}
         grad_noise = None if rows is None else (
             lambda k, d=model_.device: rows[:k].to(d))
         res = render_train(model_, occ_, on["rays_o"], on["rays_d"],
-                           on["noise"], rcfg, grad_noise=grad_noise)
+                           on["noise"], rcfg, bg_rgb=on.get("bg"),
+                           grad_noise=grad_noise)
         loss = sum(v.mean() for v in loss_mod(
             res, {"rgb": on["rgb"]}).values())
         model_.zero_grad(set_to_none=True)
@@ -622,8 +665,9 @@ def oracle_batch(ds, seed):
     """N_ORACLE_RAYS training rays (CPU tensors) and their march jitter."""
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     pick = np.random.default_rng(seed)
-    img = torch.from_numpy(pick.integers(0, N_TRAIN_VIEWS, N_ORACLE_RAYS))
-    pix = torch.from_numpy(pick.integers(0, WH * WH, N_ORACLE_RAYS))
+    img = torch.from_numpy(pick.integers(0, len(ds.poses), N_ORACLE_RAYS))
+    pix = torch.from_numpy(pick.integers(0, ds.rays.shape[1],
+                                         N_ORACLE_RAYS))
     ro, rd = get_rays(torch.from_numpy(ds.directions)[pix],
                       torch.from_numpy(ds.poses)[img])
     return {"rays_o": ro, "rays_d": rd,
@@ -777,6 +821,121 @@ def cli_phase(dev, read_launches):
         ckpt_bytes=sizes, results=results, val_only_psnr=val_psnr,
         val_only_ms_per_frame=val_ms(proc.stdout),
         val_only_seconds=val_only_s, psnr_tol=CLI_PSNR_TOL)
+
+
+def colmap_views(root):
+    """Write the multi-cascade phases' scene under ``root`` as a COLMAP
+    reconstruction and load its train and test splits as ``main`` does.
+    Returns (train, test, write seconds, load seconds of both splits)."""
+    from mfnerf_tpu_torch.datasets.colmap import ColmapDataset
+    from mfnerf_tpu_torch.utils.procedural import (make_scene,
+                                                   write_colmap_scene)
+    scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=COLMAP_TEST_VIEWS,
+                       wh=WH, seed=SEED, spread=COLMAP_SPREAD)
+    t0 = time.perf_counter()
+    write_colmap_scene(root, scene, spread=COLMAP_SPREAD)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        views = [ColmapDataset(root, split=split)
+                 for split in ("train", "test")]
+    load_s = time.perf_counter() - t0
+    for ds, key in zip(views, ("images", "test_images")):
+        err = float(np.abs(ds.rays - scene[key]).max())
+        check(ds.rays.shape == scene[key].shape and err <= CLI_LOAD_TOL,
+              f"COLMAP views {ds.rays.shape}: max error {err}")
+    return (*views, write_s, load_s)
+
+
+def cascade_step_oracle(argv, datasets, dev, seed):
+    """Phase 20 for one recipe: its untrained field on the COLMAP views
+    (culled, one dense refresh), then one training step on the card
+    against the CPU (step_oracle) with the same rays, jitter and random
+    background; the march takes the cascade strata (the union grid), which
+    cut the rays' samples below the exact march's. Then the serving loop at
+    five cascades against its oracle, as phase 6: render_test on the card
+    against the CPU's render_test_dense on every COLMAP_ORACLE_STRIDE-th
+    ray of the first test view. Returns the fields."""
+    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+    from mfnerf_tpu_torch.models.ngp import NGP
+    from mfnerf_tpu_torch.models.rendering import (_scene_hits,
+                                                   march_rays_train,
+                                                   render_test,
+                                                   render_test_dense,
+                                                   train_strata)
+    from mfnerf_tpu_torch.opt import get_opts
+    system = start_system(vars(get_opts(["--root_dir", "", *argv])),
+                          datasets, dev)
+    cfg, rcfg = system.model_cfg, system.rcfg
+    occ0 = culled_state(system, seed)
+    strata = train_strata(cfg, occ0, rcfg)
+    check(strata is not None and strata.union and cfg.cascades == 5,
+          f"{cfg.cascades} cascades, strata {strata}")
+    batch = oracle_batch(system.train_dataset, seed + 1)
+    if rcfg.random_bg:
+        batch["bg"] = torch.from_numpy(
+            np.random.default_rng(seed + 2).random(3, dtype=np.float32))
+    cpu_model = NGP(cfg, device="cpu")
+    cpu_model.load_state_dict(system.model.state_dict())
+    fields, _ = step_oracle(system.model, cpu_model, occ0, rcfg, system.loss,
+                            batch)
+    ro, rd = batch["rays_o"].to(dev), batch["rays_d"].to(dev)
+    exact = march_rays_train(
+        ro, rd, _scene_hits(system.model, ro, rd), occ0.density_bitfield,
+        cfg.cascades, cfg.scale, rcfg.exp_step_factor, cfg.grid_size,
+        rcfg.max_samples, batch["noise"].to(dev),
+        rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train)
+    samples_exact = int(exact.rm_samples)
+    check(samples_exact > fields["samples_card"] > 0,
+          f"the cascade budget kept {fields['samples_card']} of "
+          f"{samples_exact} samples")
+    ds = system.test_dataset
+    ro, rd = get_rays(torch.from_numpy(ds.directions),
+                      torch.from_numpy(ds.poses[0]))
+    ro, rd = ro[::COLMAP_ORACLE_STRIDE], rd[::COLMAP_ORACLE_STRIDE]
+    test_rcfg = dataclasses.replace(rcfg, T_threshold=TEST_T)
+    loop = render_test(system.model, occ0, ro.to(dev), rd.to(dev),
+                       test_rcfg)
+    ref = render_test_dense(cpu_model, occ0.to("cpu"), ro, rd,
+                            dataclasses.replace(test_rcfg, test_chunk=2048))
+    errs = {key: float((loop[key].cpu() - ref[key]).abs().max())
+            for key in ("rgb", "opacity", "depth")}
+    check(errs["rgb"] <= RGB_TOL and errs["opacity"] <= RGB_TOL
+          and errs["depth"] <= DEPTH_TOL,
+          f"render_test at {cfg.cascades} cascades vs oracle: {errs}")
+    return dict(grid=cfg.grid, random_bg=rcfg.random_bg, scale=cfg.scale,
+                cascades=cfg.cascades,
+                stratum=strata.stratum, s_strata=strata.s_strata,
+                union_occupied=float(np.unpackbits(
+                    occ0.union_bits.cpu().numpy()).mean()),
+                samples_exact=samples_exact, **fields,
+                oracle_rays=int(ro.shape[0]),
+                oracle_samples=ref["total_samples"],
+                **{f"oracle_max_abs_{k_}": v for k_, v in errs.items()})
+
+
+def colmap_cli(argv, dev, read_launches):
+    """Phase 21 for one recipe: ``main`` on the COLMAP scene in the working
+    directory, its launches over the run. Returns the fields: ms/step, the
+    last step's rm_s and vr_s, test PSNR and SSIM, the val frames' ms."""
+    from mfnerf_tpu_torch.opt import get_opts
+    from mfnerf_tpu_torch.train import main as train_main
+    log = io.StringIO()
+    read_launches(reset=True)
+    with contextlib.redirect_stdout(log):
+        metrics = train_main(get_opts(["--root_dir", COLMAP_ROOT, *argv]),
+                             device=dev)
+    launches = read_launches()
+    print(log.getvalue(), end="", flush=True)
+    last = re.findall(r"^step .* psnr ([0-9.]+) rm_s ([0-9.]+) vr_s "
+                      r"([0-9.]+)", log.getvalue(), re.M)[-1]
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"{argv}: metrics {metrics}")
+    return dict(argv=list(argv), ms_per_step=metrics["train/ms_per_step"],
+                train_psnr_last_step=float(last[0]), rm_s=float(last[1]),
+                vr_s=float(last[2]), test_psnr=metrics["test/psnr"],
+                test_ssim=metrics["test/ssim"],
+                val_ms_per_frame=val_ms(log.getvalue()), **launches)
 
 
 def main():
@@ -935,8 +1094,7 @@ def main():
     # ---- 6. oracle: plain dense renderer on a strided subset of frame 0
     cpu_model = NGP(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    cpu_occ = OccupancyState(occ.density_grid.cpu(),
-                             occ.density_bitfield.cpu())
+    cpu_occ = occ.to("cpu")
     ro, rd = rays[0]
     sub = slice(None, None, ORACLE_STRIDE)
     t0 = time.perf_counter()
@@ -1142,6 +1300,47 @@ def main():
           f"{fields['test_psnr']} in process")
     torch.cuda.empty_cache()
 
+    # ---- 20 and 21. the multi-cascade COLMAP path: the scene on disk, one
+    # step of each recipe on the card against the CPU, then main
+    def hash_launches(reset=False):
+        if reset:
+            hashgrid_encode.launches = hashgrid_bwd.launches = 0
+        return dict(hashgrid_fwd_launches=hashgrid_encode.launches,
+                    hashgrid_bwd_launches=hashgrid_bwd.launches)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            train_v, test_v, write_s, load_s = colmap_views(COLMAP_ROOT)
+            phase("colmap_scene", root=COLMAP_ROOT, spread=COLMAP_SPREAD,
+                  views=[len(train_v), len(test_v)], wh=WH,
+                  write_seconds=write_s, load_seconds=load_s, card=card)
+            for label, argv in (("LowRank", LR360_ARGS),
+                                ("MixedFeature", MF360_ARGS)):
+                phase("train_step_oracle_cascades", recipe=label,
+                      **cascade_step_oracle(argv, (train_v, test_v), dev,
+                                            SEED + 40), card=card)
+                torch.cuda.empty_cache()
+            del train_v, test_v
+            runs = {}
+            for label, argv, launches in (
+                    ("MixedFeature", MF360_ARGS, hash_launches),
+                    ("MixedFeature_black", MF360_BLACK_ARGS, hash_launches),
+                    ("LowRank", LR360_ARGS, hat_launches)):
+                runs[label] = colmap_cli(argv, dev, launches)
+                phase("cli_colmap", recipe=label, **runs[label],
+                      load_seconds=load_s, card=card)
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    colmap_mf, colmap_lr = runs["MixedFeature"], runs["LowRank"]
+    for label, run in runs.items():
+        counts = [v for key, v in run.items() if key.endswith("_launches")]
+        check(len(counts) == 2 and min(counts) > 0,
+              f"the COLMAP run {label} launched {counts}")
+
+
     # ---- 16-18. the encoder formulation probes: each run() at the probe's
     # shape is its kernels' path, then a run at a ragged size
     probes = {}
@@ -1176,25 +1375,31 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "hat_prod", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:54",
-        "launches": launches_fwd, "max_abs_err": max_abs, "ms": ms,
+        "launches": launches_fwd,
+        "cli_colmap_launches": colmap_lr["hat_prod_launches"],
+        "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by, "library_ms": None}, {
         "name": "hat_prod_bwd", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:68",
         "launches": launches_bwd,
+        "cli_colmap_launches": colmap_lr["hat_prod_bwd_launches"],
         "max_abs_err": bwd_uniform["dw_max_abs_err"],
         "ms": bwd_uniform["ms"], "plain_ms": bwd_uniform["plain_ms"],
         "bound_ms": bwd_uniform["bound_ms"],
         "bound_by": bwd_uniform["bound_by"], "library_ms": None}, {
         "name": "hashgrid_fwd", "route": "cuda", "source": hash_src,
         "replaces": "mfnerf_tpu/ops/hashgrid.py:197",
-        "launches": mf_fwd, "max_abs_err": hash_train["fwd_max_abs_err"],
+        "launches": mf_fwd,
+        "cli_colmap_launches": colmap_mf["hashgrid_fwd_launches"],
+        "max_abs_err": hash_train["fwd_max_abs_err"],
         "ms": hash_train["fwd_ms"], "plain_ms": hash_train["fwd_plain_ms"],
         "bound_ms": hash_train["fwd_bound_ms"],
         "bound_by": hash_train["fwd_bound_by"], "library_ms": None}, {
         "name": "hashgrid_bwd", "route": "cuda", "source": hash_src,
         "replaces": "mfnerf_tpu/ops/hashgrid.py:246",
         "launches": mf_bwd,
+        "cli_colmap_launches": colmap_mf["hashgrid_bwd_launches"],
         "max_abs_err": hash_train["exact_dp_max_abs_err"],
         "ms": hash_train["bwd_ms"], "plain_ms": hash_train["bwd_plain_ms"],
         "bound_ms": hash_train["bwd_bound_ms"],

@@ -5,7 +5,9 @@ blended onto white (``blend_a=False`` onto black, as the COLMAP loader
 wants), a bilinear resize, flattened to (H*W, 3).
 
 The decoder is ``png.py`` (8-bit PNG only). It runs on the host, where the
-loaders run; it stands in for no device kernel.
+loaders run; it stands in for no device kernel. A JPEG (LLFF, mip-NeRF 360)
+or OpenEXR (RTMV) file raises a ``ValueError`` that names the file and its
+format: the port has no decoder for them yet.
 """
 import numpy as np
 import torch
@@ -15,6 +17,8 @@ from .png import read_png
 # uint8 -> [0, 1] as the JAX package's native loader scales (a product with
 # the float32 reciprocal)
 INV_255 = np.float32(1) / np.float32(255)
+# leading bytes of the formats png.py does not read
+UNREAD_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"v/1\x01", "OpenEXR"))
 
 
 def srgb_to_linear(img):
@@ -42,6 +46,12 @@ def resize_bilinear(img, img_wh):
 def read_image(img_path, img_wh, blend_a=True):
     """Read an image to a flattened (H*W, 3) float32 array in [0, 1], at
     ``img_wh`` = (W, H)."""
+    with open(img_path, "rb") as f:
+        head = f.read(4)
+    for magic, name in UNREAD_FORMATS:
+        if head.startswith(magic):
+            raise ValueError(f"{img_path}: a {name} file; the port reads "
+                             f"only 8-bit PNG (datasets/png.py)")
     img = read_png(img_path).astype(np.float32) * INV_255
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)

@@ -12,6 +12,7 @@ pixels at a time: a pixel depends only on its left, upper and upper-left
 neighbours, which lie on the two diagonals before its own. It raises
 ``ValueError``, naming the file, on 16-bit, palette and interlaced files.
 
+:func:`png_size` reads a file's width and height from its header.
 :func:`write_png` writes 8-bit files with filter type 0 or 1 on every row.
 """
 import struct
@@ -81,6 +82,15 @@ def _unfilter_diagonals(filters, out, w, c):
         px[d + 2, y0 + 1:y1 + 1] = (raw[d, y0:y1] + pred) & 0xFF
     for y in range(h):
         rows[y] = px[y + 2:y + 2 + w, y + 1]
+
+
+def png_size(path):
+    """(W, H) of a PNG from its IHDR chunk, without decoding the pixels."""
+    with open(path, "rb") as f:
+        data = f.read(33)
+    if data[:8] != SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">II", data[16:24])
 
 
 def read_png(path):

@@ -2,7 +2,9 @@
 
 Port of ``mfnerf_tpu/datasets/ray_utils.py``. Camera coords are
 [right down front]; directions pass through pixel centres (u + 0.5) and are
-NOT normalised: marching distances are measured in units of |d|.
+NOT normalised: marching distances are measured in units of |d|. The
+COLMAP loader's pose helpers (``average_poses``, ``center_poses``,
+``create_spheric_poses``) are numpy, in float64 as the JAX package's.
 """
 import numpy as np
 import torch
@@ -37,3 +39,50 @@ def get_rays(directions, c2w):
         rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
         rays_o = c2w[..., 3]
     return rays_o, rays_d
+
+
+def normalize(v):
+    return v / np.linalg.norm(v)
+
+
+def average_poses(poses, pts3d=None):
+    """(3, 4) average pose: centred on the points (else the cameras), z the
+    mean viewing axis, y the mean up axis made orthogonal to it."""
+    center = pts3d.mean(0) if pts3d is not None else poses[..., 3].mean(0)
+    z = normalize(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = normalize(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses, pts3d=None):
+    """Poses (and points) in the frame of :func:`average_poses`."""
+    pose_avg_homo = np.eye(4)
+    pose_avg_homo[:3] = average_poses(poses, pts3d)
+    pose_avg_inv = np.linalg.inv(pose_avg_homo)
+    last_row = np.tile(np.array([0, 0, 0, 1.0]), (len(poses), 1, 1))
+    poses_homo = np.concatenate([poses, last_row], 1)
+    poses_centered = (pose_avg_inv @ poses_homo)[:, :3]
+    if pts3d is not None:
+        pts3d_centered = pts3d @ pose_avg_inv[:3, :3].T + pose_avg_inv[:3, 3]
+        return poses_centered, pts3d_centered
+    return poses_centered
+
+
+def create_spheric_poses(radius, mean_h, n_poses=120):
+    """(n_poses, 3, 4) test-trajectory poses on a circle of ``radius`` at
+    height ``2 * mean_h``, tilted 15 degrees down."""
+    def spheric_pose(theta, phi):
+        trans_t = np.array([[1, 0, 0, 0], [0, 1, 0, 2 * mean_h],
+                            [0, 0, 1, -radius]], dtype=np.float64)
+        rot_phi = np.array([[1, 0, 0], [0, np.cos(phi), -np.sin(phi)],
+                            [0, np.sin(phi), np.cos(phi)]])
+        rot_theta = np.array([[np.cos(theta), 0, -np.sin(theta)],
+                              [0, 1, 0],
+                              [np.sin(theta), 0, np.cos(theta)]])
+        c2w = rot_theta @ rot_phi @ trans_t
+        return np.array([[-1, 0, 0], [0, 0, 1], [0, 1, 0.]]) @ c2w
+
+    return np.stack([spheric_pose(th, -np.pi / 12)
+                     for th in np.linspace(0, 2 * np.pi, n_poses + 1)[:-1]])

@@ -13,9 +13,10 @@ default is ``"Hash"``: the port's callers were written for LowRank, and the
 JAX default would turn each of them into a hash-grid model without a word.
 Pass ``grid="Hash"`` (or ``Window``, ``MixedFeature``) for the hash grids.
 
+``OccupancyState`` carries the training march's stage-A grids, derived
+from the bitfield wherever it changes (``refresh_coarse``, the JAX name).
 The HDR tonemappers, the sampled (``sparse``) occupancy refresh and the
-TPU-only occupancy tables (coarse, neighbourhood, union) are not ported
-here.
+TPU-only neighbourhood-row tables are not ported here.
 """
 import dataclasses
 import math
@@ -28,7 +29,8 @@ from ..ops.activations import trunc_exp
 from ..ops.hashgrid import (HashGridConfig, hashgrid_encode,
                             init_hashgrid_params, window_weights)
 from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
-from ..ops.morton import morton3d_invert, packbits
+from ..ops.morton import morton3d_invert, packbits, union_bitfield
+from ..ops.ray_march import cascades_stratum, stage_a_grid
 from ..ops.sh import sh_encode
 
 NEAR_DISTANCE = 0.01  # the reference's models/rendering.py:8
@@ -103,11 +105,19 @@ class NGPConfig:
 @dataclasses.dataclass
 class OccupancyState:
     """Occupancy grid: per-cell density (C, G^3) in Morton order, its packed
-    bitfield (C*G^3//8,) uint8, and the fraction of training cameras that see
-    each cell (C, G^3), which ``erode`` reads (None until set)."""
+    bitfield (C*G^3//8,) uint8, the fraction of training cameras that see
+    each cell (C, G^3), which ``erode`` reads (None until set), and the
+    training march's stage-A grids, which :meth:`refresh_coarse` derives
+    from the bitfield: ``stage_a`` at one cascade (``ray_march
+    .stage_a_grid``), ``union_bits`` at several (``morton.union_bitfield``,
+    where ``ray_march.cascades_stratum`` gives a stratum); None elsewhere.
+    ``derived_from`` is the bitfield they were derived from."""
     density_grid: torch.Tensor
     density_bitfield: torch.Tensor
     count_grid: torch.Tensor = None
+    stage_a: torch.Tensor = None
+    union_bits: torch.Tensor = None
+    derived_from: torch.Tensor = dataclasses.field(default=None, repr=False)
 
     @staticmethod
     def create(cfg: NGPConfig, device=None) -> "OccupancyState":
@@ -121,7 +131,32 @@ class OccupancyState:
             density_bitfield=torch.zeros((c * n // 8,), dtype=torch.uint8,
                                          device=device),
             count_grid=torch.zeros((c, n), dtype=torch.float32,
-                                   device=device))
+                                   device=device)).refresh_coarse(cfg)
+
+    def refresh_coarse(self, cfg: NGPConfig) -> "OccupancyState":
+        """Derive the stage-A grids from ``density_bitfield`` (after a
+        refresh, a checkpoint load or a direct edit of the bitfield)."""
+        bits, stage_a, union = self.density_bitfield, None, None
+        if cfg.cascades == 1:
+            stage_a = stage_a_grid(bits, cfg.grid_size, cfg.pool_a or 2)
+        else:
+            stratum, dilate = cascades_stratum(
+                1 / 256, cfg.scale, cfg.cascades, dir_norm=cfg.dir_norm)
+            if stratum:
+                union = union_bitfield(bits, cfg.grid_size, cfg.cascades,
+                                       dilate)
+        return dataclasses.replace(self, stage_a=stage_a, union_bits=union,
+                                   derived_from=bits)
+
+    def to(self, device) -> "OccupancyState":
+        """A copy on ``device``, its derived grids with it."""
+        moved = {f.name: None if getattr(self, f.name) is None
+                 else getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if f.name != "derived_from"}
+        fresh = self.derived_from is self.density_bitfield
+        return OccupancyState(**moved, derived_from=(
+            moved["density_bitfield"] if fresh else None))
 
 
 def _mlp_params(sizes):
@@ -334,4 +369,5 @@ class NGP(nn.Module):
         threshold = torch.clamp_max(mean_density, density_threshold)
         return dataclasses.replace(
             occ, density_grid=new_grid,
-            density_bitfield=packbits(new_grid, threshold))
+            density_bitfield=packbits(new_grid, threshold)
+        ).refresh_coarse(self.cfg)

@@ -4,12 +4,14 @@ renderer and its dense oracle.
 Port of ``mfnerf_tpu/models/rendering.py``.
 
 * :func:`render_train` is the JAX ``render_train``: the march with the
-  stratified jitter and, on single-cascade synthetic scenes, the two-level
-  march's strata budget (``ops/ray_march.py``; ``rcfg.s_strata`` strata a
-  ray, taken evenly along it when it crosses more), the field on the valid
-  samples only, ``composite_train`` and the background. With ``s_flat`` the
-  batch keeps its first ``N * s_flat`` samples in ray order, as the JAX
-  flat layout's budget does. The JAX neighbourhood-row tables and flat
+  stratified jitter and the JAX package's choice of march
+  (:func:`train_strata`): the two-level march's strata budget on
+  single-cascade synthetic scenes, the cascade march's on multi-cascade
+  ones, the exact march elsewhere (``ops/ray_march.py``; ``rcfg.s_strata``
+  strata a ray, taken evenly along it when it crosses more), the field on
+  the valid samples only, ``composite_train`` and the background. With
+  ``s_flat`` the batch keeps its first ``N * s_flat`` samples in ray
+  order, as the JAX flat layout's budget does. The JAX neighbourhood-row tables and flat
   gathers are TPU devices; the samples are the same.
 * :func:`render_test_dense` is the plain oracle: every ray marches the whole
   ladder in rank windows of ``s_max_test`` samples, each window is field-
@@ -33,8 +35,8 @@ import torch
 
 from ..ops.composite import composite_test_step, composite_train
 from ..ops.intersection import ray_aabb_intersect_single
-from ..ops.ray_march import (Strata, march_rays_train, march_rays_window,
-                             stage_a_grid, twolevel_stratum)
+from ..ops.ray_march import (Strata, cascades_stratum, march_rays_train,
+                             march_rays_window, twolevel_stratum)
 from ..ops.stepping import max_ladder_steps
 from .ngp import NEAR_DISTANCE
 
@@ -55,7 +57,7 @@ class RenderConfig:
     s_max_test: int = 256          # oracle rank-window width
     random_bg: bool = False        # real scenes: a random training background
     test_chunk: int = 16384        # oracle rays per chunk
-    s_strata: int = 32             # two-level march: live strata a ray
+    s_strata: int = 32             # strata budget: live strata a ray
     s_flat: int = 0                # flat layout: samples a ray on average
 
     def n_rungs(self, scale: float, grid_size: int = 128,
@@ -105,6 +107,27 @@ def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None):
     return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
 
 
+def train_strata(cfg, occ, rcfg):
+    """The strata budget of the JAX ``render_train``'s march, or None for
+    the exact march: the two-level march's where ``twolevel_stratum`` gives
+    a stratum (one cascade, uniform steps), else the cascade march's where
+    ``cascades_stratum`` does (several cascades, exponential steps)."""
+    if occ.derived_from is not occ.density_bitfield:
+        raise ValueError("the occupancy's stage-A grids are stale: call "
+                         "refresh_coarse(cfg) after editing the bitfield")
+    stratum = twolevel_stratum(rcfg.exp_step_factor, rcfg.max_samples,
+                               cfg.scale, cfg.grid_size, cfg.cascades,
+                               cfg.dir_norm)
+    if stratum:
+        return Strata(occ.stage_a, stratum, rcfg.s_strata, cfg.dir_norm)
+    stratum, _ = cascades_stratum(rcfg.exp_step_factor, cfg.scale,
+                                  cfg.cascades, dir_norm=cfg.dir_norm)
+    if stratum:
+        return Strata(occ.union_bits, stratum, rcfg.s_strata, cfg.dir_norm,
+                      union=True)
+    return None
+
+
 def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
                  bg_rgb=None, grad_noise=None):
     """Differentiable rendering of a training ray batch.
@@ -124,18 +147,12 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         vr_samples); the sample counters are 0-d tensors.
     """
     cfg = model.cfg
-    stratum = twolevel_stratum(rcfg.exp_step_factor, rcfg.max_samples,
-                               cfg.scale, cfg.grid_size, cfg.cascades,
-                               cfg.dir_norm)
-    strata = None if not stratum else Strata(
-        stage_a_grid(occ.density_bitfield, cfg.grid_size, cfg.pool_a or 2),
-        stratum, rcfg.s_strata, cfg.dir_norm)
     mr = march_rays_train(
         rays_o, rays_d, _scene_hits(model, rays_o, rays_d),
         occ.density_bitfield, cfg.cascades, cfg.scale, rcfg.exp_step_factor,
         cfg.grid_size, rcfg.max_samples, noise,
         rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train,
-        strata=strata)
+        strata=train_strata(cfg, occ, rcfg))
     mask, ts, deltas = mr.mask, mr.ts, mr.deltas
     if rcfg.s_flat:
         # the flat layout's budget: the batch's samples in ray order, the

@@ -11,37 +11,47 @@ up their cells in the bitfield, keep the first occupied ones.
 Test-time bug parity: the reference test kernel passes ``cascades`` where
 ``calc_dt`` expects ``scale``; callers pass that as ``dt_scale``.
 
-The strata budget of the JAX two-level march
-(``march_rays_train_twolevel``, which ``render_train`` runs on every
-single-cascade synthetic scene): the ladder is cut into strata of
-``stratum`` rungs; a stratum is live when a probe point of it lies in an
-occupied cell of a coarse grid (the fine grid pooled by ``pool`` and
-dilated by one cell, a superset test); a ray samples only ``s_strata`` of
-its live strata, spread evenly along the ray when it has more, so early
-training (most of the grid still occupied) does not spend every sample
-near the camera. Under the budget the march equals the exact one. The
-port applies the same budget to its exact march (``strata=``) without the
-TPU's neighbourhood-row tables: the samples are the JAX march's, sample
-for sample.
+The strata budgets of the JAX training marches, which ``render_train`` runs
+on every scene they fit: the ladder is cut into strata of ``stratum``
+rungs; stage A marks a stratum live by a superset test on a coarser grid;
+a ray samples only ``s_strata`` of its live strata, spread evenly along
+the ray when it has more, so early training (most of the grid still
+occupied) does not spend every sample near the camera. Under the budget
+the march equals the exact one. Two stage-A tests, one a march:
+
+* the two-level march (``march_rays_train_twolevel``: one cascade, uniform
+  steps) probes each stratum at :func:`stage_a_probes` on the fine grid
+  pooled by ``pool`` and dilated by one cell (:func:`stage_a_grid`);
+* the cascade march (``march_rays_train_cascades``: several cascades,
+  exponential steps) tests one cell of the dilated world-space union of
+  every cascade (``morton.union_bitfield``) at each stratum's t-midpoint
+  (:func:`cascades_stratum`).
+
+The port applies the budget to its exact march (``strata=``) without the
+TPU's neighbourhood-row tables and block sums: the samples are the JAX
+march's, sample for sample.
 """
 import math
 from typing import NamedTuple
 
 import torch
 
-from .morton import bitfield_lookup, morton3d
+from .morton import (bitfield_lookup, morton3d, morton_values_to_spatial,
+                     unpack_bits_morton)
 from .stepping import SQRT3, calc_dt, mip_from_dt, mip_from_pos, t_ladder
 
 NBR_SPAN = 8   # the JAX march's neighbourhood-row width in cells
-_RASTER_CODES = {}   # (grid_size, device) -> Morton code of each raster cell
 
 
 class Strata(NamedTuple):
-    """The two-level march's strata budget for :func:`march_rays_train`."""
-    stage_a: torch.Tensor    # (g, g, g) bool [z, y, x]: :func:`stage_a_grid`
-    stratum: int             # rungs a stratum (:func:`twolevel_stratum`)
+    """A strata budget for :func:`march_rays_train`: the two-level march's
+    (``stage_a`` a :func:`stage_a_grid`) or, with ``union``, the cascade
+    march's (``stage_a`` a ``morton.union_bitfield``)."""
+    stage_a: torch.Tensor    # (g, g, g) bool [z, y, x], or (G^3/8,) uint8
+    stratum: int             # rungs a stratum
     s_strata: int            # live strata a ray samples
     dir_norm: float          # bound on |rays_d| over every ray
+    union: bool = False      # the cascade march's stage A
 
 
 class MarchResults(NamedTuple):
@@ -81,16 +91,40 @@ def _occupancy_at(xyz, dt, density_bitfield, cascades, scale, grid_size):
 
 def twolevel_stratum(exp_step_factor, max_samples, scale, grid_size,
                      cascades, dir_norm=1.0):
-    """Rungs a stratum, or 0 where the JAX package marches exactly (several
-    cascades or exponential steps): the most rungs whose cells, at the
-    worst spatial step (``dir_norm`` bounds |rays_d|), fit one
-    ``NBR_SPAN``-cell window of the fine grid, at most 32."""
+    """Rungs a stratum of the two-level march, or 0 where the JAX package
+    does not run it (several cascades or exponential steps: see
+    :func:`cascades_stratum`): the most rungs whose cells, at the worst
+    spatial step (``dir_norm`` bounds |rays_d|), fit one ``NBR_SPAN``-cell
+    window of the fine grid, at most 32."""
     if exp_step_factor != 0.0 or cascades != 1:
         return 0
     dt_eff = SQRT3 / max_samples * dir_norm
     cell_fine = 2.0 * min(0.5, scale) / grid_size
     stratum = min(int((NBR_SPAN - 1.0) * cell_fine / dt_eff) + 1, 32)
     return stratum if stratum >= 2 else 0
+
+
+def cascades_stratum(exp_step_factor, scale, cascades, stratum=8,
+                     dir_norm=1.0):
+    """(stratum, dilate) of the cascade march, or (0, 0) where the JAX
+    package marches exactly: one cascade, uniform steps, or a ``scale``
+    whose 2*scale is not a power of two (the cascades would not pool into
+    the union grid on cell boundaries).
+
+    Every rung of a stratum lies within half its t-span of its t-midpoint,
+    and the span is at most ``stratum`` steps of at most
+    sqrt(3)*2*dt_worst/G, so the union grid (cell 2*scale/G) dilated by
+    ceil(stratum*sqrt(3)/2*dt_worst*dir_norm/scale) + 1 cells covers it;
+    dt_worst = max(scale, cascades) covers the test march's ``cascades``
+    step-size bug parity.
+    """
+    if cascades == 1 or exp_step_factor == 0.0:
+        return 0, 0
+    if abs(math.log2(2 * scale) - round(math.log2(2 * scale))) > 1e-9:
+        return 0, 0
+    dt_worst = max(scale, cascades)
+    d = math.ceil(stratum * SQRT3 / 2.0 * dt_worst * dir_norm / scale) + 1
+    return stratum, d
 
 
 def stage_a_probes(stratum, dt_eff, cell):
@@ -115,13 +149,9 @@ def stage_a_grid(density_bitfield, grid_size, pool):
     pooled ``pool`` to a side (any occupied), then dilated by one cell on
     each axis with wrap-around, as the JAX package's ``coarse_nbr``
     (``pool`` 2) and ``pool_nbr`` (``--pool_a``) tables hold them."""
-    g, dev = grid_size, density_bitfield.device
-    codes = _RASTER_CODES.get((g, dev))
-    if codes is None:
-        r = torch.arange(g, device=dev)
-        zyx = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1)
-        codes = _RASTER_CODES[(g, dev)] = morton3d(zyx.flip(-1))
-    fine = bitfield_lookup(density_bitfield, codes)
+    g = grid_size
+    fine = morton_values_to_spatial(
+        unpack_bits_morton(density_bitfield[:g ** 3 // 8], g ** 3), g)
     gp = g // pool
     d = fine.reshape(gp, pool, gp, pool, gp, pool).any(5).any(3).any(1)
     for axis in range(3):
@@ -129,11 +159,10 @@ def stage_a_grid(density_bitfield, grid_size, pool):
     return d
 
 
-def _live_strata(rays_o, rays_d, t_start, t2, valid_ray, strata, scale,
-                 max_samples, grid_size, n_rungs):
-    """(N, n_strata) bool: the strata each ray may sample. Stage A tests
-    each stratum's probes on the stage-A grid; a ray with more live strata
-    than the budget takes ``s_strata`` of them at even ranks."""
+def _live_twolevel(rays_o, rays_d, t_start, t2, strata, scale, max_samples,
+                   grid_size, n_rungs):
+    """(N, n_strata) bool stage A of the two-level march: a stratum is live
+    when one of its probes lies in an occupied stage-A cell."""
     n = rays_o.shape[0]
     g_c = strata.stage_a.shape[0]
     dt_min = SQRT3 / max_samples * strata.dir_norm
@@ -154,15 +183,40 @@ def _live_strata(rays_o, rays_d, t_start, t2, valid_ray, strata, scale,
     live = strata.stage_a[nxyz[..., 2], nxyz[..., 1], nxyz[..., 0]]
     live = live.reshape(n, n_strata, -1).any(2)
     t_first = t_ladder(t_start, first, 0.0, max_samples, grid_size, scale)
-    live = live & (t_first < t2[:, None]) & valid_ray[:, None]
+    return live & (t_first < t2[:, None])
 
+
+def _live_union(rays_o, rays_d, t_start, t2, strata, scale, exp_step_factor,
+                max_samples, grid_size, n_rungs, dt_scale):
+    """(N, n_strata) bool stage A of the cascade march: the union-grid cell
+    at each stratum's t-midpoint is occupied and the stratum starts before
+    the exit."""
+    st = strata.stratum
+    first = torch.arange(-(-n_rungs // st), device=rays_o.device,
+                         dtype=torch.float32) * st
+    t_lo = t_ladder(t_start, first, exp_step_factor, max_samples, grid_size,
+                    dt_scale)
+    t_hi = t_ladder(t_start, first + st, exp_step_factor, max_samples,
+                    grid_size, dt_scale)
+    t_mid = 0.5 * (t_lo + t_hi)
+    xyz_c = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
+    nxyz = torch.clamp(0.5 * (xyz_c / scale + 1.0) * grid_size, 0.0,
+                       grid_size - 1.0).to(torch.int32)
+    live = bitfield_lookup(strata.stage_a, morton3d(nxyz))
+    return live & (t_lo < t2[:, None])
+
+
+def _take_budget(live, s_strata):
+    """The strata a ray samples: all its live ones, or ``s_strata`` of them
+    at even ranks when it has more."""
+    n_strata = live.shape[1]
     csum = torch.cumsum(live.to(torch.int32), dim=1)
     n_live = csum[:, -1:].to(torch.int64)
-    jj = torch.arange(strata.s_strata, device=rays_o.device)[None, :]
-    ranks = torch.where(n_live > strata.s_strata,
-                        jj * n_live // strata.s_strata + 1, jj + 1)
+    jj = torch.arange(s_strata, device=live.device)[None, :]
+    ranks = torch.where(n_live > s_strata, jj * n_live // s_strata + 1,
+                        jj + 1)
     j_sel = torch.clamp_max(_rung_of_rank(csum, ranks), n_strata - 1)
-    chosen = (jj + 1 <= torch.clamp_max(n_live, strata.s_strata))
+    chosen = jj + 1 <= torch.clamp_max(n_live, s_strata)
     return torch.zeros_like(live, dtype=torch.int32).scatter_add_(
         1, j_sel, chosen.to(torch.int32)) > 0
 
@@ -197,8 +251,7 @@ def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
         hits_t: (N, 2) scene-AABB entry/exit (-1 if miss), t_near clamped.
         noise: (N,) start jitter in [0, 1) (zeros at test time).
         n_rungs: ladder length K; s_max: per-ray sample-buffer width S.
-        strata: a :class:`Strata` budget (uniform steps, one cascade), or
-            None for every occupied rung.
+        strata: a :class:`Strata` budget, or None for every occupied rung.
     """
     if dt_scale is None:
         dt_scale = scale
@@ -218,8 +271,14 @@ def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
                         grid_size)
     occ = occ & (ts_all < t2[:, None]) & valid_ray[:, None]
     if strata is not None:
-        live = _live_strata(rays_o, rays_d, t_start, t2, valid_ray, strata,
-                            scale, max_samples, grid_size, n_rungs)
+        if strata.union:
+            live = _live_union(rays_o, rays_d, t_start, t2, strata, scale,
+                               exp_step_factor, max_samples, grid_size,
+                               n_rungs, dt_scale)
+        else:
+            live = _live_twolevel(rays_o, rays_d, t_start, t2, strata, scale,
+                                  max_samples, grid_size, n_rungs)
+        live = _take_budget(live & valid_ray[:, None], strata.s_strata)
         occ = occ & live[:, ks // strata.stratum]
 
     csum = torch.cumsum(occ.to(torch.int32), dim=1)

@@ -149,9 +149,9 @@ def occupancy_to_numpy(occ):
 
 def occupancy_from_numpy(occ, cfg, device=None):
     """The ``occ`` section of a checkpoint -> ``OccupancyState`` on
-    ``device`` (default: the CUDA device; raises without one). Slim
-    checkpoints keep only the bitfield; their density and count grids read
-    as zeros."""
+    ``device`` (default: the CUDA device; raises without one), its stage-A
+    grids derived for ``cfg``. Slim checkpoints keep only the bitfield;
+    their density and count grids read as zeros."""
     device = resolve_device(device)
     zeros = np.zeros((cfg.cascades, cfg.n_cells), np.float32)
 
@@ -163,7 +163,7 @@ def occupancy_from_numpy(occ, cfg, device=None):
         density_grid=grid("density_grid"),
         density_bitfield=torch.from_numpy(
             np.asarray(occ["density_bitfield"], np.uint8)).to(device),
-        count_grid=grid("count_grid"))
+        count_grid=grid("count_grid")).refresh_coarse(cfg)
 
 
 def adam_state_to_numpy(optimizer, model):

@@ -8,16 +8,20 @@ shaded spheres on a white background, seen from cameras on a ring of radius
 1.5 around [-0.5, 0.5]^3, with the Blender/NSVF camera conventions
 ([right down front]).
 
-``write_nsvf_scene`` and ``write_blender_scene`` put a scene on disk in the
-NSVF and Blender layouts for the loaders (``datasets/nsvf.py``,
-``datasets/nerf.py``), with ``datasets/png.py`` as the PNG writer: pixels
-are ``(img * 255).astype(uint8)``, as the JAX package writes them.
+``write_nsvf_scene``, ``write_blender_scene``, ``write_nerfpp_scene``,
+``write_rtmv_scene`` and ``write_colmap_scene`` put a scene on disk in the
+layouts of the loaders (``datasets/``), with ``datasets/png.py`` as the
+PNG writer: pixels are ``(img * 255).astype(uint8)``, as the JAX package
+writes them. The JAX package has no Blender or COLMAP writer.
 """
 import json
 import os
+import struct
 
 import numpy as np
 
+from ..datasets.colmap_utils import rotmat2qvec
+from ..datasets.conventions import COLMAP_TEST_EVERY
 from ..datasets.png import write_png
 from ..datasets.ray_utils import get_ray_directions
 
@@ -271,4 +275,128 @@ def write_blender_scene(root, scene=None, **kwargs):
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": float(angle_x), "frames": frames},
                       f)
+    return scene
+
+
+COLMAP_POINTS = 256     # write_colmap_scene's sparse point cloud
+
+
+def _pose44(pose):
+    mat = np.eye(4)
+    mat[:3] = pose
+    return mat
+
+
+def write_nerfpp_scene(root, scene=None, **kwargs):
+    """Write a procedural scene in the NeRF++ layout:
+    {train,test}/{intrinsics,rgb,pose}/NNNNN.txt|png and the test poses as
+    the camera_path/pose/ trajectory, as
+    ``mfnerf_tpu.utils.procedural.write_nerfpp_scene`` writes it. Returns
+    the scene."""
+    scene = scene or make_scene(**kwargs)
+    k44 = np.eye(4)
+    k44[:3, :3] = scene["K"]
+    for split, poses, images in (("train", scene["poses"], scene["images"]),
+                                 ("test", scene["test_poses"],
+                                  scene["test_images"])):
+        for sub in ("intrinsics", "rgb", "pose"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        for i, (pose, img) in enumerate(zip(poses, images)):
+            np.savetxt(os.path.join(root, split, "intrinsics",
+                                    f"{i:05d}.txt"), k44.reshape(-1))
+            np.savetxt(os.path.join(root, split, "pose", f"{i:05d}.txt"),
+                       _pose44(pose).reshape(-1))
+            write_png(os.path.join(root, split, "rgb", f"{i:05d}.png"),
+                      _to_uint8(img, scene["img_wh"]))
+    os.makedirs(os.path.join(root, "camera_path", "pose"), exist_ok=True)
+    for i, pose in enumerate(scene["test_poses"]):
+        np.savetxt(os.path.join(root, "camera_path", "pose", f"{i:05d}.txt"),
+                   _pose44(pose).reshape(-1))
+    return scene
+
+
+def write_rtmv_scene(root, scene=None, n_frames=110, **kwargs):
+    """Write a procedural scene in the RTMV layout: images/NNNNN.png and a
+    NNNNN.json a frame whose camera_data holds the intrinsics, a unit scene
+    box and ``cam2world`` transposed in [right up back] axes, as
+    ``mfnerf_tpu.utils.procedural.write_rtmv_scene`` writes it. RTMV splits
+    are index ranges (train 0-100, test 105-150), so ``n_frames`` frames
+    cycle through the scene's training views. Returns the scene."""
+    scene = scene or make_scene(**kwargs)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    w, h = scene["img_wh"]
+    k = scene["K"]
+    n_cycle = len(scene["poses"])
+    for i in range(n_frames):
+        rub = np.asarray(scene["poses"][i % n_cycle], np.float64).copy()
+        rub[:, 1:3] *= -1.0
+        meta = {"camera_data": {
+            "width": w, "height": h,
+            "intrinsics": {"fx": float(k[0, 0]), "fy": float(k[1, 1]),
+                           "cx": float(k[0, 2]), "cy": float(k[1, 2])},
+            "scene_center_3d_box": [0.0, 0.0, 0.0],
+            "scene_min_3d_box": [-0.5, -0.5, -0.5],
+            "scene_max_3d_box": [0.5, 0.5, 0.5],
+            "cam2world": _pose44(rub).T.tolist(),
+        }}
+        with open(os.path.join(root, f"{i:05d}.json"), "w") as f:
+            json.dump(meta, f)
+        write_png(os.path.join(root, "images", f"{i:05d}.png"),
+                  _to_uint8(scene["images"][i % n_cycle], (w, h)))
+    return scene
+
+
+def write_colmap_scene(root, scene=None, spread=1.0, **kwargs):
+    """Write a procedural scene (``make_scene(spread=spread, **kwargs)``
+    unless given) as a COLMAP reconstruction: sparse/0/cameras.bin (one
+    PINHOLE camera), images.bin (each view's world-to-camera quaternion and
+    translation, no 2D points) and points3D.bin (COLMAP_POINTS seeded
+    points on the sphere arrangement scaled by ``spread``, which the loader
+    centres the poses on), with the views as images/im_NNN.png. The test
+    views take every ``COLMAP_TEST_EVERY``-th index, where the loader's
+    test split reads them, so the scene needs ceil((n_train + n_test) / 8)
+    test views.
+    Returns the scene."""
+    scene = scene or make_scene(spread=spread, **kwargs)
+    n_train, n_test = len(scene["poses"]), len(scene["test_poses"])
+    n = n_train + n_test
+    if n_test != -(-n // COLMAP_TEST_EVERY):
+        raise ValueError(f"{n_train} train and {n_test} test views: the "
+                         f"COLMAP split reads every {COLMAP_TEST_EVERY}th "
+                         f"of {n} views as a test view")
+    train, test = iter(range(n_train)), iter(range(n_test))
+    views = [("test_", next(test)) if i % COLMAP_TEST_EVERY == 0
+             else ("", next(train)) for i in range(n)]
+    w, h = scene["img_wh"]
+    k = scene["K"]
+    os.makedirs(os.path.join(root, "sparse/0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    with open(os.path.join(root, "sparse/0/cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, w, h))        # PINHOLE
+        f.write(struct.pack("<dddd", k[0, 0], k[1, 1], k[0, 2], k[1, 2]))
+    with open(os.path.join(root, "sparse/0/images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for i, (split, j) in enumerate(views):
+            c2w = np.asarray(scene[split + "poses"][j], np.float64)
+            r_w2c = c2w[:, :3].T
+            name = f"im_{i:03d}.png"
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<dddd", *rotmat2qvec(r_w2c)))
+            f.write(struct.pack("<ddd", *(-r_w2c @ c2w[:, 3])))
+            f.write(struct.pack("<i", 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+            write_png(os.path.join(root, "images", name),
+                      _to_uint8(scene[split + "images"][j], (w, h)))
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, len(_SPHERES), COLMAP_POINTS)
+    normal = rng.normal(size=(COLMAP_POINTS, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    centers = np.float64([_SPHERES[i][0] for i in idx])
+    radii = np.float64([_SPHERES[i][1] for i in idx])[:, None]
+    pts = spread * (centers + radii * normal)
+    with open(os.path.join(root, "sparse/0/points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", COLMAP_POINTS))
+        for i, p in enumerate(pts):
+            f.write(struct.pack("<q", i) + struct.pack("<ddd", *p))
+            f.write(struct.pack("<BBBdQ", 128, 128, 128, 0.5, 0))
     return scene

@@ -20,6 +20,10 @@ the CPU.
 * ``main`` on a 32x32 NSVF scene writes the checkpoints and the result
   PNGs and prints ``test/psnr`` and ``test/ssim``, for a LowRank and a
   Hash field; the flags the port has not ported raise.
+* ``main`` on a COLMAP scene at ``--scale 4`` (four cascades) trains
+  through the cascade march and the eroding refresh, with the real-scene
+  settings of the JAX trainer (``random_bg``, exponential steps, no flat
+  budget, the strata budget).
 
 Every ``main`` runs with ``device="cpu"`` in a temporary working directory
 (``monkeypatch.chdir``): it writes ``ckpts/``, ``logs/`` and ``results/``
@@ -38,6 +42,7 @@ import jax
 import jax.numpy as jnp
 
 from mfnerf_tpu import opt as jopt
+from mfnerf_tpu import train as jtrain
 from mfnerf_tpu.datasets.nsvf import NSVFDataset as JNSVF
 from mfnerf_tpu.datasets.ray_utils import get_rays as jget_rays
 from mfnerf_tpu.models import ngp as jngp
@@ -52,7 +57,10 @@ from mfnerf_tpu_torch.models import ngp as tngp
 from mfnerf_tpu_torch.models import rendering as trendering
 from mfnerf_tpu_torch.utils import ckpt as tckpt
 from mfnerf_tpu_torch.utils import metrics as tmetrics
-from mfnerf_tpu_torch.utils.procedural import make_scene, write_nsvf_scene
+from mfnerf_tpu_torch.ops.ray_march import cascades_stratum
+from mfnerf_tpu_torch.utils.procedural import (make_scene,
+                                               write_colmap_scene,
+                                               write_nsvf_scene)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_DIR = os.path.join("Synthetic_NeRF_proc", "Spheres")
@@ -446,3 +454,78 @@ def test_tpu_formulation_flags_are_ignored_with_a_line(cli_dir, capsys):
     assert "--multihost True: a TPU formulation flag" in out
     # the sample budgets are honoured, not reported
     assert "--s_flat" not in out and "--pool_a" not in out
+
+
+# ------------------------------------------------------- a real scene
+def _colmap_argv(root):
+    """The MF-NeRF real-scene flags (benchmarking/benchmark_mipnerf360.sh:
+    --random_bg, a multi-cascade --scale) at the small width; COLMAP
+    intrinsics are the files', so no --downsample."""
+    small = SMALL[:SMALL.index("--downsample")]
+    return ["--root_dir", root, "--dataset_name", "colmap", "--exp_name",
+            "c", "--grid", "LowRank", "--num_epochs", "1",
+            "--steps_per_epoch", "8", *small, "--grid_size", "32",
+            "--scale", "4", "--random_bg"]
+
+
+@pytest.fixture
+def colmap_dir(tmp_path, monkeypatch):
+    """A working directory holding a 24x24 spread COLMAP scene in colmap/."""
+    write_colmap_scene(str(tmp_path / "colmap"), make_scene(
+        n_train=14, n_test=2, wh=24, seed=0, spread=5.0), spread=5.0)
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def test_real_scene_settings_match_jax(colmap_dir):
+    """The trainer's settings on a multi-cascade COLMAP scene equal the JAX
+    trainer's: exponential steps, the random background, no flat budget,
+    the strata budget and the direction bound it is sized by, four
+    cascades, the cascade march's stratum; the refresh erodes for colmap
+    (mfnerf_tpu/train.py:462)."""
+    argv = _colmap_argv("colmap")
+    jsys = jtrain.NeRFSystem(jopt.get_opts(argv))
+    jsys.setup()
+    tsys = ttrain.NeRFSystem(topt.get_opts(argv), device="cpu")
+    tsys.setup()
+    for name in ("exp_step_factor", "random_bg", "s_flat", "s_strata",
+                 "max_samples", "s_max_train", "T_threshold"):
+        assert getattr(tsys.rcfg, name) == getattr(jsys.rcfg, name), name
+    assert tsys.rcfg.random_bg and tsys.rcfg.s_flat == 0
+    assert tsys.model_cfg.dir_norm == jsys.model_cfg.dir_norm > 1.0
+    assert tsys.model_cfg.cascades == jsys.model_cfg.cascades == 4
+    assert cascades_stratum(tsys.rcfg.exp_step_factor, 4.0, 4,
+                            dir_norm=tsys.model_cfg.dir_norm)[0] == 8
+    assert tsys.erode
+
+
+def test_main_trains_a_colmap_scene_at_scale_4(colmap_dir, monkeypatch,
+                                               capsys):
+    """``main --dataset_name colmap --scale 4``: every step marches with the
+    cascade march's union-grid strata, every refresh erodes, and the run
+    writes its checkpoints and finite test metrics."""
+    strata, erode = [], []
+    train_strata = trendering.train_strata
+    update = tngp.NGP.update_density_grid
+
+    def spy_strata(cfg, occ, rcfg):
+        strata.append(train_strata(cfg, occ, rcfg))
+        return strata[-1]
+
+    def spy_update(self, *args, **kwargs):
+        erode.append(kwargs.get("erode"))
+        return update(self, *args, **kwargs)
+
+    monkeypatch.setattr(trendering, "train_strata", spy_strata)
+    monkeypatch.setattr(tngp.NGP, "update_density_grid", spy_update)
+    metrics = _main(_colmap_argv("colmap"))
+    out = capsys.readouterr().out
+    assert "Loading 14 train images" in out and "Loading 2 test" in out
+    assert re.search(r"^step +8/8 .* rm_s [0-9.]+ vr_s", out, re.M)
+    assert set(metrics) == {"test/psnr", "test/ssim", "train/ms_per_step"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert len(strata) == 8 and erode == [True]
+    assert all(s.union and s.stratum == 8 and s.s_strata == 4
+               for s in strata)
+    assert sorted(os.listdir(os.path.join("ckpts", "colmap", "c"))) == [
+        "epoch=0.ckpt.npz", "epoch=0_slim.ckpt.npz"]

@@ -1,10 +1,15 @@
-"""The port's NSVF and Blender loaders against the JAX package's, on the CPU.
+"""The port's loaders against the JAX package's, on the CPU.
 
-The scenes are procedural (``make_scene``) at the loaders' 800x800: the
-NSVF one written by the JAX package's ``write_nsvf_scene`` (imageio), the
-Blender one by the port's ``write_blender_scene`` plus the test's own
-``transforms_val.json``. Both loaders read the same files; the port
-decodes with ``png.py``.
+The scenes are procedural (``make_scene``): at the synthetic loaders'
+800x800, the NSVF one written by the JAX package's ``write_nsvf_scene``
+(imageio), the Blender one by the port's ``write_blender_scene`` plus the
+test's own ``transforms_val.json``; for the real-scene loaders a spread
+scene (``spread=5``, on black) at 40x40, in the COLMAP layout by the port's
+``write_colmap_scene`` (the JAX package has no COLMAP writer; its own
+test writes ``sparse/0`` the same way, tests/test_colmap_dataset.py) and in
+the NeRF++ and RTMV layouts by the JAX package's writers. Both loaders
+read the same files; the port decodes with ``png.py``, and refuses JPEG
+and OpenEXR files by name.
 
 Tolerances: K, directions and poses 1e-6 (the same float32 arithmetic);
 rays 1e-6 at the files' size and 2e-3 resized (``downsample`` 0.5: a
@@ -18,15 +23,28 @@ import numpy as np
 import pytest
 import torch
 
+from mfnerf_tpu.datasets import colmap_utils as jcolmap_utils
+from mfnerf_tpu.datasets.colmap import ColmapDataset as JColmap
 from mfnerf_tpu.datasets.nerf import NeRFDataset as JNeRF
+from mfnerf_tpu.datasets.nerfpp import NeRFPPDataset as JNeRFPP
 from mfnerf_tpu.datasets.nsvf import NSVFDataset as JNSVF
+from mfnerf_tpu.datasets.rtmv import RTMVDataset as JRTMV
+from mfnerf_tpu.utils.procedural import write_nerfpp_scene as jwrite_nerfpp
 from mfnerf_tpu.utils.procedural import write_nsvf_scene as jwrite_nsvf
+from mfnerf_tpu.utils.procedural import write_rtmv_scene as jwrite_rtmv
 
+from mfnerf_tpu_torch.datasets import colmap_utils as tcolmap_utils
+from mfnerf_tpu_torch.datasets import png as tpng
 from mfnerf_tpu_torch.datasets import dataset_dict
+from mfnerf_tpu_torch.datasets.color_utils import read_image
+from mfnerf_tpu_torch.datasets.colmap import ColmapDataset as TColmap
 from mfnerf_tpu_torch.datasets.nerf import NeRFDataset as TNeRF
+from mfnerf_tpu_torch.datasets.nerfpp import NeRFPPDataset as TNeRFPP
 from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset as TNSVF
+from mfnerf_tpu_torch.datasets.rtmv import RTMVDataset as TRTMV
 from mfnerf_tpu_torch.utils.procedural import (make_scene,
                                                write_blender_scene,
+                                               write_colmap_scene,
                                                write_nsvf_scene)
 
 RESIZE_TOL = 2e-3
@@ -125,5 +143,158 @@ def test_jax_loader_reads_the_port_nsvf_writer(scenes):
 
 @pytest.mark.parametrize("name", ["colmap", "nerfpp", "rtmv"])
 def test_unported_loaders_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The real-scene loaders are ported: ``dataset_dict`` names them, and
+    a root that holds no such scene raises where the JAX loader does."""
+    loader = {"colmap": TColmap, "nerfpp": TNeRFPP, "rtmv": TRTMV}[name]
+    assert dataset_dict[name] is loader
+    with pytest.raises((FileNotFoundError, IndexError)):
         dataset_dict[name](root_dir="nowhere", split="train")
+
+
+# -------------------------------------------------------- real-scene loaders
+@pytest.fixture(scope="module")
+def real_scenes(tmp_path_factory):
+    """{"scene", "colmap", "colmap360", "nerfpp", "rtmv"}: a 14+2-view 40x40
+    spread scene in each layout; "colmap360" is the COLMAP one under a
+    ``360_v2`` root whose images sit only in ``images_2``."""
+    base = tmp_path_factory.mktemp("real")
+    scene = make_scene(n_train=14, n_test=2, wh=40, seed=3, spread=5.0)
+    roots = {"scene": scene}
+    for name in ("colmap", "nerfpp", "rtmv"):
+        roots[name] = str(base / name)
+    write_colmap_scene(roots["colmap"], scene, spread=5.0)
+    roots["colmap360"] = str(base / "360_v2" / "garden")
+    shutil.copytree(roots["colmap"], roots["colmap360"])
+    os.rename(os.path.join(roots["colmap360"], "images"),
+              os.path.join(roots["colmap360"], "images_2"))
+    jwrite_nerfpp(roots["nerfpp"], scene)
+    jwrite_rtmv(roots["rtmv"], scene)
+    return roots
+
+
+def _same_cameras(got, want):
+    assert got.img_wh == want.img_wh
+    for name in ("K", "directions", "poses"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == np.float32 and a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("root,split,downsample,tol", [
+    ("colmap", "train", 1.0, 1e-6), ("colmap", "test", 1.0, 1e-6),
+    ("colmap", "trainval", 1.0, 1e-6), ("colmap", "test_traj", 1.0, 0),
+    ("colmap", "train", 0.5, RESIZE_TOL),
+    ("colmap360", "test", 0.5, RESIZE_TOL),
+    ("nerfpp", "train", 1.0, 1e-6), ("nerfpp", "test", 1.0, 1e-6),
+    ("nerfpp", "trainval", 1.0, 1e-6), ("nerfpp", "test_traj", 1.0, 0),
+    ("rtmv", "train", 1.0, 1e-6), ("rtmv", "test", 1.0, 1e-6),
+    ("rtmv", "trainval", 0.5, RESIZE_TOL)])
+def test_real_scene_loader_matches_jax(real_scenes, root, split, downsample,
+                                       tol):
+    """Poses, directions, K and rays of the COLMAP (LLFF, mip-NeRF 360's
+    images_<n> folder), NeRF++ and RTMV loaders against the JAX ones."""
+    name = "colmap" if root.startswith("colmap") else root
+    loaders = {"colmap": (TColmap, JColmap), "nerfpp": (TNeRFPP, JNeRFPP),
+               "rtmv": (TRTMV, JRTMV)}[name]
+    got, want = (cls(real_scenes[root], split=split, downsample=downsample)
+                 for cls in loaders)
+    _same_cameras(got, want)
+    assert got.rays.shape == want.rays.shape
+    np.testing.assert_allclose(got.rays, want.rays, rtol=0, atol=tol)
+    if split == "test_traj":
+        assert got.rays.size == 0 and len(got) > 0
+        return
+    n = {"colmap": {"train": 14, "test": 2, "trainval": 16},
+         "nerfpp": {"train": 14, "test": 2, "trainval": 14},
+         "rtmv": {"train": 100, "test": 5, "trainval": 105}}[name][split]
+    assert len(got) == n and got.rays.dtype == np.float32
+    if name == "colmap":
+        np.testing.assert_allclose(got.pts3d, want.pts3d, rtol=0, atol=1e-6)
+        dist = np.linalg.norm(got.poses[..., 3], axis=-1)
+        assert dist.min() >= 1 - 1e-6     # the nearest camera of all at 1
+
+
+def test_colmap_writer_gives_back_the_scene(real_scenes):
+    """write_colmap_scene's views load back in the scene's order: the test
+    views at every 8th index, the pixels to uint8 truncation."""
+    scene = real_scenes["scene"]
+    for split, key in (("train", "images"), ("test", "test_images")):
+        ds = TColmap(real_scenes["colmap"], split=split)
+        assert np.abs(ds.rays - scene[key]).max() <= 1 / 255 + 1e-6
+    np.testing.assert_allclose(ds.K, scene["K"], rtol=1e-6)
+
+
+def test_colmap_binary_readers_match_jax(real_scenes):
+    sparse = os.path.join(real_scenes["colmap"], "sparse/0")
+    for kind in ("cameras", "images", "points3d"):
+        path = os.path.join(sparse, ("points3D" if kind == "points3d"
+                                     else kind) + ".bin")
+        got = getattr(tcolmap_utils, f"read_{kind}_binary")(path)
+        want = getattr(jcolmap_utils, f"read_{kind}_binary")(path)
+        assert list(got) == list(want) and len(got) > 0
+        for k in got:
+            for field in got[k]._fields:
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(got[k], field)),
+                    np.asarray(getattr(want[k], field)), err_msg=field)
+    q = np.random.default_rng(0).normal(size=4)
+    q /= np.linalg.norm(q)
+    np.testing.assert_array_equal(tcolmap_utils.qvec2rotmat(q),
+                                  jcolmap_utils.qvec2rotmat(q))
+
+
+@pytest.mark.parametrize("kind", ["syndata", "real"])
+def test_colmap_hdr_split_matches_jax(tmp_path, kind):
+    """HDR-NeRF's splits: the image paths, the repeated poses and the unit
+    exposure; on the synthetic layout (PNG) the loaded rays too, with the
+    exposure column. The real layout ships JPEG, which the port refuses by
+    name."""
+    scene = make_scene(n_train=30, n_test=5, wh=8, seed=4, spread=5.0)
+    root = str(tmp_path / "HDR-NeRF" / kind / "bathroom")
+    write_colmap_scene(root, scene, spread=5.0)
+    n_poses = 35
+    if kind == "syndata":
+        files = [f"train/{i:03d}_{e}.png" for i in range(18)
+                 for e in (0, 2, 4)] + [f"test/{i:03d}_{e}.png"
+                                        for i in range(17) for e in (1, 3)]
+    else:
+        files = [f"input_images/{i:03d}_{e}.jpg" for i in range(n_poses)
+                 for e in range(5)]
+    img = (scene["images"][0].reshape(8, 8, 3) * 255).astype(np.uint8)
+    for name in files:
+        os.makedirs(os.path.dirname(os.path.join(root, name)), exist_ok=True)
+        if name.endswith(".png"):
+            tpng.write_png(os.path.join(root, name), img)
+        else:
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(b"\xff\xd8\xff\xe0" + bytes(16))
+    for split in ("train", "test"):
+        got, want = (cls(root, split=split, read_meta=False)
+                     for cls in (TColmap, JColmap))
+        poses = np.random.default_rng(5).random((n_poses, 3, 4))
+        got.poses, want.poses = poses, poses
+        assert got._hdr_split(split) == want._hdr_split(split)
+        np.testing.assert_array_equal(got.poses, want.poses)
+        assert got.unit_exposure_rgb == want.unit_exposure_rgb
+        assert len(got.poses) == {"syndata": {"train": 54, "test": 34},
+                                  "real": {"train": 54, "test": 34}}[
+                                      kind][split]
+        if kind == "real":
+            with pytest.raises(ValueError, match=r"_0\.jpg: a JPEG file"
+                               if split == "train" else r"_1\.jpg: a JPEG"):
+                TColmap(root, split=split)
+            continue
+        got, want = TColmap(root, split=split), JColmap(root, split=split)
+        _same_cameras(got, want)
+        assert got.rays.shape == (len(got.poses), 64, 4)
+        np.testing.assert_allclose(got.rays, want.rays, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("magic,fmt", [(b"\xff\xd8\xff\xe0", "JPEG"),
+                                       (b"v/1\x01", "OpenEXR")])
+def test_read_image_names_a_format_it_cannot_read(tmp_path, magic, fmt):
+    path = str(tmp_path / ("view.jpg" if fmt == "JPEG" else "view.exr"))
+    with open(path, "wb") as f:
+        f.write(magic + bytes(60))
+    with pytest.raises(ValueError, match=rf"view\.\w+: a {fmt} file"):
+        read_image(path, (4, 4))

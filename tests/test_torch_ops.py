@@ -3,12 +3,15 @@
 Each test draws its inputs with numpy from a seed and feeds the same arrays
 to the JAX function and to its port. Tolerances:
 
-* Morton codes, packbits, bitfield lookups, the march's rung indices, sample
-  counts and masks, the procedural cameras: bit-exact. The JAX side runs op
+* Morton codes, packbits, bitfield lookups, the union grid, the march's
+  rung indices, sample counts and masks, the procedural cameras:
+  bit-exact. The JAX side runs op
   by op (not under ``jit``), where XLA evaluates ``o + t * d`` without a
   fused multiply-add, exactly as torch does.
 * t_ladder, calc_dt, ray/AABB, SH, compositing: atol 1e-6 (float32 ops
-  whose library implementations may differ by an ulp).
+  whose library implementations may differ by an ulp); the cascade
+  march's ts, deltas and xyzs 1e-6 relative (t reaches 14 at scale 4,
+  where an ulp is 9.5e-7).
 * hat product: atol/rtol 1e-4. Both sides round the same operands to bf16
   and accumulate in fp32; only the summation order differs.
 """
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mfnerf_tpu.ops import composite as jcomposite
@@ -37,6 +41,8 @@ from mfnerf_tpu_torch.ops import sh as tsh
 from mfnerf_tpu_torch.ops import stepping as tstep
 from mfnerf_tpu_torch.ops.activations import trunc_exp as t_trunc_exp
 from mfnerf_tpu_torch.models import rendering as trendering
+
+import test_cascades_march as jcasc
 
 
 @pytest.fixture(autouse=True)
@@ -88,6 +94,31 @@ def test_packbits_and_lookup_bit_exact():
     got_b = tmorton.bitfield_lookup(_t(got), _t(idx)).numpy()
     np.testing.assert_array_equal(got_b, want_b)
     np.testing.assert_array_equal(got_b, grid.reshape(-1)[idx] > 0.3)
+
+
+@pytest.mark.parametrize("dilate", [1, 2, 3])
+@pytest.mark.parametrize("cascades", [2, 3, 4])
+def test_union_bitfield_bit_exact(cascades, dilate):
+    """The dilated world-space union of every cascade, bit for bit, on a
+    random bitfield; the Morton <-> raster helpers it rests on too."""
+    g = 32
+    occupied = np.random.default_rng(10 * cascades + dilate).random(
+        cascades * g ** 3) < 0.002
+    bits = np.packbits(occupied, bitorder="little")
+    want = _np(jmorton.union_bitfield(jnp.asarray(bits), g, cascades,
+                                      dilate))
+    got = tmorton.union_bitfield(_t(bits), g, cascades, dilate).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < np.unpackbits(got).mean() < 1
+    cells = _np(jmorton._unpack_bits_morton(jnp.asarray(bits), g ** 3))
+    np.testing.assert_array_equal(
+        tmorton.unpack_bits_morton(_t(bits), g ** 3).numpy(), cells)
+    spatial = tmorton.morton_values_to_spatial(_t(cells), g)
+    np.testing.assert_array_equal(
+        spatial.numpy(),
+        _np(jmorton.morton_values_to_spatial(jnp.asarray(cells), g)))
+    np.testing.assert_array_equal(
+        tmorton.spatial_to_morton_values(spatial, g).numpy(), cells)
 
 
 # ---------------------------------------------------------------- stepping
@@ -278,6 +309,57 @@ def test_march_rays_train_strata_bit_exact(g, max_samples, pool_a, s_strata,
     cut = (exact.n_samples != got.n_samples).numpy()
     # a full grid puts every hitting ray over a budget of 4 strata
     assert cut.any() == (s_strata == 4), cut.sum()
+    assert got.n_samples.sum() > 0
+
+
+@pytest.mark.parametrize("dir_norm", [1.0, 1.25])
+@pytest.mark.parametrize("scale", [0.5, 1.0, 1.5, 4.0, 16.0])
+def test_cascades_stratum_matches_jax(scale, dir_norm):
+    cascades = max(1 + int(np.ceil(np.log2(2 * scale))), 1)
+    for e in (0.0, 1.0 / 256):
+        want = jmarch.cascades_stratum(e, scale, cascades, dir_norm=dir_norm)
+        assert tmarch.cascades_stratum(e, scale, cascades,
+                                       dir_norm=dir_norm) == want
+        assert (want[0] > 0) == (e > 0 and scale in (1.0, 4.0, 16.0))
+
+
+@pytest.mark.parametrize("s_strata", [4, 8])
+@pytest.mark.parametrize("occupancy", [0.004, 0.02, 0.06])
+def test_march_rays_train_cascades_bit_exact(occupancy, s_strata):
+    """The exact march under the cascade strata budget against the JAX
+    cascade march (``march_rays_train_cascades``), sample for sample, on
+    tests/test_cascades_march.py's scene (scale 4, 4 cascades, grid 32):
+    k_idx, ts, deltas, xyzs, mask and n_samples. The budget cuts rays at
+    every occupancy (over it) and leaves the rest exact (under it)."""
+    fine, union, stratum, ro, rd, hits, noise = jcasc._setup(occupancy,
+                                                             n=512)
+    args = (jcasc.CASCADES, jcasc.SCALE, jcasc.E, jcasc.GRID,
+            jcasc.MAX_SAMPLES)
+    n_rungs = jstep.max_ladder_steps(0.01, 2 * 1.7320508 * jcasc.SCALE
+                                     + 0.01, jcasc.E, jcasc.MAX_SAMPLES,
+                                     jcasc.GRID, jcasc.SCALE)
+    with jax.disable_jit():
+        want = jmarch.march_rays_train_cascades(
+            ro, rd, hits, fine, union, *args, noise, n_rungs, 64, stratum,
+            s_strata=s_strata)
+    rays = (_t(ro), _t(rd), _t(hits), _t(fine))
+    got = tmarch.march_rays_train(
+        *rays, *args, _t(noise), n_rungs, 64,
+        strata=tmarch.Strata(_t(union), stratum, s_strata, 1.0, union=True))
+    mask = _np(want.mask)
+    np.testing.assert_array_equal(got.n_samples.numpy(),
+                                  _np(want.n_samples))
+    np.testing.assert_array_equal(got.mask.numpy(), mask)
+    np.testing.assert_array_equal(got.k_idx.numpy()[mask],
+                                  _np(want.k_idx)[mask])
+    for name in ("ts", "deltas", "xyzs"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   _np(getattr(want, name)), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    exact = tmarch.march_rays_train(*rays, *args, _t(noise), n_rungs, 64)
+    cut = (exact.n_samples != got.n_samples).numpy()
+    assert (got.n_samples <= exact.n_samples).all()
+    assert 0.1 < cut.mean() < 0.95, cut.mean()
     assert got.n_samples.sum() > 0
 
 

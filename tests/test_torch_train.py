@@ -52,7 +52,9 @@ from mfnerf_tpu_torch.models import ngp as tngp
 from mfnerf_tpu_torch.models import rendering as trendering
 from mfnerf_tpu_torch.ops import composite as tcomposite
 from mfnerf_tpu_torch.ops import hatmul as thatmul
+from mfnerf_tpu_torch.ops import morton as tmorton
 from mfnerf_tpu_torch.ops.activations import trunc_exp as t_trunc_exp
+from mfnerf_tpu_torch.utils import ckpt as tckpt
 from mfnerf_tpu_torch.utils.ckpt import params_from_numpy
 from mfnerf_tpu_torch.utils.procedural import make_scene
 
@@ -341,9 +343,9 @@ def _models(seed=0, grid="LowRank", **kw):
     return jmodel, params, tmodel
 
 
-def _batch(n=128, seed=0, fill=0x33, grid=32):
+def _batch(n=128, seed=0, fill=0x33, grid=32, cascades=1):
     rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 256, grid ** 3 // 8, dtype=np.uint8) \
+    bits = rng.integers(0, 256, cascades * grid ** 3 // 8, dtype=np.uint8) \
         & np.uint8(fill)
     rays_o = np.tile(np.float32([[0.0, 0.0, -1.4]]), (n, 1))
     d = rng.normal(size=(n, 3)).astype(np.float32) \
@@ -406,8 +408,9 @@ def _jax_step(jmodel, params, bits, rays_o, rays_d, noise, target, rcfg,
 
 def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod,
                 grad_noise=None):
-    occ = tngp.OccupancyState.create(tmodel.cfg, "cpu")
-    occ.density_bitfield = _t(bits)
+    occ = dataclasses.replace(tngp.OccupancyState.create(tmodel.cfg, "cpu"),
+                              density_bitfield=_t(bits)
+                              ).refresh_coarse(tmodel.cfg)
     tmodel.zero_grad(set_to_none=True)
     res = trendering.render_train(tmodel, occ, _t(rays_o), _t(rays_d),
                                   _t(noise), rcfg, grad_noise=grad_noise)
@@ -481,40 +484,56 @@ def test_train_step_matches_jax(grid, fused, m):
                rel_atol=1e-4 if fused else 1e-5)
 
 
-@pytest.mark.parametrize("s_flat,s_strata,fill", [
-    (0, 32, 0x33), (16, 32, 0x01), (4, 32, 0x33), (0, 4, 0xFF)])
-def test_render_train_matches_jax_render_train(s_flat, s_strata, fill):
+@pytest.mark.parametrize("s_flat,s_strata,fill,scale", [
+    pytest.param(0, 32, 0x33, 0.5, id="0-32-51"),
+    pytest.param(16, 32, 0x01, 0.5, id="16-32-1"),
+    pytest.param(4, 32, 0x33, 0.5, id="4-32-51"),
+    pytest.param(0, 4, 0xFF, 0.5, id="0-4-255"),
+    pytest.param(0, 8, 0x11, 1.0, id="cascades-scale1"),
+    pytest.param(0, 8, 0x33, 4.0, id="cascades-scale4")])
+def test_render_train_matches_jax_render_train(s_flat, s_strata, fill,
+                                               scale):
     """The JAX package's own render_train marches synthetic scenes with the
     two-level (coarse-strata) tables, which take a ray's strata at even
     ranks when they overflow the ``s_strata`` budget
     (tests/test_twolevel_march.py:92-121); with ``s_flat`` it also
     evaluates the field on a flat ragged batch cut at ``N * s_flat``
-    samples. The port's render_train keeps the same samples (a full grid
-    over a budget of 4 strata; a flat budget of 4 that cuts the batch): the
-    sample counts agree on every ray, and so do the frames. The JAX side
-    runs under jit here."""
-    cfg_kw = dict(SMALL, max_samples=256)
-    jcfg = jngp.NGPConfig(grid="LowRank", **cfg_kw)
+    samples. Multi-cascade scenes (scale 1 and 4, exponential steps) it
+    marches with the cascade march: union-grid strata under the same kind
+    of budget. The port's render_train keeps the same samples (a full grid
+    over a budget of 4 strata; a flat budget of 4 that cuts the batch;
+    cascade strata over a budget of 8): the sample counts agree on every
+    ray, and so do the frames. The JAX side runs under jit here."""
+    cfg_kw = dict(SMALL, scale=scale)
+    jcfg = jngp.NGPConfig(grid="LowRank", max_samples=256, **cfg_kw)
     jmodel = jngp.NGP(jcfg)
     params = jmodel.init(jax.random.PRNGKey(1))
-    tmodel = tngp.NGP(tngp.NGPConfig(**SMALL), device="cpu")
+    tcfg = tngp.NGPConfig(**cfg_kw)
+    tmodel = tngp.NGP(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
-    bits, rays_o, rays_d, _, _ = _batch(n=256, seed=2, fill=fill)
+    bits, rays_o, rays_d, _, _ = _batch(n=256, seed=2, fill=fill,
+                                        cascades=tcfg.cascades)
+    rays_o = rays_o * np.float32(2 * scale)
     occ_j = dataclasses.replace(jngp.OccupancyState.create(jcfg),
                                 density_bitfield=jnp.asarray(bits)
                                 ).refresh_coarse(jcfg)
-    assert jmarch.twolevel_stratum(0.0, 256, 0.5, 32, 1, 1.0)[0] > 0
+    e = 1 / 256 if scale > 0.5 else 0.0
+    if scale > 0.5:
+        assert jmarch.cascades_stratum(e, scale, tcfg.cascades)[0] > 0
+    else:
+        assert jmarch.twolevel_stratum(0.0, 256, 0.5, 32, 1, 1.0)[0] > 0
     rcfg_kw = dict(s_max_train=32, max_samples=256, s_strata=s_strata,
-                   s_flat=s_flat)
+                   s_flat=s_flat, exp_step_factor=e)
     key = jax.random.PRNGKey(3)
     render = jax.jit(jrendering.render_train, static_argnums=(0, 6))
     want = render(jmodel, params, occ_j, jnp.asarray(rays_o),
                   jnp.asarray(rays_d), key, jrendering.RenderConfig(**rcfg_kw))
     noise = np.asarray(jax.random.uniform(jax.random.split(key, 3)[0],
                                           (256,)))
-    occ_t = tngp.OccupancyState.create(tmodel.cfg, "cpu")
-    occ_t.density_bitfield = _t(bits)
+    occ_t = dataclasses.replace(tngp.OccupancyState.create(tcfg, "cpu"),
+                                density_bitfield=_t(bits)
+                                ).refresh_coarse(tcfg)
     with torch.no_grad():
         got = trendering.render_train(tmodel, occ_t, _t(rays_o), _t(rays_d),
                                       _t(noise),
@@ -530,14 +549,23 @@ def test_render_train_matches_jax_render_train(s_flat, s_strata, fill):
     assert int(got["rm_samples"]) == int(want["rm_samples"])
     if s_flat == 4:     # the flat budget cut the batch
         assert int(got["rm_samples"]) > counts_t.sum() == 256 * s_flat
+    if scale > 0.5:     # the budget cut rays that the exact march keeps
+        rcfg = trendering.RenderConfig(**rcfg_kw)
+        exact = trendering.march_rays_train(
+            _t(rays_o), _t(rays_d),
+            trendering._scene_hits(tmodel, _t(rays_o), _t(rays_d)),
+            occ_t.density_bitfield, tcfg.cascades, scale, e, 32, 256,
+            _t(noise), rcfg.n_rungs(scale, 32), 32)
+        assert (exact.n_samples.numpy() > counts_t).mean() > 0.1
     for key_ in ("rgb", "opacity", "depth"):
         np.testing.assert_allclose(got[key_].numpy(), np.asarray(want[key_]),
                                    atol=1e-5)
 
 
 # --------------------------------------------------------------- occupancy
-def _occ_models(scale=0.5):
+def _occ_models(scale=0.5, **extra):
     kw = dict(SMALL, scale=scale)
+    kw.update(extra)
     jmodel = jngp.NGP(jngp.NGPConfig(grid="LowRank", **kw))
     params = jmodel.init(jax.random.PRNGKey(6))
     tmodel = tngp.NGP(tngp.NGPConfig(**kw), device="cpu")
@@ -609,6 +637,53 @@ def test_update_density_grid_half_erode_matches_jax(half):
     near = np.abs(grid_j[0] - thr_j) <= 1e-5 * thr_j
     assert not ((bits_j != bits_t) & ~near).any()
     assert 0.05 < bits_t.mean() < 0.95
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.0, 4.0])
+def test_occupancy_march_grids_match_jax_refresh_coarse(scale, tmp_path):
+    """The stage-A grids ``OccupancyState`` derives wherever the bitfield
+    changes, after a refresh and after a checkpoint round trip: at several
+    cascades the JAX ``refresh_coarse``'s ``union_bits`` bit for bit; at
+    one, its dilated coarse bitfield (the pooled grid of the two-level
+    march). Visible cells only in one corner block of each cascade (the
+    first 1/64 of the Morton codes) keep the dilated union sparse; at scale
+    1, whose union is dilated by 15 cells, on a grid of 64."""
+    jmodel, _, tmodel = _occ_models(scale, grid_size=64 if scale == 1.0
+                                    else 32)
+    jcfg, tcfg = jmodel.cfg, tmodel.cfg
+    rng = np.random.default_rng(11)
+    visible = (rng.random((tcfg.cascades, tcfg.n_cells)) < 0.3) \
+        & (np.arange(tcfg.n_cells) < tcfg.n_cells // 64)
+    grid0 = np.where(visible, 0.0, -1.0).astype(np.float32)
+    occ = dataclasses.replace(tngp.OccupancyState.create(tcfg, "cpu"),
+                              density_grid=_t(grid0))
+    noise = rng.uniform(-1, 1, (tcfg.cascades, tcfg.n_cells, 3))
+    occ = tmodel.update_density_grid(occ, 0.01 * 1024 / np.sqrt(3),
+                                     _t(noise.astype(np.float32)))
+    path = str(tmp_path / "occ.ckpt.npz")
+    tckpt.save_ckpt(path, tckpt.params_to_numpy(tmodel),
+                    occ=tckpt.occupancy_to_numpy(occ))
+    loaded = tckpt.occupancy_from_numpy(tckpt.load_ckpt(path)["occ"], tcfg,
+                                        "cpu")
+    bits = occ.density_bitfield.numpy()
+    assert 0.001 < np.unpackbits(bits).mean() < 0.01
+    want = dataclasses.replace(jngp.OccupancyState.create(jcfg),
+                               density_bitfield=jnp.asarray(bits)
+                               ).refresh_coarse(jcfg)
+    for got in (occ, loaded):
+        assert got.derived_from is got.density_bitfield
+        if scale > 0.5:
+            assert got.stage_a is None
+            np.testing.assert_array_equal(got.union_bits.numpy(),
+                                          np.asarray(want.union_bits))
+            assert np.unpackbits(got.union_bits.numpy()).mean() < 0.9
+        else:
+            assert got.union_bits is None
+            g2 = tcfg.grid_size // 2
+            coarse = tmorton.spatial_to_morton_values(got.stage_a, g2)
+            np.testing.assert_array_equal(
+                np.packbits(coarse.numpy(), bitorder="little"),
+                np.asarray(want.coarse_bitfield))
 
 
 # ---------------------------------------------------------------- optimiser

@@ -1,13 +1,19 @@
 """Where a training step's time goes, stage by stage, on the card.
 
-    python3 tools/step_split.py [--config mf|bench] [--warm 300] [--steps 64]
+    python3 tools/step_split.py [--config mf|bench|mf360|mf360_black|lr360] \
+        [--warm 300] [--steps 64]
 
 Trains ``chip_smoke.py``'s configuration (``mf``: MF_HP, the MixedFeature
-benchmark grid; ``bench``: BENCH_HP, the LowRank bench model) on its 16
-procedural 800x800 views for ``--warm`` steps through ``NeRFSystem.fit``,
-then runs ``--steps`` more steps of ``NeRFSystem.train_step``'s body with
-``torch.cuda.synchronize()`` between the stages and times each on the host
-clock:
+benchmark grid; ``bench``: BENCH_HP, the LowRank bench model; on their 16
+procedural 800x800 views) or one of its multi-cascade recipes (``mf360``:
+MF360_ARGS, the MixedFeature mip-NeRF 360 recipe at --scale 8;
+``mf360_black``: the same without --random_bg; ``lr360``: LR360_ARGS, the
+LowRank model there; on the COLMAP scene of its phase 20,
+written to a temporary directory) for ``--warm`` steps through
+``NeRFSystem.fit``, then runs ``--steps`` more steps of
+``NeRFSystem.train_step``'s body (the march with ``render_train``'s strata
+budget, the scene's background) with ``torch.cuda.synchronize()`` between
+the stages and times each on the host clock:
 
   ray sampling + get_rays, the march, the field forward (``_eval_valid``),
   composite + loss forward, composite + loss backward (to the field's
@@ -25,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -67,7 +74,8 @@ class KernelClock:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("mf", "bench"), default="mf")
+    ap.add_argument("--config", default="mf", choices=(
+        "mf", "bench", "mf360", "mf360_black", "lr360"))
     ap.add_argument("--warm", type=int, default=300)
     ap.add_argument("--steps", type=int, default=64)
     args = ap.parse_args()
@@ -80,6 +88,7 @@ def main():
     from mfnerf_tpu_torch.datasets.memory import MemoryDataset
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models import rendering
+    from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.ops import hashgrid, hatmul
     from mfnerf_tpu_torch.train import UPDATE_INTERVAL
     from mfnerf_tpu_torch.utils.procedural import make_scene
@@ -89,12 +98,21 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    hp = chip_smoke.MF_HP if args.config == "mf" else chip_smoke.BENCH_HP
-    scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS, n_test=1,
-                       wh=chip_smoke.WH, seed=chip_smoke.SEED)
-    system = chip_smoke.start_system(
-        hp, (MemoryDataset.from_scene(scene, "train"),
-             MemoryDataset.from_scene(scene, "test")), torch.device("cuda"))
+    if args.config in ("mf", "bench"):
+        hp = chip_smoke.MF_HP if args.config == "mf" else chip_smoke.BENCH_HP
+        scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS, n_test=1,
+                           wh=chip_smoke.WH, seed=chip_smoke.SEED)
+        datasets = (MemoryDataset.from_scene(scene, "train"),
+                    MemoryDataset.from_scene(scene, "test"))
+    else:
+        argv = {"mf360": chip_smoke.MF360_ARGS,
+                "mf360_black": chip_smoke.MF360_BLACK_ARGS,
+                "lr360": chip_smoke.LR360_ARGS}[args.config]
+        hp = vars(get_opts(["--root_dir", "", *argv]))
+        with tempfile.TemporaryDirectory() as tmp:
+            datasets = chip_smoke.colmap_views(
+                os.path.join(tmp, chip_smoke.COLMAP_ROOT))[:2]
+    system = chip_smoke.start_system(hp, datasets, torch.device("cuda"))
     system.fit(args.warm)
     torch.cuda.synchronize()
 
@@ -127,6 +145,8 @@ def main():
             rays_o, rays_d = get_rays(system.directions[pix],
                                       system.poses[img])
             noise = system._rand(b)
+            bg = (1.0 if rcfg.exp_step_factor == 0      # as render_train
+                  else system._rand(3) if rcfg.random_bg else 0.0)
             mark()
             cfg = system.model_cfg
             mr = rendering.march_rays_train(
@@ -135,14 +155,15 @@ def main():
                 system.occ.density_bitfield, cfg.cascades, cfg.scale,
                 rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples,
                 noise, rcfg.n_rungs(cfg.scale, cfg.grid_size),
-                rcfg.s_max_train)
+                rcfg.s_max_train,
+                strata=rendering.train_strata(cfg, system.occ, rcfg))
             mark()
             sigmas, rgbs = rendering._eval_valid(system.model, mr.xyzs,
                                                  rays_d, mr.mask)
             mark()
             comp = rendering.composite_train(sigmas, rgbs, mr.deltas, mr.ts,
                                              mr.mask, rcfg.T_threshold)
-            results = {"rgb": comp.rgb + (1.0 - comp.opacity)[:, None],
+            results = {"rgb": comp.rgb + bg * (1.0 - comp.opacity)[:, None],
                        "opacity": comp.opacity, "ws": comp.ws,
                        "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask}
             loss = sum(v.mean() for v in system.loss(
