@@ -30,12 +30,19 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 8. train_step_oracle: one training step's loss and parameter gradients on
    the card (both kernels) against the same step on the CPU (the plain
    versions), same weights, rays and march jitter;
+8b, 8c. train_step_oracle_ext and train_step_oracle_bf16: one step of the
+   trainer (NeRFSystem.step_loss) under --optimize_ext (dR and dT drawn
+   N(0, EXT_OFFSET^2); the hat backward with du) and under --bf16, card
+   against CPU (LOSS_TOL and GRAD_TOL; under --bf16 BF16_LOSS_TOL and
+   BF16_GRAD_TOL), every gradient, dR and dT included;
 9. train: the JAX bench's training configuration (bench.py: 8192-ray
    batches, lr 1e-2, half-dense refresh every 16 steps) on 16 procedural
    800x800 views for 900 steps through NeRFSystem.fit; both kernels' launch
    counts are reset just before and read just after;
 10. test_view: the held-out 800x800 view through render_test (T_threshold
    1e-4) before and after training;
+9b. train_bf16: phase 9 under --bf16, its ms/step and held-out view beside
+   phase 9's;
 7b. kernel_bwd (shape "train"): phase 7's checks and times on the operands
    of one real training step of the trained field (one LowRank frame's u
    and g as HatProd.backward receives them: g a column slice of the (N, 2R)
@@ -62,6 +69,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    (benchmarking/benchmark_synthetic_nerf_mf.sh: batch 16384, lr 2e-2, rgb
    128 x 2) on the card against the same step on the CPU, exact and with
    the sampled-corner table gradient (the same uniforms);
+13b, 13c. train_step_oracle_ext (the hash backward with d_x) and
+   train_step_oracle_bf16 for the MixedFeature configuration;
 14. train_mf: 900 steps of it on the 16 procedural views through
    NeRFSystem.fit; the hash-grid kernels' launch counts are reset just
    before and read just after;
@@ -81,6 +90,14 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    PNGs), then "python -m mfnerf_tpu_torch.train --val_only --ckpt_path"
    as a subprocess, whose test PSNR must equal the in-process one within
    CLI_PSNR_TOL;
+22. cli_ext: main --optimize_ext --pose_lr 2e-3 (EXT_ARGS) on the cli's
+   scene written with perturbed training poses (perturb_poses): the
+   gauge-corrected camera-centre error before and after, ms/step, the hat
+   backward's launches (each asking for du) and phase 7's checks and times
+   on one such step's operands, du on, beside its bound;
+23. cli_hdr: main --use_exposure (HDR_ARGS) on a 400x400 scene written in
+   HDR-NeRF's synthetic layout (write_hdr_scene): load seconds, ms/step,
+   test PSNR at each test exposure and the unit-exposure rgb;
 20. colmap_scene and train_step_oracle_cascades: the multi-cascade path's
    scene (make_scene at COLMAP_SPREAD, 800x800, 16 train and 3 test views)
    written as a COLMAP reconstruction (write_colmap_scene) under a
@@ -235,6 +252,34 @@ MF360_BLACK_ARGS = (*CLI_ARGS, *REAL_ARGS, "--exp_name", "colmap_mf",
 MF360_ARGS = (*MF360_BLACK_ARGS, "--random_bg", "--exp_name",
               "colmap_mf_random_bg")
 LR360_ARGS = (*CLI_ARGS, *REAL_ARGS, "--exp_name", "colmap_lowrank")
+# the trainer's flags (--optimize_ext, --bf16, --use_exposure). The step
+# oracles set dR and dT to N(0, EXT_OFFSET^2): small, off the zero rotation
+EXT_OFFSET = 0.02
+# --bf16, card against CPU: cuBLAS's bf16 GEMMs and the CPU's sum in other
+# orders, and an fp32 sum an ulp apart rounds a hidden activation to the
+# neighbouring bf16 value (2^-8 relative); tests/test_torch_train.py holds
+# the CPU step to the JAX one at 1e-4 (loss) and 2e-2 (gradients, relative
+# L2): the card gets twice that room on the gradients
+BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-3, 4e-2
+# cli_hdr: HDR-NeRF's synthetic layout (write_hdr_scene: 18 train poses at
+# luckycat's exposures 2, 0.5, 0.125; 17 test poses at 1, 0.25) of the
+# COLMAP phases' spread scene at 400x400, the cli's LowRank model at
+# --scale 8 with --use_exposure. Cuts: a procedural scene for HDR-NeRF's
+# Blender renders (none ships; 400x400 of their 400x400), 600 steps
+HDR_CUTS = ("a procedural scene for HDR-NeRF's Blender renders (none "
+            "ships)", "600 steps")
+HDR_ROOT = os.path.join("HDR-NeRF", "syndata", "luckycat")
+HDR_WH = 400
+HDR_ARGS = (*CLI_ARGS, *REAL_ARGS, "--exp_name", "hdr", "--use_exposure")
+# cli_ext: the cli's scene and model with the training poses perturbed as
+# the JAX package's pose-refinement test perturbs them (axis-angle and
+# translation N(0, 0.03^2)), refined at --pose_lr 2e-3 (that test's rate;
+# the default 1e-6 moves dT ~6e-4 in 600 steps). Cut: 600 steps
+EXT_CUTS = ("a procedural scene with perturbed training poses (no real "
+            "scene ships)", "600 steps")
+EXT_PERTURB = 0.03
+EXT_ARGS = (*CLI_ARGS, "--exp_name", "ext", "--optimize_ext", "--pose_lr",
+            "2e-3")
 
 
 def check(ok, what):
@@ -313,38 +358,44 @@ def check_bwd(label, u3, w3, k, g):
     return fields
 
 
+@contextlib.contextmanager
+def recording(module, tensors=True):
+    """Within the context, each call of ``module._launch_bwd`` appends its
+    arguments to the yielded list (the hat product's (u3, w3, k, g,
+    need_du), the hash grid's (params, x, cfg, g, window, grad_noise,
+    need_dx)), tensors detached (None without ``tensors``: a training run
+    would keep every step's operands), and launches as before."""
+    captured, launch = [], module._launch_bwd
+
+    def recorder(*args):
+        captured.append(tuple(
+            a if not torch.is_tensor(a) else a.detach() if tensors else None
+            for a in args))
+        return launch(*args)
+
+    module._launch_bwd = recorder
+    try:
+        yield captured
+    finally:
+        module._launch_bwd = launch
+
+
 def capture_bwd_operands(system, seed, module):
-    """One forward and backward of a training step of ``system`` on a ray
-    batch drawn from ``seed`` (weights and optimiser untouched): the
-    arguments that each call of ``module._launch_bwd`` received (the hat
-    product's (u3, w3, k, g, need_du), the hash grid's (params, x, cfg, g,
-    window, grad_noise, need_dx))."""
-    from mfnerf_tpu_torch.datasets.ray_utils import get_rays
-    from mfnerf_tpu_torch.models.rendering import render_train
+    """One forward and backward of a training step of ``system``
+    (``NeRFSystem.step_loss``: with ``--optimize_ext`` the refined poses)
+    on a ray batch drawn from ``seed``, weights and optimiser untouched:
+    the arguments of each call of ``module._launch_bwd`` (:func:`recording`).
+    """
     dev, b = system.device, system.hparams.batch_size
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_img, hw = system.rays.shape[:2]
     img = torch.randint(n_img, (b,), generator=gen, device=dev)
     pix = torch.randint(hw, (b,), generator=gen, device=dev)
-    rays_o, rays_d = get_rays(system.directions[pix], system.poses[img])
-    res = render_train(system.model, system.occ, rays_o, rays_d,
-                       torch.rand((b,), generator=gen, device=dev),
-                       system.rcfg)
-    loss = sum(v.mean() for v in system.loss(
-        res, {"rgb": system.rays[img, pix]}).values())
-    captured, launch = [], module._launch_bwd
-
-    def recorder(*args):
-        captured.append(tuple(a.detach() if torch.is_tensor(a) else a
-                              for a in args))
-        return launch(*args)
-
-    module._launch_bwd = recorder
-    try:
+    loss = system.step_loss(img, pix, torch.rand((b,), generator=gen,
+                                                 device=dev))[0]
+    with recording(module) as captured:
         loss.backward()
-    finally:
-        module._launch_bwd = launch
-        system.model.zero_grad(set_to_none=True)
+    system.optimizer.zero_grad(set_to_none=True)
     return captured
 
 
@@ -938,6 +989,200 @@ def colmap_cli(argv, dev, read_launches):
                 val_ms_per_frame=val_ms(log.getvalue()), **launches)
 
 
+def trainer_step_oracle(hp, datasets, dev, seed, module, loss_tol,
+                        grad_tol):
+    """One step of the trainer (``NeRFSystem.step_loss``) of the
+    hyperparameters ``hp`` on the card against the same step on the CPU:
+    the same weights drawn from SEED, the culled and refreshed occupancy,
+    N_ORACLE_RAYS (image, pixel) draws and jitter from ``seed`` and, with
+    ``--optimize_ext``, dR and dT drawn N(0, EXT_OFFSET^2). The loss within
+    ``loss_tol`` (relative) and every gradient, dR and dT included, within
+    ``grad_tol`` (relative L2). The card's encoder backward launches are
+    recorded (``module``): with ``--optimize_ext`` each asks for the input
+    gradient. Returns the phase's fields."""
+    from mfnerf_tpu_torch.train import NeRFSystem
+    card = start_system(hp, datasets, dev)
+    cpu = NeRFSystem(argparse.Namespace(**hp), device="cpu")
+    cpu.setup(*datasets)
+    cpu.configure(SEED)
+    cpu.model.load_state_dict(card.model.state_dict())
+    card.occ = culled_state(card, seed)
+    cpu.occ = card.occ.to("cpu")
+    pick = np.random.default_rng(seed + 1)
+    with torch.no_grad():
+        for name in card.ext:
+            v = torch.from_numpy((EXT_OFFSET * pick.standard_normal(
+                card.ext[name].shape)).astype(np.float32))
+            card.ext[name].copy_(v)
+            cpu.ext[name].copy_(v)
+    ds = card.train_dataset
+    img = torch.from_numpy(pick.integers(0, len(ds.poses), N_ORACLE_RAYS))
+    pix = torch.from_numpy(pick.integers(0, ds.rays.shape[1],
+                                         N_ORACLE_RAYS))
+    noise = torch.from_numpy(pick.random(N_ORACLE_RAYS, dtype=np.float32))
+    steps, launches = {}, []
+    for where, system in (("card", card), ("cpu", cpu)):
+        d = system.device
+        with recording(module, tensors=False) as calls:
+            loss, res, _ = system.step_loss(img.to(d), pix.to(d),
+                                            noise.to(d))
+            system.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if where == "card":
+            launches = [args[-1] for args in calls]
+        steps[where] = (float(loss.detach()), int(res["rm_samples"]), {
+            name: p.grad.detach().cpu() for name, p in
+            [*system.model.named_parameters(), *system.ext.items()]})
+        system.optimizer.zero_grad(set_to_none=True)
+    (loss_c, rm_c, grads_c), (loss_p, rm_p, grads_p) = \
+        steps["card"], steps["cpu"]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    grad_rel = {name: float((grads_c[name] - grads_p[name]).norm()
+                            / grads_p[name].norm()) for name in grads_p}
+    check(rm_c == rm_p, f"samples on the card {rm_c} vs cpu {rm_p}")
+    check(loss_rel <= loss_tol, f"loss card {loss_c} vs cpu {loss_p}")
+    check(max(grad_rel.values()) <= grad_tol, f"gradients: {grad_rel}")
+    check(len(launches) > 0 and all(launches) == bool(card.ext),
+          f"encoder backward launches, input gradient asked: {launches}")
+    del cpu
+    return dict(grid=card.model_cfg.grid, bf16=bool(hp.get("bf16")),
+                optimize_ext=bool(card.ext), rays=N_ORACLE_RAYS,
+                samples_card=rm_c, samples_cpu=rm_p, loss_card=loss_c,
+                loss_cpu=loss_p, loss_rel_err=loss_rel, loss_tol=loss_tol,
+                grad_rel_err_max=max(grad_rel.values()),
+                grad_rel_err_worst=max(grad_rel, key=grad_rel.get),
+                grad_rel_err_dR=grad_rel.get("dR"),
+                grad_rel_err_dT=grad_rel.get("dT"), grad_tol=grad_tol,
+                bwd_launches=len(launches),
+                bwd_input_grad=all(launches))
+
+
+@contextlib.contextmanager
+def fitted_system(train_module):
+    """Within the context, ``NeRFSystem.fit`` records its system in the
+    yielded dict (``main`` keeps it to itself)."""
+    seen, fit = {}, train_module.NeRFSystem.fit
+
+    def spy(self, n_steps=None):
+        seen["system"] = self
+        return fit(self, n_steps)
+
+    train_module.NeRFSystem.fit = spy
+    try:
+        yield seen
+    finally:
+        train_module.NeRFSystem.fit = fit
+
+
+def run_main(argv, dev, read_launches):
+    """``main`` on ``argv`` in the working directory, its output captured and
+    then printed: (metrics, log, the trained system, the launch counts)."""
+    from mfnerf_tpu_torch import train as train_mod
+    from mfnerf_tpu_torch.opt import get_opts
+    log = io.StringIO()
+    read_launches(reset=True)
+    with fitted_system(train_mod) as seen, contextlib.redirect_stdout(log):
+        metrics = train_mod.main(get_opts(argv), device=dev)
+    launches = read_launches()
+    print(log.getvalue(), end="", flush=True)
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"{argv}: metrics {metrics}")
+    return metrics, log.getvalue(), seen["system"], launches
+
+
+def cli_hdr(dev, read_launches):
+    """``main --use_exposure`` on the 400x400 scene written in HDR-NeRF's
+    synthetic layout under the working directory: the write and load
+    seconds, ms/step, test PSNR and SSIM, the PSNR at each test exposure,
+    the unit-exposure rgb (the head's rgb of zero log radiance at exposure
+    1, which the unit-exposure loss pulls to 0.73), the kernels' launches."""
+    from mfnerf_tpu_torch.datasets.colmap import ColmapDataset
+    from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
+                                                   make_scene,
+                                                   write_hdr_scene)
+    scene = make_scene(n_train=HDR_TRAIN[0], n_test=HDR_TEST[0], wh=HDR_WH,
+                       seed=SEED, spread=COLMAP_SPREAD)
+    t0 = time.perf_counter()
+    write_hdr_scene(HDR_ROOT, scene, spread=COLMAP_SPREAD)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        views = [ColmapDataset(HDR_ROOT, split=split)
+                 for split in ("train", "test")]
+    load_s = time.perf_counter() - t0
+    check([v.rays.shape for v in views] == [(54, HDR_WH ** 2, 4),
+                                            (34, HDR_WH ** 2, 4)],
+          f"HDR views {[v.rays.shape for v in views]}")
+    exposures = [float(views[1][i]["exposure"]) for i in range(34)]
+    del views
+    metrics, log, system, launches = run_main(
+        ["--root_dir", HDR_ROOT, *HDR_ARGS], dev, read_launches)
+    psnrs = [float(v) for v in re.findall(r"^val image .*psnr=([0-9.]+)",
+                                          log, re.M)]
+    check(len(psnrs) == 34, f"{len(psnrs)} HDR test views scored")
+    by_exposure = {str(e): float(np.mean([p for p, e_ in
+                                          zip(psnrs, exposures) if e_ == e]))
+                   for e in sorted(set(exposures), reverse=True)}
+    with torch.no_grad():
+        unit = system.model.log_radiance_to_rgb(
+            torch.zeros((1, 3), device=dev), torch.ones((1, 1), device=dev))
+    check(system.model.cfg.rgb_act == "None", "the HDR head is not on")
+    return dict(argv=list(HDR_ARGS), cuts=HDR_CUTS, wh=HDR_WH, views=[54, 34],
+                write_seconds=write_s, load_seconds=load_s,
+                ms_per_step=metrics["train/ms_per_step"],
+                test_psnr=metrics["test/psnr"],
+                test_ssim=metrics["test/ssim"],
+                psnr_by_exposure=by_exposure,
+                unit_exposure_rgb=unit[0].tolist(),
+                unit_exposure_target=system.unit_exposure_rgb,
+                val_ms_per_frame=val_ms(log), **launches)
+
+
+def cli_ext(dev, read_launches):
+    """``main --optimize_ext --pose_lr 2e-3`` on the cli's 800x800 scene
+    written in the NSVF layout with its training poses perturbed
+    (``perturb_poses``, EXT_PERTURB) under the working directory: the
+    gauge-corrected camera-centre error before and after (the refined
+    centre is the perturbed one plus dT), ms/step, test PSNR, the hat
+    backward's launches and how many asked for du; then phase 7's checks
+    and times on one step's operands of the trained system, du on.
+    Returns the fields."""
+    from mfnerf_tpu_torch.ops import hatmul
+    from mfnerf_tpu_torch.utils.procedural import (gauge_center_error,
+                                                   make_scene, perturb_poses,
+                                                   write_nsvf_scene)
+    root = os.path.join("Synthetic_NeRF_proc", "Perturbed")
+    scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=CLI_TEST_VIEWS, wh=WH,
+                       seed=SEED)
+    true_centers = scene["poses"][:, :, 3].copy()
+    perturbed = perturb_poses(scene["poses"], EXT_PERTURB)[0]
+    write_nsvf_scene(root, dict(scene, poses=perturbed))
+    with recording(hatmul, tensors=False) as calls:
+        metrics, log, system, launches = run_main(
+            ["--root_dir", root, *EXT_ARGS], dev, read_launches)
+    du_asked = sum(1 for args in calls if args[-1])
+    centers = system.poses[:, :, 3].cpu().numpy()
+    before = gauge_center_error(centers, true_centers)
+    after = gauge_center_error(
+        centers + system.ext["dT"].detach().cpu().numpy(), true_centers)
+    check(du_asked == len(calls) > 0,
+          f"{du_asked} of {len(calls)} hat backward launches asked for du")
+    captured = capture_bwd_operands(system, SEED + 50, hatmul)
+    u3, w3, k, g, need_du = captured[0]
+    check(need_du, "an --optimize_ext step's hat backward without du")
+    bwd = check_bwd("train_du", u3, w3, k, g)
+    return dict(argv=list(EXT_ARGS), cuts=EXT_CUTS, perturb=EXT_PERTURB,
+                center_err_before=before, center_err_after=after,
+                ms_per_step=metrics["train/ms_per_step"],
+                test_psnr=metrics["test/psnr"], **launches,
+                hat_prod_bwd_du_launches=du_asked,
+                bwd_du={key: bwd[key] for key in (
+                    "n", "k", "r", "ms", "bound_ms", "bound_by",
+                    "share_of_bound", "ms_no_du", "bound_ms_no_du",
+                    "dw_bitwise_equal", "du_share_within_tol",
+                    "du_knot_max_abs")})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1160,6 +1405,18 @@ def main():
           and min(line_norms) > 0, "a line table got no gradient")
     del cpu_model, grads_c
 
+    # ---- 8b and 8c. the trainer's step under --optimize_ext (the hat
+    # backward with du) and under --bf16, card against CPU
+    for label, flags, tols in (
+            ("train_step_oracle_ext", dict(optimize_ext=True),
+             (LOSS_TOL, GRAD_TOL)),
+            ("train_step_oracle_bf16", dict(bf16=True),
+             (BF16_LOSS_TOL, BF16_GRAD_TOL))):
+        fields = trainer_step_oracle(dict(BENCH_HP, **flags), datasets, dev,
+                                     SEED + 60, hatmul, *tols)
+        phase(label, **fields, card=card)
+        torch.cuda.empty_cache()
+
     # ---- 10a. the held-out view before training (culled + one refresh)
     test_rays, test_rgb, test_rcfg = held_out_view(system)
     out, _ = render_view(system, test_rays, test_rcfg, occ0)
@@ -1172,6 +1429,7 @@ def main():
         hat_prod_launches=hat_prod.launches,
         hat_prod_bwd_launches=hat_prod_bwd.launches))
     phase("train", **fields, card=card)
+    train_fp32 = fields
     launches_fwd = fields["hat_prod_launches"]
     launches_bwd = fields["hat_prod_bwd_launches"]
     check(launches_fwd > 0 and launches_bwd > 0,
@@ -1207,6 +1465,29 @@ def main():
     del captured, u3, g, system, out
     torch.cuda.empty_cache()
 
+    # ---- 9b. the train phase's configuration under --bf16: ms/step and the
+    # held-out view beside phase 9's fp32 ones
+    bf16 = start_system(dict(BENCH_HP, bf16=True), datasets, dev)
+    hat_prod.launches = hat_prod_bwd.launches = 0
+    fields = train_steps(bf16, lambda: dict(
+        hat_prod_launches=hat_prod.launches,
+        hat_prod_bwd_launches=hat_prod_bwd.launches))
+    render_view(bf16, test_rays, test_rcfg)        # warm-up frame
+    out, view_ms = render_view(bf16, test_rays, test_rcfg)
+    bf16_psnr = float(psnr(out["rgb"], test_rgb))
+    phase("train_bf16", **fields, cuts="none (phase 9's configuration)",
+          psnr_after=bf16_psnr,
+          fp32_ms_per_step=train_fp32["ms_per_step"],
+          fp32_psnr_after=psnr_after,
+          ms_ratio_bf16_to_fp32=fields["ms_per_step"]
+          / train_fp32["ms_per_step"], view_ms=view_ms, card=card)
+    check(bf16.model.dtype == torch.bfloat16 and bf16_psnr >= PSNR_MIN
+          and fields["hat_prod_launches"] > 0,
+          f"--bf16: view {bf16_psnr} dB, {fields['hat_prod_launches']} "
+          f"hat_prod launches")
+    del bf16, out
+    torch.cuda.empty_cache()
+
     # ---- 13. the MixedFeature bench configuration: one step, card vs CPU,
     # exact and with the sampled-corner table gradient (one corner)
     mf = start_system(MF_HP, datasets, dev)
@@ -1228,6 +1509,17 @@ def main():
               **fields, hash_table_grad_norm=table_norm, card=card)
         check(table_norm > 0, "the hash table got no gradient")
         del model_c, model_p, grads_c
+    # ---- 13b and 13c. the trainer's step under --optimize_ext (the hash
+    # backward with d_x) and under --bf16, card against CPU
+    for label, flags, tols in (
+            ("train_step_oracle_ext", dict(optimize_ext=True),
+             (LOSS_TOL, GRAD_TOL)),
+            ("train_step_oracle_bf16", dict(bf16=True),
+             (BF16_LOSS_TOL, BF16_GRAD_TOL))):
+        fields = trainer_step_oracle(dict(MF_HP, **flags), datasets, dev,
+                                     SEED + 70, hashgrid, *tols)
+        phase(label, **fields, card=card)
+        torch.cuda.empty_cache()
 
     # ---- 15a. the held-out view before training (culled + one refresh)
     out, _ = render_view(mf, test_rays, test_rcfg, occ0)
@@ -1299,6 +1591,29 @@ def main():
           f"--val_only PSNR {fields['val_only_psnr']} against "
           f"{fields['test_psnr']} in process")
     torch.cuda.empty_cache()
+
+    # ---- 22 and 23. the command line with --optimize_ext on a scene with
+    # perturbed training poses, and with --use_exposure on an HDR-NeRF scene
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            ext_run = cli_ext(dev, hat_launches)
+            phase("cli_ext", **ext_run, card=card)
+            check(ext_run["center_err_after"] < ext_run["center_err_before"]
+                  and ext_run["hat_prod_bwd_launches"] > 0,
+                  f"--optimize_ext: centre error "
+                  f"{ext_run['center_err_before']} -> "
+                  f"{ext_run['center_err_after']}")
+            torch.cuda.empty_cache()
+            hdr_run = cli_hdr(dev, hat_launches)
+            phase("cli_hdr", **hdr_run, card=card)
+            check(hdr_run["hat_prod_launches"] > 0
+                  and hdr_run["hat_prod_bwd_launches"] > 0,
+                  f"--use_exposure launched {hdr_run}")
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
 
     # ---- 20 and 21. the multi-cascade COLMAP path: the scene on disk, one
     # step of each recipe on the card against the CPU, then main
@@ -1384,6 +1699,9 @@ def main():
         "replaces": "mfnerf_tpu/ops/hatmul.py:68",
         "launches": launches_bwd,
         "cli_colmap_launches": colmap_lr["hat_prod_bwd_launches"],
+        "cli_ext_du_launches": ext_run["hat_prod_bwd_du_launches"],
+        "train_du_ms": ext_run["bwd_du"]["ms"],
+        "train_du_bound_ms": ext_run["bwd_du"]["bound_ms"],
         "max_abs_err": bwd_uniform["dw_max_abs_err"],
         "ms": bwd_uniform["ms"], "plain_ms": bwd_uniform["plain_ms"],
         "bound_ms": bwd_uniform["bound_ms"],
@@ -1400,6 +1718,8 @@ def main():
         "replaces": "mfnerf_tpu/ops/hashgrid.py:246",
         "launches": mf_bwd,
         "cli_colmap_launches": colmap_mf["hashgrid_bwd_launches"],
+        "train_dx_ms": hash_train["bwd_dx_ms"],
+        "train_dx_bound_ms": hash_train["bwd_dx_bound_ms"],
         "max_abs_err": hash_train["exact_dp_max_abs_err"],
         "ms": hash_train["bwd_ms"], "plain_ms": hash_train["bwd_plain_ms"],
         "bound_ms": hash_train["bwd_bound_ms"],

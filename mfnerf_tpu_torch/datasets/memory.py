@@ -7,13 +7,16 @@ is not ported.
 """
 import numpy as np
 
+from .base import split_exposure
+
 
 class MemoryDataset:
     """Pre-rendered images with their cameras.
 
     Attributes:
         poses: (N_img, 3, 4) float32 c2w.
-        rays: (N_img, H*W, 3) float32 pixel colours.
+        rays: (N_img, H*W, 3) float32 pixel colours, or (N_img, H*W, 4)
+            with each image's exposure as the 4th column (HDR-NeRF data).
         K: (3, 3) float32 intrinsics; directions: (H*W, 3) float32.
         img_wh: (W, H).
     """
@@ -39,5 +42,5 @@ class MemoryDataset:
         return len(self.poses)
 
     def __getitem__(self, idx):
-        """One view: {"pose": (3, 4), "rgb": (H*W, 3)}."""
-        return {"pose": self.poses[idx], "rgb": self.rays[idx]}
+        """One view: {"pose": (3, 4), "rgb": (H*W, 3)[, "exposure"]}."""
+        return {"pose": self.poses[idx], **split_exposure(self.rays[idx])}

@@ -2,9 +2,11 @@
 
 Port of ``mfnerf_tpu/datasets/ray_utils.py``. Camera coords are
 [right down front]; directions pass through pixel centres (u + 0.5) and are
-NOT normalised: marching distances are measured in units of |d|. The
-COLMAP loader's pose helpers (``average_poses``, ``center_poses``,
-``create_spheric_poses``) are numpy, in float64 as the JAX package's.
+NOT normalised: marching distances are measured in units of |d|.
+:func:`axisangle_to_R` is the pose refinement's rotation (torch, with a
+finite gradient at the zero rotation). The COLMAP loader's pose helpers
+(``average_poses``, ``center_poses``, ``create_spheric_poses``) are numpy,
+in float64 as the JAX package's.
 """
 import numpy as np
 import torch
@@ -39,6 +41,35 @@ def get_rays(directions, c2w):
         rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
         rays_o = c2w[..., 3]
     return rays_o, rays_d
+
+
+def axisangle_to_R(v):
+    """Axis-angle (N, 3) or (3,) -> rotation (N, 3, 3) or (3, 3), Rodrigues
+    as the JAX package computes it: the squared norm is clamped at 1e-14 and
+    below that the constant branches (sinc 1, (1 - cos) / theta^2 1/2) are
+    taken, so the gradient at v = 0, where ``--optimize_ext`` starts, is
+    finite (first order through the skew term). In float32, or in float64
+    for a float64 ``v``."""
+    v = torch.as_tensor(v)
+    if v.dtype != torch.float64:
+        v = v.to(torch.float32)
+    squeeze = v.dim() == 1
+    if squeeze:
+        v = v[None]
+    zero = torch.zeros_like(v[:, :1])
+    skew = torch.stack([
+        torch.cat([zero, -v[:, 2:3], v[:, 1:2]], 1),
+        torch.cat([v[:, 2:3], zero, -v[:, 0:1]], 1),
+        torch.cat([-v[:, 1:2], v[:, 0:1], zero], 1)], dim=1)
+    sq = (v * v).sum(dim=1)[:, None, None]
+    sq_safe = torch.clamp_min(sq, 1e-14)
+    norm_v = torch.sqrt(sq_safe)
+    small = sq < 1e-14
+    sinc = torch.where(small, 1.0, torch.sin(norm_v) / norm_v)
+    cosc = torch.where(small, 0.5, (1 - torch.cos(norm_v)) / sq_safe)
+    r = torch.eye(3, dtype=v.dtype, device=v.device) + sinc * skew \
+        + cosc * (skew @ skew)
+    return r[0] if squeeze else r
 
 
 def normalize(v):

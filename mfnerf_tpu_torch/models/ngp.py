@@ -13,10 +13,21 @@ default is ``"Hash"``: the port's callers were written for LowRank, and the
 JAX default would turn each of them into a hash-grid model without a word.
 Pass ``grid="Hash"`` (or ``Window``, ``MixedFeature``) for the hash grids.
 
+``rgb_act="None"`` is HDR-NeRF's head (``--use_exposure``): the rgb MLP
+outputs log radiance, which three bias-free 1 -> 64 -> 1 tonemappers
+(``tonemappers.<c>.<i>``) map to rgb at a ray's exposure
+(:meth:`NGP.log_radiance_to_rgb`, always in fp32). ``compute_dtype=
+"bfloat16"`` (``--bf16``) runs the MLPs and the LowRank projection on bf16
+operands with fp32 accumulation, as the JAX package's ``_mlp_apply`` and
+``lowrank_encode`` do: the input and each hidden activation are rounded to
+bf16, and a layer whose output the next op reads in fp32 (an MLP's last
+layer, the projection) keeps its fp32 sums. Hidden layers are bf16 GEMMs;
+the fp32-output layers multiply the bf16-rounded operands in fp32, which is
+exact per product, so that their sums are not rounded to bf16.
+
 ``OccupancyState`` carries the training march's stage-A grids, derived
 from the bitfield wherever it changes (``refresh_coarse``, the JAX name).
-The HDR tonemappers, the sampled (``sparse``) occupancy refresh and the
-TPU-only neighbourhood-row tables are not ported here.
+The TPU-only neighbourhood-row tables are not ported.
 """
 import dataclasses
 import math
@@ -28,7 +39,8 @@ from ..device import resolve_device
 from ..ops.activations import trunc_exp
 from ..ops.hashgrid import (HashGridConfig, hashgrid_encode,
                             init_hashgrid_params, window_weights)
-from ..ops.lowrank import LowRankConfig, init_lowrank_params, lowrank_encode
+from ..ops.lowrank import (LowRankConfig, init_lowrank_params,
+                           lowrank_encode, matmul_f32)
 from ..ops.morton import morton3d_invert, packbits, union_bitfield
 from ..ops.ray_march import cascades_stratum, stage_a_grid
 from ..ops.sh import sh_encode
@@ -53,6 +65,7 @@ class NGPConfig:
     hash_grad_samples: int = 8
     rgb_channels: int = 64
     rgb_layers: int = 2
+    rgb_act: str = "Sigmoid"      # "Sigmoid" | "None" (HDR: log radiance)
     grid_size: int = 128
     sigma_neurons: int = 64
     geo_feat_dim: int = 16
@@ -63,6 +76,8 @@ class NGPConfig:
     lr_k_min: int = 32
     lr_k_max: int = 512
     lr_fused: bool = False
+    # the MLPs' and the projection's operands: "float32" | "bfloat16"
+    compute_dtype: str = "float32"
     # bound on |rays_d| (directions are unnormalized): sizes the training
     # march's strata (ops/ray_march.twolevel_stratum)
     dir_norm: float = 1.0
@@ -165,11 +180,22 @@ def _mlp_params(sizes):
          for fan_in, fan_out in zip(sizes[:-1], sizes[1:])])
 
 
-def _mlp_apply(ws, x, sigmoid=False):
-    h = x
-    for w in ws[:-1]:
-        h = torch.relu(h @ w)
-    h = h @ ws[-1]
+
+
+def _mlp_apply(ws, x, sigmoid=False, dtype=torch.float32):
+    """Bias-free MLP, ReLU hidden layers. With ``dtype`` bfloat16: the input
+    and each hidden activation in bf16 (bf16 GEMMs), the last layer's sums
+    and output in fp32."""
+    if dtype == torch.float32:
+        h = x
+        for w in ws[:-1]:
+            h = torch.relu(h @ w)
+        h = h @ ws[-1]
+    else:
+        h = x.to(dtype)
+        for w in ws[:-1]:
+            h = torch.relu(h @ w.to(dtype))
+        h = matmul_f32(h, ws[-1], dtype)
     return torch.sigmoid(h) if sigmoid else h
 
 
@@ -180,7 +206,13 @@ class NGP(nn.Module):
     def __init__(self, cfg: NGPConfig, generator: torch.Generator = None,
                  device=None):
         super().__init__()
+        if cfg.rgb_act not in ("Sigmoid", "None"):
+            raise ValueError(f"rgb_act={cfg.rgb_act!r}: Sigmoid or None")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 "
+                             f"or bfloat16")
         self.cfg = cfg
+        self.dtype = getattr(torch, cfg.compute_dtype)
         self.is_lowrank = cfg.grid == "LowRank"
         self.lowrank_cfg = cfg.lowrank_cfg if self.is_lowrank else None
         self.hash_cfg = None if self.is_lowrank else cfg.hash_cfg
@@ -203,6 +235,9 @@ class NGP(nn.Module):
         self.rgb_mlp = _mlp_params(
             [cfg.sh_degree ** 2 + cfg.geo_feat_dim]
             + [cfg.rgb_channels] * cfg.rgb_layers + [3])
+        if cfg.rgb_act == "None":   # HDR-NeRF: one tonemapper a channel
+            self.tonemappers = nn.ModuleList(
+                [_mlp_params([1, 64, 1]) for _ in range(3)])
         self.to(resolve_device(device))
         self.init(generator if generator is not None
                   else torch.Generator().manual_seed(0))
@@ -211,7 +246,8 @@ class NGP(nn.Module):
     def init(self, generator: torch.Generator):
         """Draw every parameter from ``generator`` with the JAX init law:
         lines 1{d=0} + N(0, 0.3) and a He-uniform projection, or a
-        U(-1e-4, 1e-4) hash table; He-uniform MLPs."""
+        U(-1e-4, 1e-4) hash table; He-uniform MLPs (the tonemappers
+        last)."""
         if self.is_lowrank:
             lr = init_lowrank_params(self.lowrank_cfg, generator)
             for m, per_level in enumerate(lr["lines"]):
@@ -222,7 +258,8 @@ class NGP(nn.Module):
         else:
             self.hash_table.copy_(init_hashgrid_params(self.hash_cfg,
                                                        generator))
-        for w in [*self.sigma_mlp, *self.rgb_mlp]:
+        tms = [w for tm in getattr(self, "tonemappers", []) for w in tm]
+        for w in [*self.sigma_mlp, *self.rgb_mlp, *tms]:
             bound = math.sqrt(6.0 / w.shape[0])
             w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound)
                     - bound)
@@ -249,29 +286,50 @@ class NGP(nn.Module):
         if self.is_lowrank:
             enc = lowrank_encode(
                 {"lines": self.lowrank.lines, "proj": self.lowrank.proj},
-                xn, self.lowrank_cfg)
+                xn, self.lowrank_cfg, dtype=self.dtype)
         else:
             win = None
             if self.cfg.grid == "Window" and window_alpha is not None:
                 win = window_weights(self.hash_cfg, window_alpha, xn.device)
             enc = hashgrid_encode(self.hash_table, xn, self.hash_cfg, win,
                                   grad_noise)
-        h = _mlp_apply(self.sigma_mlp, enc)
+        h = _mlp_apply(self.sigma_mlp, enc, dtype=self.dtype)
         sigmas = trunc_exp(h[:, 0])
         if return_feat:
             return sigmas, h
         return sigmas
 
-    def forward(self, x, d, window_alpha=None, grad_noise=None):
-        """(sigma (N,), rgb (N, 3)) at positions x with view directions d."""
+    def log_radiance_to_rgb(self, log_radiances, exposure=None):
+        """HDR-NeRF tonemapping (``rgb_act="None"``): channel c's log
+        radiance plus log(exposure) through tonemapper c, a sigmoid out; in
+        fp32 whatever ``compute_dtype`` is. ``exposure``: (N, 1) or (1, 1),
+        or None for exposure 1."""
+        if exposure is not None:
+            log_radiances = log_radiances + torch.log(exposure)
+        return torch.cat([_mlp_apply(tm, log_radiances[:, c:c + 1],
+                                     sigmoid=True)
+                          for c, tm in enumerate(self.tonemappers)], dim=1)
+
+    def forward(self, x, d, exposure=None, output_radiance=False,
+                window_alpha=None, grad_noise=None):
+        """(sigma (N,), rgb (N, 3)) at positions x with view directions d.
+        With ``rgb_act="None"`` the rgb head's log radiance is tonemapped at
+        ``exposure`` (per sample (N, 1) or (1, 1)), or with
+        ``output_radiance`` returned as radiance; a Sigmoid head ignores
+        both."""
         sigmas, h = self.density(x, return_feat=True,
                                  window_alpha=window_alpha,
                                  grad_noise=grad_noise)
         d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         sh = sh_encode((d + 1.0) / 2.0, self.cfg.sh_degree)
-        rgbs = _mlp_apply(self.rgb_mlp, torch.cat([sh, h], dim=1),
-                          sigmoid=True)
-        return sigmas, rgbs
+        inp = torch.cat([sh, h], dim=1)
+        if self.cfg.rgb_act == "Sigmoid":
+            return sigmas, _mlp_apply(self.rgb_mlp, inp, sigmoid=True,
+                                      dtype=self.dtype)
+        rgbs = _mlp_apply(self.rgb_mlp, inp, dtype=self.dtype)
+        if output_radiance:
+            return sigmas, trunc_exp(rgbs)
+        return sigmas, self.log_radiance_to_rgb(rgbs, exposure)
 
     # ----------------------------------------------------- occupancy helpers
     def all_cell_coords(self):
@@ -332,31 +390,59 @@ class NGP(nn.Module):
             occ, density_grid=torch.cat(grids).reshape(shape),
             count_grid=torch.cat(counts).reshape(shape))
 
+    def _sampled_cells(self, grid, density_threshold, idx_uniform, u):
+        """The sampled refresh's cells of one cascade: ``idx_uniform`` and as
+        many occupied cells (density above the threshold) drawn uniformly by
+        inverse CDF from the uniforms ``u``, or ``idx_uniform`` again when
+        no cell is occupied."""
+        csum = torch.cumsum((grid > density_threshold).to(torch.float32), 0)
+        n_occ = csum[-1]
+        idx_occupied = torch.clamp(
+            torch.searchsorted(csum, u * n_occ, right=True), 0,
+            grid.shape[0] - 1)
+        idx_occupied = torch.where(n_occ > 0, idx_occupied, idx_uniform)
+        return torch.cat([idx_uniform, idx_occupied])
+
     @torch.no_grad()
     def update_density_grid(self, occ: OccupancyState, density_threshold,
-                            noise, decay=0.95, half=None,
-                            erode=False) -> OccupancyState:
-        """Dense refresh: evaluate sigma at a jittered point of every cell,
-        EMA-merge into the grid, repack the bitfield.
+                            noise, decay=0.95, half=None, erode=False,
+                            sparse=None) -> OccupancyState:
+        """Refresh: evaluate sigma at a jittered point of every cell (dense),
+        of half of them, or of sampled cells; EMA-merge into the grid,
+        repack the bitfield.
 
         Args:
             noise: (C, M, 3) uniform jitter in [-1, 1) for the M cells
-                evaluated: every cell (M = G^3), or with ``half`` every
-                other one (M = G^3 / 2).
+                evaluated: every cell (M = G^3), with ``half`` every other
+                one (M = G^3 / 2), with ``sparse`` the 2 G^3 / 4 sampled ones.
             density_threshold: the training threshold, 0.01*1024/sqrt(3);
                 the bitfield uses min(mean positive density, it).
             half: 0 or 1 evaluates only the even or odd Morton cells; the
                 skipped half decays like the reference's unsampled cells.
             erode: decay cells seen by few cameras faster (``count_grid``).
+            sparse: the reference's sampled refresh (the JAX
+                ``sparse=True``): (idx_uniform (C, G^3/4) int64 cell indices,
+                u (C, G^3/4) uniforms in [0, 1)) draw G^3/4 uniform cells and
+                as many occupied ones (:meth:`_sampled_cells`) a cascade;
+                each cell keeps the largest of its draws' densities.
         """
-        first, step = (0, 1) if half is None else (int(half), 2)
-        coords = morton3d_invert(torch.arange(first, self.cfg.n_cells, step,
-                                              device=self.device))
         grid = occ.density_grid
         tmp = torch.zeros_like(grid)
-        for c in range(self.cfg.cascades):
-            tmp[c, first::step] = self.density(
-                self._cell_world_coords(coords, c, noise[c]))
+        if sparse is not None:
+            idx_uniform, u = sparse
+            for c in range(self.cfg.cascades):
+                idx = self._sampled_cells(grid[c], density_threshold,
+                                          idx_uniform[c], u[c])
+                sig = self.density(self._cell_world_coords(
+                    morton3d_invert(idx), c, noise[c]))
+                tmp[c].scatter_reduce_(0, idx, sig, reduce="amax")
+        else:
+            first, step = (0, 1) if half is None else (int(half), 2)
+            coords = morton3d_invert(torch.arange(
+                first, self.cfg.n_cells, step, device=self.device))
+            for c in range(self.cfg.cascades):
+                tmp[c, first::step] = self.density(
+                    self._cell_world_coords(coords, c, noise[c]))
         if erode:
             decay = torch.clamp(
                 decay ** (1.0 / torch.clamp_min(occ.count_grid, 1e-8)),

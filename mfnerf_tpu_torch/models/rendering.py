@@ -90,18 +90,20 @@ def _scene_hits(model, rays_o, rays_d):
         rays_o, rays_d, torch.zeros(3), torch.full((3,), s)))
 
 
-def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None):
+def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
     """Field on the valid samples of a (N, S) block; zeros elsewhere. The
     scatter is out of place, so autograd reaches the field in training.
     ``grad_noise``: the hash grids' per-sample uniforms for the valid
     samples in row-major order, or a function of their count that draws
-    them."""
+    them. ``exposure``: (N, 1) a ray, or (1, 1) for all (HDR heads)."""
     n, s = mask.shape
     flat = torch.nonzero(mask.reshape(-1)).squeeze(1)
     if callable(grad_noise):
         grad_noise = grad_noise(flat.numel())
+    if exposure is not None and exposure.shape[0] > 1:
+        exposure = exposure[flat // s]
     sig, col = model(xyzs.reshape(-1, 3)[flat], rays_d[flat // s],
-                     grad_noise=grad_noise)
+                     exposure=exposure, grad_noise=grad_noise)
     sigmas = sig.new_zeros(n * s).index_put((flat,), sig)
     rgbs = col.new_zeros((n * s, 3)).index_put((flat,), col)
     return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
@@ -129,7 +131,7 @@ def train_strata(cfg, occ, rcfg):
 
 
 def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
-                 bg_rgb=None, grad_noise=None):
+                 bg_rgb=None, grad_noise=None, exposure=None):
     """Differentiable rendering of a training ray batch.
 
     Args:
@@ -142,6 +144,8 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
             ``hash_grad_noise``): (N_valid, hash_grad_samples) rows for the
             valid samples in row-major order of ``mask``, or a function of
             N_valid that draws them; None for the exact table gradient.
+        exposure: (N, 1) each ray's exposure, for an HDR head
+            (``rgb_act="None"``); a Sigmoid head ignores it.
     Returns:
         dict(rgb, opacity, depth, ws, deltas, ts, mask, rm_samples,
         vr_samples); the sample counters are 0-d tensors.
@@ -162,7 +166,8 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         rank = torch.arange(s, device=mask.device)
         mask = mask & (first[:, None] + rank < n * rcfg.s_flat)
         ts, deltas = torch.where(mask, ts, 0.0), torch.where(mask, deltas, 0.0)
-    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise)
+    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise,
+                               exposure)
     comp = composite_train(sigmas, rgbs, deltas, ts, mask, rcfg.T_threshold)
     if rcfg.exp_step_factor == 0:       # synthetic scenes: white background
         bg = 1.0
@@ -185,7 +190,16 @@ def _with_background(rcfg, rgb, opacity):
     return rgb + bg * (1.0 - opacity)[:, None]
 
 
-def _render_test_chunk(model, occ, rays_o, rays_d, rcfg):
+def _exposure(exposure, device):
+    """A view's exposure (a scalar, or None) as the (1, 1) tensor the field
+    takes."""
+    if exposure is None:
+        return None
+    return torch.as_tensor(exposure, dtype=torch.float32,
+                           device=device).reshape(1, 1)
+
+
+def _render_test_chunk(model, occ, rays_o, rays_d, rcfg, exposure=None):
     """One oracle chunk: composite every ray's occupied samples in
     ceil(max_samples / s_max_test) rank windows."""
     cfg = model.cfg
@@ -207,7 +221,8 @@ def _render_test_chunk(model, occ, rays_o, rays_d, rcfg):
             rank_start=j * rcfg.s_max_test)
         # samples of dead rays are masked out by the compositing anyway
         sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d,
-                                   mr.mask & alive[:, None])
+                                   mr.mask & alive[:, None],
+                                   exposure=exposure)
         vr += int(torch.where(alive, mr.n_samples, 0).sum())
         opacity, depth, rgb, alive = composite_test_step(
             sigmas, rgbs, mr.deltas, mr.ts, mr.mask, opacity, depth, rgb,
@@ -216,14 +231,17 @@ def _render_test_chunk(model, occ, rays_o, rays_d, rcfg):
 
 
 @torch.no_grad()
-def render_test_dense(model, occ, rays_o, rays_d, rcfg: RenderConfig):
-    """Dense oracle frame: dict(rgb, opacity, depth, total_samples)."""
+def render_test_dense(model, occ, rays_o, rays_d, rcfg: RenderConfig,
+                      exposure=None):
+    """Dense oracle frame: dict(rgb, opacity, depth, total_samples).
+    ``exposure``: the view's exposure for an HDR head (a scalar)."""
     outs = []
     total_samples = 0
+    exposure = _exposure(exposure, rays_o.device)
     for i in range(0, rays_o.shape[0], rcfg.test_chunk):
         rgb, opacity, depth, vr = _render_test_chunk(
             model, occ, rays_o[i:i + rcfg.test_chunk],
-            rays_d[i:i + rcfg.test_chunk], rcfg)
+            rays_d[i:i + rcfg.test_chunk], rcfg, exposure)
         outs.append((rgb, opacity, depth))
         total_samples += vr
     rgb, opacity, depth = (torch.cat(o) for o in zip(*outs))
@@ -232,9 +250,12 @@ def render_test_dense(model, occ, rays_o, rays_d, rcfg: RenderConfig):
 
 
 @torch.no_grad()
-def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig):
+def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig,
+                exposure=None):
     """Serve one frame with the alive-ray loop.
 
+    ``exposure``: the view's exposure for an HDR head (a scalar), as the
+    JAX ``render_test(exposure=)``; a Sigmoid head ignores it.
     Returns dict(rgb (N, 3), opacity (N,), depth (N,), total_samples,
     rounds): ``total_samples`` counts the samples the field evaluated,
     ``rounds`` the loop's iterations.
@@ -242,6 +263,7 @@ def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig):
     cfg = model.cfg
     n = rays_o.shape[0]
     dev = rays_o.device
+    exposure = _exposure(exposure, dev)
     hits_t = _scene_hits(model, rays_o, rays_d)
     t_start, t2 = hits_t[:, 0], hits_t[:, 1]
     k_total = rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True)
@@ -270,7 +292,8 @@ def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig):
         room = rcfg.max_samples - taken_a
         mask = mr.mask & (torch.arange(s_cap, device=dev)[None, :]
                           < room[:, None])
-        sigmas, rgbs = _eval_valid(model, mr.xyzs, rd, mask)
+        sigmas, rgbs = _eval_valid(model, mr.xyzs, rd, mask,
+                                   exposure=exposure)
         op, de, co, transparent = composite_test_step(
             sigmas, rgbs, mr.deltas, mr.ts, mask, opacity[alive],
             depth[alive], rgb[alive], torch.ones_like(mask[:, 0]),

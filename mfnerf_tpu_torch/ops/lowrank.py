@@ -146,12 +146,27 @@ def fold_frame(params: dict, cfg: LowRankConfig, m: int) -> torch.Tensor:
         for d in range(3)])
 
 
-def lowrank_encode(params: dict, x: torch.Tensor,
-                   cfg: LowRankConfig) -> torch.Tensor:
+def matmul_f32(a, b, dtype):
+    """a @ b in fp32, or with ``dtype`` bfloat16 on bf16-rounded operands
+    with fp32 sums and result (the JAX ``preferred_element_type=float32``;
+    the MLPs' last layers use it too): a product of two bf16 values is
+    exact in fp32.
+    Autograd rounds the operands' gradients to bf16, as the transpose of the
+    JAX package's cast does."""
+    if dtype == torch.float32:
+        return a @ b
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
+                   dtype=torch.float32) -> torch.Tensor:
     """Encode positions x (N, 3) in [0, 1] -> (N, out_dim) float32.
 
-    Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card).
-    Unfused: per-level dense hat-basis matmuls in fp32.
+    Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card; bf16
+    operands whatever ``dtype`` is). Unfused: per-level dense hat-basis
+    matmuls. ``dtype`` (``NGPConfig.compute_dtype``) is the operand type of
+    the unfused matmuls and of the output projection, which sum in fp32, as
+    the JAX ``lowrank_encode(dtype=)``.
     """
     rots = _rotations_on(cfg.n_frames, x.device)
     xf = x.to(torch.float32)
@@ -165,7 +180,8 @@ def lowrank_encode(params: dict, x: torch.Tensor,
         for li, k_res in enumerate(cfg.levels):
             prod = None
             for d in range(3):
-                a = _hat_basis(u3[:, d], k_res) @ params["lines"][m][li][d]
+                a = matmul_f32(_hat_basis(u3[:, d], k_res),
+                               params["lines"][m][li][d], dtype)
                 prod = a if prod is None else prod * a
             feats.append(prod)
-    return torch.cat(feats, dim=1) @ params["proj"]
+    return matmul_f32(torch.cat(feats, dim=1), params["proj"], dtype)

@@ -38,8 +38,7 @@ def get_opts(argv=None):
                         help='scene scale (whole scene must lie in '
                              '[-scale, scale]^3')
     parser.add_argument('--use_exposure', action='store_true', default=False,
-                        help='whether to train in HDR-NeRF setting '
-                             '(not ported)')
+                        help='whether to train in HDR-NeRF setting')
 
     # loss parameters
     parser.add_argument('--distortion_loss_w', type=float, default=0,
@@ -65,7 +64,7 @@ def get_opts(argv=None):
                         help='learning rate')
     # experimental training options
     parser.add_argument('--optimize_ext', action='store_true', default=False,
-                        help='whether to optimize extrinsics (not ported)')
+                        help='whether to optimize extrinsics')
     parser.add_argument('--pose_lr', type=float, default=1e-6,
                         help='learning rate of the dR/dT pose refinement '
                              '(--optimize_ext)')
@@ -133,7 +132,7 @@ def get_opts(argv=None):
                         help='capture a profiler trace of a few training '
                              'steps (not ported)')
     parser.add_argument('--bf16', action='store_true', default=False,
-                        help='bfloat16 matmul compute (not ported)')
+                        help='bfloat16 matmul compute')
     parser.add_argument('--lr_levels', type=int, default=8,
                         help='LowRank: number of resolution levels')
     parser.add_argument('--lr_rank', type=int, default=16,

@@ -32,10 +32,18 @@ largest ``|d|`` (``dir_norm``) and ``--s_max_train``, their coarse grid
 pools ``--pool_a`` cells to a side, and from step ``FLAT_AFTER`` a batch
 keeps ``--s_flat`` samples a ray on average. The JAX package's fused
 multi-step runner exists to spare TPU dispatch round trips and is not
-ported; the port runs one step per call. Not ported yet: ``optimize_ext``,
-HDR exposure (``use_exposure``), ``bf16``, data parallelism (``num_gpus`` >
-1), LPIPS (``eval_lpips``), the profiler (``profile``), the sampled
-(``sparse``) refresh and the mp4 assembly; the trainer raises
+ported; the port runs one step per call.
+
+``--use_exposure`` (HDR-NeRF) trains the log-radiance head with its
+tonemappers at each ray's exposure (the rays' 4th column), adds the
+unit-exposure loss and validates each view at its exposure.
+``--optimize_ext`` refines the training poses: per image an axis-angle
+``dR`` and a translation ``dT``, zero at the start, applied before
+``get_rays`` and trained by their own Adam at ``--pose_lr`` (optax's
+defaults, no schedule). ``--bf16`` runs the MLPs and the LowRank
+projection on bf16 operands (``NGPConfig.compute_dtype``). Not ported
+yet: data parallelism (``num_gpus`` > 1), LPIPS (``eval_lpips``), the
+profiler (``profile``) and the mp4 assembly; the trainer raises
 ``NotImplementedError`` for those of its hyperparameters.
 """
 import dataclasses
@@ -48,7 +56,7 @@ import torch
 
 from .datasets import dataset_dict
 from .datasets.png import write_png
-from .datasets.ray_utils import get_rays
+from .datasets.ray_utils import axisangle_to_R, get_rays
 from .device import resolve_device
 from .losses import NeRFLoss
 from .models.ngp import NGP, NGPConfig, OccupancyState
@@ -127,9 +135,6 @@ class NeRFSystem:
     def __init__(self, hparams, device=None):
         hp = hparams
         unported = {"grid": hp.grid not in GRIDS,
-                    "use_exposure": hp.use_exposure,
-                    "optimize_ext": hp.optimize_ext,
-                    "bf16": getattr(hp, "bf16", False),
                     "num_gpus": getattr(hp, "num_gpus", 1) > 1,
                     "eval_lpips": getattr(hp, "eval_lpips", False),
                     "profile": getattr(hp, "profile", False)}
@@ -151,6 +156,7 @@ class NeRFSystem:
             N_tables=getattr(hp, "N_tables", 1),
             hash_grad_samples=getattr(hp, "hash_grad_samples", 8),
             rgb_channels=hp.rgb_channels, rgb_layers=hp.rgb_layers,
+            rgb_act="None" if hp.use_exposure else "Sigmoid",
             grid_size=getattr(hp, "grid_size", 128),
             lr_levels=getattr(hp, "lr_levels", 8),
             lr_rank=getattr(hp, "lr_rank", 16),
@@ -158,6 +164,8 @@ class NeRFSystem:
             lr_k_min=getattr(hp, "lr_k_min", 32),
             lr_k_max=getattr(hp, "lr_k_max", 512),
             lr_fused=getattr(hp, "lr_fused", False),
+            compute_dtype="bfloat16" if getattr(hp, "bf16", False)
+            else "float32",
             pool_a=(getattr(hp, "pool_a", 0) if getattr(hp, "grid_size", 128)
                     % max(getattr(hp, "pool_a", 0), 1) == 0 else 0))
         self.rcfg = RenderConfig(
@@ -174,6 +182,7 @@ class NeRFSystem:
                                        STEPS_PER_EPOCH)
         self.refresh_half = getattr(hp, "refresh_half", False)
         self.erode = getattr(hp, "dataset_name", "") == "colmap"
+        self.use_exposure = hp.use_exposure
 
     def setup(self, train_dataset=None, test_dataset=None):
         """The datasets: in-memory ones (``datasets.memory.MemoryDataset``),
@@ -209,24 +218,44 @@ class NeRFSystem:
         """Draw the field from ``seed`` (then, with ``--weight_path``, load
         the parameters that checkpoint holds), stage the training views on
         the device, and build the optimiser, the schedule and the generator
-        of ray batches, march jitter and refresh jitter (``hparams.seed``)."""
+        of ray batches, march jitter and refresh jitter (``hparams.seed``).
+        With ``--optimize_ext`` the poses' corrections ``dR`` and ``dT``
+        ((N_img, 3) each, zero) are a second parameter group whose Adam
+        runs at ``--pose_lr`` with optax's defaults and no schedule
+        (``mfnerf_tpu/train.py:219-240``)."""
         hp, dev = self.hparams, self.device
         self.model = NGP(self.model_cfg, torch.Generator().manual_seed(seed),
                          device=dev)
+        ds = self.train_dataset
+        self.ext = {}
+        if hp.optimize_ext:
+            self.ext = {name: torch.nn.Parameter(torch.zeros(
+                (len(ds.poses), 3), device=dev)) for name in ("dR", "dT")}
         weight_path = getattr(hp, "weight_path", None)
         if weight_path:   # partial warm start (mfnerf_tpu/train.py:224-226)
-            load_params(self.model, load_ckpt(weight_path)["params"])
+            load_params(self.model, load_ckpt(weight_path)["params"],
+                        self.ext)
         self.occ = OccupancyState.create(self.model_cfg, dev)
-        ds = self.train_dataset
         self.poses = torch.from_numpy(ds.poses).to(dev)
         self.directions = torch.from_numpy(ds.directions).to(dev)
-        self.rays = torch.from_numpy(ds.rays).to(dev)   # (N_img, H*W, 3)
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=hp.lr,
-                                          eps=1e-15)
+        # (N_img, H*W, 3), or 4 columns with each image's exposure
+        self.rays = torch.from_numpy(ds.rays).to(dev)
+        self.unit_exposure_rgb = getattr(ds, "unit_exposure_rgb", None)
+        if self.use_exposure and self.unit_exposure_rgb is None:
+            raise ValueError("use_exposure needs the training dataset's "
+                             "unit_exposure_rgb")
+        groups = [{"params": list(self.model.parameters()), "lr": hp.lr,
+                   "eps": 1e-15}]
+        if self.ext:    # optax.adam(pose_lr): eps 1e-8, betas (0.9, 0.999)
+            groups.append({"params": list(self.ext.values()),
+                           "lr": getattr(hp, "pose_lr", 1e-6), "eps": 1e-8})
+        self.optimizer = torch.optim.Adam(groups)
         self.schedule = cosine_staircase_lr(hp.lr, hp.num_epochs,
                                             self.steps_per_epoch)
+        # the schedule scales the network's group only
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, lambda step: self.schedule(step) / hp.lr)
+            self.optimizer, [lambda step: self.schedule(step) / hp.lr]
+            + [lambda step: 1.0] * (len(groups) - 1))
         self.generator = torch.Generator(device=dev).manual_seed(hp.seed)
         self.global_step = 0
         self.n_refresh = 0
@@ -258,24 +287,74 @@ class NeRFSystem:
         pix = torch.randint(hw, (b,), generator=self.generator, device=dev)
         return img, pix
 
+    def batch_poses(self, img):
+        """The c2w poses of the images ``img``: with ``--optimize_ext``
+        refined, ``R(dR) @ pose[:, :3]`` and ``pose[:, 3] + dT``
+        (``mfnerf_tpu/train.py:273-280``). The rotation and its product
+        are taken in float64 and rounded once to float32, so that a pose is
+        the same on every device: in float32 the card's sin, cos and
+        fused multiply-adds differ from the CPU's in the last bit, and the
+        last bit of a ray moves the fused encoder's bf16 hat weights
+        (PERF.md §6)."""
+        pose = self.poses[img]
+        if not self.ext:
+            return pose
+        rot = (axisangle_to_R(self.ext["dR"][img].double())
+               @ pose[..., :3].double()).float()
+        return torch.cat([rot, (pose[..., 3] + self.ext["dT"][img])[
+            ..., None]], dim=-1)
+
+    def losses(self, results, target):
+        """The loss terms of a step: ``NeRFLoss``'s, and with
+        ``--use_exposure`` the unit-exposure term, half the squared error
+        of zero log radiance's rgb at exposure 1 against the dataset's
+        ``unit_exposure_rgb`` (``mfnerf_tpu/train.py:286-294``). The
+        tonemappers are bias-free, so that rgb is sigmoid(0) = 0.5 whatever
+        their weights: the term is a constant, in both packages."""
+        terms = self.loss(results, target)
+        if self.use_exposure:
+            dev = self.device
+            unit_rgb = self.model.log_radiance_to_rgb(
+                torch.zeros((1, 3), device=dev),
+                exposure=torch.ones((1, 1), device=dev))
+            terms["unit_exposure"] = 0.5 * (
+                unit_rgb - torch.as_tensor(self.unit_exposure_rgb,
+                                           dtype=torch.float32,
+                                           device=dev)) ** 2
+        return terms
+
+    def step_loss(self, img, pix, noise, bg=None, grad_noise=None):
+        """The training loss on the rays of pixels ``pix`` of images ``img``
+        (the JAX trainer's ``loss_fn``): the rays of the (refined) poses,
+        ``render_train`` with the march jitter ``noise``, the background
+        ``bg`` and the hash grids' ``grad_noise``, each ray's exposure where
+        the rays carry one, and the loss terms (:meth:`losses`), on the flat
+        budget from step ``FLAT_AFTER``. Returns (loss, results, target)."""
+        rays_o, rays_d = get_rays(self.directions[pix], self.batch_poses(img))
+        picked = self.rays[img, pix]
+        target = {"rgb": picked[:, :3]}
+        # HDR-NeRF rays carry their exposure; a Sigmoid head ignores it
+        exposure = picked[:, 3:4] if picked.shape[1] == 4 else None
+        rcfg = self.rcfg if self.global_step >= FLAT_AFTER \
+            else dataclasses.replace(self.rcfg, s_flat=0)
+        results = render_train(self.model, self.occ, rays_o, rays_d, noise,
+                               rcfg, bg, grad_noise, exposure)
+        loss = sum(v.mean() for v in self.losses(results, target).values())
+        return loss, results, target
+
     def train_step(self):
         """One optimiser step on a fresh ray batch; its metrics as 0-d
         tensors on the device (the learning rate as a float)."""
         b = self.hparams.batch_size
         img, pix = self.sample_batch()
-        rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
-        target = {"rgb": self.rays[img, pix]}
         bg = self._rand(3) if self.rcfg.random_bg else None
         m = self.model_cfg.hash_grad_samples
         grad_noise = None       # the exact table gradient (and LowRank)
         if self.model_cfg.grid != "LowRank" and m < 8:
             def grad_noise(n_valid):
                 return self._rand(n_valid, m)
-        rcfg = self.rcfg if self.global_step >= FLAT_AFTER \
-            else dataclasses.replace(self.rcfg, s_flat=0)
-        results = render_train(self.model, self.occ, rays_o, rays_d,
-                               self._rand(b), rcfg, bg, grad_noise)
-        loss = sum(v.mean() for v in self.loss(results, target).values())
+        loss, results, target = self.step_loss(img, pix, self._rand(b), bg,
+                                               grad_noise)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -319,44 +398,50 @@ class NeRFSystem:
 
     def set_step(self, step):
         """Continue from ``step``: the global step, and the learning rate an
-        uninterrupted run would use at it."""
+        uninterrupted run would use at it (the poses' group keeps
+        ``--pose_lr``)."""
         self.global_step = step
         self.scheduler.last_epoch = step
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(step)
+        self.optimizer.param_groups[0]["lr"] = self.schedule(step)
 
     def save(self, ckpt_dir):
-        """Write ``epoch=<E>.ckpt.npz`` (parameters, occupancy, Adam state,
-        step) and its slim copy under ``ckpt_dir``."""
+        """Write ``epoch=<E>.ckpt.npz`` (parameters with ``dR``/``dT``,
+        occupancy, Adam state, step, and with ``--optimize_ext`` the
+        training poses) and its slim copy, which keeps those poses, under
+        ``ckpt_dir``."""
         epoch = self.hparams.num_epochs - 1
         path = os.path.join(ckpt_dir, f"epoch={epoch}.ckpt.npz")
-        save_ckpt(path, params_to_numpy(self.model),
+        save_ckpt(path, params_to_numpy(self.model, self.ext),
                   occ=occupancy_to_numpy(self.occ),
-                  opt_state=adam_state_to_numpy(self.optimizer, self.model),
-                  step=self.global_step)
+                  opt_state=adam_state_to_numpy(self.optimizer, self.model,
+                                                self.ext),
+                  step=self.global_step,
+                  poses=self.poses.cpu().numpy() if self.ext else None)
         slim_ckpt(path, os.path.join(ckpt_dir,
-                                     f"epoch={epoch}_slim.ckpt.npz"))
+                                     f"epoch={epoch}_slim.ckpt.npz"),
+                  save_poses=bool(self.ext))
 
     def restore(self, path, with_optimizer=True):
         """Load a checkpoint of either package: parameters (a partial,
-        shape-checked load), the occupancy grids and, ``with_optimizer``,
-        the Adam state; then continue from its step (:meth:`set_step`)."""
+        shape-checked load, ``dR``/``dT`` included), the occupancy grids
+        and, ``with_optimizer``, the Adam state; then continue from its step
+        (:meth:`set_step`)."""
         ck = load_ckpt(path)
-        load_params(self.model, ck["params"])
+        load_params(self.model, ck["params"], self.ext)
         if "occ" in ck:
             self.occ = occupancy_from_numpy(ck["occ"], self.model_cfg,
                                             self.device)
         if with_optimizer and "opt_state" in ck:
             adam_state_from_numpy(self.optimizer, self.model,
-                                  ck["opt_state"])
+                                  ck["opt_state"], self.ext)
         self.set_step(ck["step"])
 
     @torch.no_grad()
     def validate(self, save_dir=None):
-        """Render every test view with ``render_test``; print a line an
-        image and return the mean ``test/psnr`` and ``test/ssim``. With
-        ``save_dir``, write each view's ``NNN.png`` and its depth map
-        ``NNN_d.png`` there."""
+        """Render every test view with ``render_test`` (HDR-NeRF views at
+        their own exposure); print a line an image and return the mean
+        ``test/psnr`` and ``test/ssim``. With ``save_dir``, write each
+        view's ``NNN.png`` and its depth map ``NNN_d.png`` there."""
         ds, dev = self.test_dataset, self.device
         w, h = ds.img_wh
         directions = torch.from_numpy(ds.directions).to(dev)
@@ -367,7 +452,7 @@ class NeRFSystem:
             t0 = time.perf_counter()
             out = render_test(self.model, self.occ, *get_rays(
                 directions, torch.from_numpy(view["pose"]).to(dev)),
-                self.rcfg)
+                self.rcfg, exposure=view.get("exposure"))
             self.synchronize()
             ms = (time.perf_counter() - t0) * 1e3      # the render's time
             rgb_pred = out["rgb"].reshape(h, w, 3)

@@ -9,18 +9,23 @@ numpy only, so checkpoints cross backends both ways:
 
 * ``params`` carries the NGP parameters under the JAX pytree's paths: the
   port's state-dict names with ``.`` for ``/`` (:func:`params_to_numpy`,
-  :func:`params_from_numpy`).
+  :func:`params_from_numpy`; the HDR head's ``tonemappers/<c>/<i>``), and
+  the trainer's pose corrections ``dR`` and ``dT`` under their JAX keys.
 * ``occ`` carries ``density_grid``, ``density_bitfield`` and
   ``count_grid`` under the JAX ``OccupancyState``'s attribute names; the
   JAX loader fills those and keeps its template's derived tables, which
   ``refresh_coarse`` rebuilds.
 * ``opt_state`` carries the port's Adam state under its own keys
-  (``exp_avg/<path>``, ``exp_avg_sq/<path>``, ``step/<path>``). The JAX
-  loader leaves keys it does not know alone, and so does the port.
+  (``exp_avg/<path>``, ``exp_avg_sq/<path>``, ``step/<path>``; ``<path>``
+  ``dR`` and ``dT`` for the pose group). The JAX loader leaves keys it does
+  not know alone, and so does the port.
+* ``poses`` (``--optimize_ext``) holds the (N_img, 3, 4) training poses as
+  the section's one leaf, whose path is empty (``poses::``), as the JAX
+  package writes an array.
 
 A slim checkpoint (:func:`slim_ckpt`) drops the optimiser state, the
-density and count grids and the poses, and keeps the bitfield, which
-serving needs.
+density and count grids and, unless ``save_poses``, the poses, and keeps
+the bitfield, which serving needs.
 """
 import json
 import os
@@ -59,25 +64,28 @@ def _write(path, sections, step):
     np.savez(path, **blobs)
 
 
-def save_ckpt(path, params, occ=None, opt_state=None, step=0):
+def save_ckpt(path, params, occ=None, opt_state=None, step=0, poses=None):
     """Save a checkpoint. Each section is a flat {path: ndarray} dict
     (:func:`params_to_numpy`, :func:`occupancy_to_numpy`,
-    :func:`adam_state_to_numpy`); None omits it."""
+    :func:`adam_state_to_numpy`), ``poses`` an (N_img, 3, 4) array; None
+    omits it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     sections = {name: tree for name, tree in (
-        ("params", params), ("occ", occ), ("opt_state", opt_state))
+        ("params", params), ("occ", occ), ("opt_state", opt_state),
+        ("poses", None if poses is None else {"": np.asarray(poses)}))
         if tree is not None}
     _write(path, sections, step)
 
 
-def slim_ckpt(path, out_path):
+def slim_ckpt(path, out_path, save_poses=False):
     """Strip a full checkpoint for serving: drop the optimiser state, the
-    density and count grids and the poses; keep the parameters and the
-    density bitfield. As ``mfnerf_tpu.utils.ckpt``."""
+    density and count grids and, unless ``save_poses``, the poses; keep the
+    parameters and the density bitfield. As ``mfnerf_tpu.utils.ckpt``."""
     ck = load_ckpt(path)
     step = ck.pop("step")
     ck.pop("opt_state", None)
-    ck.pop("poses", None)
+    if not save_poses:
+        ck.pop("poses", None)
     if "occ" in ck:
         ck["occ"] = {k: v for k, v in ck["occ"].items()
                      if "density_grid" not in k and "count_grid" not in k}
@@ -114,20 +122,27 @@ def params_from_numpy(tree):
             for k, v in flat.items()}
 
 
-def params_to_numpy(model):
+def _named(model, extra):
+    """``model``'s state dict and the ``extra`` {name: tensor} beside it."""
+    return {**model.state_dict(), **(extra or {})}
+
+
+def params_to_numpy(model, extra=None):
     """The inverse of :func:`params_from_numpy`: ``model``'s parameters as
-    the flat ``{"lowrank/lines/0/0/0": ndarray}`` params section."""
+    the flat ``{"lowrank/lines/0/0/0": ndarray}`` params section, with the
+    ``extra`` {name: tensor} (the trainer's ``dR``, ``dT``) beside them."""
     return {k.replace(".", "/"): v.detach().cpu().numpy().copy()
-            for k, v in model.state_dict().items()}
+            for k, v in _named(model, extra).items()}
 
 
-def load_params(model, section):
-    """Copy the params section's tensors into ``model`` where the names
-    match (a partial load, as the JAX package's ``load_ckpt(like=...)``
-    does for ``--weight_path``). Raises ``ValueError`` on a shape mismatch.
+def load_params(model, section, extra=None):
+    """Copy the params section's tensors into ``model`` (and the ``extra``
+    {name: tensor}) where the names match (a partial load, as the JAX
+    package's ``load_ckpt(like=...)`` does for ``--weight_path``). Raises
+    ``ValueError`` on a shape mismatch.
     """
     state = params_from_numpy(section)
-    own = model.state_dict()
+    own = _named(model, extra)
     with torch.no_grad():
         for name, value in state.items():
             if name not in own:
@@ -166,11 +181,16 @@ def occupancy_from_numpy(occ, cfg, device=None):
         count_grid=grid("count_grid")).refresh_coarse(cfg)
 
 
-def adam_state_to_numpy(optimizer, model):
+def _named_parameters(model, extra):
+    return [*model.named_parameters(), *(extra or {}).items()]
+
+
+def adam_state_to_numpy(optimizer, model, extra=None):
     """``optimizer``'s per-parameter Adam state as the opt_state section:
-    {"exp_avg/<path>", "exp_avg_sq/<path>", "step/<path>": ndarray}."""
+    {"exp_avg/<path>", "exp_avg_sq/<path>", "step/<path>": ndarray}, for
+    ``model``'s parameters and the ``extra`` {name: parameter}."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in _named_parameters(model, extra):
         state = optimizer.state.get(p, {})
         for key in ADAM_KEYS:
             if key in state:
@@ -179,10 +199,10 @@ def adam_state_to_numpy(optimizer, model):
     return out
 
 
-def adam_state_from_numpy(optimizer, model, section):
+def adam_state_from_numpy(optimizer, model, section, extra=None):
     """Restore the Adam state that :func:`adam_state_to_numpy` saved; a
     parameter whose state the section lacks keeps its own."""
-    for name, p in model.named_parameters():
+    for name, p in _named_parameters(model, extra):
         path = name.replace(".", "/")
         if not all(f"{key}/{path}" in section for key in ADAM_KEYS):
             continue

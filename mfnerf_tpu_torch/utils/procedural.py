@@ -9,10 +9,13 @@ shaded spheres on a white background, seen from cameras on a ring of radius
 ([right down front]).
 
 ``write_nsvf_scene``, ``write_blender_scene``, ``write_nerfpp_scene``,
-``write_rtmv_scene`` and ``write_colmap_scene`` put a scene on disk in the
-layouts of the loaders (``datasets/``), with ``datasets/png.py`` as the
-PNG writer: pixels are ``(img * 255).astype(uint8)``, as the JAX package
-writes them. The JAX package has no Blender or COLMAP writer.
+``write_rtmv_scene``, ``write_colmap_scene`` and ``write_hdr_scene``
+(HDR-NeRF's synthetic layout) put a scene on disk in the layouts of the
+loaders (``datasets/``), with ``datasets/png.py`` as the PNG writer:
+pixels are ``(img * 255).astype(uint8)``, as the JAX package writes them.
+The JAX package has no Blender, COLMAP or HDR-NeRF writer.
+:func:`perturb_poses` shifts training poses for the pose refinement
+(``--optimize_ext``) to recover.
 """
 import json
 import os
@@ -20,10 +23,13 @@ import struct
 
 import numpy as np
 
+import torch
+
 from ..datasets.colmap_utils import rotmat2qvec
-from ..datasets.conventions import COLMAP_TEST_EVERY
+from ..datasets.conventions import (COLMAP_TEST_EVERY, HDR_EXPOSURES,
+                                    scene_name)
 from ..datasets.png import write_png
-from ..datasets.ray_utils import get_ray_directions
+from ..datasets.ray_utils import axisangle_to_R, get_ray_directions
 
 
 def _look_at_pose(position):
@@ -367,26 +373,36 @@ def write_colmap_scene(root, scene=None, spread=1.0, **kwargs):
     train, test = iter(range(n_train)), iter(range(n_test))
     views = [("test_", next(test)) if i % COLMAP_TEST_EVERY == 0
              else ("", next(train)) for i in range(n)]
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i, (split, j) in enumerate(views):
+        write_png(os.path.join(root, "images", f"im_{i:03d}.png"),
+                  _to_uint8(scene[split + "images"][j], scene["img_wh"]))
+    _write_colmap_model(root, scene, [scene[split + "poses"][j]
+                                      for split, j in views], spread)
+    return scene
+
+
+def _write_colmap_model(root, scene, poses, spread):
+    """sparse/0 of a COLMAP reconstruction: one PINHOLE camera (the scene's
+    intrinsics), an image a pose named im_NNN.png in that order, and
+    COLMAP_POINTS points on the sphere arrangement scaled by ``spread``."""
     w, h = scene["img_wh"]
     k = scene["K"]
     os.makedirs(os.path.join(root, "sparse/0"), exist_ok=True)
-    os.makedirs(os.path.join(root, "images"), exist_ok=True)
     with open(os.path.join(root, "sparse/0/cameras.bin"), "wb") as f:
         f.write(struct.pack("<QiiQQ", 1, 1, 1, w, h))        # PINHOLE
         f.write(struct.pack("<dddd", k[0, 0], k[1, 1], k[0, 2], k[1, 2]))
     with open(os.path.join(root, "sparse/0/images.bin"), "wb") as f:
-        f.write(struct.pack("<Q", n))
-        for i, (split, j) in enumerate(views):
-            c2w = np.asarray(scene[split + "poses"][j], np.float64)
+        f.write(struct.pack("<Q", len(poses)))
+        for i, pose in enumerate(poses):
+            c2w = np.asarray(pose, np.float64)
             r_w2c = c2w[:, :3].T
-            name = f"im_{i:03d}.png"
             f.write(struct.pack("<i", i + 1))
             f.write(struct.pack("<dddd", *rotmat2qvec(r_w2c)))
             f.write(struct.pack("<ddd", *(-r_w2c @ c2w[:, 3])))
-            f.write(struct.pack("<i", 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<i", 1) + f"im_{i:03d}.png".encode()
+                    + b"\x00")
             f.write(struct.pack("<Q", 0))
-            write_png(os.path.join(root, "images", name),
-                      _to_uint8(scene[split + "images"][j], (w, h)))
     rng = np.random.default_rng(0)
     idx = rng.integers(0, len(_SPHERES), COLMAP_POINTS)
     normal = rng.normal(size=(COLMAP_POINTS, 3))
@@ -399,4 +415,68 @@ def write_colmap_scene(root, scene=None, spread=1.0, **kwargs):
         for i, p in enumerate(pts):
             f.write(struct.pack("<q", i) + struct.pack("<ddd", *p))
             f.write(struct.pack("<BBBdQ", 128, 128, 128, 0.5, 0))
+
+
+# HDR-NeRF's synthetic scenes: 18 train poses shot at exposures 0, 2 and 4
+# of the scene's table, 17 test poses at 1 and 3
+# (mfnerf_tpu/datasets/colmap.py's HDR split)
+HDR_TRAIN, HDR_TEST = (18, (0, 2, 4)), (17, (1, 3))
+
+
+def write_hdr_scene(root, scene=None, spread=1.0, **kwargs):
+    """Write a procedural scene (``make_scene(n_train=18, n_test=17,
+    spread=spread, **kwargs)`` unless given) in HDR-NeRF's synthetic layout,
+    which the COLMAP loader reads from a ``HDR-NeRF/syndata/<scene>`` root:
+    sparse/0 (as :func:`write_colmap_scene`; the 17 test poses first, then
+    the 18 train poses, by image name) and each pose's views observed at
+    exposure e as ``clip(e * image, 0, 1)``: train/NNN_E.png at the
+    exposures 0, 2, 4 of ``HDR_EXPOSURES[<scene>]`` and test/NNN_E.png at 1
+    and 3. ``luckycat`` trains at 2, 0.5 and 0.125 and tests at 1 and
+    0.25. Returns the scene."""
+    parts = os.path.normpath(root).split(os.sep)
+    if "HDR-NeRF" not in parts or "syndata" not in parts:
+        raise ValueError(f"{root}: the loader reads HDR-NeRF's synthetic "
+                         f"layout under HDR-NeRF/syndata/<scene>")
+    table = HDR_EXPOSURES[scene_name(root)]
+    scene = scene or make_scene(n_train=HDR_TRAIN[0], n_test=HDR_TEST[0],
+                                spread=spread, **kwargs)
+    if (len(scene["poses"]), len(scene["test_poses"])) != (HDR_TRAIN[0],
+                                                           HDR_TEST[0]):
+        raise ValueError("HDR-NeRF's synthetic scenes have 18 train and 17 "
+                         "test poses")
+    for split, (_, exps), images in (
+            ("train", HDR_TRAIN, scene["images"]),
+            ("test", HDR_TEST, scene["test_images"])):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for i, img in enumerate(images):
+            for e in exps:
+                write_png(os.path.join(root, split, f"{i:03d}_{e}.png"),
+                          _to_uint8(np.clip(np.float32(table[e]) * img, 0, 1),
+                                    scene["img_wh"]))
+    _write_colmap_model(root, scene, [*scene["test_poses"], *scene["poses"]],
+                        spread)
     return scene
+
+
+def perturb_poses(poses, sigma=0.03, seed=0):
+    """Training poses shifted as the JAX package's pose-refinement test
+    shifts them: per pose an axis-angle dr and a translation dt, each
+    N(0, sigma^2) a component (one numpy generator of ``seed``, dr first),
+    applied as ``R(dr) @ pose[:, :3]`` and ``pose[:, 3] + dt``. Returns
+    (perturbed poses, dr, dt)."""
+    rng = np.random.default_rng(seed)
+    dr = (sigma * rng.normal(size=(len(poses), 3))).astype(np.float32)
+    dt = (sigma * rng.normal(size=(len(poses), 3))).astype(np.float32)
+    out = np.array(poses, np.float32)
+    out[..., :3] = axisangle_to_R(torch.from_numpy(dr)).numpy() @ out[..., :3]
+    out[..., 3] += dt
+    return out, dr, dt
+
+
+def gauge_center_error(centers, true_centers):
+    """The mean distance of camera centres (N, 3) from the true ones after
+    the mean offset is removed: a global translation of every camera (with
+    the scene) is not observable under a NeRF loss."""
+    d = np.asarray(centers, np.float64) - np.asarray(true_centers,
+                                                     np.float64)
+    return float(np.linalg.norm(d - d.mean(axis=0), axis=1).mean())

@@ -19,7 +19,10 @@ the CPU.
   ``--ckpt_path`` resumes the step, the learning rate and the Adam state.
 * ``main`` on a 32x32 NSVF scene writes the checkpoints and the result
   PNGs and prints ``test/psnr`` and ``test/ssim``, for a LowRank and a
-  Hash field; the flags the port has not ported raise.
+  Hash field; the flags the port has not ported raise. ``main`` runs
+  ``--use_exposure`` (on a 12x12 HDR-NeRF scene), ``--optimize_ext`` and
+  ``--bf16``, and their checkpoints (tonemappers, dR/dT, poses) cross
+  backends both ways.
 * ``main`` on a COLMAP scene at ``--scale 4`` (four cascades) trains
   through the cascade march and the eroding refresh, with the real-scene
   settings of the JAX trainer (``random_bg``, exponential steps, no flat
@@ -58,8 +61,11 @@ from mfnerf_tpu_torch.models import rendering as trendering
 from mfnerf_tpu_torch.utils import ckpt as tckpt
 from mfnerf_tpu_torch.utils import metrics as tmetrics
 from mfnerf_tpu_torch.ops.ray_march import cascades_stratum
-from mfnerf_tpu_torch.utils.procedural import (make_scene,
+from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
+                                               make_scene,
                                                write_colmap_scene,
+                                               write_hdr_scene,
                                                write_nsvf_scene)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +76,8 @@ SMALL = ["--lr_levels", "2", "--lr_rank", "8", "--lr_k_max", "32",
          "--grid_size", "16", "--max_samples", "128", "--s_max_train", "16",
          "--s_max_test", "32", "--rgb_channels", "16", "--rgb_layers", "1",
          "--batch_size", "256", "--downsample", "0.04"]
+# _argv's flags up to --downsample (a COLMAP scene's cameras are the files')
+SMALL_END = 10 + SMALL.index("--downsample")
 HASH = ["--grid", "Hash", "--L", "4", "--T", "10", "--N_max", "64"]
 
 
@@ -438,12 +446,133 @@ def test_main_writes_checkpoints_and_results(cli_dir, capsys, grid):
         "000.png", "000_d.png", "001.png", "001_d.png"]
 
 
-@pytest.mark.parametrize("flag", [["--use_exposure"], ["--optimize_ext"],
-                                  ["--bf16"], ["--num_gpus", "2"],
-                                  ["--eval_lpips"], ["--profile"]])
+@pytest.mark.parametrize("flag", [["--num_gpus", "2"], ["--eval_lpips"],
+                                  ["--profile"]])
 def test_unported_flags_raise(cli_dir, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         _main(_argv(*flag))
+
+
+def _hdr_scene(root):
+    """A 12x12 spread scene in HDR-NeRF's synthetic layout under ``root``
+    (luckycat's exposures; 54 train and 34 test views)."""
+    write_hdr_scene(root, make_scene(n_train=HDR_TRAIN[0],
+                                     n_test=HDR_TEST[0], wh=12, seed=0,
+                                     spread=5.0), spread=5.0)
+
+
+@pytest.mark.parametrize("flag", ["--use_exposure", "--optimize_ext",
+                                  "--bf16"])
+def test_ported_flags_run_main(cli_dir, monkeypatch, capsys, flag):
+    """``main`` with each flag that the JAX trainer implements:
+    ``--use_exposure`` on an HDR-NeRF scene (the log-radiance head and its
+    tonemappers, the unit-exposure loss, each test view at its exposure),
+    ``--optimize_ext`` (dR and dT trained at ``--pose_lr`` and saved with
+    the poses, which the slim copy keeps) and ``--bf16`` (bf16 operands in
+    the MLPs; fp32 parameters and checkpoint)."""
+    seen = _lr_trace(monkeypatch)
+    argv = _argv(flag, "--pose_lr", "1e-3")
+    if flag == "--use_exposure":
+        root = os.path.join("HDR-NeRF", "syndata", "luckycat")
+        _hdr_scene(root)
+        argv = ["--root_dir", root, "--dataset_name", "colmap", "--scale",
+                "4", *_argv()[2:SMALL_END], flag]
+        losses = []
+        terms = ttrain.NeRFSystem.losses
+        monkeypatch.setattr(ttrain.NeRFSystem, "losses", lambda self, r, t: (
+            losses.append(terms(self, r, t)) or losses[-1]))
+        renders = []
+        render_test = ttrain.render_test
+        monkeypatch.setattr(ttrain, "render_test", lambda *a, **k: (
+            renders.append(k.get("exposure")) or render_test(*a, **k)))
+    metrics = _main(argv)
+    system = seen["system"]
+    assert all(np.isfinite(v) for v in metrics.values())
+    dataset = "colmap" if flag == "--use_exposure" else "nsvf"
+    ckpt_dir = os.path.join("ckpts", dataset, "t")
+    full = tckpt.load_ckpt(os.path.join(ckpt_dir, "epoch=0.ckpt.npz"))
+    slim = tckpt.load_ckpt(os.path.join(ckpt_dir, "epoch=0_slim.ckpt.npz"))
+    assert full["step"] == 8
+    assert all(v.dtype == np.float32 for v in full["params"].values())
+    if flag == "--use_exposure":
+        assert system.model.cfg.rgb_act == "None"
+        assert len(losses) == 8 and all(
+            t["unit_exposure"].shape == (1, 3) for t in losses)
+        assert {f"tonemappers/{c}/{i}" for c in range(3) for i in range(2)} \
+            <= set(full["params"])
+        assert renders == [1.0, 0.25] * 17
+        assert capsys.readouterr().out.count("val image") == 34
+    elif flag == "--optimize_ext":
+        n = len(system.train_dataset.poses)
+        assert full["params"]["dR"].shape == full["params"]["dT"].shape \
+            == (n, 3) and np.abs(full["params"]["dT"]).max() > 0
+        assert system.optimizer.param_groups[1]["lr"] == 1e-3
+        assert {"exp_avg/dR", "exp_avg_sq/dT", "step/dR"} \
+            <= set(full["opt_state"])
+        for ck in (full, slim):
+            np.testing.assert_array_equal(ck["poses"][""],
+                                          system.train_dataset.poses)
+    else:
+        assert system.model.dtype == torch.bfloat16
+        assert "poses" not in full and "dR" not in full["params"]
+
+
+def test_ext_and_hdr_checkpoints_cross_backends(cli_dir, tmp_path):
+    """A checkpoint with the HDR tonemappers, dR/dT and the poses, both
+    ways: the port's fills the JAX ``load_ckpt(like=...)`` template (and
+    the JAX slim copy with ``save_poses`` keeps the poses); a JAX one
+    (``save_ckpt(poses=...)``) restores into the port's trainer, dR and dT
+    into its pose group; the port's slim copy keeps the poses only with
+    ``save_poses``."""
+    argv = _argv("--use_exposure", "--optimize_ext", "--no_save_test")
+    system = ttrain.NeRFSystem(topt.get_opts(argv), device="cpu")
+    scene = make_scene(n_train=4, n_test=1, wh=12, seed=0)
+    rays = np.concatenate([scene["images"], np.full(
+        (4, 144, 1), 0.5, np.float32)], axis=2)
+    train = MemoryDataset(scene["poses"], rays, scene["K"],
+                          scene["directions"], scene["img_wh"])
+    train.unit_exposure_rgb = 0.5
+    system.setup(train)
+    system.configure(0)
+    system.fit(3)
+    system.save(str(tmp_path))
+    path = str(tmp_path / "epoch=0.ckpt.npz")
+    jcfg = jngp.NGPConfig(**dataclasses.asdict(system.model_cfg))
+    template = jngp.NGP(jcfg).init(jax.random.PRNGKey(1))
+    assert "tonemappers" in template
+    template.update(dR=jnp.zeros((4, 3)), dT=jnp.zeros((4, 3)))
+    loaded = jckpt.load_ckpt(path, like={"params": template})
+    saved = tckpt.params_to_numpy(system.model, system.ext)
+    flat = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path_): np.asarray(v) for path_, v in
+            jax.tree_util.tree_flatten_with_path(loaded["params"])[0]}
+    assert sorted(flat) == sorted(saved)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+    np.testing.assert_array_equal(loaded["poses"][""], scene["poses"])
+    jckpt.slim_ckpt(path, str(tmp_path / "jslim.npz"), save_poses=True)
+    np.testing.assert_array_equal(
+        jckpt.load_ckpt(str(tmp_path / "jslim.npz"))["poses"][""],
+        scene["poses"])
+    tckpt.slim_ckpt(path, str(tmp_path / "tslim.npz"))
+    assert "poses" not in tckpt.load_ckpt(str(tmp_path / "tslim.npz"))
+
+    params = dict(jngp.NGP(jcfg).init(jax.random.PRNGKey(2)))
+    rng = np.random.default_rng(2)
+    params["dR"], params["dT"] = (jnp.asarray(rng.normal(
+        scale=0.01, size=(4, 3)).astype(np.float32)) for _ in range(2))
+    jpath = str(tmp_path / "jax.ckpt.npz")
+    jckpt.save_ckpt(jpath, params, step=3, poses=jnp.asarray(scene["poses"]))
+    system.restore(jpath)
+    want = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                          params))
+    got = {**system.model.state_dict(), **system.ext}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].detach().numpy(), v.numpy(),
+                                      err_msg=k)
+    assert system.global_step == 3
+    assert system.optimizer.param_groups[1]["lr"] == 1e-6
 
 
 def test_tpu_formulation_flags_are_ignored_with_a_line(cli_dir, capsys):

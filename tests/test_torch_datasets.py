@@ -11,10 +11,16 @@ the NeRF++ and RTMV layouts by the JAX package's writers. Both loaders
 read the same files; the port decodes with ``png.py``, and refuses JPEG
 and OpenEXR files by name.
 
+HDR-NeRF's synthetic layout comes from the port's ``write_hdr_scene``:
+both loaders hand out the same rgb and exposure a view and a training ray,
+and the trainer steps and validates on it without ``--use_exposure``.
+
 Tolerances: K, directions and poses 1e-6 (the same float32 arithmetic);
 rays 1e-6 at the files' size and 2e-3 resized (``downsample`` 0.5: a
 bilinear torch resize against cv2's, tests/test_torch_io.py).
 """
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -42,9 +48,13 @@ from mfnerf_tpu_torch.datasets.nerf import NeRFDataset as TNeRF
 from mfnerf_tpu_torch.datasets.nerfpp import NeRFPPDataset as TNeRFPP
 from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset as TNSVF
 from mfnerf_tpu_torch.datasets.rtmv import RTMVDataset as TRTMV
-from mfnerf_tpu_torch.utils.procedural import (make_scene,
+from mfnerf_tpu_torch import train as ttrain
+from mfnerf_tpu_torch.opt import get_opts
+from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
+                                               make_scene,
                                                write_blender_scene,
                                                write_colmap_scene,
+                                               write_hdr_scene,
                                                write_nsvf_scene)
 
 RESIZE_TOL = 2e-3
@@ -298,3 +308,74 @@ def test_read_image_names_a_format_it_cannot_read(tmp_path, magic, fmt):
         f.write(magic + bytes(60))
     with pytest.raises(ValueError, match=rf"view\.\w+: a {fmt} file"):
         read_image(path, (4, 4))
+
+
+@pytest.fixture(scope="module")
+def hdr_root(tmp_path_factory):
+    """A 12x12 spread scene in HDR-NeRF's synthetic layout (luckycat's
+    exposures: train 2, 0.5, 0.125; test 1, 0.25)."""
+    root = str(tmp_path_factory.mktemp("hdr") / "HDR-NeRF" / "syndata"
+               / "luckycat")
+    write_hdr_scene(root, make_scene(n_train=HDR_TRAIN[0],
+                                     n_test=HDR_TEST[0], wh=12, seed=0,
+                                     spread=5.0), spread=5.0)
+    return root
+
+
+def test_hdr_test_views_match_jax(hdr_root):
+    """The test split's views: rgb (H*W, 3) and the view's exposure, as the
+    JAX base returns them (``mfnerf_tpu/datasets/base.py:50-60``); the
+    rays keep the exposure column."""
+    got, want = TColmap(hdr_root, split="test"), JColmap(hdr_root,
+                                                         split="test")
+    assert got.rays.shape == want.rays.shape == (34, 144, 4)
+    assert got.unit_exposure_rgb == want.unit_exposure_rgb == 0.73
+    for i in range(len(got)):
+        a, b = got[i], want[i]
+        assert set(a) == set(b) == {"pose", "img_idxs", "rgb", "exposure"}
+        assert a["rgb"].shape == (144, 3)
+        np.testing.assert_allclose(a["rgb"], b["rgb"], rtol=0, atol=1e-6)
+        assert a["exposure"] == b["exposure"] == (1.0, 0.25)[i % 2]
+
+
+def test_hdr_scene_trains_without_use_exposure(hdr_root, monkeypatch):
+    """Without ``--use_exposure`` ``fit`` takes its steps on the HDR scene
+    (the Sigmoid head ignores the exposure); a step's target is the rgb and
+    its exposure the 4th column of the JAX base's training sample for the
+    same (image, pixel) draws; ``validate`` scores every test view."""
+    want = JColmap(hdr_root, split="train")
+    want.batch_size = 64
+    want.seed(4)
+    sample = want[0]
+    hp = get_opts(["--root_dir", hdr_root, "--dataset_name", "colmap",
+                   "--scale", "4", "--lr_levels", "2", "--lr_rank", "8",
+                   "--lr_k_max", "32", "--grid_size", "16", "--max_samples",
+                   "128", "--s_max_train", "16", "--s_max_test", "32",
+                   "--rgb_channels", "16", "--rgb_layers", "1",
+                   "--batch_size", "64", "--num_epochs", "1",
+                   "--steps_per_epoch", "4"])
+    system = ttrain.NeRFSystem(hp, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        system.setup()
+    system.configure(0)
+    m = system.fit()
+    assert system.global_step == 4 and torch.isfinite(m["loss"]).all()
+    seen = {}
+    render_train = ttrain.render_train
+
+    def spy(*args):
+        seen["exposure"] = args[-1]
+        return render_train(*args)
+
+    monkeypatch.setattr(ttrain, "render_train", spy)
+    img = torch.from_numpy(sample["img_idxs"])
+    pix = torch.from_numpy(sample["pix_idxs"])
+    _, res, target = system.step_loss(img, pix, torch.rand(64))
+    np.testing.assert_array_equal(target["rgb"].numpy(), sample["rgb"])
+    np.testing.assert_array_equal(seen["exposure"].numpy(),
+                                  sample["exposure"])
+    assert res["rgb"].shape == (64, 3)
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        metrics = system.validate()
+    assert np.isfinite(metrics["test/psnr"])
+    assert log.getvalue().count("val image") == 34

@@ -12,7 +12,8 @@ off torch's, and now and then that ulp crosses a cell boundary and adds or
 drops a sample; op by op the two sample sets agree bit for bit
 (tests/test_torch_ops.py). The field is a small unfused LowRank model (fp32
 hat matmuls): the fused encoder's bf16 hat weights are a step function of
-the position, and its parity is tested in tests/test_torch_field.py.
+the position, and its parity is tested in tests/test_torch_field.py. An
+HDR head (``rgb_act="None"``) is rendered at a view's exposure.
 """
 import dataclasses
 
@@ -46,11 +47,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _setup(fill=0x33, n=512, miss_every=0, seed=0, scale=0.5):
-    jcfg = jngp.NGPConfig(grid="LowRank", scale=scale, **SMALL)
+def _setup(fill=0x33, n=512, miss_every=0, seed=0, scale=0.5, **kw):
+    jcfg = jngp.NGPConfig(grid="LowRank", scale=scale, **SMALL, **kw)
     jmodel = jngp.NGP(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed))
-    tmodel = tngp.NGP(tngp.NGPConfig(scale=scale, **SMALL), device="cpu")
+    tmodel = tngp.NGP(tngp.NGPConfig(scale=scale, **SMALL, **kw),
+                      device="cpu")
     tmodel.load_state_dict(params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params)))
 
@@ -73,17 +75,23 @@ def _setup(fill=0x33, n=512, miss_every=0, seed=0, scale=0.5):
     return (jmodel, params, occ_j), (tmodel, occ_t), rays_o, rays_d
 
 
-def _render_both(setup, rcfg_kw):
+def _render_both(setup, rcfg_kw, exposure=None):
+    """The JAX oracle's frame and the port's two; ``exposure``: the view's
+    (HDR heads), as the JAX ``render_test`` reshapes it to (1, 1)."""
     (jmodel, params, occ_j), (tmodel, occ_t), rays_o, rays_d = setup
     with jax.disable_jit():
         want = jrendering.render_test_dense(
             jmodel, params, occ_j, jnp.asarray(rays_o), jnp.asarray(rays_d),
-            jrendering.RenderConfig(**rcfg_kw))
+            jrendering.RenderConfig(**rcfg_kw),
+            exposure=None if exposure is None
+            else jnp.full((1, 1), exposure, jnp.float32))
     want = {k: np.asarray(want[k]) for k in ("rgb", "opacity", "depth")}
     rcfg = trendering.RenderConfig(**rcfg_kw)
     ro, rd = torch.from_numpy(rays_o), torch.from_numpy(rays_d)
-    dense = trendering.render_test_dense(tmodel, occ_t, ro, rd, rcfg)
-    alive = trendering.render_test(tmodel, occ_t, ro, rd, rcfg)
+    dense = trendering.render_test_dense(tmodel, occ_t, ro, rd, rcfg,
+                                         exposure=exposure)
+    alive = trendering.render_test(tmodel, occ_t, ro, rd, rcfg,
+                                   exposure=exposure)
     return want, dense, alive
 
 
@@ -103,6 +111,23 @@ def test_renderers_match_jax_oracle(T_threshold):
     _assert_frame(alive, want)
     assert alive["total_samples"] > 0 and alive["rounds"] > 1
     assert (want["opacity"] > 0.05).mean() > 0.5   # content, not background
+
+
+@pytest.mark.parametrize("exposure", [0.25, 2.0])
+def test_renderers_match_jax_oracle_at_an_exposure(exposure):
+    """An HDR head (``rgb_act="None"``) renders a view at its exposure, as
+    the JAX renderers take it (``exposure=``, a (1, 1) array); the frame
+    differs from the one at exposure 1."""
+    setup = _setup(seed=3, rgb_act="None")
+    rcfg_kw = dict(T_threshold=1e-4, test_chunk=256)
+    want, dense, alive = _render_both(setup, rcfg_kw, exposure)
+    _assert_frame(dense, want)
+    _assert_frame(alive, want)
+    _, (tmodel, occ_t), rays_o, rays_d = setup
+    unit = trendering.render_test(tmodel, occ_t, torch.from_numpy(rays_o),
+                                  torch.from_numpy(rays_d),
+                                  trendering.RenderConfig(**rcfg_kw))
+    assert float((unit["rgb"] - alive["rgb"]).abs().max()) > 1e-2
 
 
 def test_missed_rays_get_white_background():

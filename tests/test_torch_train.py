@@ -18,11 +18,19 @@ tests/test_torch_render.py). Tolerances:
   sides (tests/test_torch_field.py's rotation-rounding exception), which
   must be nearly all of them, with the hat backward's atol (an ulp of the
   cotangent from the MLP backward can move a g_d across a bf16 step).
+* the trainer's step under ``--optimize_ext``, ``--use_exposure`` and
+  ``--bf16`` against the JAX trainer's (``_check_trainer_step``): as the
+  whole step above, dR/dT and the tonemappers included; the fused
+  encoder's gradients on 99.5% of their elements within its atol and all
+  within 1e-3 of the largest value; under ``--bf16`` the loss 1e-4 and
+  each gradient 2e-2 relative L2 (BF16_LOSS_RTOL, BF16_GRAD_RTOL).
+* Rodrigues and its gradient: 1e-6 relative.
 * render_train against the JAX render_train: rgb, opacity, depth 1e-5 on
   the rays whose sample counts agree.
 * occupancy refresh: 1e-4, the bitfield bit for bit away from the threshold.
 """
 import argparse
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -35,6 +43,7 @@ import optax
 
 from mfnerf_tpu import losses as jlosses
 from mfnerf_tpu import train as jtrain
+from mfnerf_tpu.datasets import ray_utils as jray
 from mfnerf_tpu.models import ngp as jngp
 from mfnerf_tpu.models import rendering as jrendering
 from mfnerf_tpu.ops import activations as jact
@@ -48,6 +57,7 @@ from mfnerf_tpu.utils.procedural import make_scene as jmake_scene
 from mfnerf_tpu_torch import losses as tlosses
 from mfnerf_tpu_torch import train as ttrain
 from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+from mfnerf_tpu_torch.datasets.ray_utils import axisangle_to_R
 from mfnerf_tpu_torch.models import ngp as tngp
 from mfnerf_tpu_torch.models import rendering as trendering
 from mfnerf_tpu_torch.ops import composite as tcomposite
@@ -421,18 +431,35 @@ def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod,
     return float(loss.detach()), grads, res
 
 
-@pytest.mark.parametrize("grid,fused,m", [
-    pytest.param("LowRank", False, 8, id="False"),
-    pytest.param("LowRank", True, 8, id="True"),
-    pytest.param("Hash", False, 8, id="Hash"),
-    pytest.param("MixedFeature", False, 8, id="MixedFeature"),
-    pytest.param("MixedFeature", False, 1, id="MixedFeature-sampled")])
-def test_train_step_matches_jax(grid, fused, m):
+@pytest.mark.parametrize("grid,fused,m,flags", [
+    pytest.param("LowRank", False, 8, "", id="False"),
+    pytest.param("LowRank", True, 8, "", id="True"),
+    pytest.param("Hash", False, 8, "", id="Hash"),
+    pytest.param("MixedFeature", False, 8, "", id="MixedFeature"),
+    pytest.param("MixedFeature", False, 1, "", id="MixedFeature-sampled"),
+    pytest.param("LowRank", False, 8, "ext", id="ext-False"),
+    pytest.param("LowRank", True, 8, "ext", id="ext-True"),
+    pytest.param("MixedFeature", False, 8, "ext", id="ext-MixedFeature"),
+    pytest.param("MixedFeature", False, 1, "ext",
+                 id="ext-MixedFeature-sampled"),
+    pytest.param("LowRank", False, 8, "ext-flat", id="ext-flat"),
+    pytest.param("LowRank", False, 8, "exposure", id="exposure"),
+    pytest.param("LowRank", True, 8, "exposure-ext", id="exposure-ext-True"),
+    pytest.param("LowRank", False, 8, "bf16", id="bf16-False"),
+    pytest.param("LowRank", True, 8, "bf16", id="bf16-True"),
+    pytest.param("Hash", False, 8, "bf16", id="bf16-Hash")])
+def test_train_step_matches_jax(grid, fused, m, flags):
     """A whole step's loss and every parameter gradient, for the LowRank
     encoder (unfused fp32 and fused bf16) and the hash grids (MixedFeature
     with N_tables 2: salted shared tables), exact and with the sampled-corner
     table gradient. The JAX padded branch draws the sampled corners'
-    uniforms for all N*S slots; the port is handed the valid samples' rows."""
+    uniforms for all N*S slots; the port is handed the valid samples' rows.
+    With ``flags`` the step is the trainer's (``NeRFSystem.step_loss``)
+    under ``--optimize_ext`` (``dR`` and ``dT`` held too; "ext-flat" past
+    ``FLAT_AFTER`` on the flat budget), ``--use_exposure`` or ``--bf16``:
+    :func:`_check_trainer_step`."""
+    if flags:
+        return _check_trainer_step(grid, fused, m, flags)
     kw = dict(N_tables=2, hash_grad_samples=m) if grid == "MixedFeature" \
         else {}
     jmodel, params, tmodel = _models(grid=grid, lr_fused=fused, **kw)
@@ -482,6 +509,301 @@ def test_train_step_matches_jax(grid, fused, m):
         # bf16 step, as in the hat-backward tests
         _close(g, want[name].numpy(), rtol=1e-4,
                rel_atol=1e-4 if fused else 1e-5)
+
+
+# signed permutations as camera rotations: get_rays of these poses is exact
+# in both packages (one nonzero a row), and so is R(0) @ P
+ROTATIONS = np.float32([
+    [[1, 0, 0], [0, 1, 0], [0, 0, 1]],          # from -z, looking +z
+    [[1, 0, 0], [0, -1, 0], [0, 0, -1]],        # from +z, looking -z
+    [[0, 0, -1], [0, 1, 0], [1, 0, 0]],         # from +x, looking -x
+    [[1, 0, 0], [0, 0, 1], [0, -1, 0]]])        # from -y, looking +y
+EXPOSURES = np.float32([0.5, 1.0, 2.0, 0.25])
+# tolerances of the trainer step under --bf16: bf16 operands with fp32
+# sums on both sides, but an ulp of an fp32 sum (summed in another order)
+# can move a hidden activation or a gradient across a bf16 step (2^-8
+# relative), which then reaches every parameter's gradient
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 1e-4, 2e-2
+
+
+def _trainer_batch(n=128, seed=0, n_pix=96, exposure=False):
+    """Four cameras on the axes 1.4 from the centre (ROTATIONS), n_pix
+    camera-space directions about the optical axis (every 17th facing
+    backwards: a miss; no component exactly 0, where 1/d and so the pose
+    gradient of either package is not finite), and n (image, pixel) draws;
+    the images' colours, with each image's exposure as a 4th column with
+    ``exposure``."""
+    rng = np.random.default_rng(seed)
+    centers = -1.4 * ROTATIONS[:, :, 2]
+    poses = np.concatenate([ROTATIONS, centers[:, :, None]], axis=2)
+    d = rng.normal(size=(n_pix, 3)).astype(np.float32) \
+        * np.float32([0.3, 0.3, 0.0]) + np.float32([0.0, 0.0, 1.0])
+    d[::17] = np.float32([0.02, -0.01, -1.0])
+    dirs = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    images = rng.random((4, n_pix, 3), dtype=np.float32)
+    if exposure:
+        images = np.concatenate([images, np.broadcast_to(
+            EXPOSURES[:, None, None], (4, n_pix, 1))], axis=2)
+    bits = rng.integers(0, 256, 32 ** 3 // 8, dtype=np.uint8) & np.uint8(0x33)
+    return (bits, poses.astype(np.float32), dirs, np.ascontiguousarray(
+        images), rng.integers(0, 4, n), rng.integers(0, n_pix, n),
+        rng.random(n, dtype=np.float32))
+
+
+def _trainer_system(grid, fused, m, flags, params, train):
+    """A CPU NeRFSystem of the test's small model with the JAX ``params``
+    (``dR``/``dT`` into its pose group) on the ``train`` views, the strata
+    budget at 32 (the exact march's samples on this batch)."""
+    kw = dict(grid=grid, lr_fused=fused, lr_levels=SMALL["lr_levels"],
+              lr_k_max=SMALL["lr_k_max"],
+              use_exposure="exposure" in flags, optimize_ext="ext" in flags,
+              bf16=flags == "bf16", s_flat=4 if flags == "ext-flat" else 0,
+              distortion_loss_w=1e-3)
+    if grid != "LowRank":
+        kw.update(L=HASH["L"], T=HASH["log2_T"], N_max=HASH["N_max"],
+                  N_tables=2, hash_grad_samples=m)
+    system = ttrain.NeRFSystem(_hparams(**kw), device="cpu")
+    system.setup(train)
+    system.configure(0)
+    system.rcfg = dataclasses.replace(system.rcfg, s_strata=32)
+    net = {k: v for k, v in params.items() if k not in ("dR", "dT")}
+    system.model.load_state_dict(params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, net)))
+    with torch.no_grad():
+        for name, p in system.ext.items():
+            p.copy_(_t(params[name]))
+    return system
+
+
+class _JitField:
+    """The JAX field with its forward, and so its VJP, compiled; the rest
+    of a step around it runs op by op. The unfused fp32 encoder's
+    gradients agree with the port to ~1e-6 compiled, and only to ~1e-2 op
+    by op (the JAX matmuls' own rounding); the fused encoder and the hash
+    grids run op by op (module docstring)."""
+
+    def __init__(self, jmodel):
+        self.cfg, self.is_lowrank = jmodel.cfg, jmodel.is_lowrank
+        self.log_radiance_to_rgb = jmodel.log_radiance_to_rgb
+        self._fwd = jax.jit(lambda p, x, d, e, g: jmodel(
+            p, x, d, exposure=e, grad_noise=g))
+
+    def __call__(self, p, x, d, exposure=None, grad_noise=None):
+        return self._fwd(p, x, d, exposure, grad_noise)
+
+
+class _GradCapture:
+    """An optax transformation whose state after ``update`` is the
+    gradient: the JAX trainer's step then hands back its gradients
+    exactly."""
+
+    def init(self, params):
+        return params
+
+    def update(self, grads, state, params=None):
+        return jax.tree_util.tree_map(jnp.zeros_like, grads), grads
+
+
+def _op_by_op(jmodel):
+    """A context in which the JAX step runs op by op, unless ``jmodel`` is
+    a :class:`_JitField`."""
+    return contextlib.nullcontext() if isinstance(jmodel, _JitField) \
+        else jax.disable_jit()
+
+
+def _jax_trainer_grads(jmodel, params, occ, rcfg, batch, poses, dirs, key,
+                       flags, unit_rgb):
+    """The JAX trainer's own step (``NeRFSystem._make_train_step``: the
+    pose refinement, ``render_train``, NeRFLoss and the unit-exposure
+    term), compiled as the trainer compiles it (op by op, its flat
+    layout's segmented scans alone compile ~1,400 programs, ~1 min):
+    (loss, gradients)."""
+    trainer = argparse.Namespace(tx=_GradCapture(),
+                                 lr_schedule=lambda step: 0.0)
+    step = jtrain.NeRFSystem._make_train_step(
+        trainer, rcfg, jmodel, jlosses.NeRFLoss(), "exposure" in flags,
+        "ext" in flags, unit_rgb)
+    _, grads, metrics = jax.jit(step)(params, None, occ, jnp.asarray(poses),
+                                      jnp.asarray(dirs), batch, key, 0)
+    return float(metrics["loss"]), grads
+
+
+def _jax_pose_step(jmodel, params, bits, poses, dirs, batch, noise, rcfg,
+                   flags, unit_rgb):
+    """The padded branch of the JAX trainer's step with the march jitter
+    ``noise`` given: the trainer's pose refinement and get_rays
+    (``mfnerf_tpu/train.py:273-283``), then as :func:`_jax_step` (the
+    exact march, which keeps the strata budget's samples here), NeRFLoss
+    and the unit-exposure term (``:286-294``). (loss, gradients, mask)."""
+    cfg = jmodel.cfg
+    img, pix = batch["img_idxs"], batch["pix_idxs"]
+    exposure = batch.get("exposure")
+
+    def loss_fn(p):
+        pose = jnp.asarray(poses)[img]
+        if "ext" in flags:
+            dr = jray.axisangle_to_R(p["dR"][img])
+            pose = pose.at[..., :3].set(dr @ pose[..., :3])
+            pose = pose.at[..., 3].add(p["dT"][img])
+        ro, rd = jray.get_rays(jnp.asarray(dirs)[pix], pose)
+        hits = jrendering._clamp_near(jinter.ray_aabb_intersect_single(
+            ro, rd, jnp.zeros(3), jnp.full(3, cfg.scale)))
+        mr = jmarch.march_rays_train(
+            ro, rd, hits, jnp.asarray(bits), cfg.cascades, cfg.scale,
+            rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples,
+            jnp.asarray(noise), rcfg.n_rungs(cfg.scale, cfg.grid_size),
+            rcfg.s_max_train)
+        n, s = mr.ts.shape
+        exp_flat = None if exposure is None else jnp.broadcast_to(
+            exposure[:, None, :], (n, s, 1)).reshape(-1, 1)
+        sig, col = jmodel(p, mr.xyzs.reshape(n * s, 3), jnp.broadcast_to(
+            mr.dirs[:, None, :], (n, s, 3)).reshape(-1, 3),
+            exposure=exp_flat)
+        sig = jnp.where(mr.mask.reshape(-1), sig, 0.0).reshape(n, s)
+        comp = jcomposite.composite_train(sig, col.reshape(n, s, 3),
+                                          mr.deltas, mr.ts, mr.mask,
+                                          rcfg.T_threshold)
+        results = {"rgb": comp.rgb + (1.0 - comp.opacity)[:, None],
+                   "opacity": comp.opacity, "ws": comp.ws,
+                   "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask}
+        terms = jlosses.NeRFLoss()(results, batch)
+        if "exposure" in flags:
+            unit = jmodel.log_radiance_to_rgb(p, jnp.zeros((1, 3)),
+                                              exposure=jnp.ones((1, 1)))
+            terms["unit_exposure"] = 0.5 * (unit - unit_rgb) ** 2
+        return sum(v.mean() for v in terms.values()), mr.mask
+
+    with _op_by_op(jmodel):
+        (loss, mask), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            params)
+    return float(loss), grads, np.asarray(mask)
+
+
+def _check_trainer_step(grid, fused, m, flags):
+    """One step of the port's trainer (``NeRFSystem.step_loss``) against
+    the JAX trainer's, from the same weights, poses, pixels and jitter:
+    the loss and every gradient, ``dR``/``dT`` and the tonemappers
+    included. ``dR`` and ``dT`` are zero, as ``--optimize_ext`` starts, so
+    both packages march the same rays bit for bit (signed-permutation
+    cameras): off zero the rays differ by an ulp, and an ulp can move a
+    sample across the transmittance cut-off or a hat knot, where the
+    gradient jumps (``test_axisangle_to_R_matches_jax`` holds the rotation
+    and its gradient off zero; ``chip_smoke.py`` the card's step there).
+    The padded steps give the JAX side the jitter through
+    :func:`_jax_pose_step`; "ext-flat" runs the JAX trainer's own step past
+    ``FLAT_AFTER`` (:func:`_jax_trainer_grads`), its jitter drawn from its
+    key as the JAX ``render_train`` draws it. Tolerances: as the module's
+    (the fused encoder's: 99.5% of each gradient within its atol, all
+    within 1e-3 of the largest value: each g_d that an ulp moves across a
+    bf16 step moves a dW row by a step); under ``--bf16`` BF16_LOSS_RTOL
+    and BF16_GRAD_RTOL."""
+    hdr = "exposure" in flags
+    bits, poses, dirs, images, img, pix, noise = _trainer_batch(
+        exposure=hdr)
+    cfg = dict(SMALL, grid=grid, lr_fused=fused, max_samples=256,
+               rgb_act="None" if hdr else "Sigmoid",
+               compute_dtype="bfloat16" if flags == "bf16" else "float32")
+    if grid != "LowRank":
+        cfg.update(HASH, N_tables=2, hash_grad_samples=m)
+    jmodel = jngp.NGP(jngp.NGPConfig(**cfg))
+    params = jmodel.init(jax.random.PRNGKey(5))
+    if grid == "LowRank" and not fused:
+        jmodel = _JitField(jmodel)
+    if "ext" in flags:      # zero, as --optimize_ext starts
+        params["dR"], params["dT"] = jnp.zeros((4, 3)), jnp.zeros((4, 3))
+    train = MemoryDataset(poses, images, np.eye(3), dirs, (len(dirs), 1))
+    unit_rgb = 0.73 if hdr else None
+    train.unit_exposure_rgb = unit_rgb
+    system = _trainer_system(grid, fused, m, flags, params, train)
+    rcfg_t = system.rcfg
+    rcfg_j = jrendering.RenderConfig(**{
+        f.name: getattr(rcfg_t, f.name)
+        for f in dataclasses.fields(trendering.RenderConfig)})
+    if fused:   # the rays whose bf16 hat bases agree on both sides
+        ro, rd = (x.numpy() for x in ttrain.get_rays(
+            _t(dirs)[_t(pix)], _t(poses)[_t(img)]))
+        with torch.no_grad():
+            mr = trendering.march_rays_train(
+                _t(ro), _t(rd), trendering._scene_hits(system.model, _t(ro),
+                                                       _t(rd)),
+                _t(bits), 1, 0.5, 0.0, 32, 256, _t(noise),
+                rcfg_t.n_rungs(0.5, 32), rcfg_t.s_max_train)
+        mask = mr.mask.numpy()
+        same = np.ones(mask.shape, bool)
+        same[mask] = _same_bf16_basis(
+            np.clip(mr.xyzs.numpy()[mask] + 0.5, 0, 1).astype(np.float32),
+            system.model.lowrank_cfg)
+        keep = same.all(axis=1)
+        assert keep.mean() > 0.9, keep.mean()
+        img, pix, noise = img[keep], pix[keep], noise[keep]
+    batch = {"img_idxs": jnp.asarray(img), "pix_idxs": jnp.asarray(pix),
+             "rgb": jnp.asarray(images[img, pix, :3])}
+    if hdr:
+        batch["exposure"] = jnp.asarray(images[img, pix, 3:4])
+    grad_noise = None
+    if flags == "ext-flat":
+        occ_j = dataclasses.replace(jngp.OccupancyState.create(jmodel.cfg),
+                                    density_bitfield=jnp.asarray(bits)
+                                    ).refresh_coarse(jmodel.cfg)
+        key = jax.random.PRNGKey(3)
+        noise = np.asarray(jax.random.uniform(jax.random.split(key, 3)[0],
+                                              (len(img),)))
+        loss_j, grads_j = _jax_trainer_grads(
+            jmodel, params, occ_j, rcfg_j, batch, poses, dirs, key, flags,
+            unit_rgb)
+        system.global_step = ttrain.FLAT_AFTER
+    else:
+        if m < 8:
+            grad_noise = np.random.default_rng(1).random(
+                (len(img) * rcfg_t.s_max_train, m), dtype=np.float32)
+        jmodel_g = jmodel
+        if grad_noise is not None:    # the padded branch's uniforms
+            def jmodel_g(p, x, d, exposure=None):
+                return jmodel(p, x, d, exposure=exposure,
+                              grad_noise=jnp.asarray(grad_noise))
+            jmodel_g.cfg = jmodel.cfg
+            jmodel_g.log_radiance_to_rgb = jmodel.log_radiance_to_rgb
+        loss_j, grads_j, mask_j = _jax_pose_step(
+            jmodel_g, params, bits, poses, dirs, batch, noise, rcfg_j,
+            flags, unit_rgb)
+        if grad_noise is not None:
+            grad_noise = _t(grad_noise[mask_j.reshape(-1)])
+    system.occ = dataclasses.replace(system.occ, density_bitfield=_t(bits)
+                                     ).refresh_coarse(system.model_cfg)
+    loss, res, _ = system.step_loss(_t(img), _t(pix), _t(noise),
+                                    grad_noise=grad_noise)
+    loss.backward()
+    grads_t = {k: p.grad.numpy() for k, p in [
+        *system.model.named_parameters(), *system.ext.items()]}
+    if flags != "ext-flat":
+        np.testing.assert_array_equal(res["mask"].numpy(), mask_j)
+    else:   # the flat budget cut the batch
+        assert int(res["rm_samples"]) > int(res["mask"].sum()) \
+            == len(img) * rcfg_t.s_flat
+    assert int(res["mask"].sum()) > 400
+    bf16 = flags == "bf16"
+    np.testing.assert_allclose(float(loss.detach()), loss_j,
+                               rtol=BF16_LOSS_RTOL if bf16 else 1e-5)
+    want = params_from_numpy(jax.tree_util.tree_map(np.asarray, grads_j))
+    assert set(want) == set(grads_t)
+    if "ext" in flags:
+        assert {"dR", "dT"} <= set(grads_t)
+    if hdr:
+        assert "tonemappers.2.1" in grads_t
+    for name, g in grads_t.items():
+        assert np.abs(g).max() > 0 and np.isfinite(g).all(), name
+        if bf16:
+            err = np.linalg.norm(g - want[name].numpy())
+            assert err <= BF16_GRAD_RTOL * np.linalg.norm(
+                want[name].numpy()), (name, err)
+        elif fused:
+            w = want[name].numpy()
+            top = float(np.abs(w).max())
+            within = np.abs(g - w) <= 1e-4 * np.abs(w) + 1e-4 * top
+            assert within.mean() >= 0.995, (name, within.mean())
+            _close(g, w, rtol=1e-4, rel_atol=1e-3)
+        else:
+            _close(g, want[name].numpy(), rtol=1e-4, rel_atol=1e-5)
 
 
 @pytest.mark.parametrize("s_flat,s_strata,fill,scale", [
@@ -684,6 +1006,88 @@ def test_occupancy_march_grids_match_jax_refresh_coarse(scale, tmp_path):
             np.testing.assert_array_equal(
                 np.packbits(coarse.numpy(), bitorder="little"),
                 np.asarray(want.coarse_bitfield))
+
+
+# ---------------------------------------------------------- pose refinement
+@pytest.mark.parametrize("case", ["zero", "tiny", "random"])
+def test_axisangle_to_R_matches_jax(case):
+    """Rodrigues as the JAX package computes it: the rotation and the
+    gradient of a weighted sum of its entries (jax.grad), at v = 0 (where
+    --optimize_ext starts dR), under the 1e-14 clamp of the squared norm,
+    and at random v; finite at zero; in float64 for a float64 v (the
+    trainer's pose refinement). 1e-6 relative."""
+    rng = np.random.default_rng(13)
+    v = {"zero": np.zeros((3, 3), np.float32),
+         "tiny": np.float32([[1e-8, -2e-8, 3e-8]] * 3),
+         "random": rng.normal(scale=0.7, size=(16, 3)).astype(np.float32)
+         }[case]
+    w = rng.normal(size=(len(v), 3, 3)).astype(np.float32)
+
+    def objective(r, to):
+        return (r * to(w)).sum()
+
+    r_j = jray.axisangle_to_R(jnp.asarray(v))
+    g_j = np.asarray(jax.grad(lambda x: objective(
+        jray.axisangle_to_R(x), jnp.asarray))(jnp.asarray(v)))
+    vv = _t(v).requires_grad_()
+    r_t = axisangle_to_R(vv)
+    objective(r_t, _t).backward()
+    np.testing.assert_allclose(r_t.detach().numpy(), np.asarray(r_j),
+                               rtol=1e-6, atol=1e-6)
+    assert np.isfinite(vv.grad.numpy()).all()
+    _close(vv.grad.numpy(), g_j, rtol=1e-6, rel_atol=1e-6)
+    np.testing.assert_allclose(axisangle_to_R(_t(v[0])).numpy(),
+                               np.asarray(r_j)[0], rtol=1e-6, atol=1e-6)
+    r64 = axisangle_to_R(_t(v).double())    # the trainer's refinement's
+    assert r64.dtype == torch.float64
+    np.testing.assert_allclose(r64.numpy(), np.asarray(r_j), rtol=1e-6,
+                               atol=1e-6)
+    if case == "zero":      # the identity, and the skew term's gradient
+        np.testing.assert_array_equal(r_t.detach().numpy(),
+                                      np.broadcast_to(np.eye(3), r_t.shape))
+        assert np.abs(vv.grad.numpy()).max() > 0
+
+
+def test_pose_group_keeps_its_rate():
+    """--optimize_ext: dR and dT are an Adam group of their own at
+    --pose_lr with optax's defaults (eps 1e-8), off the cosine staircase
+    the network's group follows: over fit, after set_step (a resume), and
+    step by step as optax.adam(pose_lr) moves the same parameters under the
+    same gradients (test_adam_steps_match_optax's tolerance)."""
+    scene = make_scene(n_train=4, n_test=1, wh=8, seed=0)
+    system = ttrain.NeRFSystem(_hparams(
+        optimize_ext=True, pose_lr=3e-3, num_epochs=4, steps_per_epoch=5,
+        batch_size=64), device="cpu")
+    system.setup(MemoryDataset.from_scene(scene, "train"))
+    system.configure(0)
+    net, pose = system.optimizer.param_groups
+    assert [p.shape for p in pose["params"]] == [(4, 3), (4, 3)]
+    assert pose["params"][0] is system.ext["dR"]
+    assert pose["eps"] == 1e-8 and pose["betas"] == (0.9, 0.999)
+    assert net["eps"] == 1e-15
+    grads = []
+    system.optimizer.register_step_pre_hook(lambda opt, args, kwargs: (
+        grads.append([p.grad.clone() for p in opt.param_groups[1]["params"]])))
+    m = system.fit(12)
+    assert len(grads) == 12
+    assert len(set(m["lr"].tolist())) == 3          # the staircase moved
+    assert pose["lr"] == 3e-3
+    tx = optax.adam(3e-3)
+    p = {"dR": jnp.zeros((4, 3)), "dT": jnp.zeros((4, 3))}
+    state = tx.init(p)
+    for g_r, g_t in grads:
+        upd, state = tx.update({"dR": jnp.asarray(g_r.numpy()),
+                                "dT": jnp.asarray(g_t.numpy())}, state, p)
+        p = optax.apply_updates(p, upd)
+    for name in ("dR", "dT"):
+        got = system.ext[name].detach().numpy()
+        assert np.abs(got).max() > 0
+        np.testing.assert_allclose(got, np.asarray(p[name]), rtol=1e-6,
+                                   atol=1e-7)
+    system.set_step(17)
+    assert pose["lr"] == 3e-3 and net["lr"] == system.schedule(17)
+    system.fit(2)
+    assert pose["lr"] == 3e-3 and system.global_step == 19
 
 
 # ---------------------------------------------------------------- optimiser

@@ -2,8 +2,8 @@
 their quality.
 
     python3 tools/seed_sweep.py [--steps 600] [--seeds 1337 0 1 2 ...]
-        [--batch_seed S] [--data memory|nsvf|colmap] [--wh 800] \
-        [--spread 5 --scale 4] [--extra --flag value ...]
+        [--batch_seed S] [--data memory|nsvf|colmap|hdr] [--wh 800] \
+        [--spread 5 --scale 4] [--perturb 0.03] [--extra --flag value ...]
 
 The hyperparameters are ``get_opts`` of ``chip_smoke.py``'s CLI_ARGS with
 ``--seed`` set (the bench.py LowRank model, batch 8192, lr 1e-2). Each seed
@@ -26,12 +26,20 @@ without a CUDA device. ``--wh 200`` is the scene of
 black, the command line's ``--scale``: at 4, four cascades and the
 cascade march). ``--extra`` appends command-line flags (e.g.
 ``--s_max_train 512``, whose strata budget is 64) to every row's.
+``--data hdr`` trains with ``--use_exposure`` on the scene in HDR-NeRF's
+synthetic layout (``write_hdr_scene``, 18 train and 17 test poses,
+``luckycat``'s exposures) and adds each test exposure's mean PSNR;
+``--perturb SIGMA`` shifts the training poses (``perturb_poses``), trains
+with ``--optimize_ext`` and adds the gauge-corrected camera-centre error
+before and after: the counterparts of ``tools/seed_sweep_jax.py --hdr``
+and ``--perturb``.
 """
 import argparse
 import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,13 +56,36 @@ def occupied(system):
     return float(np.unpackbits(bits).mean())
 
 
+def psnr_by_exposure(log, test_dataset):
+    """{exposure: mean PSNR of the test views at it} from ``validate``'s
+    lines in ``log``."""
+    psnrs = [float(v) for v in re.findall(r"^val image .*psnr=([0-9.]+)",
+                                          log, re.M)]
+    exposures = [float(test_dataset[i]["exposure"])
+                 for i in range(len(psnrs))]
+    return {str(e): float(np.mean([p for p, e_ in zip(psnrs, exposures)
+                                   if e_ == e]))
+            for e in sorted(set(exposures), reverse=True)}
+
+
+@torch.no_grad()
+def unit_exposure_rgb(system):
+    """The HDR head's rgb of zero log radiance at exposure 1 (the
+    unit-exposure loss's prediction)."""
+    dev = system.device
+    return system.model.log_radiance_to_rgb(
+        torch.zeros((1, 3), device=dev),
+        torch.ones((1, 1), device=dev))[0].tolist()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--seeds", type=int, nargs="+",
                     default=[1337, 0, 1, 2, 3, 4, 5, 6, 7])
     ap.add_argument("--batch_seed", type=int, default=None)
-    ap.add_argument("--data", choices=("memory", "nsvf", "colmap"),
+    ap.add_argument("--perturb", type=float, default=None)
+    ap.add_argument("--data", choices=("memory", "nsvf", "colmap", "hdr"),
                     default="memory")
     ap.add_argument("--wh", type=int, default=None)
     ap.add_argument("--spread", type=float, default=1.0)
@@ -72,21 +103,34 @@ def main():
     from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import UPDATE_INTERVAL, NeRFSystem
-    from mfnerf_tpu_torch.utils.procedural import (make_scene,
+    from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
+                                                   gauge_center_error,
+                                                   make_scene, perturb_poses,
                                                    write_colmap_scene,
+                                                   write_hdr_scene,
                                                    write_nsvf_scene)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    colmap = args.data == "colmap"
-    scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS,
-                       n_test=chip_smoke.COLMAP_TEST_VIEWS if colmap
+    colmap = args.data in ("colmap", "hdr")
+    hdr = args.data == "hdr"
+    scene = make_scene(n_train=HDR_TRAIN[0] if hdr
+                       else chip_smoke.N_TRAIN_VIEWS,
+                       n_test=HDR_TEST[0] if hdr
+                       else chip_smoke.COLMAP_TEST_VIEWS if colmap
                        else chip_smoke.CLI_TEST_VIEWS,
                        wh=args.wh or chip_smoke.WH, seed=chip_smoke.SEED,
                        spread=args.spread)
-    if colmap:
+    if hdr:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "HDR-NeRF", "syndata", "luckycat")
+            write_hdr_scene(root, scene, spread=args.spread)
+            with contextlib.redirect_stdout(io.StringIO()):
+                datasets = (ColmapDataset(root, "train"),
+                            ColmapDataset(root, "test"))
+    elif colmap:
         with tempfile.TemporaryDirectory() as tmp:
             write_colmap_scene(tmp, scene, spread=args.spread)
             with contextlib.redirect_stdout(io.StringIO()):
@@ -100,12 +144,18 @@ def main():
     else:
         datasets = (MemoryDataset.from_scene(scene, "train"),
                     MemoryDataset.from_scene(scene, "test"))
+    if args.perturb is not None:
+        true_centers = datasets[0].poses[:, :, 3].copy()
+        datasets[0].poses = perturb_poses(datasets[0].poses, args.perturb)[0]
     for seed in args.seeds:
         batch_seed = seed if args.batch_seed is None else args.batch_seed
         hp = get_opts(["--root_dir", "<memory>", *chip_smoke.CLI_ARGS,
                        "--steps_per_epoch", str(args.steps),
                        "--seed", str(batch_seed)]
                       + (["--dataset_name", "colmap"] if colmap else [])
+                      + (["--use_exposure"] if hdr else [])
+                      + (["--optimize_ext"] if args.perturb is not None
+                         else [])
                       + args.extra
                       + ([] if args.scale is None
                          else ["--scale", str(args.scale)]))
@@ -115,8 +165,20 @@ def main():
         system.fit(UPDATE_INTERVAL)
         first = occupied(system)
         m = system.fit(args.steps - UPDATE_INTERVAL)
-        with contextlib.redirect_stdout(io.StringIO()):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
             val = system.validate()
+        extra = {}
+        if hdr:
+            extra["psnr_by_exposure"] = psnr_by_exposure(
+                log.getvalue(), datasets[1])
+            extra["unit_exposure_rgb"] = unit_exposure_rgb(system)
+        if args.perturb is not None:
+            pert = datasets[0].poses[:, :, 3]
+            extra["center_err_before"] = gauge_center_error(pert,
+                                                            true_centers)
+            extra["center_err_after"] = gauge_center_error(
+                pert + system.ext["dT"].detach().cpu().numpy(), true_centers)
         print(json.dumps({
             "data": args.data, "wh": scene["img_wh"][0], "init_seed": seed,
             "spread": args.spread, "scale": system.model_cfg.scale,
@@ -127,7 +189,7 @@ def main():
             "rm_s": float(m["rm_s"][-50:].mean()),
             "vr_s": float(m["vr_s"][-50:].mean()),
             "test_psnr": val["test/psnr"], "test_ssim": val["test/ssim"],
-            "card": card}), flush=True)
+            **extra, "card": card}), flush=True)
         del system
         torch.cuda.empty_cache()
     return 0

@@ -4,7 +4,8 @@ spread that ``tools/seed_sweep.py`` measures on the port.
 
     JAX_PLATFORMS=cpu python3 tools/seed_sweep_jax.py [--wh 200] \
         [--steps 600] [--seeds 1337 0 1 2] [--exact_march] \
-        [--spread 5 --scale 4] [--colmap_root DIR] [--port_init S]
+        [--spread 5 --scale 4] [--colmap_root DIR] [--port_init S] \
+        [--hdr] [--perturb 0.03] [--extra --flag value ...]
 
 The hyperparameters are the reference's ``get_opts`` of ``chip_smoke.py``'s
 CLI_ARGS with ``--seed S`` last, as the command line gives them: the seed
@@ -29,6 +30,19 @@ seed S (``mfnerf_tpu_torch``'s ``NeRFSystem.configure(S)`` draws them
 from a CPU generator, so the card's run of ``tools/seed_sweep.py`` starts
 from the same ones), loaded by ``--weight_path``: the seed then draws
 only the ray batches and the jitter.
+
+``--hdr`` trains with ``--use_exposure`` on the scene written in
+HDR-NeRF's synthetic layout (``write_hdr_scene`` under
+``HDR-NeRF/syndata/luckycat``: 18 train poses at exposures 2, 0.5 and
+0.125, 17 test poses at 1 and 0.25, ``--wh`` and ``--spread`` as above),
+loaded by the COLMAP loader, and also prints each test exposure's mean
+PSNR. ``--perturb SIGMA`` shifts the training poses (``perturb_poses``:
+axis-angle and translation N(0, SIGMA^2)), trains with ``--optimize_ext``
+and prints the gauge-corrected camera-centre error before and after
+(``gauge_center_error``; the refined centre is the perturbed one plus
+``dT``). ``--extra`` appends command-line flags (``--pose_lr 2e-3``,
+``--batch_size 2048``) to every seed's. The port's counterparts are
+``tools/seed_sweep.py --data hdr`` and ``--perturb``.
 
 ``--exact_march`` marches every ray as the port does: the reference's
 render module is told that no two-level or cascade stratum exists (so it
@@ -81,6 +95,9 @@ def main():
     ap.add_argument("--scale", type=float, default=0.5)
     ap.add_argument("--colmap_root", default=None)
     ap.add_argument("--port_init", type=int, default=None)
+    ap.add_argument("--hdr", action="store_true")
+    ap.add_argument("--perturb", type=float, default=None)
+    ap.add_argument("--extra", nargs=argparse.REMAINDER, default=[])
     args = ap.parse_args()
     import jax
     if args.exact_march:
@@ -92,6 +109,15 @@ def main():
     from mfnerf_tpu.opt import get_opts
     from mfnerf_tpu.train import NeRFSystem
     from mfnerf_tpu.utils.procedural import make_scene
+    tmp = tempfile.TemporaryDirectory()
+    if args.hdr:
+        from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
+                                                       write_hdr_scene)
+        args.colmap_root = os.path.join(tmp.name, "HDR-NeRF", "syndata",
+                                        "luckycat")
+        write_hdr_scene(args.colmap_root, make_scene(
+            n_train=HDR_TRAIN[0], n_test=HDR_TEST[0], wh=args.wh,
+            seed=SCENE_SEED, spread=args.spread), spread=args.spread)
     if args.colmap_root:
         with contextlib.redirect_stdout(io.StringIO()):
             datasets = [ColmapDataset(args.colmap_root, split)
@@ -101,11 +127,18 @@ def main():
                            wh=args.wh, seed=SCENE_SEED, spread=args.spread)
         datasets = [MemoryDataset.from_scene(scene, split)
                     for split in ("train", "test")]
+    if args.perturb is not None:
+        from mfnerf_tpu_torch.utils.procedural import (gauge_center_error,
+                                                       perturb_poses)
+        true_centers = datasets[0].poses[:, :, 3].copy()
+        datasets[0].poses = perturb_poses(datasets[0].poses, args.perturb)[0]
     flags = ([*CLI_ARGS, "--steps_per_epoch", str(args.steps), "--scale",
               str(args.scale), "--no_save_test"]
              + (["--s_flat", "0"] if args.exact_march else [])
-             + (["--dataset_name", "colmap"] if args.colmap_root else []))
-    tmp = tempfile.TemporaryDirectory()
+             + (["--dataset_name", "colmap"] if args.colmap_root else [])
+             + (["--use_exposure"] if args.hdr else [])
+             + (["--optimize_ext"] if args.perturb is not None else [])
+             + args.extra)
     if args.port_init is not None:
         path = os.path.join(tmp.name, "port_init.ckpt.npz")
         port_weights(["--root_dir", "<memory>", *flags], args.port_init,
@@ -124,18 +157,39 @@ def main():
         last = re.findall(r"^step .* psnr ([0-9.]+) rm_s ([0-9.]+) "
                           r"vr_s ([0-9.]+)", log.getvalue(), re.M)[-1]
         bits = np.asarray(jax.device_get(system.occ.density_bitfield))
+        extra = {}
+        if args.hdr:
+            psnrs = [float(v) for v in re.findall(
+                r"^val image .*psnr=([0-9.]+)", log.getvalue(), re.M)]
+            exposures = [float(datasets[1][i]["exposure"])
+                         for i in range(len(psnrs))]
+            extra["psnr_by_exposure"] = {
+                str(e): float(np.mean([p for p, e_ in zip(psnrs, exposures)
+                                       if e_ == e]))
+                for e in sorted(set(exposures), reverse=True)}
+            extra["unit_exposure_rgb"] = np.asarray(
+                system.model.log_radiance_to_rgb(
+                    system.params, np.zeros((1, 3), np.float32),
+                    exposure=np.ones((1, 1), np.float32)))[0].tolist()
+        if args.perturb is not None:
+            pert = datasets[0].poses[:, :, 3]
+            extra["center_err_before"] = gauge_center_error(pert,
+                                                            true_centers)
+            extra["center_err_after"] = gauge_center_error(
+                pert + np.asarray(system.params["dT"]), true_centers)
         print(json.dumps({
             "backend": "jax", "device": "cpu", "wh": args.wh,
             "seed": seed, "steps": args.steps,
             "exact_march": args.exact_march,
             "spread": args.spread, "scale": args.scale,
             "colmap_root": args.colmap_root, "port_init": args.port_init,
+            "hdr": args.hdr, "perturb": args.perturb, "extra": args.extra,
             "occupied_end": float(np.unpackbits(bits).mean()),
             "train_psnr_last_step": float(last[0]), "rm_s": float(last[1]),
             "vr_s": float(last[2]),
             "test_psnr": float(val["test/psnr"]),
             "test_ssim": float(val["test/ssim"]),
-            "fit_s": seconds}), flush=True)
+            "fit_s": seconds, **extra}), flush=True)
     tmp.cleanup()
     return 0
 

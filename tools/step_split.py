@@ -1,7 +1,7 @@
 """Where a training step's time goes, stage by stage, on the card.
 
     python3 tools/step_split.py [--config mf|bench|mf360|mf360_black|lr360] \
-        [--warm 300] [--steps 64]
+        [--warm 300] [--steps 64] [--bf16]
 
 Trains ``chip_smoke.py``'s configuration (``mf``: MF_HP, the MixedFeature
 benchmark grid; ``bench``: BENCH_HP, the LowRank bench model; on their 16
@@ -9,7 +9,9 @@ procedural 800x800 views) or one of its multi-cascade recipes (``mf360``:
 MF360_ARGS, the MixedFeature mip-NeRF 360 recipe at --scale 8;
 ``mf360_black``: the same without --random_bg; ``lr360``: LR360_ARGS, the
 LowRank model there; on the COLMAP scene of its phase 20,
-written to a temporary directory) for ``--warm`` steps through
+written to a temporary directory), with ``--bf16`` under that flag
+(bf16 operands in the MLPs and the LowRank projection), for ``--warm``
+steps through
 ``NeRFSystem.fit``, then runs ``--steps`` more steps of
 ``NeRFSystem.train_step``'s body (the march with ``render_train``'s strata
 budget, the scene's background) with ``torch.cuda.synchronize()`` between
@@ -78,6 +80,7 @@ def main():
         "mf", "bench", "mf360", "mf360_black", "lr360"))
     ap.add_argument("--warm", type=int, default=300)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_split: no CUDA device", file=sys.stderr)
@@ -112,7 +115,8 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             datasets = chip_smoke.colmap_views(
                 os.path.join(tmp, chip_smoke.COLMAP_ROOT))[:2]
-    system = chip_smoke.start_system(hp, datasets, torch.device("cuda"))
+    system = chip_smoke.start_system(dict(hp, bf16=args.bf16), datasets,
+                                     torch.device("cuda"))
     system.fit(args.warm)
     torch.cuda.synchronize()
 
@@ -190,7 +194,8 @@ def main():
                 kernel[f"{key}_calls"] += calls
     per_step = {k: v / args.steps for k, v in total.items()}
     print(json.dumps({
-        "part": "stages", "config": args.config, "grid": hp["grid"],
+        "part": "stages", "config": args.config, "bf16": args.bf16,
+        "grid": hp["grid"],
         "steps_from": args.warm, "steps": args.steps,
         "samples_per_step": samples / args.steps,
         "ms_per_step": per_step, "total_ms": sum(per_step.values()),
@@ -220,7 +225,7 @@ def main():
     top = sorted(prof.key_averages(),
                  key=lambda e: -getattr(e, "device_time_total", 0.0))
     print(json.dumps({
-        "part": "profile", "config": args.config,
+        "part": "profile", "config": args.config, "bf16": args.bf16,
         "unsynced_ms_per_step": unsynced, "profiled_steps": n_prof,
         "profiled_ms_per_step": span_ms / n_prof,
         "device_kernels_per_step": len(events) / n_prof,
