@@ -5,7 +5,7 @@ spread that ``tools/seed_sweep.py`` measures on the port.
     JAX_PLATFORMS=cpu python3 tools/seed_sweep_jax.py [--wh 200] \
         [--steps 600] [--seeds 1337 0 1 2] [--exact_march] \
         [--spread 5 --scale 4] [--colmap_root DIR] [--port_init S] \
-        [--hdr] [--perturb 0.03] [--extra --flag value ...]
+        [--hdr] [--perturb 0.03] [--save_init DIR] [--extra --flag value ...]
 
 The hyperparameters are the reference's ``get_opts`` of ``chip_smoke.py``'s
 CLI_ARGS with ``--seed S`` last, as the command line gives them: the seed
@@ -42,7 +42,11 @@ and prints the gauge-corrected camera-centre error before and after
 (``gauge_center_error``; the refined centre is the perturbed one plus
 ``dT``). ``--extra`` appends command-line flags (``--pose_lr 2e-3``,
 ``--batch_size 2048``) to every seed's. The port's counterparts are
-``tools/seed_sweep.py --data hdr`` and ``--perturb``.
+``tools/seed_sweep.py --data hdr`` and ``--perturb``. ``--save_init DIR``
+writes each seed's initial parameters to ``DIR/init_<seed>.npz`` and
+trains nothing: ``tools/seed_sweep.py --extra --weight_path
+DIR/init_<seed>.npz`` then starts the port from them (the counterpart of
+``--port_init``).
 
 ``--exact_march`` marches every ray as the port does: the reference's
 render module is told that no two-level or cascade stratum exists (so it
@@ -97,6 +101,7 @@ def main():
     ap.add_argument("--port_init", type=int, default=None)
     ap.add_argument("--hdr", action="store_true")
     ap.add_argument("--perturb", type=float, default=None)
+    ap.add_argument("--save_init", default=None)
     ap.add_argument("--extra", nargs=argparse.REMAINDER, default=[])
     args = ap.parse_args()
     import jax
@@ -150,6 +155,11 @@ def main():
         system = NeRFSystem(hp)
         system.setup(*datasets)
         system.configure(jax.random.PRNGKey(seed))
+        if args.save_init:
+            from mfnerf_tpu.utils.ckpt import save_ckpt
+            save_ckpt(os.path.join(args.save_init, f"init_{seed}.npz"),
+                      system.params)
+            continue
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             seconds = system.fit()
