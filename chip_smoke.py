@@ -98,6 +98,21 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 23. cli_hdr: main --use_exposure (HDR_ARGS) on a 400x400 scene written in
    HDR-NeRF's synthetic layout (write_hdr_scene): load seconds, ms/step,
    test PSNR at each test exposure and the unit-exposure rgb;
+24. jpeg (after 2b. build_jpeg, which compiles csrc/jpeg.cpp with the host
+   compiler beside the kernels' nvcc and lists what it links: no libjpeg):
+   the committed fixtures (tests/data/jpeg: progressive 4:2:0 with
+   restarts, 4:2:2 at an odd size, grayscale) decoded byte for byte as
+   PIL decoded them, then an 800x800 4:2:0 view's decode seconds beside
+   png.py's on the same view;
+26. eval, 27. orbit, 28. profile, on phase 19's checkpoint in its working
+   directory: mfnerf_tpu_torch/eval.py in process at T 1e-4 (its mean PSNR
+   equals --val_only's within CLI_PSNR_TOL) and at 1e-2 with --mesh at
+   256^3 (ms a frame, FPS, the mesh's seconds and vertices), then
+   "python -m mfnerf_tpu_torch.eval"; the viewer's orbit render
+   (show_gui.py) in process, 8 frames at 400x400, then "python -m
+   mfnerf_tpu_torch.show_gui" (30 frames); main --profile (48 traced
+   steps, then 16): the trace names the hat kernels, and the run goes on
+   from step 0. The hat kernels' launches are counted in each;
 20. colmap_scene and train_step_oracle_cascades: the multi-cascade path's
    scene (make_scene at COLMAP_SPREAD, 800x800, 16 train and 3 test views)
    written as a COLMAP reconstruction (write_colmap_scene) under a
@@ -115,6 +130,11 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    step's rm_s and vr_s, test PSNR and SSIM (reported: see MF360_ARGS),
    and the kernels' launch counts over the run (the hash-grid pair for
    MixedFeature, the hat pair for LowRank);
+25. cli_jpeg: the same scene with its views written as JPEG (quality 95,
+   4:2:0, utils/procedural.py's encoder), loaded through csrc/jpeg.cpp
+   (the rays on average within JPEG_LOAD_TOL of the images), and the
+   LowRank run on it: load seconds, ms/step and test PSNR beside the PNG
+   run's;
 16. probe_gather: the port of benchmarking/probe_pallas_gather.py, run()
    at its shape (N = 2^20, RANK 8, K 128): table_lerp in idx mode bit for
    bit against its plain version, beside grid_sample; then at a ragged N;
@@ -280,6 +300,25 @@ EXT_CUTS = ("a procedural scene with perturbed training poses (no real "
 EXT_PERTURB = 0.03
 EXT_ARGS = (*CLI_ARGS, "--exp_name", "ext", "--optimize_ext", "--pose_lr",
             "2e-3")
+# the host JPEG decoder (built with the kernels by the host compiler) and
+# its fixtures: PIL-written files, each beside PIL's decode as a PNG
+JPEG_SRC = "mfnerf_tpu_torch/csrc/jpeg.cpp"
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+JPEG_REPEAT = 5             # timed decodes of the 800x800 view (median)
+# cli_jpeg: phase 20's scene with its views in JPEG (quality 95, 4:2:0);
+# the loaded rays are the codec's, not the images': on average within
+# this of them (the checker edges' chroma is what 4:2:0 loses)
+JPEG_LOAD_TOL = 0.01
+LR360_JPEG_ARGS = (*LR360_ARGS, "--exp_name", "colmap_lowrank_jpg")
+COLMAP_JPEG_ROOT = os.path.join("360_v2", "spheres_jpg")
+# the offline phases on the cli phase's checkpoint: the mesh at the root
+# eval.py's default resolution, the orbit at 400x400 (--downsample 0.5),
+# --profile's 48 traced steps then PROFILE_STEPS more, and the kernels the
+# trace must name (mfnerf_tpu_torch/csrc/hatmul.cu)
+MESH_RES = 256
+ORBIT_FRAMES = 8
+PROFILE_STEPS = 16
+PROFILE_KERNELS = ("hat_prod_fwd_kernel", "hat_prod_bwd_slab_kernel")
 
 
 def check(ok, what):
@@ -802,11 +841,13 @@ def val_ms(log):
                                            log, re.M)]
 
 
-def cli_phase(dev, read_launches):
+def cli_phase(dev, read_launches, offline=None):
     """The command line, in process and then as a subprocess, on the 800x800
     procedural scene (N_TRAIN_VIEWS train and CLI_TEST_VIEWS test views)
     written in the NSVF layout under a temporary directory, which is also
-    the working directory of both runs. Returns the phase's fields."""
+    the working directory of both runs; then ``offline(argv, ckpt,
+    val_only_psnr)`` there. Returns the phase's fields and what
+    ``offline`` returned."""
     from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import main as train_main
@@ -855,13 +896,14 @@ def cli_phase(dev, read_launches):
                  "--val_only", "--ckpt_path", ckpt, "--no_save_test"],
                 env=env, capture_output=True, text=True, timeout=300)
             val_only_s = time.perf_counter() - t0
+            print(proc.stdout, end="", flush=True)
+            check(proc.returncode == 0, f"--val_only exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            val_psnr = float(re.search(r"^test/psnr: ([0-9.]+)$",
+                                       proc.stdout, re.M).group(1))
+            after = offline(argv, ckpt, val_psnr) if offline else None
         finally:
             os.chdir(cwd)
-    print(proc.stdout, end="", flush=True)
-    check(proc.returncode == 0,
-          f"--val_only exited {proc.returncode}: {proc.stderr[-2000:]}")
-    val_psnr = float(re.search(r"^test/psnr: ([0-9.]+)$", proc.stdout,
-                               re.M).group(1))
     return dict(
         write_seconds=write_s,
         load_seconds=load_s, load_max_abs_err=load_err,
@@ -871,31 +913,216 @@ def cli_phase(dev, read_launches):
         val_ms_per_frame=val_ms(log.getvalue()), **launches,
         ckpt_bytes=sizes, results=results, val_only_psnr=val_psnr,
         val_only_ms_per_frame=val_ms(proc.stdout),
-        val_only_seconds=val_only_s, psnr_tol=CLI_PSNR_TOL)
+        val_only_seconds=val_only_s, psnr_tol=CLI_PSNR_TOL), after
 
 
-def colmap_views(root):
+def jpeg_links():
+    """The shared libraries the built JPEG decoder needs (ldd)."""
+    from mfnerf_tpu_torch import build
+    out = subprocess.run(["ldd", str(build.build("jpeg"))], check=True,
+                         capture_output=True, text=True).stdout
+    return [line.split()[0] for line in out.splitlines() if line.strip()]
+
+
+def jpeg_phase():
+    """24: the committed fixtures (tests/data/jpeg: each JPEG beside PIL's
+    decode of it as a PNG) decoded byte for byte, then an 800x800 4:2:0
+    file (the procedural view, utils/procedural.py's encoder at quality
+    95) timed against png.py on the same view. Returns the fields."""
+    from mfnerf_tpu_torch.datasets.jpeg import decode_jpeg, read_jpeg
+    from mfnerf_tpu_torch.datasets.png import read_png, write_png
+    from mfnerf_tpu_torch.utils.procedural import encode_jpeg, make_scene
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fixtures = {}
+    for name in sorted(os.listdir(os.path.join(repo, JPEG_FIXTURES))):
+        if not name.endswith(".jpg"):
+            continue
+        path = os.path.join(repo, JPEG_FIXTURES, name)
+        got = read_jpeg(path)
+        want = read_png(path[:-4] + ".png")
+        want = want[..., None] if want.ndim == 2 else want
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"{name}: the decode differs from PIL's")
+        fixtures[name] = list(got.shape)
+    check(len(fixtures) >= 3, f"JPEG fixtures {fixtures}")
+    scene = make_scene(n_train=1, n_test=1, wh=WH, seed=SEED)
+    img = (scene["images"][0].reshape(WH, WH, 3) * 255).astype(np.uint8)
+    data = encode_jpeg(img, 95, (2, 2))
+    jpeg_s = []
+    for _ in range(JPEG_REPEAT):
+        t0 = time.perf_counter()
+        decoded = decode_jpeg(data)
+        jpeg_s.append(time.perf_counter() - t0)
+    err = np.abs(decoded.astype(np.int64) - img)
+    png_s = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "view.png")
+        write_png(path, img)
+        for _ in range(JPEG_REPEAT):
+            t0 = time.perf_counter()
+            read_png(path)
+            png_s.append(time.perf_counter() - t0)
+        png_bytes = os.path.getsize(path)
+    return dict(fixtures=fixtures, wh=WH, sampling="4:2:0", quality=95,
+                jpeg_bytes=len(data), png_bytes=png_bytes,
+                decode_seconds=float(np.median(jpeg_s)),
+                png_decode_seconds=float(np.median(png_s)),
+                repeats=JPEG_REPEAT, mean_abs_err=float(err.mean()),
+                max_abs_err=int(err.max()))
+
+
+def offline_phases(argv, ckpt, val_psnr, dev, read_launches):
+    """26-28 on the cli phase's checkpoint, in its working directory: eval
+    (in process at validation's T 1e-4, whose mean PSNR must equal
+    --val_only's within CLI_PSNR_TOL, then at 1e-2 with --mesh at 256^3;
+    then "python -m mfnerf_tpu_torch.eval" at 1e-2), the orbit render (in
+    process, ORBIT_FRAMES frames at 400x400, then "python -m
+    mfnerf_tpu_torch.show_gui", its 30 frames) and main --profile (48
+    traced steps, then PROFILE_STEPS). The hat kernels' launch counts are
+    reset before and read after each in-process run. Returns {phase:
+    fields}."""
+    from mfnerf_tpu_torch import eval as teval
+    from mfnerf_tpu_torch import show_gui
+    from mfnerf_tpu_torch.opt import get_opts
+    from mfnerf_tpu_torch.train import main as train_main
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    served = [*argv, "--ckpt_path", ckpt, "--no_save_test"]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        at_val = teval.main([*served, "--t_threshold", str(TEST_T)],
+                            device=dev)
+    check(abs(at_val["mean_psnr"] - val_psnr) <= CLI_PSNR_TOL,
+          f"eval at T {TEST_T}: {at_val['mean_psnr']} against --val_only's "
+          f"{val_psnr}")
+    read_launches(reset=True)
+    with contextlib.redirect_stdout(log):
+        served_run = teval.main([*served, "--mesh", "mesh.obj",
+                                 "--mesh_resolution", str(MESH_RES)],
+                                device=dev)
+    eval_launches = read_launches()
+    print(log.getvalue(), end="", flush=True)
+    check(eval_launches["hat_prod_launches"] > 0,
+          f"eval launched {eval_launches}")
+    check(served_run["mesh_vertices"] > 0 and os.path.getsize("mesh.obj"),
+          f"mesh: {served_run['mesh_vertices']} vertices")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mfnerf_tpu_torch.eval",
+                           *served], env=env, capture_output=True,
+                          text=True, timeout=300)
+    eval_cli_s = time.perf_counter() - t0
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"python -m mfnerf_tpu_torch.eval exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    cli_psnr = float(re.search(r"^mean PSNR: ([0-9.]+) dB$", proc.stdout,
+                               re.M).group(1))
+    check(abs(cli_psnr - served_run["mean_psnr"]) <= 0.0051,
+          f"python -m eval's mean PSNR {cli_psnr} against "
+          f"{served_run['mean_psnr']} in process")
+    out = {"eval": dict(
+        psnr_t_1e4=at_val["mean_psnr"], val_only_psnr=val_psnr,
+        psnr_tol=CLI_PSNR_TOL, psnr_t_1e2=served_run["mean_psnr"],
+        ms_per_frame_t_1e2=served_run["ms"],
+        mean_fps_t_1e2=served_run["mean_fps"],
+        ms_per_frame_t_1e4=at_val["ms"], mesh_resolution=MESH_RES,
+        mesh_seconds=served_run["mesh_seconds"],
+        mesh_vertices=served_run["mesh_vertices"],
+        mesh_obj_bytes=os.path.getsize("mesh.obj"),
+        cli_mean_psnr=cli_psnr, cli_seconds=eval_cli_s, **eval_launches)}
+
+    orbit_argv = [*argv, "--ckpt_path", ckpt, "--downsample", "0.5"]
+    log = io.StringIO()
+    read_launches(reset=True)
+    with contextlib.redirect_stdout(log):
+        frame_ms = show_gui.main(orbit_argv, device=dev,
+                                 n_frames=ORBIT_FRAMES)
+    orbit_launches = read_launches()
+    print(log.getvalue(), end="", flush=True)
+    samples = [float(s) for s in re.findall(
+        r"^frame \d+: \d+ ms, ([0-9.]+) samples/ray$", log.getvalue(), re.M)]
+    frames = sorted(os.listdir(os.path.join("results", "nsvf", "cli",
+                                            "gui")))
+    check(len(frame_ms) == ORBIT_FRAMES and len(frames) == ORBIT_FRAMES
+          and orbit_launches["hat_prod_launches"] > 0,
+          f"orbit: {len(frame_ms)} frames, {frames}, {orbit_launches}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mfnerf_tpu_torch.show_gui",
+                           *orbit_argv], env=env, capture_output=True,
+                          text=True, timeout=300)
+    gui_cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python -m mfnerf_tpu_torch.show_gui exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    cli_ms = [float(ms) for ms in re.findall(
+        r"^frame \d+: (\d+) ms, ", proc.stdout, re.M)]
+    check(len(cli_ms) == 30, f"python -m show_gui wrote {len(cli_ms)} "
+          f"frames")
+    out["orbit"] = dict(wh=[WH // 2, WH // 2], frames=ORBIT_FRAMES,
+                        ms_per_frame=frame_ms, samples_per_ray=samples,
+                        cli_frames=len(cli_ms), cli_ms_per_frame=cli_ms,
+                        cli_seconds=gui_cli_s, **orbit_launches)
+
+    log = io.StringIO()
+    read_launches(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        metrics = train_main(get_opts([
+            *argv, "--exp_name", "profile", "--steps_per_epoch",
+            str(PROFILE_STEPS), "--no_save_test", "--profile"]), device=dev)
+    profile_s = time.perf_counter() - t0
+    profile_launches = read_launches()
+    print(log.getvalue(), end="", flush=True)
+    trace = os.path.join("logs", "nsvf", "profile", "profile", "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    named = {kernel: kernel in text for kernel in PROFILE_KERNELS}
+    steps = re.findall(r"^step +(\d+)/(\d+) ", log.getvalue(), re.M)
+    check(all(named.values()) and steps[-1] == (str(PROFILE_STEPS),
+                                                 str(PROFILE_STEPS)),
+          f"profile: kernels named {named}, steps {steps}")
+    out["profile"] = dict(trace_bytes=os.path.getsize(trace),
+                          kernels_named=named, traced_steps=48,
+                          steps_after=PROFILE_STEPS, seconds=profile_s,
+                          test_psnr=metrics["test/psnr"],
+                          **profile_launches)
+    return out
+
+
+def colmap_views(root, image_format="png"):
     """Write the multi-cascade phases' scene under ``root`` as a COLMAP
-    reconstruction and load its train and test splits as ``main`` does.
-    Returns (train, test, write seconds, load seconds of both splits)."""
+    reconstruction (its views as PNG, or with ``image_format="jpg"`` as
+    JPEG at quality 95, 4:2:0) and load its train and test splits as
+    ``main`` does. Returns (train, test, write seconds, load seconds of
+    both splits, mean and max |rays - images|)."""
     from mfnerf_tpu_torch.datasets.colmap import ColmapDataset
     from mfnerf_tpu_torch.utils.procedural import (make_scene,
                                                    write_colmap_scene)
     scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=COLMAP_TEST_VIEWS,
                        wh=WH, seed=SEED, spread=COLMAP_SPREAD)
     t0 = time.perf_counter()
-    write_colmap_scene(root, scene, spread=COLMAP_SPREAD)
+    write_colmap_scene(root, scene, spread=COLMAP_SPREAD,
+                       image_format=image_format)
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         views = [ColmapDataset(root, split=split)
                  for split in ("train", "test")]
     load_s = time.perf_counter() - t0
+    errs = []
     for ds, key in zip(views, ("images", "test_images")):
-        err = float(np.abs(ds.rays - scene[key]).max())
-        check(ds.rays.shape == scene[key].shape and err <= CLI_LOAD_TOL,
-              f"COLMAP views {ds.rays.shape}: max error {err}")
-    return (*views, write_s, load_s)
+        check(ds.rays.shape == scene[key].shape,
+              f"COLMAP views {ds.rays.shape}")
+        errs.append(np.abs(ds.rays - scene[key]))
+    mean_err = float(np.mean([e.mean() for e in errs]))
+    max_err = float(max(e.max() for e in errs))
+    if image_format == "png":
+        check(max_err <= CLI_LOAD_TOL, f"COLMAP views: max error {max_err}")
+    else:       # the lossy codec: on average within JPEG_LOAD_TOL
+        check(mean_err <= JPEG_LOAD_TOL, f"COLMAP views in JPEG: mean "
+              f"error {mean_err}")
+    return (*views, write_s, load_s, mean_err, max_err)
 
 
 def cascade_step_oracle(argv, datasets, dev, seed):
@@ -965,16 +1192,17 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                 **{f"oracle_max_abs_{k_}": v for k_, v in errs.items()})
 
 
-def colmap_cli(argv, dev, read_launches):
-    """Phase 21 for one recipe: ``main`` on the COLMAP scene in the working
-    directory, its launches over the run. Returns the fields: ms/step, the
-    last step's rm_s and vr_s, test PSNR and SSIM, the val frames' ms."""
+def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
+    """Phase 21 for one recipe: ``main`` on the COLMAP scene at ``root`` in
+    the working directory, its launches over the run. Returns the fields:
+    ms/step, the last step's rm_s and vr_s, test PSNR and SSIM, the val
+    frames' ms."""
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import main as train_main
     log = io.StringIO()
     read_launches(reset=True)
     with contextlib.redirect_stdout(log):
-        metrics = train_main(get_opts(["--root_dir", COLMAP_ROOT, *argv]),
+        metrics = train_main(get_opts(["--root_dir", root, *argv]),
                              device=dev)
     launches = read_launches()
     print(log.getvalue(), end="", flush=True)
@@ -1241,16 +1469,22 @@ def main():
         build.load_library(lib)
         return fresh, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {lib: pool.submit(timed_build, lib)
-                  for lib in ("hatmul", "hashgrid", "linetable")}
+                  for lib in ("hatmul", "hashgrid", "linetable", "jpeg")}
         for label, lib, source in (("build", "hatmul", src),
                                    ("build_hashgrid", "hashgrid", hash_src),
                                    ("build_linetable", "linetable",
-                                    line_src)):
+                                    line_src),
+                                   ("build_jpeg", "jpeg", JPEG_SRC)):
             fresh, seconds = builds[lib].result()
+            extra = {}
+            if lib == "jpeg":     # host code: no libjpeg behind it
+                extra = dict(compiler=build.cxx(), linked=jpeg_links())
+                check(not any("jpeg" in dep for dep in extra["linked"]),
+                      f"{JPEG_SRC} links {extra['linked']}")
             phase(label, source=source, built=fresh, seconds=seconds,
-                  card=card)
+                  **extra, card=card)
 
     # ---- 3. kernel against its plain version, at the serving shapes
     cfg = NGPConfig(lr_k_max=256, lr_fused=True)   # the bench model
@@ -1577,8 +1811,16 @@ def main():
         return dict(hat_prod_launches=hat_prod.launches,
                     hat_prod_bwd_launches=hat_prod_bwd.launches)
 
-    fields = cli_phase(dev, hat_launches)
+    # ---- 24. the JPEG decoder: the fixtures, an 800x800 file's time
+    phase("jpeg", **jpeg_phase(), card=card)
+
+    # ---- 19, then 26-28 on its checkpoint: eval, the orbit, --profile
+    fields, offline = cli_phase(
+        dev, hat_launches, lambda argv, ckpt, val_psnr: offline_phases(
+            argv, ckpt, val_psnr, dev, hat_launches))
     phase("cli", **fields, card=card)
+    for label in ("eval", "orbit", "profile"):
+        phase(label, **offline[label], card=card)
     check(fields["hat_prod_launches"] > 0
           and fields["hat_prod_bwd_launches"] > 0,
           f"the command line launched hat_prod {fields['hat_prod_launches']}"
@@ -1627,7 +1869,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            train_v, test_v, write_s, load_s = colmap_views(COLMAP_ROOT)
+            train_v, test_v, write_s, load_s, _, _ = colmap_views(
+                COLMAP_ROOT)
             phase("colmap_scene", root=COLMAP_ROOT, spread=COLMAP_SPREAD,
                   views=[len(train_v), len(test_v)], wh=WH,
                   write_seconds=write_s, load_seconds=load_s, card=card)
@@ -1647,6 +1890,22 @@ def main():
                 phase("cli_colmap", recipe=label, **runs[label],
                       load_seconds=load_s, card=card)
                 torch.cuda.empty_cache()
+            # ---- 25. cli_jpeg: the same scene in JPEG, the LowRank run
+            _, _, jpg_write_s, jpg_load_s, jpg_mean, jpg_max = colmap_views(
+                COLMAP_JPEG_ROOT, "jpg")
+            jpeg_run = colmap_cli(LR360_JPEG_ARGS, dev, hat_launches,
+                                  COLMAP_JPEG_ROOT)
+            png_run = runs["LowRank"]
+            phase("cli_jpeg", root=COLMAP_JPEG_ROOT, **jpeg_run,
+                  write_seconds=jpg_write_s, load_seconds=jpg_load_s,
+                  load_mean_abs_err=jpg_mean, load_max_abs_err=jpg_max,
+                  load_tol=JPEG_LOAD_TOL, png_load_seconds=load_s,
+                  png_ms_per_step=png_run["ms_per_step"],
+                  png_test_psnr=png_run["test_psnr"], card=card)
+            check(min(jpeg_run["hat_prod_launches"],
+                      jpeg_run["hat_prod_bwd_launches"]) > 0,
+                  f"the JPEG COLMAP run launched {jpeg_run}")
+            torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
     colmap_mf, colmap_lr = runs["MixedFeature"], runs["LowRank"]
@@ -1692,6 +1951,8 @@ def main():
         "replaces": "mfnerf_tpu/ops/hatmul.py:54",
         "launches": launches_fwd,
         "cli_colmap_launches": colmap_lr["hat_prod_launches"],
+        "offline_launches": {label: offline[label]["hat_prod_launches"]
+                             for label in ("eval", "orbit", "profile")},
         "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by, "library_ms": None}, {

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
-into a shared library under ``_build/`` (listed in ``.gitignore``) at first
-use and loaded with ``ctypes``. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: machines without ``nvcc``
-import the package and use the plain torch versions on CPU tensors.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code:
+the JPEG decoder) has a plain C interface. It is compiled by ``nvcc``, or by
+the host compiler (``$CXX``, else ``g++``), into a shared library under
+``_build/`` (listed in ``.gitignore``) at first use and loaded with
+``ctypes``. The library's file name carries a hash of the source and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: machines without ``nvcc`` import the
+package and use the plain torch versions on CPU tensors.
 """
 import ctypes
 import functools
@@ -19,6 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def nvcc():
@@ -33,33 +36,60 @@ def nvcc():
     return str(path)
 
 
+def cxx():
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("no host C++ compiler: set CXX or put g++ on PATH")
+    return found
+
+
+def _source(name):
+    """``csrc/<name>.cu`` if there is one, else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src):
+    """nvcc's flags for a .cu source, the host compiler's for a .cpp."""
+    return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+
+
 def library_path(name):
-    """Where ``csrc/<name>.cu`` is built for its current source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) is built for its current source
+    and flags."""
+    src = _source(name)
+    flags = _flags(src)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(name):
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
+    """Compile ``csrc/<name>.cu`` (or ``.cpp``) unless its library exists;
+    return its path.
 
-    Raises ``RuntimeError`` with the compiler's output if nvcc fails.
+    Raises ``RuntimeError`` with the compiler's output if the compiler
+    fails.
     """
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = _source(name)
+    compiler = nvcc() if src.suffix == ".cu" else cxx()
+    cmd = [compiler, *_flags(src), "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed ({proc.returncode})"
+                           f": {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
 @functools.cache
 def load_library(name):
-    """The ``ctypes`` handle of ``csrc/<name>.cu``, built on first use."""
+    """The ``ctypes`` handle of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     return ctypes.CDLL(str(build(name)))

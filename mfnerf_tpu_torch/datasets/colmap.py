@@ -10,7 +10,7 @@ test view; the ``test_traj`` spheric trajectory; HDR-NeRF's splits and
 its exposure column (``HDR_EXPOSURES``). The readers are
 ``colmap_utils.py``'s (the JAX package's C++ parser is not ported; it reads
 the same files). Images decode through ``color_utils.read_image``: PNG
-only, so a scene shipped as JPEG raises there, naming the file.
+and JPEG, as the scenes ship them.
 """
 import glob
 import os

@@ -4,21 +4,22 @@ Port of ``mfnerf_tpu/datasets/color_utils.py``: uint8 to [0, 1], alpha
 blended onto white (``blend_a=False`` onto black, as the COLMAP loader
 wants), a bilinear resize, flattened to (H*W, 3).
 
-The decoder is ``png.py`` (8-bit PNG only). It runs on the host, where the
-loaders run; it stands in for no device kernel. A JPEG (LLFF, mip-NeRF 360)
-or OpenEXR (RTMV) file raises a ``ValueError`` that names the file and its
-format: the port has no decoder for them yet.
+The decoders are ``png.py`` (8-bit PNG) and ``jpeg.py`` (JPEG, libjpeg's
+default decode bit for bit: LLFF, mip-NeRF 360, HDR-NeRF), chosen by the
+file's leading bytes. They run on the host, where the loaders run; they
+stand in for no device kernel. An OpenEXR file (only ``misc/prepare_rtmv.py``
+reads one) raises a ``ValueError`` that names the file and its format.
 """
 import numpy as np
 import torch
 
-from .png import read_png
+from .jpeg import SIGNATURE as JPEG_SIGNATURE, read_jpeg
+from .png import SIGNATURE as PNG_SIGNATURE, read_png
 
 # uint8 -> [0, 1] as the JAX package's native loader scales (a product with
 # the float32 reciprocal)
 INV_255 = np.float32(1) / np.float32(255)
-# leading bytes of the formats png.py does not read
-UNREAD_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"v/1\x01", "OpenEXR"))
+OPENEXR_SIGNATURE = b"v/1\x01"
 
 
 def srgb_to_linear(img):
@@ -47,14 +48,21 @@ def read_image(img_path, img_wh, blend_a=True):
     """Read an image to a flattened (H*W, 3) float32 array in [0, 1], at
     ``img_wh`` = (W, H)."""
     with open(img_path, "rb") as f:
-        head = f.read(4)
-    for magic, name in UNREAD_FORMATS:
-        if head.startswith(magic):
-            raise ValueError(f"{img_path}: a {name} file; the port reads "
-                             f"only 8-bit PNG (datasets/png.py)")
-    img = read_png(img_path).astype(np.float32) * INV_255
+        head = f.read(8)
+    if head.startswith(PNG_SIGNATURE):
+        img = read_png(img_path)
+    elif head.startswith(JPEG_SIGNATURE):
+        img = read_jpeg(img_path)
+    elif head.startswith(OPENEXR_SIGNATURE):
+        raise ValueError(f"{img_path}: an OpenEXR file; the port reads 8-bit "
+                         f"PNG and JPEG (datasets/png.py, datasets/jpeg.py)")
+    else:
+        raise ValueError(f"{img_path}: neither a PNG nor a JPEG file")
+    img = img.astype(np.float32) * INV_255
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)
+    if img.shape[2] == 1:      # a gray JPEG
+        img = np.concatenate([img] * 3, -1)
     if img.shape[2] == 2:      # gray + alpha
         img = np.concatenate([img[..., :1]] * 3 + [img[..., 1:]], -1)
     if img.shape[2] == 4:      # blend alpha to RGB

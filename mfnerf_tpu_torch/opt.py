@@ -129,8 +129,8 @@ def get_opts(argv=None):
                         help='npz with VGG16+LPIPS weights (--eval_lpips; '
                              'not ported)')
     parser.add_argument('--profile', action='store_true', default=False,
-                        help='capture a profiler trace of a few training '
-                             'steps (not ported)')
+                        help='trace 48 training steps with torch.profiler '
+                             'into logs/<dataset>/<exp>/profile first')
     parser.add_argument('--bf16', action='store_true', default=False,
                         help='bfloat16 matmul compute')
     parser.add_argument('--lr_levels', type=int, default=8,

@@ -41,9 +41,12 @@ unit-exposure loss and validates each view at its exposure.
 ``dR`` and a translation ``dT``, zero at the start, applied before
 ``get_rays`` and trained by their own Adam at ``--pose_lr`` (optax's
 defaults, no schedule). ``--bf16`` runs the MLPs and the LowRank
-projection on bf16 operands (``NGPConfig.compute_dtype``). Not ported
-yet: data parallelism (``num_gpus`` > 1), LPIPS (``eval_lpips``), the
-profiler (``profile``) and the mp4 assembly; the trainer raises
+projection on bf16 operands (``NGPConfig.compute_dtype``). ``--profile``
+traces one epoch of 48 steps with ``torch.profiler`` (CPU and, on the
+card, CUDA activities) into ``logs/<dataset>/<exp>/profile/trace.json``
+before training, then resets the step counter to 0 as the JAX ``main``
+does. Not ported yet: data parallelism (``num_gpus`` > 1), LPIPS
+(``eval_lpips``) and the mp4 assembly; the trainer raises
 ``NotImplementedError`` for those of its hyperparameters.
 """
 import dataclasses
@@ -77,6 +80,7 @@ WARMUP_STEPS = 256
 UPDATE_INTERVAL = 16      # steps between occupancy refreshes
 FLAT_AFTER = 512          # the first step with the --s_flat budget
 STEPS_PER_EPOCH = 1000
+PROFILE_STEPS = 48        # --profile's traced epoch (mfnerf_tpu/train.py:683)
 GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
 SAMPLING = ("all_images", "same_image")    # ray_sampling_strategy
 # cv2.COLORMAP_TURBO as cv2.applyColorMap returns it (BGR) for the values
@@ -136,8 +140,7 @@ class NeRFSystem:
         hp = hparams
         unported = {"grid": hp.grid not in GRIDS,
                     "num_gpus": getattr(hp, "num_gpus", 1) > 1,
-                    "eval_lpips": getattr(hp, "eval_lpips", False),
-                    "profile": getattr(hp, "profile", False)}
+                    "eval_lpips": getattr(hp, "eval_lpips", False)}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"{name}={getattr(hp, name)} is "
@@ -224,10 +227,8 @@ class NeRFSystem:
         runs at ``--pose_lr`` with optax's defaults and no schedule
         (``mfnerf_tpu/train.py:219-240``)."""
         hp, dev = self.hparams, self.device
-        self.model = NGP(self.model_cfg, torch.Generator().manual_seed(seed),
-                         device=dev)
+        self.init_model(seed)
         ds = self.train_dataset
-        self.ext = {}
         if hp.optimize_ext:
             self.ext = {name: torch.nn.Parameter(torch.zeros(
                 (len(ds.poses), 3), device=dev)) for name in ("dR", "dT")}
@@ -235,7 +236,6 @@ class NeRFSystem:
         if weight_path:   # partial warm start (mfnerf_tpu/train.py:224-226)
             load_params(self.model, load_ckpt(weight_path)["params"],
                         self.ext)
-        self.occ = OccupancyState.create(self.model_cfg, dev)
         self.poses = torch.from_numpy(ds.poses).to(dev)
         self.directions = torch.from_numpy(ds.directions).to(dev)
         # (N_img, H*W, 3), or 4 columns with each image's exposure
@@ -260,6 +260,16 @@ class NeRFSystem:
         self.global_step = 0
         self.n_refresh = 0
         self.culled = False
+
+    def init_model(self, seed=0):
+        """The field drawn from ``seed`` and an empty occupancy state, with
+        no pose corrections: all that serving a checkpoint needs
+        (:meth:`restore` with ``with_optimizer=False``; eval and the
+        viewer). :meth:`configure` starts from it."""
+        self.model = NGP(self.model_cfg, torch.Generator().manual_seed(seed),
+                         device=self.device)
+        self.ext = {}
+        self.occ = OccupancyState.create(self.model_cfg, self.device)
 
     def _rand(self, *shape):
         return torch.rand(shape, generator=self.generator, device=self.device)
@@ -425,12 +435,17 @@ class NeRFSystem:
         """Load a checkpoint of either package: parameters (a partial,
         shape-checked load, ``dR``/``dT`` included), the occupancy grids
         and, ``with_optimizer``, the Adam state; then continue from its step
-        (:meth:`set_step`)."""
+        (:meth:`set_step`). A system that :meth:`init_model` alone built
+        takes the parameters and the occupancy, and the step as its
+        counter."""
         ck = load_ckpt(path)
         load_params(self.model, ck["params"], self.ext)
         if "occ" in ck:
             self.occ = occupancy_from_numpy(ck["occ"], self.model_cfg,
                                             self.device)
+        if not hasattr(self, "optimizer"):      # serving only
+            self.global_step = ck["step"]
+            return
         if with_optimizer and "opt_state" in ck:
             adam_state_from_numpy(self.optimizer, self.model,
                                   ck["opt_state"], self.ext)
@@ -477,6 +492,34 @@ class NeRFSystem:
                 "test/ssim": float(np.mean(ssims))}
 
 
+def profile(system, trace_dir):
+    """Trace one epoch of PROFILE_STEPS training steps with
+    ``torch.profiler`` (CPU activities, and CUDA ones on the card) into
+    ``trace_dir/trace.json`` (a Chrome trace), as the JAX ``main``'s
+    ``--profile`` does (``mfnerf_tpu/train.py:677-688``); then restore the
+    epoch settings and set the step counter to 0, as it does. Returns the
+    trace's path."""
+    from torch.profiler import ProfilerActivity
+    activities = [ProfilerActivity.CPU]
+    if system.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    hp = system.hparams
+    saved = hp.num_epochs, system.steps_per_epoch
+    hp.num_epochs, system.steps_per_epoch = 1, PROFILE_STEPS
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            system.fit()
+            system.synchronize()
+    finally:
+        hp.num_epochs, system.steps_per_epoch = saved
+    system.set_step(0)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {trace_dir}", flush=True)
+    return path
+
+
 def main(hparams, device=None):
     """The command line's run (``mfnerf_tpu/train.py:640-729``) on ``device``
     (default: the CUDA device; raises without one): train unless
@@ -509,6 +552,9 @@ def main(hparams, device=None):
     if hparams.ckpt_path:
         system.restore(hparams.ckpt_path,
                        with_optimizer=not hparams.val_only)
+
+    if getattr(hparams, "profile", False) and not hparams.val_only:
+        profile(system, os.path.join(log_dir, "profile"))
 
     train_ms = None
     if not hparams.val_only:

@@ -13,6 +13,8 @@ shaded spheres on a white background, seen from cameras on a ring of radius
 (HDR-NeRF's synthetic layout) put a scene on disk in the layouts of the
 loaders (``datasets/``), with ``datasets/png.py`` as the PNG writer:
 pixels are ``(img * 255).astype(uint8)``, as the JAX package writes them.
+:func:`write_jpeg` is a numpy baseline JPEG encoder (Annex K tables) for
+scenes in JPEG, as LLFF and mip-NeRF 360 ship them.
 The JAX package has no Blender, COLMAP or HDR-NeRF writer.
 :func:`perturb_poses` shifts training poses for the pose refinement
 (``--optimize_ext``) to recover.
@@ -352,13 +354,16 @@ def write_rtmv_scene(root, scene=None, n_frames=110, **kwargs):
     return scene
 
 
-def write_colmap_scene(root, scene=None, spread=1.0, **kwargs):
+def write_colmap_scene(root, scene=None, spread=1.0, image_format="png",
+                       **kwargs):
     """Write a procedural scene (``make_scene(spread=spread, **kwargs)``
     unless given) as a COLMAP reconstruction: sparse/0/cameras.bin (one
     PINHOLE camera), images.bin (each view's world-to-camera quaternion and
     translation, no 2D points) and points3D.bin (COLMAP_POINTS seeded
     points on the sphere arrangement scaled by ``spread``, which the loader
-    centres the poses on), with the views as images/im_NNN.png. The test
+    centres the poses on), with the views as images/im_NNN.png, or with
+    ``image_format="jpg"`` as images/im_NNN.jpg (:func:`write_jpeg`,
+    quality 95, 4:2:0, as real scenes ship). The test
     views take every ``COLMAP_TEST_EVERY``-th index, where the loader's
     test split reads them, so the scene needs ceil((n_train + n_test) / 8)
     test views.
@@ -374,18 +379,21 @@ def write_colmap_scene(root, scene=None, spread=1.0, **kwargs):
     views = [("test_", next(test)) if i % COLMAP_TEST_EVERY == 0
              else ("", next(train)) for i in range(n)]
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    writer = {"png": write_png, "jpg": write_jpeg}[image_format]
     for i, (split, j) in enumerate(views):
-        write_png(os.path.join(root, "images", f"im_{i:03d}.png"),
-                  _to_uint8(scene[split + "images"][j], scene["img_wh"]))
+        writer(os.path.join(root, "images", f"im_{i:03d}.{image_format}"),
+               _to_uint8(scene[split + "images"][j], scene["img_wh"]))
     _write_colmap_model(root, scene, [scene[split + "poses"][j]
-                                      for split, j in views], spread)
+                                      for split, j in views], spread,
+                        image_format)
     return scene
 
 
-def _write_colmap_model(root, scene, poses, spread):
+def _write_colmap_model(root, scene, poses, spread, image_format="png"):
     """sparse/0 of a COLMAP reconstruction: one PINHOLE camera (the scene's
-    intrinsics), an image a pose named im_NNN.png in that order, and
-    COLMAP_POINTS points on the sphere arrangement scaled by ``spread``."""
+    intrinsics), an image a pose named im_NNN.<image_format> in that order,
+    and COLMAP_POINTS points on the sphere arrangement scaled by
+    ``spread``."""
     w, h = scene["img_wh"]
     k = scene["K"]
     os.makedirs(os.path.join(root, "sparse/0"), exist_ok=True)
@@ -400,8 +408,8 @@ def _write_colmap_model(root, scene, poses, spread):
             f.write(struct.pack("<i", i + 1))
             f.write(struct.pack("<dddd", *rotmat2qvec(r_w2c)))
             f.write(struct.pack("<ddd", *(-r_w2c @ c2w[:, 3])))
-            f.write(struct.pack("<i", 1) + f"im_{i:03d}.png".encode()
-                    + b"\x00")
+            name = f"im_{i:03d}.{image_format}"
+            f.write(struct.pack("<i", 1) + name.encode() + b"\x00")
             f.write(struct.pack("<Q", 0))
     rng = np.random.default_rng(0)
     idx = rng.integers(0, len(_SPHERES), COLMAP_POINTS)
@@ -480,3 +488,229 @@ def gauge_center_error(centers, true_centers):
     d = np.asarray(centers, np.float64) - np.asarray(true_centers,
                                                      np.float64)
     return float(np.linalg.norm(d - d.mean(axis=0), axis=1).mean())
+
+
+# ---------------------------------------------------------------- JPEG writer
+# A baseline encoder for test scenes: the machine that runs the port has no
+# PIL. ITU-T T.81 Annex K's quantization tables (natural order, scaled by
+# quality as libjpeg's jpeg_quality_scaling) and Huffman tables.
+JPEG_LUMA_Q = np.int64([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+JPEG_CHROMA_Q = np.int64([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32)
+_AC_SYMBOLS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a92"
+    "939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8"
+    "c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_SYMBOLS = bytes.fromhex(
+    "00010203110405213106124151076171132232810814429"
+    "1a1b1c109233352f0156272d10a162434e125f11718191a262728292a35363738"
+    "393a434445464748494a535455565758595a636465666768696a737475767778"
+    "797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+    "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9"
+    "eaf2f3f4f5f6f7f8f9fa")
+# (counts of codes of length 1..16, symbols): DC and AC, luma and chroma
+JPEG_HUFFMAN = {
+    ("dc", 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+                bytes(range(12))),
+    ("dc", 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+                bytes(range(12))),
+    ("ac", 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D),
+                _AC_SYMBOLS),
+    ("ac", 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77),
+                _AC_CHROMA_SYMBOLS),
+}
+# zigzag index -> natural index
+JPEG_ZIGZAG = np.int64([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+
+def jpeg_quant_tables(quality):
+    """The Annex K tables scaled to ``quality`` (1-100) as libjpeg scales
+    them, clamped to [1, 255]: (luma, chroma), natural order."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return tuple(np.clip((q * scale + 50) // 100, 1, 255)
+                 for q in (JPEG_LUMA_Q, JPEG_CHROMA_Q))
+
+
+def _huffman_codes(counts, symbols):
+    """(code, length) a symbol (256 entries each) of a canonical table."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _magnitude(v):
+    """(category, bits) of JPEG's magnitude coding of integers ``v``."""
+    a = np.abs(v)
+    cat = (a[..., None] >= (1 << np.arange(16))).sum(-1)
+    return cat, np.where(v < 0, v + (1 << cat) - 1, v)
+
+
+def _dct_matrix():
+    x = np.arange(8)
+    c = np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
+    c[0] *= np.sqrt(0.5)
+    return c * 0.5      # orthonormal: JPEG's 1/4 C(u) C(v) in 2-D
+
+
+def _jpeg_blocks(plane, q):
+    """(by, bx) blocks of a (8 by, 8 bx) float plane: level-shifted,
+    transformed and quantized, as (by * bx, 64) zigzag-ordered ints."""
+    hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
+    b = (plane - 128.0).reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3)
+    c = _dct_matrix()
+    f = c @ b @ c.T
+    out = np.rint(f.reshape(hb, wb, 64) / q).astype(np.int64)
+    return out[..., JPEG_ZIGZAG]
+
+
+def _entropy_code(coefs, table, comp):
+    """Baseline Huffman data of ``coefs`` (N, 64) zigzag ints in scan
+    order, with Huffman tables ``table`` (0 luma, 1 chroma) and DC chain
+    ``comp`` a block: the packed, byte-stuffed bytes."""
+    n = len(coefs)
+    dc = coefs[:, 0].copy()
+    pred = np.zeros(n, np.int64)
+    for c in np.unique(comp):       # each component's own DC chain
+        idx = np.flatnonzero(comp == c)
+        pred[idx[1:]] = dc[idx[:-1]]
+    keys, vals, lens = [], [], []
+    codes = {k: _huffman_codes(*v) for k, v in JPEG_HUFFMAN.items()}
+
+    def huff(kind, sym, tab):
+        code = np.where(tab == 0, codes[(kind, 0)][0][sym],
+                        codes[(kind, 1)][0][sym])
+        length = np.where(tab == 0, codes[(kind, 0)][1][sym],
+                          codes[(kind, 1)][1][sym])
+        return code, length
+
+    cat, bits = _magnitude(dc - pred)
+    code, length = huff("dc", cat, table)
+    keys.append(np.arange(n) * 65 * 17)
+    vals.append((code << cat) | bits)
+    lens.append(length + cat)
+    blk, pos = np.nonzero(coefs[:, 1:])
+    pos = pos + 1
+    prev = np.zeros_like(pos)       # the block's previous nonzero
+    prev[1:] = np.where(blk[1:] == blk[:-1], pos[:-1], 0)
+    run = pos - prev - 1
+    zrl = run // 16
+    tab = table[blk]
+    zcode, zlen = huff("ac", np.full(len(blk), 0xF0), tab)
+    for j in range(int(zrl.max()) if len(zrl) else 0):
+        m = zrl > j
+        keys.append(blk[m] * 65 * 17 + pos[m] * 17 + j)
+        vals.append(zcode[m])
+        lens.append(zlen[m])
+    cat, bits = _magnitude(coefs[blk, pos])
+    code, length = huff("ac", ((run % 16) << 4) | cat, tab)
+    keys.append(blk * 65 * 17 + pos * 17 + 16)
+    vals.append((code << cat) | bits)
+    lens.append(length + cat)
+    last = np.zeros(n, np.int64)
+    last[blk] = pos
+    eob = np.flatnonzero(last < 63)
+    code, length = huff("ac", np.zeros(len(eob), np.int64), table[eob])
+    keys.append(eob * 65 * 17 + 64 * 17)
+    vals.append(code)
+    lens.append(length)
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals = np.concatenate(vals)[order]
+    lens = np.concatenate(lens)[order]
+    total = int(lens.sum())
+    starts = np.cumsum(lens) - lens
+    item = np.repeat(np.arange(len(lens)), lens)
+    shift = lens[item] - 1 - (np.arange(total) - starts[item])
+    stream = ((vals[item] >> shift) & 1).astype(np.uint8)
+    stream = np.concatenate([stream, np.ones(-total % 8, np.uint8)])
+    data = np.packbits(stream)
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def _segment(marker, payload):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \
+        + payload
+
+
+def encode_jpeg(img, quality=95, sampling=(2, 2)):
+    """Baseline JPEG bytes of uint8 ``img`` (H, W, 3) or (H, W): JFIF,
+    YCbCr with the luma sampled ``sampling`` = (h, v) times the chroma
+    ((2, 2) 4:2:0, (2, 1) 4:2:2, (1, 2) 4:4:0, (1, 1) 4:4:4), the Annex K
+    tables at ``quality``. Edges are replicated to whole MCUs and the chroma
+    is the mean of each h x v cell."""
+    img = np.asarray(img, np.uint8)
+    gray = img.ndim == 2
+    h_img, w_img = img.shape[:2]
+    hs, vs = (1, 1) if gray else sampling
+    mw, mh = -(-w_img // (8 * hs)), -(-h_img // (8 * vs))
+    x = np.pad(img.astype(np.float64),
+               [(0, mh * 8 * vs - h_img), (0, mw * 8 * hs - w_img)]
+               + [(0, 0)] * (img.ndim - 2), mode="edge")
+    q_luma, q_chroma = jpeg_quant_tables(quality)
+    if gray:
+        coefs = _jpeg_blocks(x, q_luma).reshape(-1, 64)
+        blocks = (coefs, np.zeros(len(coefs), np.int64),
+                  np.zeros(len(coefs), np.int64))
+    else:
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        cb, cr = (p.reshape(mh * 8, vs, mw * 8, hs).mean(axis=(1, 3))
+                  for p in (cb, cr))
+        # MCU order: luma's vs x hs blocks, then one Cb and one Cr block
+        yb = _jpeg_blocks(y, q_luma).reshape(mh, vs, mw, hs, 64
+                                             ).transpose(0, 2, 1, 3, 4
+                                                         ).reshape(mh, mw, -1,
+                                                                   64)
+        cbb = _jpeg_blocks(cb, q_chroma)[:, :, None]
+        crb = _jpeg_blocks(cr, q_chroma)[:, :, None]
+        coefs = np.concatenate([yb, cbb, crb], axis=2).reshape(-1, 64)
+        per_mcu = np.int64([0] * (hs * vs) + [1, 2])
+        comp = np.tile(per_mcu, mh * mw)
+        blocks = (coefs, np.minimum(comp, 1), comp)
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00"
+                                 b"\x01\x00\x00")]
+    tables = [q_luma] if gray else [q_luma, q_chroma]
+    out.append(_segment(0xDB, b"".join(
+        bytes([i]) + bytes(q[JPEG_ZIGZAG].astype(np.uint8))
+        for i, q in enumerate(tables))))
+    comps = [(1, 1, 1, 0)] if gray else [(1, hs, vs, 0), (2, 1, 1, 1),
+                                         (3, 1, 1, 1)]
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, h_img, w_img,
+                                          len(comps)) + b"".join(
+        bytes([cid, (h << 4) | v, t]) for cid, h, v, t in comps)))
+    for (kind, i), (counts, symbols) in JPEG_HUFFMAN.items():
+        if gray and i:
+            continue
+        out.append(_segment(0xC4, bytes([(kind == "ac") << 4 | i])
+                            + bytes(counts) + symbols))
+    out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([cid, (t << 4) | t]) for cid, _, _, t in comps)
+        + b"\x00\x3f\x00"))
+    out.append(_entropy_code(*blocks))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def write_jpeg(path, img, quality=95, sampling=(2, 2)):
+    """Write :func:`encode_jpeg` of ``img`` to ``path``."""
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, quality, sampling))

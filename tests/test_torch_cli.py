@@ -447,8 +447,11 @@ def test_main_writes_checkpoints_and_results(cli_dir, capsys, grid):
 
 
 @pytest.mark.parametrize("flag", [["--num_gpus", "2"], ["--eval_lpips"],
-                                  ["--profile"]])
+                                  ["--num_gpus", "4"]])
 def test_unported_flags_raise(cli_dir, flag):
+    """Data parallelism (on two cards, and on the four of a multi-card
+    machine) and LPIPS raise; ``--profile`` is ported
+    (tests/test_torch_eval.py)."""
     with pytest.raises(NotImplementedError, match="not ported"):
         _main(_argv(*flag))
 

@@ -1253,8 +1253,10 @@ def test_default_sampling_draws_an_image_a_ray():
     (dict(eval_lpips=True), NotImplementedError),
     (dict(num_gpus=2), NotImplementedError),
     (dict(ray_sampling_strategy="one_ray"), ValueError),
-    (dict(profile=True), NotImplementedError)])
+    (dict(num_gpus=4), NotImplementedError)])
 def test_unported_trainer_knobs_raise(knob, error):
+    """LPIPS, data parallelism on two or four cards and an unknown ray
+    sampling raise; ``profile`` is ported (tests/test_torch_eval.py)."""
     with pytest.raises(error):
         ttrain.NeRFSystem(_hparams(**knob), device="cpu")
     ttrain.NeRFSystem(_hparams(weight_path=None, num_gpus=1), device="cpu")
