@@ -201,14 +201,14 @@ def test_read_jpeg_refuses_what_it_does_not_read(tmp_path, kind, match):
 
 
 def test_the_decoder_links_no_libjpeg():
-    """The built library needs the C and C++ runtimes only."""
+    """The built library needs the C (and C++) runtime only."""
     lib = str(build.build("jpeg"))
     with open(lib, "rb") as f:
         assert b"libjpeg" not in f.read()
     if shutil.which("ldd"):
         linked = subprocess.run(["ldd", lib], capture_output=True, text=True,
                                 check=True).stdout
-        assert "libstdc++" in linked and "jpeg" not in linked
+        assert "libc.so" in linked and "jpeg" not in linked
 
 
 # ------------------------------------------------------- the JPEG writer
