@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
 NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, on
-a synthetic scene and on a multi-cascade COLMAP scene, and the encoder
-formulation probes (mfnerf_tpu_torch/benchmarking/).
+a synthetic scene and on a multi-cascade COLMAP scene, the encoder
+formulation probes (mfnerf_tpu_torch/benchmarking/), data parallelism
+(two ranks sharing the card), the fp32 hat kernels and LPIPS.
 
     python3 chip_smoke.py
 
@@ -148,7 +149,33 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 18. probe_hatmul: the port of probe_pallas_hatmul.py, hat_prod at N = 2^19,
    K 513, R 128 bit for bit against hat_prod_plain; then at a ragged N.
    Each probe's run() is its kernels' path: their launch counts are reset
-   just before it and read just after.
+   just before it and read just after;
+29. dp_one: bench.py's configuration (DP_HP) through the data-parallel
+   path (parallel/dist.py) in a process group of one rank on NCCL, 20
+   steps from step 0 and 20 from step 600 (the flat budget), against the
+   same steps without a group: parameters, bitfield and metrics bit for
+   bit, and both ms/step;
+30. dp_two: two ranks spawned on the one card (gloo, a test-only device
+   list), for DP_HP and for the MixedFeature recipe with the sampled
+   corner (DP_MF_HP), against one rank in this process: 48 steps from
+   step 0 (the first step's gradients within DP_GRAD_TOL; the ranks
+   bitwise equal to each other at each checkpoint, the distance to one
+   rank reported) and 16 steps from step 600 whose flat cut falls inside
+   rank 0 (tests/test_multichip.py's rule), with the count of such steps;
+31. dp_render: render_test_sharded on the two ranks against render_test
+   on the trained field's held-out view (tests/test_multichip.py's
+   tolerances), and "python -m mfnerf_tpu_torch.train --num_gpus 2" on
+   this one-card machine exiting with the ValueError of make_mesh;
+32. hat_fp32: the fp32 instantiation of csrc/hatmul.cu
+   (lr_matmul_dtype="float32"): the forward at N = 2^20 and the backward
+   at 2^19 against the plain fp32 versions (phase 3's and 7's checks), one
+   fp32 training step card against CPU, 300 steps in fp32 and in bf16 in
+   turns, and both kernels on one real fp32 step's operands by CUDA-graph
+   replay, beside their bounds for 4-byte W;
+33. lpips: seeded random LPIPS weights (the pretrained VGG16 weights do
+   not ship) in an npz; two 800x800 views, card against the CPU port, ms
+   a pair; and --val_only --eval_lpips on phase 19's checkpoint
+   (test/lpips_vgg).
 
 Each phase that times a kernel prints it beside its bound (bytes at
 3.35 TB/s or fp32 operations at 67 TFLOP/s), its plain version's time and,
@@ -319,6 +346,47 @@ MESH_RES = 256
 ORBIT_FRAMES = 8
 PROFILE_STEPS = 16
 PROFILE_KERNELS = ("hat_prod_fwd_kernel", "hat_prod_bwd_slab_kernel")
+# the data-parallel phases (29-31): bench.py's configuration (bench.py:
+# 115-139) with its --pool_a 4 and a flat budget, which BENCH_HP leaves
+# out, so that the steps from FLAT_AFTER take the flat budget; and MF_HP
+# with the sampled-corner table gradient that
+# benchmark_synthetic_nerf_mf.sh's note offers (--hash_grad_samples 1),
+# whose noise rows the ranks draw for the global batch. The budget is
+# --s_flat 8, half bench.py's 16: the field's first refresh leaves ~21
+# samples a ray (LowRank) and ~27 (MixedFeature; phase 9 and 14's
+# rm_s_first), so 8 a ray of the whole batch ends inside rank 0's half,
+# the case that the samples' prefix across ranks exists for; 16 would end
+# in rank 1's
+DP_HP = dict(BENCH_HP, s_flat=8, pool_a=4)
+DP_MF_HP = dict(MF_HP, s_flat=8, pool_a=4, hash_grad_samples=1)
+DP_STEPS, DP_LATE = 20, 600       # dp_one: 20 steps from 0, 20 from 600
+# dp_two: 48 steps from step 0 (three refreshes), and 16 from step 600
+# after the cull and one refresh, each run from the seeded untrained field
+DP_TWO_STEPS, DP_TWO_LATE_STEPS = 48, 16
+# the early run's steps at which one and two ranks are compared: at every
+# one the ranks must be bitwise equal, and the distance to one rank by the
+# multichip rule is reported. It is not gated there: Adam's eps of 1e-15
+# turns a parameter's gradient near 1e-15, whose last bits the order of
+# the sums decides, into an update of up to lr, from the first step on
+# (PERF.md §6). The gate is the first step's gradients: the two
+# ranks' average against one rank's, a parameter's relative L2 error
+DP_CHECKPOINTS = (1, 2, 4, 8, 16, 32, DP_TWO_STEPS)
+DP_GRAD_TOL = 1e-3
+DP_LARGE = ("hash_table",)        # kept at the first and last checkpoint
+DP_DEVICES = ("cuda:0", "cuda:0")  # two ranks share the card (gloo)
+DP_TIMEOUT = 300                   # seconds for the two ranks' spawn
+# tests/test_multichip.py:80-95: the loss, then each parameter's elements
+DP_LOSS_TOL, DP_ELEM_ATOL, DP_ELEM_RTOL = 1e-4, 1e-4, 5e-4
+DP_ELEM_SHARE, DP_ELEM_MAX = 0.05, 5e-3
+DP_RGB_TOL, DP_DEPTH_TOL = 2e-4, 2e-3   # tests/test_multichip.py:124-131
+# the fp32 hat mode (phase 32): products round in fp32 on both sides
+HAT_FP32_TOL = 1e-5               # forward, x max |plain|
+HAT_FP32_DW_TOL = 1e-4            # dW, x max |plain|
+FP32_CHUNKS = 2                   # 100 warm + 2 x 100 timed steps a mode
+# LPIPS (phase 33): seeded random weights (the pretrained ones do not
+# ship), card against the CPU port; float32 convolutions, TF32 off
+LPIPS_TOL = 1e-5                  # relative
+LPIPS_REPEAT = 5
 
 
 def check(ok, what):
@@ -330,32 +398,34 @@ def phase(label, **fields):
     print(json.dumps({"phase": label, **fields}), flush=True)
 
 
-def fwd_bound(n, k, r):
-    """hat_prod: read u and W once, write out; per (sample, column) three
-    two-row lerps (3 operations each) and two products."""
-    return bound(12 * n + 6 * k * r + 4 * n * r, 11 * n * r)
+def fwd_bound(n, k, r, w_bytes=2):
+    """hat_prod: read u and W (``w_bytes`` an element: 2 bf16, 4 in the
+    fp32 mode) once, write out; per (sample, column) three two-row lerps
+    (3 operations each) and two products."""
+    return bound(12 * n + 3 * w_bytes * k * r + 4 * n * r, 11 * n * r)
 
 
-def bwd_bound(n, k, r, need_du):
-    """hat_prod_bwd: read u, g and W once, write dW (and du); per (sample,
-    column, axis) a lerp (3), g_d (2), two row sums (4) and with du a
-    difference and a product (2)."""
-    n_bytes = 12 * n + 4 * n * r + 6 * k * r + 12 * k * r \
+def bwd_bound(n, k, r, need_du, w_bytes=2):
+    """hat_prod_bwd: read u, g and W (``w_bytes`` an element) once, write dW
+    (and du); per (sample, column, axis) a lerp (3), g_d (2), two row sums
+    (4) and with du a difference and a product (2)."""
+    n_bytes = 12 * n + 4 * n * r + 3 * w_bytes * k * r + 12 * k * r \
         + (12 * n if need_du else 0)
     return bound(n_bytes, (11 if need_du else 9) * 3 * n * r)
 
 
-def check_bwd(label, u3, w3, k, g):
-    """Phase 7 on one set of operands: two launches give the same dW bytes,
-    dW within DW_TOL of the plain version, du 0 on the knots and within
-    DU_TOL elsewhere; the kernel's times (with and without du) beside their
-    bounds. Returns the phase's fields."""
+def check_bwd(label, u3, w3, k, g, dtype="bfloat16", dw_tol=DW_TOL):
+    """Phase 7 on one set of operands of the kernel for ``dtype``: three
+    launches give the same dW bytes, dW within ``dw_tol`` of the plain
+    version, du 0 on the knots and within DU_TOL elsewhere; the kernel's
+    times (with and without du) beside their bounds. Returns the phase's
+    fields."""
     from mfnerf_tpu_torch.ops.hatmul import hat_prod_bwd, hat_prod_bwd_plain
     n, r = g.shape
-    du, dw = hat_prod_bwd(u3, w3, k, g)
-    dw_again = hat_prod_bwd(u3, w3, k, g)[1]
-    dw_no_du = hat_prod_bwd(u3, w3, k, g, need_du=False)[1]
-    du_p, dw_p = hat_prod_bwd_plain(u3, w3, k, g)
+    du, dw = hat_prod_bwd(u3, w3, k, g, dtype=dtype)
+    dw_again = hat_prod_bwd(u3, w3, k, g, dtype=dtype)[1]
+    dw_no_du = hat_prod_bwd(u3, w3, k, g, need_du=False, dtype=dtype)[1]
+    du_p, dw_p = hat_prod_bwd_plain(u3, w3, k, g, dtype=dtype)
     torch.cuda.synchronize()
     check(du.shape == (n, 3) and dw.shape == w3.shape,
           f"hat_prod_bwd shapes {tuple(du.shape)} {tuple(dw.shape)}")
@@ -372,16 +442,19 @@ def check_bwd(label, u3, w3, k, g):
               / du_p.abs().clamp_min(1e-3 * du_scale))[~knot]
     du_within = float((du_rel <= DU_TOL_MOST).float().mean())
     du_rel_max = float(du_rel.max())
-    ms = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g), 20)
-    ms_no_du = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g, need_du=False), 20)
-    plain_ms = cuda_ms(lambda: hat_prod_bwd_plain(u3, w3, k, g), 5)
-    bound_ms, bound_by = bwd_bound(n, k, r, True)
-    bound_no_du = bwd_bound(n, k, r, False)[0]
+    ms = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g, dtype=dtype), 20)
+    ms_no_du = cuda_ms(lambda: hat_prod_bwd(u3, w3, k, g, need_du=False,
+                                            dtype=dtype), 20)
+    plain_ms = cuda_ms(lambda: hat_prod_bwd_plain(u3, w3, k, g,
+                                                  dtype=dtype), 5)
+    w_bytes = 2 if dtype == "bfloat16" else 4
+    bound_ms, bound_by = bwd_bound(n, k, r, True, w_bytes)
+    bound_no_du = bwd_bound(n, k, r, False, w_bytes)[0]
     fields = dict(
-        shape=label, n=n, k=k, r=r, g_row_stride=g.stride(0),
+        shape=label, dtype=dtype, n=n, k=k, r=r, g_row_stride=g.stride(0),
         g_contiguous=g.is_contiguous(), dw_bitwise_equal=bitwise,
         dw_launch_spread=dw_spread, dw_max_abs_err=dw_err,
-        dw_max_abs=dw_scale, dw_tol=DW_TOL, du_knot_max_abs=du_knot,
+        dw_max_abs=dw_scale, dw_tol=dw_tol, du_knot_max_abs=du_knot,
         knot_samples=int(knot.any(dim=1).sum()),
         du_share_within_tol=du_within, du_rel_err_max=du_rel_max,
         du_tol_99=DU_TOL_MOST, du_tol_all=DU_TOL_ALL, ms=ms,
@@ -389,7 +462,7 @@ def check_bwd(label, u3, w3, k, g):
         ms_no_du=ms_no_du, bound_ms_no_du=bound_no_du, plain_ms=plain_ms)
     check(bitwise and dw_spread == 0.0,
           f"{label}: dW differs between launches by {dw_spread}")
-    check(dw_err <= DW_TOL * dw_scale, f"{label}: dW vs plain: {dw_err}")
+    check(dw_err <= dw_tol * dw_scale, f"{label}: dW vs plain: {dw_err}")
     check(du_knot == 0.0, f"{label}: du on the knots: {du_knot}")
     check(du_within >= 0.99 and du_rel_max <= DU_TOL_ALL,
           f"{label}: du vs plain: {du_within} within {DU_TOL_MOST}, "
@@ -400,17 +473,18 @@ def check_bwd(label, u3, w3, k, g):
 @contextlib.contextmanager
 def recording(module, tensors=True):
     """Within the context, each call of ``module._launch_bwd`` appends its
-    arguments to the yielded list (the hat product's (u3, w3, k, g,
+    positional arguments (not the hat product's keyword ``dtype``) to the
+    yielded list (the hat product's (u3, w3, k, g,
     need_du), the hash grid's (params, x, cfg, g, window, grad_noise,
     need_dx)), tensors detached (None without ``tensors``: a training run
     would keep every step's operands), and launches as before."""
     captured, launch = [], module._launch_bwd
 
-    def recorder(*args):
+    def recorder(*args, **kwargs):
         captured.append(tuple(
             a if not torch.is_tensor(a) else a.detach() if tensors else None
             for a in args))
-        return launch(*args)
+        return launch(*args, **kwargs)
 
     module._launch_bwd = recorder
     try:
@@ -916,6 +990,472 @@ def cli_phase(dev, read_launches, offline=None):
         val_only_seconds=val_only_s, psnr_tol=CLI_PSNR_TOL), after
 
 
+def dp_runs(hp, datasets, device, cuts=None):
+    """Phase 30's two runs of ``hp``, each from the seeded untrained field
+    (:func:`start_system`): DP_TWO_STEPS of ``fit`` from step 0 (three
+    refreshes), its first step's gradients (as the optimiser takes them:
+    averaged over the ranks) and its state at each of DP_CHECKPOINTS (the
+    large hash table only at the first and the last), and
+    DP_TWO_LATE_STEPS from step
+    DP_LATE (set_step: the flat budget) after the cull and one refresh, as
+    step 0 starts, so that its first steps march the untrained field's
+    many samples a ray. With ``cuts`` (a list) every flat-budget prefix of
+    the late run is recorded in it: (samples of the ranks before this one,
+    every rank's). Returns {"early", "late": (system, metrics, ms/step,
+    [(step, state)], first step's gradients or None)}."""
+    from mfnerf_tpu_torch.parallel import dist as pdist
+    out = {}
+    prefix = pdist.Shard.prefix
+    for label, start, stops in (("early", 0, DP_CHECKPOINTS),
+                                ("late", DP_LATE, (DP_TWO_LATE_STEPS,))):
+        system = start_system(hp, datasets, device)
+        if start:
+            system.set_step(start)
+            system.fit(0)              # the cull
+            system.update_grid()       # step 0's refresh
+            if cuts is not None:
+                def recorded(shard, count):
+                    before, total = prefix(shard, count)
+                    if torch.is_tensor(count):   # the flat budget's
+                        cuts.append((int(before), int(total)))
+                    return before, total
+                pdist.Shard.prefix = recorded
+        metrics, states, seconds, done = [], [], 0.0, 0
+        grads = {}
+
+        def first_grads(optimizer, args, kwargs):
+            if not grads:
+                grads.update({name: p.grad.detach().cpu().numpy() for name, p
+                              in system.model.named_parameters()})
+
+        hook = system.optimizer.register_step_pre_hook(first_grads)
+        try:
+            for stop in stops:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(system.fit(stop - done))
+                torch.cuda.synchronize()
+                seconds += time.perf_counter() - t0
+                done = stop
+                state = state_of(system)
+                if stop not in (stops[0], stops[-1]):
+                    state = {k: v for k, v in state.items()
+                             if k not in DP_LARGE}
+                states.append((stop, state))
+        finally:
+            pdist.Shard.prefix = prefix
+            hook.remove()
+        out[label] = (system, {k: torch.cat([m[k] for m in metrics]).numpy()
+                               for k in metrics[0]},
+                      seconds * 1e3 / done, states,
+                      grads if label == "early" else None)
+    return out
+
+
+def state_of(system):
+    """The field's parameters and buffers and the occupancy bitfield, as
+    CPU numpy arrays."""
+    out = {k: v.detach().cpu().numpy()
+           for k, v in system.model.state_dict().items()}
+    out["density_bitfield"] = system.occ.density_bitfield.cpu().numpy()
+    return out
+
+
+def digest(state):
+    """One sha256 of every array of ``state`` in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(state):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(state[key]).tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank, device, recipes):
+    """A rank of phases 30-31 (``parallel.dist.spawn``, two ranks on one
+    card through gloo): for each (label, hyperparameters) of ``recipes``
+    the train scene, then :func:`dp_runs` on this rank's shards, each
+    run's state's digest (rank 0: the state), the late run's flat cuts;
+    for LowRank also phase 31, render_test_sharded of the held-out view
+    against render_test (rank 0) on the early run's field."""
+    from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+    from mfnerf_tpu_torch.device import no_tf32
+    from mfnerf_tpu_torch.models.rendering import (render_test,
+                                                   render_test_sharded)
+    from mfnerf_tpu_torch.utils.procedural import make_scene
+    no_tf32()
+    scene = make_scene(n_train=N_TRAIN_VIEWS, n_test=1, wh=WH, seed=SEED)
+    datasets = (MemoryDataset.from_scene(scene, "train"),
+                MemoryDataset.from_scene(scene, "test"))
+    out = {}
+    for label, hp in recipes:
+        cuts = []
+        runs = dp_runs(hp, datasets, device, cuts)
+        system = runs["late"][0]
+        run = dict(cuts=cuts, shard=(system.shard.lo, system.shard.hi),
+                   s_flat=system.rcfg.s_flat, n_global=system.shard.n_global)
+        for when, (sys_, metrics, ms, states, grads) in runs.items():
+            run[when] = dict(metrics=metrics, ms_per_step=ms,
+                             digests=[digest(st) for _, st in states])
+            if rank == 0:
+                run[when].update(states=states, grads=grads)
+        system = runs["early"][0]
+        del runs
+        if label == "LowRank":
+            rays, _, rcfg = held_out_view(system)
+            render_test_sharded(system.model, system.occ, *rays, rcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            split = render_test_sharded(system.model, system.occ, *rays, rcfg)
+            torch.cuda.synchronize()
+            run["sharded_ms"] = (time.perf_counter() - t0) * 1e3
+            run["sharded_samples"] = split["total_samples"]
+            if rank == 0:
+                whole, whole_ms = render_view(system, rays, rcfg)
+                run["whole_ms"] = whole_ms
+                run["whole_samples"] = whole["total_samples"]
+                run["render_err"] = {key: float(
+                    (split[key] - whole[key]).abs().max())
+                    for key in ("rgb", "opacity", "depth")}
+                run["render_finite"] = bool(torch.isfinite(
+                    split["rgb"]).all())
+        out[label] = run
+        del system
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_one(datasets, dev):
+    """Phase 29: DP_HP through the distributed path at W = 1 (a process
+    group of one rank on NCCL): DP_STEPS from step 0 and DP_STEPS from
+    DP_LATE, against the same steps without a group. Parameters, bitfield
+    and metrics must be equal bit for bit (an all-reduce of one rank,
+    divided by 1). Returns the phase's fields."""
+    from mfnerf_tpu_torch.parallel import dist as pdist
+    runs = {}
+    for label in ("plain", "dp"):
+        if label == "dp":
+            pdist.init(0, 1, dev, "nccl",
+                       f"tcp://127.0.0.1:{pdist.free_port()}")
+        try:
+            system = start_system(DP_HP, datasets, dev)
+            check((system.shard is not None) == (label == "dp"),
+                  f"{label}: shard {system.shard}")
+            metrics, ms = [], []
+            for start in (0, DP_LATE):
+                if start:
+                    system.set_step(start)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(system.fit(DP_STEPS))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
+            state = state_of(system)
+            state.update({f"metric_{k}": torch.cat([m[k] for m in metrics]
+                                                   ).numpy()
+                          for k in metrics[0]})
+            runs[label] = dict(digest=digest(state), ms=ms,
+                               backend=(torch.distributed.get_backend()
+                                        if label == "dp" else None))
+            del system
+            torch.cuda.empty_cache()
+        finally:
+            if label == "dp":
+                torch.distributed.destroy_process_group()
+    plain, dp = runs["plain"], runs["dp"]
+    equal = plain["digest"] == dp["digest"]
+    fields = dict(
+        config="bench.py:115-139 (DP_HP: BENCH_HP, --s_flat 8, --pool_a 4)",
+        world=1, backend=dp["backend"], steps=[DP_STEPS, DP_STEPS],
+        starts=[0, DP_LATE], bitwise_equal=equal,
+        plain_ms_per_step=plain["ms"], dp_ms_per_step=dp["ms"],
+        ms_ratio_dp_to_plain_late=dp["ms"][1] / plain["ms"][1])
+    return fields
+
+
+def dp_two(datasets, dev):
+    """Phases 30-31: DP_HP and DP_MF_HP on two ranks sharing the card
+    (DP_DEVICES, gloo) against one rank without a group (this process),
+    the same runs (:func:`dp_runs`). Gated: the early run's first step
+    (its gradients within DP_GRAD_TOL, its loss within DP_LOSS_TOL), the
+    late run (16 steps, the flat cut inside rank 0) by
+    tests/test_multichip.py's rule (the loss within DP_LOSS_TOL, each
+    parameter's elements), the ranks bitwise equal to each other at every
+    checkpoint, the late steps on which the flat cut fell inside rank 0;
+    reported: the early run's distance to one rank at each checkpoint.
+    Then render_test_sharded against render_test on the early run's
+    field. Returns ({label: fields}, the render's fields, what failed)."""
+    from mfnerf_tpu_torch.parallel import dist as pdist
+    recipes = [("LowRank", DP_HP), ("MixedFeature", DP_MF_HP)]
+    t0 = time.perf_counter()
+    ranks = pdist.spawn(dp_rank, list(DP_DEVICES), (recipes,),
+                        timeout=DP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    out, failed = {}, []
+    for label, hp in recipes:
+        runs = dp_runs(hp, datasets, dev)
+        r0, r1 = ranks[0][label], ranks[1][label]
+        fields = dict(
+            config=("DP_HP (bench.py:115-139 with --s_flat 8 --pool_a 4)"
+                    if label == "LowRank" else
+                    "DP_MF_HP (benchmark_synthetic_nerf_mf.sh:15-17, "
+                    "--hash_grad_samples 1)"),
+            world=2, devices=list(DP_DEVICES), backend="gloo",
+            shards=[r0["shard"], r1["shard"]], spawn_seconds=spawn_s)
+        for when, (system, metrics, ms, states, grads) in runs.items():
+            two_run = r0[when]
+            rows = []
+            grad_rel = {}
+            if grads is not None:     # the first step's, one rank and two
+                grad_rel = {name: float(np.linalg.norm(
+                    two_run["grads"][name] - g) / max(np.linalg.norm(g),
+                                                      1e-30))
+                    for name, g in grads.items()}
+                failed += [f"{label} first step: {name}'s gradient off by "
+                           f"{err} (relative L2)"
+                           for name, err in grad_rel.items()
+                           if not err <= DP_GRAD_TOL]
+            for i, (stop, one) in enumerate(states):
+                two = two_run["states"][i][1]
+                loss_one = float(metrics["loss"][stop - 1])
+                loss_two = float(two_run["metrics"]["loss"][stop - 1])
+                worst = {}
+                for key, want in one.items():
+                    if key == "density_bitfield":
+                        continue
+                    err = np.abs(two[key] - want)
+                    worst[key] = (float((err > DP_ELEM_ATOL + DP_ELEM_RTOL
+                                         * np.abs(want)).mean()),
+                                  float(err.max()))
+                rows.append(dict(
+                    steps=stop,
+                    ranks_bitwise_equal=(two_run["digests"][i]
+                                         == r1[when]["digests"][i]),
+                    loss_rel_err=abs(loss_two - loss_one) / abs(loss_one),
+                    worst_share_off=max(v[0] for v in worst.values()),
+                    worst_share_param=max(worst, key=lambda k_: worst[k_][0]),
+                    max_abs_err=max(v[1] for v in worst.values()),
+                    max_abs_param=max(worst, key=lambda k_: worst[k_][1]),
+                    bitfield_bits_differ_from_one_rank=int(np.unpackbits(
+                        two["density_bitfield"]
+                        ^ one["density_bitfield"]).sum())))
+                if not rows[-1]["ranks_bitwise_equal"]:
+                    failed.append(f"{label} {when} at {stop} steps: the two "
+                                  f"ranks' parameters or bitfields differ")
+                if i == 0 and rows[-1]["loss_rel_err"] > DP_LOSS_TOL:
+                    failed.append(f"{label} {when} at {stop}: loss "
+                                  f"{loss_two} against {loss_one}")
+                if when == "late":   # the late run: the multichip rule
+                    failed += [
+                        f"{label} {when} at {stop}: {key}: {bad} of the "
+                        f"elements off, max {err}"
+                        for key, (bad, err) in worst.items()
+                        if bad >= DP_ELEM_SHARE or err >= DP_ELEM_MAX]
+            fields[when] = dict(
+                start=0 if when == "early" else DP_LATE,
+                steps=len(metrics["loss"]),
+                first_step_grad_rel_err_max=max(grad_rel.values(),
+                                                default=None),
+                first_step_grad_rel_err_worst=max(grad_rel, default=None,
+                                                  key=grad_rel.get),
+                grad_tol=DP_GRAD_TOL,
+                loss_tol=DP_LOSS_TOL, elem_share_tol=DP_ELEM_SHARE,
+                elem_max_tol=DP_ELEM_MAX, checkpoints=rows,
+                rm_s_one=float(metrics["rm_s"][-1]),
+                rm_s_two=float(two_run["metrics"]["rm_s"][-1]),
+                one_rank_ms_per_step=ms,
+                two_rank_ms_per_step=two_run["ms_per_step"])
+        del runs, system
+        torch.cuda.empty_cache()
+        budget = r1["n_global"] * r1["s_flat"]
+        fields["late"].update(
+            flat_budget=budget,
+            steps_cut_in_rank0=sum(1 for before, _ in r1["cuts"]
+                                   if before > budget),
+            rank0_samples=[before for before, _ in r1["cuts"]])
+        out[label] = fields
+    if out["LowRank"]["late"]["steps_cut_in_rank0"] == 0:
+        failed.append("the flat cut never fell inside rank 0")
+    r0 = ranks[0]["LowRank"]
+    errs = r0["render_err"]
+    render = dict(
+        wh=WH, T_threshold=TEST_T, world=2, max_abs_err=errs,
+        tol_rgb_opacity=DP_RGB_TOL, tol_depth=DP_DEPTH_TOL,
+        sharded_ms=r0["sharded_ms"], whole_ms=r0["whole_ms"],
+        sharded_samples=r0["sharded_samples"],
+        whole_samples=r0["whole_samples"])
+    if not (r0["render_finite"] and errs["rgb"] <= DP_RGB_TOL
+            and errs["opacity"] <= DP_RGB_TOL
+            and errs["depth"] <= DP_DEPTH_TOL):
+        failed.append(f"render_test_sharded against render_test: {errs}")
+    return out, render, failed
+
+
+def num_gpus_refused():
+    """``python -m mfnerf_tpu_torch.train --num_gpus N`` with N one more
+    than the machine's cards: a non-zero exit with the ValueError of the
+    JAX make_mesh, before anything is read. Returns the phase's fields."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    n = torch.cuda.device_count() + 1
+    proc = subprocess.run(
+        [sys.executable, "-m", "mfnerf_tpu_torch.train", "--root_dir",
+         "no_such_scene", "--num_gpus", str(n)], env=env,
+        capture_output=True, text=True, timeout=300)
+    want = f"ValueError: requested {n} devices, have {n - 1}"
+    check(proc.returncode != 0 and want in proc.stderr,
+          f"--num_gpus {n}: exit {proc.returncode}, {proc.stderr[-1000:]}")
+    return dict(num_gpus=n, exit_code=proc.returncode, error=want)
+
+
+def hat_fp32(u, w3, k, datasets, dev, hat_launches):
+    """Phase 32: the fp32 instantiation of csrc/hatmul.cu. The forward at
+    N_KERNEL (phase 3's u and W) within HAT_FP32_TOL of the plain fp32
+    version, the backward at N_BWD (phase 7's checks, dW within
+    HAT_FP32_DW_TOL); one training step of BENCH_HP with
+    lr_matmul_dtype="float32", card against CPU (step_oracle); then 100 +
+    FP32_CHUNKS x 100 steps in fp32 and in bf16, in turns in this process,
+    their ms/step; and both kernels on one real fp32 step's operands,
+    device times by CUDA-graph replay beside the bf16 kernels' on the same
+    operands. Returns the phase's fields."""
+    from mfnerf_tpu_torch import build
+    from mfnerf_tpu_torch.models.ngp import NGP
+    from mfnerf_tpu_torch.ops import hatmul
+    from mfnerf_tpu_torch.ops.hatmul import (hat_prod, hat_prod_bwd,
+                                             hat_prod_plain)
+    r = w3.shape[2]
+    u3 = torch.from_numpy(u).to(dev)
+    got = hat_prod(u3, w3, k, "float32")
+    want = hat_prod_plain(u3, w3, k, "float32")
+    torch.cuda.synchronize()
+    fwd_err = float((got - want).abs().max())
+    fwd_scale = float(want.abs().max())
+    check(got.dtype == torch.float32 and fwd_err <= HAT_FP32_TOL * fwd_scale,
+          f"fp32 hat_prod vs plain: {fwd_err} of {fwd_scale}")
+    fwd = dict(n=N_KERNEL, k=k, r=r, max_abs_err=fwd_err, max_abs=fwd_scale,
+               tol=HAT_FP32_TOL,
+               ms=cuda_ms(lambda: hat_prod(u3, w3, k, "float32"), 20),
+               bf16_ms=cuda_ms(lambda: hat_prod(u3, w3, k), 20),
+               plain_ms=cuda_ms(lambda: hat_prod_plain(u3, w3, k, "float32"),
+                                5))
+    fwd["bound_ms"], fwd["bound_by"] = fwd_bound(N_KERNEL, k, r, 4)
+    del got, want, u3
+    u3 = torch.from_numpy(u[:N_BWD].copy()).to(dev)
+    g = torch.from_numpy(np.random.default_rng(SEED + 90).standard_normal(
+        (N_BWD, r), dtype=np.float32)).to(dev)
+    bwd = check_bwd("uniform_fp32", u3, w3, k, g, "float32", HAT_FP32_DW_TOL)
+    lib = build.load_library("hatmul")
+    bwd["blocks_per_sm"] = lib.hat_prod_bwd_blocks_per_sm_f32(k)
+    bwd["blocks_per_sm_bf16"] = lib.hat_prod_bwd_blocks_per_sm(k)
+    del u3, g
+    torch.cuda.empty_cache()
+
+    # one step, card against CPU
+    hp32 = dict(BENCH_HP, lr_matmul_dtype="float32")
+    system = start_system(hp32, datasets, dev)
+    check(system.model.lowrank_cfg.matmul_dtype == "float32",
+          "lr_matmul_dtype did not reach the encoder")
+    occ0 = culled_state(system, SEED + 91)
+    cpu_model = NGP(system.model_cfg, device="cpu")
+    cpu_model.load_state_dict(system.model.state_dict())
+    oracle, _ = step_oracle(system.model, cpu_model, occ0, system.rcfg,
+                            system.loss, oracle_batch(system.train_dataset,
+                                                      SEED + 92))
+    del cpu_model, occ0
+
+    # training in fp32 and bf16, in turns
+    bf16 = start_system(BENCH_HP, datasets, dev)
+    train = {}
+    for label, sys_ in (("float32", system), ("bfloat16", bf16)):
+        hat_launches(reset=True)
+        sys_.fit(CHUNK)
+        chunk_ms = []
+        for _ in range(FP32_CHUNKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = sys_.fit(CHUNK)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+        check(bool(torch.isfinite(m["loss"]).all()), f"{label}: loss")
+        train[label] = dict(chunk_ms_per_step=chunk_ms,
+                            ms_per_step=float(np.median(chunk_ms)),
+                            train_psnr=float(m["psnr"][-50:].mean()),
+                            **hat_launches())
+    check(min(train["float32"]["hat_prod_launches"],
+              train["float32"]["hat_prod_bwd_launches"]) > 0,
+          f"fp32 training launched {train['float32']}")
+
+    # both kernels on one real fp32 step's operands, graph-replayed
+    captured = capture_bwd_operands(system, SEED + 93, hatmul)
+    u3t, w3t, kt, gt, _ = captured[0]
+    frame = {"n": u3t.shape[0], "k": kt, "r": w3t.shape[2]}
+    for dt in ("float32", "bfloat16"):
+        frame[f"fwd_ms_{dt}"] = graph_ms(
+            lambda: hat_prod(u3t, w3t, kt, dt), 20)
+        frame[f"bwd_ms_{dt}"] = graph_ms(
+            lambda: hat_prod_bwd(u3t, w3t, kt, gt, need_du=False, dtype=dt),
+            20)
+    n_t, r_t = frame["n"], frame["r"]
+    frame["fwd_bound_ms"], _ = fwd_bound(n_t, kt, r_t, 4)
+    frame["bwd_bound_ms"], _ = bwd_bound(n_t, kt, r_t, False, 4)
+    train_bwd = check_bwd("train_fp32", u3t, w3t, kt, gt, "float32",
+                          HAT_FP32_DW_TOL)
+    del captured, system, bf16
+    torch.cuda.empty_cache()
+    return dict(fwd=fwd, bwd=bwd, step_oracle=oracle, train=train,
+                ms_ratio_fp32_to_bf16=train["float32"]["ms_per_step"]
+                / train["bfloat16"]["ms_per_step"],
+                train_frame=frame,
+                train_frame_checks={key: train_bwd[key] for key in (
+                    "dw_bitwise_equal", "dw_max_abs_err", "dw_max_abs",
+                    "du_knot_max_abs", "du_share_within_tol")})
+
+
+def lpips_weights_npz(path):
+    """Seeded random LPIPS weights (the pretrained ones do not ship) written
+    where ``--lpips_weights`` reads them."""
+    from mfnerf_tpu_torch.utils.lpips import random_lpips_weights
+    weights = random_lpips_weights(torch.Generator().manual_seed(SEED + 95))
+    np.savez(path, **{key: v.numpy() for key, v in weights.items()})
+
+
+def lpips_pair(npz, images, dev):
+    """Phase 33's pair: LPIPS of two WH x WH images on the card against the
+    CPU port, the card's ms a pair. Returns the phase's fields."""
+    from mfnerf_tpu_torch.utils.lpips import (load_lpips_weights,
+                                              lpips_from_weights)
+    a, b = (torch.from_numpy(x.reshape(WH, WH, 3)) for x in images)
+    cpu = float(lpips_from_weights(load_lpips_weights(npz), a, b))
+    w_dev = load_lpips_weights(npz, dev)
+    a_d, b_d = a.to(dev), b.to(dev)
+    card = float(lpips_from_weights(w_dev, a_d, b_d))
+    rel = abs(card - cpu) / abs(cpu)
+    ms = cuda_ms(lambda: lpips_from_weights(w_dev, a_d, b_d), LPIPS_REPEAT)
+    check(cpu > 0 and rel <= LPIPS_TOL, f"LPIPS card {card} against CPU {cpu}")
+    return dict(wh=WH, weights="random, seeded (the pretrained VGG16 "
+                "weights do not ship)", lpips_card=card, lpips_cpu=cpu,
+                rel_err=rel, tol=LPIPS_TOL, ms_per_pair=ms)
+
+
+def lpips_validate(argv, ckpt, npz, dev):
+    """``main --val_only --eval_lpips --lpips_weights`` on the cli phase's
+    checkpoint: its metrics (with test/lpips_vgg)."""
+    from mfnerf_tpu_torch.opt import get_opts
+    from mfnerf_tpu_torch.train import main as train_main
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        metrics = train_main(get_opts([
+            *argv, "--val_only", "--ckpt_path", ckpt, "--no_save_test",
+            "--eval_lpips", "--lpips_weights", npz]), device=dev)
+    print(log.getvalue(), end="", flush=True)
+    check("test/lpips_vgg" in metrics
+          and math.isfinite(metrics["test/lpips_vgg"]),
+          f"--eval_lpips: {metrics}")
+    return dict(metrics, seconds=time.perf_counter() - t0)
+
+
 def jpeg_links():
     """The shared libraries the built JPEG decoder needs (ldd)."""
     from mfnerf_tpu_torch import build
@@ -1415,8 +1955,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from mfnerf_tpu_torch.device import no_tf32, tf32_off
+    no_tf32()
 
     from mfnerf_tpu_torch import build
     from mfnerf_tpu_torch.benchmarking import (probe_gather, probe_gather2,
@@ -1456,7 +1996,7 @@ def main():
     phase("device", name=name, nvidia_smi=smi, torch=torch.__version__,
           torch_cuda=torch.version.cuda,
           nvcc=nvcc.strip(), triton=triton_version,
-          tf32=False)
+          tf32=not tf32_off())
 
     # ---- 2, 11 and 16a. build the kernels' sources, one nvcc each, together
     src = "mfnerf_tpu_torch/csrc/hatmul.cu"
@@ -1814,10 +2354,15 @@ def main():
     # ---- 24. the JPEG decoder: the fixtures, an 800x800 file's time
     phase("jpeg", **jpeg_phase(), card=card)
 
-    # ---- 19, then 26-28 on its checkpoint: eval, the orbit, --profile
+    # ---- 19, then 26-28 on its checkpoint: eval, the orbit, --profile;
+    # and 33's --eval_lpips on it, with seeded random LPIPS weights
+    lpips_dir = tempfile.TemporaryDirectory()
+    lpips_npz = os.path.join(lpips_dir.name, "lpips_vgg.npz")
+    lpips_weights_npz(lpips_npz)
     fields, offline = cli_phase(
-        dev, hat_launches, lambda argv, ckpt, val_psnr: offline_phases(
-            argv, ckpt, val_psnr, dev, hat_launches))
+        dev, hat_launches, lambda argv, ckpt, val_psnr: dict(
+            offline_phases(argv, ckpt, val_psnr, dev, hat_launches),
+            lpips_val=lpips_validate(argv, ckpt, lpips_npz, dev)))
     phase("cli", **fields, card=card)
     for label in ("eval", "orbit", "profile"):
         phase(label, **offline[label], card=card)
@@ -1945,7 +2490,34 @@ def main():
     probe_dw = probes["probe_gather2"]["hat_basis_dw"]
     probe_hat = probes["probe_hatmul"]["hat_prod"]
 
+    # ---- 29. the distributed path at W = 1 (NCCL) against the plain steps
+    fields = dp_one(datasets, dev)
+    phase("dp_one", **fields, card=card)
+    check(fields["bitwise_equal"], "W = 1 through the distributed path "
+          "differs from the plain steps")
+    torch.cuda.empty_cache()
+
+    # ---- 30-31. two ranks sharing the card (gloo) against one; then
+    # render_test_sharded, and --num_gpus beyond the machine's cards
+    two, render, failed = dp_two(datasets, dev)
+    for label, fields in two.items():
+        phase("dp_two", recipe=label, **fields, card=card)
+    phase("dp_render", **render, refused=num_gpus_refused(), card=card)
+    check(not failed, f"two ranks: {failed}")
+    torch.cuda.empty_cache()
+
+    # ---- 32. the fp32 hat kernels (lr_matmul_dtype="float32")
+    fp32 = hat_fp32(u, w3, k, datasets, dev, hat_launches)
+    phase("hat_fp32", **fp32, card=card)
+
+    # ---- 33. LPIPS: a pair of 800x800 views, card against CPU; the cli
+    # checkpoint's --val_only --eval_lpips (run in phase 19's directory)
+    lpips_fields = lpips_pair(lpips_npz, train_scene["images"][:2], dev)
+    phase("lpips", **lpips_fields, validate=offline["lpips_val"], card=card)
+    lpips_dir.cleanup()
+
     fwd_bound_ms, fwd_bound_by = fwd_bound(N_KERNEL, k, w3.shape[2])
+    fp32_train = fp32["train"]["float32"]
     print(json.dumps({"kernels": [{
         "name": "hat_prod", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:54",
@@ -1955,7 +2527,16 @@ def main():
                              for label in ("eval", "orbit", "profile")},
         "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": fwd_bound_ms,
-        "bound_by": fwd_bound_by, "library_ms": None}, {
+        "bound_by": fwd_bound_by, "library_ms": None,
+        "fp32": {
+            "launches": fp32_train["hat_prod_launches"],
+            "max_abs_err": fp32["fwd"]["max_abs_err"],
+            "ms": fp32["fwd"]["ms"], "plain_ms": fp32["fwd"]["plain_ms"],
+            "bound_ms": fp32["fwd"]["bound_ms"],
+            "bound_by": fp32["fwd"]["bound_by"], "library_ms": None,
+            "train_frame_ms": fp32["train_frame"]["fwd_ms_float32"],
+            "train_frame_bound_ms": fp32["train_frame"]["fwd_bound_ms"]}},
+        {
         "name": "hat_prod_bwd", "route": "cuda", "source": src,
         "replaces": "mfnerf_tpu/ops/hatmul.py:68",
         "launches": launches_bwd,
@@ -1966,7 +2547,16 @@ def main():
         "max_abs_err": bwd_uniform["dw_max_abs_err"],
         "ms": bwd_uniform["ms"], "plain_ms": bwd_uniform["plain_ms"],
         "bound_ms": bwd_uniform["bound_ms"],
-        "bound_by": bwd_uniform["bound_by"], "library_ms": None}, {
+        "bound_by": bwd_uniform["bound_by"], "library_ms": None,
+        "fp32": {
+            "launches": fp32_train["hat_prod_bwd_launches"],
+            "max_abs_err": fp32["bwd"]["dw_max_abs_err"],
+            "ms": fp32["bwd"]["ms"], "plain_ms": fp32["bwd"]["plain_ms"],
+            "bound_ms": fp32["bwd"]["bound_ms"],
+            "bound_by": fp32["bwd"]["bound_by"], "library_ms": None,
+            "train_frame_ms": fp32["train_frame"]["bwd_ms_float32"],
+            "train_frame_bound_ms": fp32["train_frame"]["bwd_bound_ms"]}},
+        {
         "name": "hashgrid_fwd", "route": "cuda", "source": hash_src,
         "replaces": "mfnerf_tpu/ops/hashgrid.py:197",
         "launches": mf_fwd,

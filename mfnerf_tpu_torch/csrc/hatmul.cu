@@ -27,6 +27,12 @@
 // per W row and two 16-byte stores per thread, neighbouring threads on
 // neighbouring addresses, R/8 threads per sample. Staging W in shared memory
 // (TMA) and writing both frames into one (N, 2R) row are later work.
+//
+// The fp32 mode (the JAX lr_matmul_dtype="float32", _hat_cp_prod with
+// mm_dtype float32) is the same kernel instantiated for float W: a thread's
+// 8 columns of a row are two 16-byte loads, and the hat weights are not
+// rounded. Products then round in fp32, so the result equals the dense
+// fp32 form up to that rounding and the order of the sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,23 +46,72 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void unpack_row(uint4 raw, float* v) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < kVec / 2; ++j) {
-    float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
+// The operand type T of W, the hat weights and g_d: bf16 (the default mode)
+// or float (the fp32 mode). Pair holds two consecutive columns of a W row,
+// and g_d of two samples of one column in the backward's ring; Slots is the
+// backward's ring depth (see bwd_smem_bytes).
+template <typename T>
+struct Hat;
+
+template <>
+struct Hat<__nv_bfloat16> {
+  using Pair = uint32_t;                 // a bf16 pair
+  static constexpr int kSlots = 4;
+  static __device__ __forceinline__ float operand(float x) {
+    return round_bf16(x);
   }
-}
+  static __device__ __forceinline__ float2 unpack(Pair p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p));
+  }
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const Pair*>(&h);
+  }
+  // kVec columns of a row: one 16-byte load
+  static __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                                  float* v) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kVec / 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  }
+  // two Pairs (two columns) at dst, 8-byte aligned: one store
+  static __device__ __forceinline__ void store2(Pair* dst, Pair a, Pair b) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(a, b);
+  }
+};
 
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* v) {
-  unpack_row(*reinterpret_cast<const uint4*>(p), v);
-}
+template <>
+struct Hat<float> {
+  using Pair = float2;
+  // two slots keep the fp32 ring at the bf16 ring's 12,288 bytes, and so
+  // two blocks an SM at K = 257 (bwd_smem_bytes)
+  static constexpr int kSlots = 2;
+  static __device__ __forceinline__ float operand(float x) { return x; }
+  static __device__ __forceinline__ float2 unpack(Pair p) { return p; }
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    return make_float2(a, b);
+  }
+  // kVec columns of a row: two 16-byte loads
+  static __device__ __forceinline__ void load_row(const float* p, float* v) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  // two Pairs at dst, 16-byte aligned: one store
+  static __device__ __forceinline__ void store2(Pair* dst, Pair a, Pair b) {
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  }
+};
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-hat_prod_fwd_kernel(const float* __restrict__ u3,
-                    const __nv_bfloat16* __restrict__ w,
+hat_prod_fwd_kernel(const float* __restrict__ u3, const T* __restrict__ w,
                     float* __restrict__ out, int n, int k, int r) {
   const int lanes = r / kVec;  // threads per sample
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -72,13 +127,14 @@ hat_prod_fwd_kernel(const float* __restrict__ u3,
     const float pos = u3[s * 3 + d] * scale;
     int i = static_cast<int>(floorf(pos));
     i = min(max(i, 0), k - 2);
-    const float w0 = round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i)));
+    const float w0 =
+        Hat<T>::operand(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i)));
     const float w1 =
-        round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))));
-    const __nv_bfloat16* row = w + (static_cast<int64_t>(d) * k + i) * r + c0;
+        Hat<T>::operand(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))));
+    const T* row = w + (static_cast<int64_t>(d) * k + i) * r + c0;
     float r0[kVec], r1[kVec];
-    load_row(row, r0);
-    load_row(row + r, r1);
+    Hat<T>::load_row(row, r0);
+    Hat<T>::load_row(row + r, r1);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const float a = w0 * r0[j] + w1 * r1[j];
@@ -135,6 +191,13 @@ hat_prod_fwd_kernel(const float* __restrict__ u3,
 // and g_d as bf16 pairs), handed over with named barriers: a slot is full
 // when the producers have arrived, empty when the walkers have read it.
 //
+// The fp32 mode instantiates stage 1 for float W: a producer lane reads a
+// W row's two columns as one 8-byte load, g_d stays fp32 (g * a_e * a_f,
+// not rounded), and the ring carries it as float pairs, 8 bytes a sample
+// pair and column. The ring keeps 2 steps instead of 4, so that it stays
+// 12,288 bytes and two blocks still fit an SM at K = 257 (a 4-step fp32
+// ring, 24,576 bytes, would leave one); K <= 569.
+//
 // Stage 2 (hat_prod_bwd_reduce_kernel) adds the chunks' slabs in chunk order
 // into dW, writing every element, and the tiles' partial du in tile order,
 // times K-1 (0 on the knots).
@@ -154,7 +217,6 @@ hat_prod_fwd_kernel(const float* __restrict__ u3,
 
 constexpr int kBwdCols = 32;      // columns a block: one a lane
 constexpr int kBwdStage = 16;     // samples a step
-constexpr int kBwdSlots = 4;      // steps the producers may run ahead
 constexpr int kWalkers = 3;       // warps: one an axis, the slab's writers
 constexpr int kProducers = 4;     // warps computing g_d
 constexpr int kPerProducer = kBwdStage / kProducers;   // samples a step
@@ -163,16 +225,22 @@ constexpr int kBwdThreads = 32 * (kWalkers + kProducers);
 constexpr int kReduceThreads = 256;
 
 // shared memory of stage 1: the hat rows and weights {row, w0, w1, -} of
-// (slot, axis, sample); g_d as bf16 pairs of (slot, axis, sample pair,
-// column); the slab (3, k, 32)
+// (slot, axis, sample); g_d as Pairs of (slot, axis, sample pair, column);
+// the slab (3, k, 32). bf16: 15,360 + 384 k bytes; fp32: 13,824 + 384 k.
+// An SM's 233,472 bytes, less 1 KB a block, hold two blocks up to K = 261
+// (bf16) or 265 (fp32); the opt-in limit a block, 232,448 bytes, allows one
+// up to K = 565 (bf16) or 569 (fp32).
+template <typename T>
 size_t bwd_smem_bytes(int k) {
-  return sizeof(float4) * kBwdSlots * 3 * kBwdStage
-         + sizeof(uint32_t) * kBwdSlots * 3 * (kBwdStage / 2) * kBwdCols
+  constexpr int slots = Hat<T>::kSlots;
+  return sizeof(float4) * slots * 3 * kBwdStage
+         + sizeof(typename Hat<T>::Pair) * slots * 3 * (kBwdStage / 2)
+               * kBwdCols
          + sizeof(float) * 3 * static_cast<size_t>(k) * kBwdCols;
 }
 
 // Named barriers (0 is __syncthreads): slot j is full at 1 + j, empty at
-// 1 + kBwdSlots + j; every thread of the block takes part in each.
+// 1 + slots + j; every thread of the block takes part in each.
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kBwdThreads) : "memory");
 }
@@ -193,16 +261,19 @@ __device__ __forceinline__ void halve(float* v, int lane) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
-                         const __nv_bfloat16* __restrict__ w,
+                         const T* __restrict__ w,
                          const float* __restrict__ g, int64_t ldg,
                          float* __restrict__ slabs, float* __restrict__ part,
                          int n, int k, int r, int chunk) {
+  using H = Hat<T>;
+  using Pair = typename H::Pair;
+  constexpr int kBwdSlots = H::kSlots;   // steps the producers may run ahead
   extern __shared__ float4 smem4[];
   float4* par = smem4;
-  uint32_t* ring =
-      reinterpret_cast<uint32_t*>(par + kBwdSlots * 3 * kBwdStage);
+  Pair* ring = reinterpret_cast<Pair*>(par + kBwdSlots * 3 * kBwdStage);
   float* slab = reinterpret_cast<float*>(
       ring + kBwdSlots * 3 * (kBwdStage / 2) * kBwdCols);
 
@@ -236,13 +307,13 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
     const bool live2 = pc < r;          // r % 8 == 0: both columns or none
     const int lp = (live2 ? pc : col0) / 2;   // a dead pair reads a live one
     const int r2 = r / 2;
-    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(w);  // bf16 pairs
+    const Pair* w2 = reinterpret_cast<const Pair*>(w);   // column pairs
     struct Ahead {            // u of (t0 + lane / 3, lane % 3); g of 2 rows
       float u;
       float2 g[2];
     };
     struct Rows {             // this lane's 2 samples x 3 axes
-      uint32_t lo[2][3], hi[2][3];   // W rows i and i+1, 2 columns each
+      Pair lo[2][3], hi[2][3];       // W rows i and i+1, 2 columns each
       float w0[2][3], w1[2][3];
     };
     auto load = [&](int step, Ahead& out) {
@@ -274,8 +345,9 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
         const int i = min(max(static_cast<int>(floorf(pos)), 0), k - 2);
         q = make_float4(
             __int_as_float(i),
-            in ? round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i))) : 0.0f,
-            in ? round_bf16(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))))
+            in ? H::operand(fmaxf(0.0f, 1.0f - fabsf(pos - (float)i)))
+               : 0.0f,
+            in ? H::operand(fmaxf(0.0f, 1.0f - fabsf(pos - (float)(i + 1))))
                : 0.0f,
             0.0f);
       }
@@ -290,7 +362,7 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           const float4 pq = sp[a * kBwdStage + t0 + 2 * h + j];
-          const uint32_t* p =
+          const Pair* p =
               w2 + (static_cast<int64_t>(a) * k + __float_as_int(pq.x)) * r2
               + lp;
           out.lo[j][a] = p[0];
@@ -308,7 +380,7 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
       if (step + 1 < steps) stage(step + 1, a_next.u, rw_next);
       const float2 gv[2] = {a_now.g[0], a_now.g[1]};
       if (step + 2 < steps) load(step + 2, a_now);
-      // g_d = bf16(g * a_e * a_f), a as the forward computes it; the du
+      // g_d = T(g * a_e * a_f), a as the forward computes it; the du
       // product sum_c g_d[c] (W_d[i+1, c] - W_d[i, c]) of the lane's two
       // columns at v[2d + j]
       float gd[2][3][2], v[8];
@@ -317,10 +389,8 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
         float av[3][2], df[3][2];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          const float2 lo = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&rw.lo[j][a]));
-          const float2 hi = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&rw.hi[j][a]));
+          const float2 lo = H::unpack(rw.lo[j][a]);
+          const float2 hi = H::unpack(rw.hi[j][a]);
           av[a][0] = rw.w0[j][a] * lo.x + rw.w1[j][a] * hi.x;
           av[a][1] = rw.w0[j][a] * lo.y + rw.w1[j][a] * hi.y;
           df[a][0] = hi.x - lo.x;
@@ -332,24 +402,19 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             gd[j][d][c] =
-                round_bf16(gc[c] * av[(d + 1) % 3][c] * av[(d + 2) % 3][c]);
+                H::operand(gc[c] * av[(d + 1) % 3][c] * av[(d + 2) % 3][c]);
           }
           v[2 * d + j] = gd[j][d][0] * df[d][0] + gd[j][d][1] * df[d][1];
         }
       }
       v[6] = v[7] = 0.0f;
-      // g_d of samples (t0 + 2h, + 1) as one bf16 pair a column
-      uint32_t* rs = ring + slot * 3 * (kBwdStage / 2) * kBwdCols;
+      // g_d of samples (t0 + 2h, + 1) as one Pair a column
+      Pair* rs = ring + slot * 3 * (kBwdStage / 2) * kBwdCols;
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        __nv_bfloat162 pair[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          pair[c] = __floats2bfloat162_rn(gd[0][d][c], gd[1][d][c]);
-        }
-        *reinterpret_cast<uint2*>(
-            rs + (d * (kBwdStage / 2) + t0 / 2 + h) * kBwdCols + 2 * c2) =
-            *reinterpret_cast<const uint2*>(pair);
+        H::store2(rs + (d * (kBwdStage / 2) + t0 / 2 + h) * kBwdCols + 2 * c2,
+                  H::pack(gd[0][d][0], gd[1][d][0]),
+                  H::pack(gd[0][d][1], gd[1][d][1]));
       }
       bar_arrive(1 + slot);                                     // full
       if (part != nullptr) {
@@ -398,13 +463,11 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
       w0[t] = q.y;
       w1[t] = q.z;
     }
-    const uint32_t* rs =
+    const Pair* rs =
         ring + (slot * 3 + d) * (kBwdStage / 2) * kBwdCols + lane;
 #pragma unroll
     for (int m = 0; m < kBwdStage / 2; ++m) {
-      const uint32_t bits = rs[m * kBwdCols];
-      const float2 pair =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+      const float2 pair = H::unpack(rs[m * kBwdCols]);
       gd[2 * m] = pair.x;
       gd[2 * m + 1] = pair.y;
     }
@@ -470,41 +533,27 @@ hat_prod_bwd_reduce_kernel(const float* __restrict__ slabs, int chunks,
   }
 }
 
-}  // namespace
 
-// u3: (n, 3) fp32; w: (3, k, r) bf16; out: (n, r) fp32, all contiguous on
-// the current device; r a multiple of 8, k >= 2, pointers 16-byte aligned.
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int hat_prod_fwd(const void* u3, const void* w, void* out, int n,
-                            int k, int r, void* stream) {
+template <typename T>
+int launch_fwd(const void* u3, const void* w, void* out, int n, int k, int r,
+               void* stream) {
   const int64_t threads = static_cast<int64_t>(n) * (r / kVec);
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0) {
-    hat_prod_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(u3),
-        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out), n, k,
-        r);
+    hat_prod_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(u3), static_cast<const T*>(w),
+        static_cast<float*>(out), n, k, r);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward, both stages, on `stream`. u3: (n, 3) fp32 and w: (3, k, r)
-// bf16, contiguous; g: (n, r) fp32 with row stride ldg floats (a multiple of
-// 4) and unit column stride, 16-byte aligned; dw: (3, k, r) fp32; du:
-// (n, 3) fp32, or null to skip du; scratch, all fp32: slabs
-// (chunks, 3, k, r), and with du part (ceil(r / 32), n, 3). Samples
-// [c * chunk, (c + 1) * chunk) form chunk c; chunks * chunk >= n. r a
-// multiple of 8, k >= 2, 3 * k * 32 * 4 + 15,360 bytes of shared memory
-// within the block's opt-in limit (k <= 565 on H100). Nothing needs zeroing:
-// stage 2 writes every element of dw and du. Returns a cudaError_t: a
-// refused launch, or cudaErrorInvalidValue for a slab too large.
-extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
-                            long long ldg, void* du, void* dw, void* slabs,
-                            void* part, int n, int k, int r, int chunk,
-                            int chunks, void* stream) {
+template <typename T>
+int launch_bwd(const void* u3, const void* w, const void* g, long long ldg,
+               void* du, void* dw, void* slabs, void* part, int n, int k,
+               int r, int chunk, int chunks, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_smem_bytes(k);
+  const size_t smem = bwd_smem_bytes<T>(k);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -515,11 +564,11 @@ extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
   if (smem > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel,
+  err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err == cudaSuccess) {    // all of the SM's shared memory: two blocks
-    err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel,
+    err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel<T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
@@ -527,8 +576,8 @@ extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const int tiles = (r + kBwdCols - 1) / kBwdCols;
   float* part_f = du == nullptr ? nullptr : static_cast<float*>(part);
-  hat_prod_bwd_slab_kernel<<<dim3(tiles, chunks), kBwdThreads, smem, st>>>(
-      static_cast<const float*>(u3), static_cast<const __nv_bfloat16*>(w),
+  hat_prod_bwd_slab_kernel<T><<<dim3(tiles, chunks), kBwdThreads, smem, st>>>(
+      static_cast<const float*>(u3), static_cast<const T*>(w),
       static_cast<const float*>(g), static_cast<int64_t>(ldg),
       static_cast<float*>(slabs), part_f, n, k, r, chunk);
   err = cudaGetLastError();
@@ -545,14 +594,65 @@ extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Stage 1's resident blocks an SM at K knots on the current device (after
-// a launch has set its attributes), or -1 on an error.
-extern "C" int hat_prod_bwd_blocks_per_sm(int k) {
+template <typename T>
+int blocks_per_sm(int k) {
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, hat_prod_bwd_slab_kernel, kBwdThreads, bwd_smem_bytes(k))
-      != cudaSuccess) {
+          &blocks, hat_prod_bwd_slab_kernel<T>, kBwdThreads,
+          bwd_smem_bytes<T>(k)) != cudaSuccess) {
     return -1;
   }
   return blocks;
+}
+
+}  // namespace
+
+// u3: (n, 3) fp32; w: (3, k, r) bf16 (hat_prod_fwd) or fp32
+// (hat_prod_fwd_f32); out: (n, r) fp32, all contiguous on the current
+// device; r a multiple of 8, k >= 2, pointers 16-byte aligned. Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int hat_prod_fwd(const void* u3, const void* w, void* out, int n,
+                            int k, int r, void* stream) {
+  return launch_fwd<__nv_bfloat16>(u3, w, out, n, k, r, stream);
+}
+
+extern "C" int hat_prod_fwd_f32(const void* u3, const void* w, void* out,
+                                int n, int k, int r, void* stream) {
+  return launch_fwd<float>(u3, w, out, n, k, r, stream);
+}
+
+// The backward, both stages, on `stream`. u3: (n, 3) fp32 and w: (3, k, r)
+// bf16 (hat_prod_bwd) or fp32 (hat_prod_bwd_f32), contiguous; g: (n, r) fp32
+// with row stride ldg floats (a multiple of 4) and unit column stride,
+// 16-byte aligned; dw: (3, k, r) fp32; du: (n, 3) fp32, or null to skip du;
+// scratch, all fp32: slabs (chunks, 3, k, r), and with du part
+// (ceil(r / 32), n, 3). Samples [c * chunk, (c + 1) * chunk) form chunk c;
+// chunks * chunk >= n. r a multiple of 8, k >= 2, bwd_smem_bytes(k) within
+// the block's opt-in limit (k <= 565 bf16, 569 fp32 on H100). Nothing needs
+// zeroing: stage 2 writes every element of dw and du. Returns a cudaError_t:
+// a refused launch, or cudaErrorInvalidValue for a slab too large.
+extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
+                            long long ldg, void* du, void* dw, void* slabs,
+                            void* part, int n, int k, int r, int chunk,
+                            int chunks, void* stream) {
+  return launch_bwd<__nv_bfloat16>(u3, w, g, ldg, du, dw, slabs, part, n, k,
+                                   r, chunk, chunks, stream);
+}
+
+extern "C" int hat_prod_bwd_f32(const void* u3, const void* w, const void* g,
+                                long long ldg, void* du, void* dw,
+                                void* slabs, void* part, int n, int k, int r,
+                                int chunk, int chunks, void* stream) {
+  return launch_bwd<float>(u3, w, g, ldg, du, dw, slabs, part, n, k, r,
+                           chunk, chunks, stream);
+}
+
+// Stage 1's resident blocks an SM at K knots on the current device (after
+// a launch has set its attributes), or -1 on an error.
+extern "C" int hat_prod_bwd_blocks_per_sm(int k) {
+  return blocks_per_sm<__nv_bfloat16>(k);
+}
+
+extern "C" int hat_prod_bwd_blocks_per_sm_f32(int k) {
+  return blocks_per_sm<float>(k);
 }

@@ -33,12 +33,20 @@ def get_rays(directions, c2w):
         c2w: (3, 4) or (N, 3, 4) float32 tensor on the same device.
     Returns:
         rays_o, rays_d: (N, 3) world origins and (unnormalised) directions.
+
+    With a pose a ray, each direction is three products summed in a fixed
+    order, elementwise: a batched matmul's kernel, and so the last bit of a
+    ray, would depend on N on the card, and under data parallelism a rank's
+    rays must be the same as the whole batch's.
     """
     if c2w.dim() == 2:
         rays_d = directions @ c2w[:, :3].T
         rays_o = c2w[:, 3].expand(rays_d.shape)
     else:
-        rays_d = torch.einsum("nc,nbc->nb", directions, c2w[..., :3])
+        rot = c2w[..., :3]
+        rays_d = (directions[:, 0:1] * rot[..., 0]
+                  + directions[:, 1:2] * rot[..., 1]
+                  + directions[:, 2:3] * rot[..., 2])
         rays_o = c2w[..., 3]
     return rays_o, rays_d
 

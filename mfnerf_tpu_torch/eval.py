@@ -17,6 +17,11 @@ density isosurface (``utils/mesh.py``). The root script's ``--guided`` and
 ``--wavefront`` renderers are not ported: they raise
 ``NotImplementedError``. Runs on the card; :func:`main` takes
 ``device="cpu"`` for tests.
+
+With ``--num_gpus N > 1`` (or under ``torchrun``) each view is rendered
+by ``render_test_sharded``: its rays split over N ranks, one a card (the
+root script's ``render_test_sharded`` on the device mesh). Rank 0 times
+the gathered frame, prints and writes.
 """
 import argparse
 import dataclasses
@@ -29,16 +34,20 @@ import torch
 from .datasets import dataset_dict
 from .datasets.png import write_png
 from .datasets.ray_utils import get_rays
-from .models.rendering import render_test
+from .device import no_tf32
+from .models.rendering import render_test, render_test_sharded
 from .opt import get_opts
+from .parallel import dist as pdist
 from .train import NeRFSystem, depth2img
 from .utils.metrics import psnr as psnr_fn
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, devices=None):
     """Evaluate as the root ``eval.py`` does on ``device`` (default: the
-    card). Returns dict(psnr: per view, ms: per view, mean_psnr,
-    mean_fps[, mesh_vertices, mesh_seconds])."""
+    card); with ``--num_gpus N > 1`` on N ranks (``devices``: a device a
+    rank, for tests, as ``train.main`` takes it). Returns rank 0's
+    dict(psnr: per view, ms: per view, mean_psnr, mean_fps[,
+    mesh_vertices, mesh_seconds])."""
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--mesh", type=str, default=None)
     parser.add_argument("--mesh_resolution", type=int, default=256)
@@ -62,6 +71,23 @@ def main(argv=None, device=None):
     if extra.wavefront:
         raise NotImplementedError("--wavefront: the wavefront renderer is "
                                   "not ported")
+    no_tf32()
+    if not pdist.in_group():
+        joined = pdist.join_from_env()       # under torchrun
+        if joined is not None:
+            device = joined
+        elif hparams.num_gpus > 1:
+            return pdist.spawn(_evaluate_rank, pdist.rank_devices(
+                hparams.num_gpus, device, devices), (hparams, extra))[0]
+    return _evaluate(hparams, extra, device)
+
+
+def _evaluate_rank(rank, device, hparams, extra):
+    return _evaluate(hparams, extra, device)
+
+
+def _evaluate(hparams, extra, device):
+    """:func:`main`'s evaluation in one process (a rank, or alone)."""
     system = NeRFSystem(hparams, device=device)
     system.rcfg = dataclasses.replace(system.rcfg,
                                       T_threshold=extra.t_threshold)
@@ -72,8 +98,10 @@ def main(argv=None, device=None):
     system.init_model(0)
     system.restore(hparams.ckpt_path, with_optimizer=False)
 
+    sharded = pdist.in_group()
+    lead = system.rank == 0
     save_dir = None
-    if not hparams.no_save_test:
+    if not hparams.no_save_test and lead:
         save_dir = f"results/{hparams.dataset_name}/{hparams.exp_name}/eval"
         os.makedirs(save_dir, exist_ok=True)
 
@@ -87,8 +115,8 @@ def main(argv=None, device=None):
                                   torch.from_numpy(view["pose"]).to(dev))
         system.synchronize()
         t0 = time.perf_counter()
-        res = render_test(system.model, system.occ, rays_o, rays_d,
-                          system.rcfg)
+        render = render_test_sharded if sharded else render_test
+        res = render(system.model, system.occ, rays_o, rays_d, system.rcfg)
         system.synchronize()
         times.append(time.perf_counter() - t0)
         line = f"image {i}: {times[-1] * 1e3:.0f} ms"
@@ -103,16 +131,19 @@ def main(argv=None, device=None):
                       (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
             write_png(os.path.join(save_dir, f"{i:03d}_d.png"),
                       depth2img(res["depth"].reshape(h, w).cpu().numpy()))
-        print(line, flush=True)
+        if lead:
+            print(line, flush=True)
 
     out = {"psnr": psnrs, "ms": [t * 1e3 for t in times],
            "mean_fps": 1.0 / float(np.mean(times))}
     if psnrs:
         out["mean_psnr"] = float(np.mean(psnrs))
-        print(f"mean PSNR: {out['mean_psnr']:.2f} dB")
-    print(f"mean FPS: {out['mean_fps']:.2f}")
+        if lead:
+            print(f"mean PSNR: {out['mean_psnr']:.2f} dB")
+    if lead:
+        print(f"mean FPS: {out['mean_fps']:.2f}")
 
-    if extra.mesh:
+    if extra.mesh and lead:
         from .utils.mesh import extract_mesh
         system.synchronize()
         t0 = time.perf_counter()

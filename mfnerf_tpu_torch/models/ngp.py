@@ -76,6 +76,9 @@ class NGPConfig:
     lr_k_min: int = 32
     lr_k_max: int = 512
     lr_fused: bool = False
+    # the fused encoder's hat-product operands: "bfloat16" | "float32"
+    # (the JAX lr_matmul_dtype; csrc/hatmul.cu has a kernel for each)
+    lr_matmul_dtype: str = "bfloat16"
     # the MLPs' and the projection's operands: "float32" | "bfloat16"
     compute_dtype: str = "float32"
     # bound on |rays_d| (directions are unnormalized): sizes the training
@@ -110,7 +113,7 @@ class NGPConfig:
             n_levels=self.lr_levels, k_min=self.lr_k_min,
             k_max=self.lr_k_max, rank=self.lr_rank,
             n_frames=self.lr_frames, out_dim=self.L * self.F,
-            fused=self.lr_fused)
+            fused=self.lr_fused, matmul_dtype=self.lr_matmul_dtype)
 
     @property
     def n_cells(self) -> int:
@@ -211,6 +214,9 @@ class NGP(nn.Module):
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 "
                              f"or bfloat16")
+        if cfg.lr_matmul_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"lr_matmul_dtype={cfg.lr_matmul_dtype!r}: "
+                             f"float32 or bfloat16")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.is_lowrank = cfg.grid == "LowRank"

@@ -27,6 +27,8 @@ Port of ``mfnerf_tpu/models/rendering.py``.
   exit, or at ``max_samples`` samples. The JAX package's round schedules,
   wavefront pool and rasterised prepass are TPU throughput devices and are
   not ported.
+* :func:`render_test_sharded` serves a frame with its rays split over the
+  ranks of a process group (``parallel/dist.py``).
 """
 import dataclasses
 import math
@@ -131,7 +133,7 @@ def train_strata(cfg, occ, rcfg):
 
 
 def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
-                 bg_rgb=None, grad_noise=None, exposure=None):
+                 bg_rgb=None, grad_noise=None, exposure=None, shard=None):
     """Differentiable rendering of a training ray batch.
 
     Args:
@@ -146,6 +148,13 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
             N_valid that draws them; None for the exact table gradient.
         exposure: (N, 1) each ray's exposure, for an HDR head
             (``rgb_act="None"``); a Sigmoid head ignores it.
+        shard: under data parallelism, this rank's
+            :class:`parallel.dist.Shard` of the global batch, whose rays
+            these are: the flat budget then keeps the global batch's first
+            ``n_global * s_flat`` samples in global ray order, as the JAX
+            step's cumsum over the whole sharded batch does (the samples of
+            the ranks before this one come from ``shard.prefix``). None:
+            the batch is whole.
     Returns:
         dict(rgb, opacity, depth, ws, deltas, ts, mask, rm_samples,
         vr_samples); the sample counters are 0-d tensors.
@@ -160,9 +169,12 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
     mask, ts, deltas = mr.mask, mr.ts, mr.deltas
     if rcfg.s_flat:
         # the flat layout's budget: the batch's samples in ray order, the
-        # first N * s_flat of them
+        # first N * s_flat of them (N and the order the global batch's)
         n, s = mask.shape
         first = torch.cumsum(mr.n_samples, 0) - mr.n_samples
+        if shard is not None:
+            first = first + shard.prefix(mr.n_samples.sum())[0]
+            n = shard.n_global
         rank = torch.arange(s, device=mask.device)
         mask = mask & (first[:, None] + rank < n * rcfg.s_flat)
         ts, deltas = torch.where(mask, ts, 0.0), torch.where(mask, deltas, 0.0)
@@ -260,6 +272,52 @@ def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig,
     rounds): ``total_samples`` counts the samples the field evaluated,
     ``rounds`` the loop's iterations.
     """
+    rgb, opacity, depth, total, rounds = _render_alive(
+        model, occ, rays_o, rays_d, rcfg, exposure)
+    return {"rgb": _with_background(rcfg, rgb, opacity), "opacity": opacity,
+            "depth": depth, "total_samples": int(total), "rounds": rounds}
+
+
+@torch.no_grad()
+def render_test_sharded(model, occ, rays_o, rays_d, rcfg: RenderConfig,
+                        exposure=None, group=None):
+    """Serve one frame with its rays split over the ranks of the process
+    group: the port of the JAX ``render_test_sharded``
+    (``mfnerf_tpu/models/rendering.py:1305-1361``), data parallelism over
+    rays. Every rank passes the whole frame's rays; they are padded to a
+    multiple of the world size W, each rank drains its contiguous slice
+    with the alive-ray loop (the field and occupancy replicated, no
+    collective inside the loop), and rgb, opacity, depth and the sample
+    total are gathered, the padding cut off and the background added.
+    The padding rays start outside the scene's box and point away from
+    it, so they march nothing (the JAX padding marches from the centre and
+    its samples count). The JAX rasterised prepass is a TPU device and is
+    not ported. Every rank returns the whole frame: dict(rgb, opacity,
+    depth, total_samples, rounds (this rank's))."""
+    from ..parallel import dist as pdist
+    rank, size = pdist.world(group)
+    n = rays_o.shape[0]
+    pad = (-n) % size
+    if pad:
+        far = 4.0 * SQRT3 * model.cfg.scale + 1.0
+        rays_o = torch.cat([rays_o, rays_o.new_tensor(
+            [0.0, 0.0, far]).expand(pad, 3)])
+        rays_d = torch.cat([rays_d, rays_d.new_tensor(
+            [0.0, 0.0, 1.0]).expand(pad, 3)])
+    per = (n + pad) // size
+    lo = rank * per
+    rgb, opacity, depth, total, rounds = _render_alive(
+        model, occ, rays_o[lo:lo + per], rays_d[lo:lo + per], rcfg, exposure)
+    rgb, opacity, depth = (pdist.gather_rows(x, n + pad, lo, group)[:n]
+                           for x in (rgb, opacity, depth))
+    total = pdist.all_sum(total.clone(), group)
+    return {"rgb": _with_background(rcfg, rgb, opacity), "opacity": opacity,
+            "depth": depth, "total_samples": int(total), "rounds": rounds}
+
+
+def _render_alive(model, occ, rays_o, rays_d, rcfg, exposure=None):
+    """The alive-ray loop of :func:`render_test` without the background:
+    (rgb, opacity, depth, samples evaluated as a 0-d tensor, rounds)."""
     cfg = model.cfg
     n = rays_o.shape[0]
     dev = rays_o.device
@@ -308,5 +366,4 @@ def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig,
             & (taken_a < rcfg.max_samples)
         alive = alive[torch.nonzero(keep).squeeze(1)]
         rounds += 1
-    return {"rgb": _with_background(rcfg, rgb, opacity), "opacity": opacity,
-            "depth": depth, "total_samples": int(total), "rounds": rounds}
+    return rgb, opacity, depth, total, rounds

@@ -19,9 +19,12 @@ so du is exactly 0 on the knots (the hat's subgradient there).
 :func:`hat_prod` is differentiable through :class:`HatProd`. On CUDA tensors
 both directions launch the hand-written Hopper kernels of ``csrc/hatmul.cu``;
 on CPU tensors they compute :func:`hat_prod_plain` and
-:func:`hat_prod_bwd_plain`. All of them round the hat weights, ``W`` and
-``g_d`` to bf16 and accumulate in fp32, as the JAX fused encoder does
-(``lr_matmul_dtype="bfloat16"``).
+:func:`hat_prod_bwd_plain`. Each takes the operand type ``dtype`` of the
+JAX fused encoder's ``lr_matmul_dtype``: with "bfloat16" (the default)
+all of them round the hat weights, ``W`` and ``g_d`` to bf16 and
+accumulate in fp32; with "float32" they compute in fp32 end to end (the
+kernels' fp32 instantiation), as the JAX ``_hat_cp_prod`` with ``mm_dtype``
+float32 does.
 """
 import ctypes
 import functools
@@ -31,6 +34,9 @@ import torch
 from .. import build
 
 
+MATMUL_DTYPES = ("bfloat16", "float32")
+
+
 def _bf16(x):
     """Round to bf16 and back: bf16 x bf16 products are exact in fp32, so
     rounding the operands and multiplying in fp32 is a bf16 matmul with fp32
@@ -38,53 +44,71 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _pos_basis(u, k_res, ks):
-    """(pos - k, bf16 dense basis) of one axis: (N, K) each, fp32 positions."""
+def _operand(x, dtype):
+    """``x`` as an operand of type ``dtype``, in fp32: rounded to bf16 for
+    "bfloat16", unchanged for "float32"."""
+    return _bf16(x) if dtype == "bfloat16" else x.to(torch.float32)
+
+
+def _check_dtype(dtype):
+    if dtype not in MATMUL_DTYPES:
+        raise ValueError(f"dtype={dtype!r}: one of {MATMUL_DTYPES}")
+
+
+def _pos_basis(u, k_res, ks, dtype="bfloat16"):
+    """(pos - k, dense basis as ``dtype`` operands) of one axis: (N, K)
+    each, fp32 positions."""
     diff = u[:, None].to(torch.float32) * (k_res - 1) - ks
-    return diff, _bf16(torch.clamp_min(1.0 - diff.abs(), 0.0))
+    return diff, _operand(torch.clamp_min(1.0 - diff.abs(), 0.0), dtype)
 
 
-def hat_prod_plain(u3, w3, k_res):
-    """Dense-basis form: bf16 basis @ bf16 W_d, fp32 accumulation.
+def hat_prod_plain(u3, w3, k_res, dtype="bfloat16"):
+    """Dense-basis form: basis @ W_d on ``dtype`` operands (bf16 or fp32),
+    fp32 accumulation.
 
     Args:
         u3: (N, 3) float32 in [0, 1].
         w3: (3, K, R) float32 or bfloat16.
         k_res: number of knots K.
+        dtype: the operand type, "bfloat16" or "float32".
     Returns:
         (N, R) float32.
     """
+    _check_dtype(dtype)
     ks = torch.arange(k_res, dtype=torch.float32, device=u3.device)
     prod = None
     for d in range(3):
-        a = _pos_basis(u3[:, d], k_res, ks)[1] @ _bf16(w3[d])
+        a = _pos_basis(u3[:, d], k_res, ks, dtype)[1] \
+            @ _operand(w3[d], dtype)
         prod = a if prod is None else prod * a
     return prod
 
 
-def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True):
+def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
     """Dense-basis VJP of :func:`hat_prod_plain` — ``_hat_cp_prod_bwd``.
 
     Args:
-        u3, w3, k_res: the forward's operands.
+        u3, w3, k_res, dtype: the forward's operands and operand type.
         g: (N, R) cotangent of the output.
         need_du: compute du (else None).
     Returns:
         (du (N, 3) in u3's dtype or None, dW (3, K, R) in w3's dtype).
     """
+    _check_dtype(dtype)
     ks = torch.arange(k_res, dtype=torch.float32, device=u3.device)
-    w_bf = [_bf16(w3[d]) for d in range(3)]
-    a = [_pos_basis(u3[:, d], k_res, ks)[1] @ w_bf[d] for d in range(3)]
+    w_op = [_operand(w3[d], dtype) for d in range(3)]
+    a = [_pos_basis(u3[:, d], k_res, ks, dtype)[1] @ w_op[d]
+         for d in range(3)]
     g = g.to(torch.float32)
     scale = float(k_res - 1)
     dw, du = [], []
     for d in range(3):
         e, f = (d + 1) % 3, (d + 2) % 3
-        g_d = _bf16(g * a[e] * a[f])                          # (N, R)
-        diff, basis = _pos_basis(u3[:, d], k_res, ks)         # rebuild
+        g_d = _operand(g * a[e] * a[f], dtype)                # (N, R)
+        diff, basis = _pos_basis(u3[:, d], k_res, ks, dtype)  # rebuild
         dw.append(basis.T @ g_d)                              # (K, R)
         if need_du:
-            db = g_d @ w_bf[d].T                              # (N, K)
+            db = g_d @ w_op[d].T                              # (N, K)
             dhat = torch.where(diff.abs() < 1.0, -torch.sign(diff) * scale,
                                0.0)
             du.append((db * dhat).sum(dim=1))
@@ -93,10 +117,13 @@ def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True):
 
 
 @functools.cache
-def _kernels():
-    """The C entry points of csrc/hatmul.cu (built on first use)."""
+def _kernels(dtype="bfloat16"):
+    """The C entry points (forward, backward) of csrc/hatmul.cu for the
+    operand type ``dtype`` (built on first use)."""
     lib = build.load_library("hatmul")
-    fwd, bwd = lib.hat_prod_fwd, lib.hat_prod_bwd
+    suffix = "" if dtype == "bfloat16" else "_f32"
+    fwd = getattr(lib, "hat_prod_fwd" + suffix)
+    bwd = getattr(lib, "hat_prod_bwd" + suffix)
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
@@ -106,9 +133,9 @@ def _kernels():
 
 
 # The backward's stage 1 keeps a (3, K, 32) fp32 slab of dW in a block's
-# shared memory, beside a 15,360-byte ring: K <= 565 fits Hopper's 227 KB a
-# block.
-BWD_MAX_K = 565
+# shared memory, beside a 15,360-byte ring (bf16; fp32: 13,824 bytes, two
+# steps of fp32 pairs): K <= 565 (569) fits Hopper's 227 KB a block.
+BWD_MAX_K = {"bfloat16": 565, "float32": 569}
 BWD_COLS = 32                  # columns a block of the backward
 # Samples a chunk: at least BWD_MIN_CHUNK, and chunks enough for about
 # BWD_BLOCKS blocks (two on each of an H100's 132 SMs). The order of dW's
@@ -169,32 +196,37 @@ def _stream(device):
         return torch.cuda.current_stream().cuda_stream
 
 
-def _launch(u3, w3, k_res):
+def _w_operand(w3, dtype):
+    """W as the kernels read it: contiguous bf16 or fp32."""
+    return w3.detach().to(getattr(torch, dtype)).contiguous()
+
+
+def _launch(u3, w3, k_res, dtype="bfloat16"):
     n, r = _check_operands(u3, w3, k_res)
     u3 = u3.contiguous()
-    w_bf = w3.detach().to(torch.bfloat16).contiguous()
+    w_op = _w_operand(w3, dtype)
     out = torch.empty((n, r), dtype=torch.float32, device=u3.device)
     if n == 0:
         return out
-    _check_aligned(w_bf, out)
-    rc = _kernels()[0](u3.data_ptr(), w_bf.data_ptr(), out.data_ptr(), n,
-                       k_res, r, _stream(u3.device))
+    _check_aligned(w_op, out)
+    rc = _kernels(dtype)[0](u3.data_ptr(), w_op.data_ptr(), out.data_ptr(),
+                            n, k_res, r, _stream(u3.device))
     if rc != 0:
         raise RuntimeError(f"hat_prod_fwd launch failed: cudaError {rc}")
     hat_prod.launches += 1
     return out
 
 
-def _launch_bwd(u3, w3, k_res, g, need_du):
+def _launch_bwd(u3, w3, k_res, g, need_du, dtype="bfloat16"):
     n, r = _check_operands(u3, w3, k_res)
     if g.shape != (n, r) or g.device != u3.device:
         raise ValueError(f"g must be ({n}, {r}) on {u3.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    if k_res > BWD_MAX_K:
+    if k_res > BWD_MAX_K[dtype]:
         raise ValueError(f"K = {k_res} exceeds the backward's shared-memory "
-                         f"slab (K <= {BWD_MAX_K})")
+                         f"slab (K <= {BWD_MAX_K[dtype]} for {dtype})")
     u3 = u3.contiguous()
-    w_bf = w3.detach().to(torch.bfloat16).contiguous()
+    w_op = _w_operand(w3, dtype)
     g, ldg = _g_in_place(g)
     dev = u3.device
     if n == 0:
@@ -209,7 +241,8 @@ def _launch_bwd(u3, w3, k_res, g, need_du):
         du = torch.empty((n, 3), dtype=torch.float32, device=dev)
         part = torch.empty((-(-r // BWD_COLS), n, 3), dtype=torch.float32,
                            device=dev)
-    rc = _kernels()[1](u3.data_ptr(), w_bf.data_ptr(), g.data_ptr(), ldg,
+    rc = _kernels(dtype)[1](u3.data_ptr(), w_op.data_ptr(), g.data_ptr(),
+                            ldg,
                        None if du is None else du.data_ptr(), dw.data_ptr(),
                        slabs.data_ptr(),
                        None if part is None else part.data_ptr(),
@@ -225,33 +258,36 @@ class HatProd(torch.autograd.Function):
     backward recomputes ``a_d`` from them, as the Pallas backward does."""
 
     @staticmethod
-    def forward(ctx, u3, w3, k_res):
+    def forward(ctx, u3, w3, k_res, dtype="bfloat16"):
         ctx.save_for_backward(u3, w3)
-        ctx.k_res = k_res
+        ctx.k_res, ctx.dtype = k_res, dtype
         if u3.device.type == "cpu":
-            return hat_prod_plain(u3, w3, k_res)
-        return _launch(u3, w3, k_res)
+            return hat_prod_plain(u3, w3, k_res, dtype)
+        return _launch(u3, w3, k_res, dtype=dtype)
 
     @staticmethod
     def backward(ctx, g):
         u3, w3 = ctx.saved_tensors
         du, dw = hat_prod_bwd(u3, w3, ctx.k_res, g,
-                              need_du=ctx.needs_input_grad[0])
-        return du, dw, None
+                              need_du=ctx.needs_input_grad[0],
+                              dtype=ctx.dtype)
+        return du, dw, None, None
 
 
-def hat_prod(u3, w3, k_res):
+def hat_prod(u3, w3, k_res, dtype="bfloat16"):
     """prod_d B_K(u3[:, d]) @ w3[d] -> (N, R) float32, differentiable in
-    ``u3`` and ``w3``.
+    ``u3`` and ``w3``, on ``dtype`` operands ("bfloat16" or "float32").
 
-    CUDA tensors run the kernels (``csrc/hatmul.cu``); CPU tensors run the
-    plain versions. ``hat_prod.launches`` counts forward kernel launches.
+    CUDA tensors run the kernels (``csrc/hatmul.cu``, the instantiation for
+    ``dtype``); CPU tensors run the plain versions. ``hat_prod.launches``
+    counts forward kernel launches of either type.
     """
     _check_device(u3)
-    return HatProd.apply(u3, w3, k_res)
+    _check_dtype(dtype)
+    return HatProd.apply(u3, w3, k_res, dtype)
 
 
-def hat_prod_bwd(u3, w3, k_res, g, need_du=True):
+def hat_prod_bwd(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
     """(du, dW) of :func:`hat_prod` for the output cotangent ``g`` (N, R).
 
     CUDA tensors run the backward kernel, whose dW is bitwise the same on
@@ -259,12 +295,13 @@ def hat_prod_bwd(u3, w3, k_res, g, need_du=True):
     slice of a wider feature gradient, is read in place through its row
     stride. CPU tensors run :func:`hat_prod_bwd_plain`.
     ``hat_prod_bwd.launches`` counts kernel launches (both stages are one).
-    du is None unless ``need_du``.
+    du is None unless ``need_du``. ``dtype``: the forward's operand type.
     """
     _check_device(u3)
+    _check_dtype(dtype)
     if u3.device.type == "cpu":
-        return hat_prod_bwd_plain(u3, w3, k_res, g, need_du)
-    return _launch_bwd(u3, w3, k_res, g, need_du)
+        return hat_prod_bwd_plain(u3, w3, k_res, g, need_du, dtype)
+    return _launch_bwd(u3, w3, k_res, g, need_du, dtype=dtype)
 
 
 hat_prod.launches = 0

@@ -10,7 +10,8 @@ with B_l the dense piecewise-linear hat basis of K_l knots.
 With ``fused`` (nested levels, (K_max-1) % (K_l-1) == 0) every level folds
 exactly onto the finest basis (:func:`_prolongation`), so each frame is one
 hat-CP product ``(N, 3) x (3, K_max, L*rank)`` — :func:`hatmul.hat_prod`,
-the hand-written CUDA kernel on the card. Feature order: frame-major, then
+the hand-written CUDA kernel on the card, on bf16 or (``matmul_dtype``)
+fp32 operands. Feature order: frame-major, then
 level-major columns of ``rank`` each, as in the JAX package.
 """
 import dataclasses
@@ -30,13 +31,16 @@ class LowRankConfig:
     rank: int = 16
     n_frames: int = 2
     out_dim: int = 32
-    # nested levels evaluated as one hat-CP product per frame, bf16
-    # operands with fp32 accumulation (the JAX lr_matmul_dtype default)
+    # nested levels evaluated as one hat-CP product per frame, on
+    # matmul_dtype operands ("bfloat16", the JAX lr_matmul_dtype default,
+    # or "float32") with fp32 accumulation
     fused: bool = False
+    matmul_dtype: str = "bfloat16"
 
     @staticmethod
     def create(n_levels=8, k_min=32, k_max=512, rank=16, n_frames=2,
-               out_dim=32, fused=False) -> "LowRankConfig":
+               out_dim=32, fused=False, matmul_dtype="bfloat16"
+               ) -> "LowRankConfig":
         if fused:
             # nested ladder: K-1 halves per level down from the finest;
             # k_max is rounded up to 2^m + 1 so every level divides exactly
@@ -50,7 +54,8 @@ class LowRankConfig:
             b = (k_max / k_min) ** (1.0 / (n_levels - 1))
             ks = tuple(int(round(k_min * b ** i)) for i in range(n_levels))
         return LowRankConfig(levels=ks, rank=rank, n_frames=n_frames,
-                             out_dim=out_dim, fused=fused)
+                             out_dim=out_dim, fused=fused,
+                             matmul_dtype=matmul_dtype)
 
     @property
     def n_components(self) -> int:
@@ -162,8 +167,9 @@ def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
                    dtype=torch.float32) -> torch.Tensor:
     """Encode positions x (N, 3) in [0, 1] -> (N, out_dim) float32.
 
-    Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card; bf16
-    operands whatever ``dtype`` is). Unfused: per-level dense hat-basis
+    Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card) on
+    ``cfg.matmul_dtype`` operands, whatever ``dtype`` is. Unfused: per-level
+    dense hat-basis
     matmuls. ``dtype`` (``NGPConfig.compute_dtype``) is the operand type of
     the unfused matmuls and of the output projection, which sum in fp32, as
     the JAX ``lowrank_encode(dtype=)``.
@@ -175,7 +181,7 @@ def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
         u3 = _frame_coords(xf, rots, m)
         if cfg.fused:
             feats.append(hat_prod(u3, fold_frame(params, cfg, m),
-                                  cfg.levels[-1]))
+                                  cfg.levels[-1], cfg.matmul_dtype))
             continue
         for li, k_res in enumerate(cfg.levels):
             prod = None

@@ -7,8 +7,7 @@ defaults here. ``--s_flat`` and ``--pool_a`` change which samples a
 training step keeps, and the port honours them (``models/rendering.py``).
 Those that only choose a TPU formulation (``TPU_ONLY``) are parsed and
 ignored: ``train.main`` prints one line for each that is set to another
-value. Those that the port has not ported make ``NeRFSystem``
-raise ``NotImplementedError`` (``train.py``).
+value.
 """
 import argparse
 
@@ -58,8 +57,8 @@ def get_opts(argv=None):
     parser.add_argument('--num_epochs', type=int, default=30,
                         help='number of training epochs')
     parser.add_argument('--num_gpus', type=int, default=1,
-                        help='number of GPUs for data parallelism (only 1 '
-                             'is ported)')
+                        help='number of GPUs for data parallelism (one '
+                             'rank a card, parallel/dist.py)')
     parser.add_argument('--lr', type=float, default=1e-2,
                         help='learning rate')
     # experimental training options
@@ -75,7 +74,8 @@ def get_opts(argv=None):
 
     # validation options
     parser.add_argument('--eval_lpips', action='store_true', default=False,
-                        help='evaluate lpips metric (not ported)')
+                        help='evaluate lpips metric (needs '
+                             '--lpips_weights)')
     parser.add_argument('--val_only', action='store_true', default=False,
                         help='run only validation (need to provide ckpt_path)')
     parser.add_argument('--no_save_test', action='store_true', default=False,
@@ -127,7 +127,7 @@ def get_opts(argv=None):
                         help='rays per test-render chunk')
     parser.add_argument('--lpips_weights', type=str, default=None,
                         help='npz with VGG16+LPIPS weights (--eval_lpips; '
-                             'not ported)')
+                             'utils/lpips.py)')
     parser.add_argument('--profile', action='store_true', default=False,
                         help='trace 48 training steps with torch.profiler '
                              'into logs/<dataset>/<exp>/profile first')

@@ -25,6 +25,7 @@ import torch
 from .datasets import dataset_dict
 from .datasets.png import write_png
 from .datasets.ray_utils import get_ray_directions, get_rays
+from .device import no_tf32
 from .models.rendering import RenderConfig, render_test
 from .opt import get_opts
 from .train import NeRFSystem
@@ -137,6 +138,7 @@ def main(argv=None, device=None, n_frames=30):
     hparams = get_opts(argv)
     if not hparams.ckpt_path:
         raise ValueError("--ckpt_path is required for the viewer")
+    no_tf32()
     dataset = dataset_dict[hparams.dataset_name](
         root_dir=hparams.root_dir, downsample=hparams.downsample,
         read_meta=False)

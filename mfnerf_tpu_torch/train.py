@@ -45,9 +45,24 @@ projection on bf16 operands (``NGPConfig.compute_dtype``). ``--profile``
 traces one epoch of 48 steps with ``torch.profiler`` (CPU and, on the
 card, CUDA activities) into ``logs/<dataset>/<exp>/profile/trace.json``
 before training, then resets the step counter to 0 as the JAX ``main``
-does. Not ported yet: data parallelism (``num_gpus`` > 1), LPIPS
-(``eval_lpips``) and the mp4 assembly; the trainer raises
-``NotImplementedError`` for those of its hyperparameters.
+does. The mp4 assembly is not ported.
+
+Data parallelism (``--num_gpus N``, ``parallel/dist.py``): inside a
+process group (``main`` starts one, or ``torchrun`` did) each rank draws
+the whole batch of ``batch_size`` rays, its jitter, background and
+refresh points from the same generator state and trains on its contiguous
+slice; the gradients are averaged over the ranks by one all-reduce a
+step, so parameters, optimiser state and occupancy stay the same on every
+rank. The flat budget and the hash grids' gradient noise count the
+samples of the ranks before this one (an exclusive prefix), so the W
+ranks' step is the 1-rank step up to the order of the sums. Rank 0 alone
+writes checkpoints, logs, test images and the profiler trace; validation
+renders the test views round-robin and gathers the metrics. ``--eval_lpips
+--lpips_weights <npz>`` adds ``test/lpips_vgg`` (``utils/lpips.py``).
+``NGPConfig.lr_matmul_dtype`` picks the fused LowRank encoder's operand
+type, bf16 (the default) or fp32: an ``hparams`` attribute
+(``lr_matmul_dtype``), not a flag, as the command line keeps the JAX
+package's flags.
 """
 import dataclasses
 import math
@@ -60,17 +75,20 @@ import torch
 from .datasets import dataset_dict
 from .datasets.png import write_png
 from .datasets.ray_utils import axisangle_to_R, get_rays
-from .device import resolve_device
+from .device import no_tf32, resolve_device
 from .losses import NeRFLoss
 from .models.ngp import NGP, NGPConfig, OccupancyState
 from .models.rendering import (MAX_SAMPLES, RenderConfig, render_test,
                                render_train)
 from .ops.ray_march import twolevel_stratum
 from .opt import TPU_ONLY, get_opts
+from .parallel import dist as pdist
+from .utils.lpips import load_lpips_weights
 from .utils.ckpt import (adam_state_from_numpy, adam_state_to_numpy,
                          load_ckpt, load_params, occupancy_from_numpy,
                          occupancy_to_numpy, params_to_numpy, save_ckpt,
                          slim_ckpt)
+from .utils.metrics import lpips_vgg
 from .utils.metrics import psnr as psnr_fn
 from .utils.metrics import ssim as ssim_fn
 
@@ -82,6 +100,17 @@ FLAT_AFTER = 512          # the first step with the --s_flat budget
 STEPS_PER_EPOCH = 1000
 PROFILE_STEPS = 48        # --profile's traced epoch (mfnerf_tpu/train.py:683)
 GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
+# --eval_lpips without --lpips_weights (the JAX message, mfnerf_tpu/
+# train.py:545-558, naming the port's files): raised before any render
+LPIPS_WEIGHTS_MISSING = (
+    "--eval_lpips needs --lpips_weights <npz>. Write it once on a machine "
+    "with network access and the lpips package: `pip install lpips && "
+    "python misc/export_lpips_weights.py --out lpips_vgg.npz` (the JAX "
+    "package's script), then pass --lpips_weights lpips_vgg.npz. The VGG16 "
+    "weights do not ship with the repository; "
+    "mfnerf_tpu_torch/utils/lpips.py computes the metric from them and "
+    "tests/test_torch_lpips.py holds it to the JAX package's on seeded "
+    "random weights.")
 SAMPLING = ("all_images", "same_image")    # ray_sampling_strategy
 # cv2.COLORMAP_TURBO as cv2.applyColorMap returns it (BGR) for the values
 # 0-255: 256 x 3 uint8, hex. The JAX package saves that BGR output as RGB
@@ -111,6 +140,15 @@ TURBO_BGR = np.frombuffer(bytes.fromhex(
     "02078502068102057e03047a"), np.uint8).reshape(256, 3)
 
 
+def check_lpips_weights(path):
+    """Refuse LPIPS before any step or render: without weights (the JAX
+    message, LPIPS_WEIGHTS_MISSING) or with a file that is not the
+    canonical npz (its loader's ``ValueError``)."""
+    if path is None:
+        raise ValueError(LPIPS_WEIGHTS_MISSING)
+    load_lpips_weights(path)
+
+
 def depth2img(depth):
     """Colourise a depth map as the JAX package does: min-max normalised,
     to uint8, through cv2's TURBO table (BGR order). (H, W) -> (H, W, 3)."""
@@ -138,13 +176,11 @@ class NeRFSystem:
 
     def __init__(self, hparams, device=None):
         hp = hparams
-        unported = {"grid": hp.grid not in GRIDS,
-                    "num_gpus": getattr(hp, "num_gpus", 1) > 1,
-                    "eval_lpips": getattr(hp, "eval_lpips", False)}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name}={getattr(hp, name)} is "
-                                          f"not ported")
+        if hp.grid not in GRIDS:
+            raise NotImplementedError(f"grid={hp.grid} is not ported")
+        if getattr(hp, "eval_lpips", False) \
+                and getattr(hp, "lpips_weights", None) is None:
+            raise ValueError(LPIPS_WEIGHTS_MISSING)
         strategy = getattr(hp, "ray_sampling_strategy", "all_images")
         if strategy not in SAMPLING:
             raise ValueError(f"ray_sampling_strategy={strategy!r}: not one "
@@ -152,6 +188,17 @@ class NeRFSystem:
         self.same_image = strategy == "same_image"
         self.hparams = hp
         self.device = resolve_device(device)
+        # data parallelism: this rank's shard of every batch inside a
+        # process group (even of one rank), else None
+        self.rank, self.world = pdist.world()
+        num_gpus = getattr(hp, "num_gpus", 1)
+        if num_gpus > 1 and num_gpus != self.world:
+            raise ValueError(
+                f"num_gpus={num_gpus} needs a process group of {num_gpus} "
+                f"ranks (this process has {self.world}): run main, which "
+                f"starts them, or torchrun")
+        self.shard = pdist.Shard.of(hp.batch_size, self.device) \
+            if pdist.in_group() else None
         self.model_cfg = NGPConfig(
             scale=hp.scale, grid=hp.grid, L=hp.L, F=hp.F,
             log2_T=getattr(hp, "T", 19), N_min=getattr(hp, "N_min", 16),
@@ -167,6 +214,7 @@ class NeRFSystem:
             lr_k_min=getattr(hp, "lr_k_min", 32),
             lr_k_max=getattr(hp, "lr_k_max", 512),
             lr_fused=getattr(hp, "lr_fused", False),
+            lr_matmul_dtype=getattr(hp, "lr_matmul_dtype", "bfloat16"),
             compute_dtype="bfloat16" if getattr(hp, "bf16", False)
             else "float32",
             pool_a=(getattr(hp, "pool_a", 0) if getattr(hp, "grid_size", 128)
@@ -339,7 +387,9 @@ class NeRFSystem:
         ``render_train`` with the march jitter ``noise``, the background
         ``bg`` and the hash grids' ``grad_noise``, each ray's exposure where
         the rays carry one, and the loss terms (:meth:`losses`), on the flat
-        budget from step ``FLAT_AFTER``. Returns (loss, results, target)."""
+        budget from step ``FLAT_AFTER``; under data parallelism the rays are
+        this rank's shard (:attr:`shard`). Returns (loss, results,
+        target)."""
         rays_o, rays_d = get_rays(self.directions[pix], self.batch_poses(img))
         picked = self.rays[img, pix]
         target = {"rgb": picked[:, :3]}
@@ -348,33 +398,63 @@ class NeRFSystem:
         rcfg = self.rcfg if self.global_step >= FLAT_AFTER \
             else dataclasses.replace(self.rcfg, s_flat=0)
         results = render_train(self.model, self.occ, rays_o, rays_d, noise,
-                               rcfg, bg, grad_noise, exposure)
+                               rcfg, bg, grad_noise, exposure,
+                               shard=self.shard)
         loss = sum(v.mean() for v in self.losses(results, target).values())
         return loss, results, target
 
     def train_step(self):
         """One optimiser step on a fresh ray batch; its metrics as 0-d
-        tensors on the device (the learning rate as a float)."""
-        b = self.hparams.batch_size
+        tensors on the device (the learning rate as a float). Under data
+        parallelism every rank draws the global batch, its jitter, the
+        background and the gradient noise of every valid sample, and takes
+        its own part of each; the metrics are the global batch's."""
+        b, sh = self.hparams.batch_size, self.shard
         img, pix = self.sample_batch()
         bg = self._rand(3) if self.rcfg.random_bg else None
+        noise = self._rand(b)
         m = self.model_cfg.hash_grad_samples
         grad_noise = None       # the exact table gradient (and LowRank)
         if self.model_cfg.grid != "LowRank" and m < 8:
             def grad_noise(n_valid):
-                return self._rand(n_valid, m)
-        loss, results, target = self.step_loss(img, pix, self._rand(b), bg,
+                if sh is None:
+                    return self._rand(n_valid, m)
+                before, total = (int(v) for v in sh.prefix(n_valid))
+                return self._rand(total, m)[before:before + n_valid]
+        if sh is not None:
+            img, pix, noise = sh.take(img), sh.take(pix), sh.take(noise)
+        loss, results, target = self.step_loss(img, pix, noise, bg,
                                                grad_noise)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if sh is not None:
+            self.average_gradients()
         self.optimizer.step()
         lr = self.optimizer.param_groups[0]["lr"]
         self.scheduler.step()
         with torch.no_grad():
-            return {"loss": loss.detach(),
-                    "psnr": psnr_fn(results["rgb"], target["rgb"]),
-                    "rm_s": results["rm_samples"] / b,
-                    "vr_s": results["vr_samples"] / b, "lr": lr}
+            if sh is None:
+                return {"loss": loss.detach(),
+                        "psnr": psnr_fn(results["rgb"], target["rgb"]),
+                        "rm_s": results["rm_samples"] / b,
+                        "vr_s": results["vr_samples"] / b, "lr": lr}
+            # the ranks' means of loss and squared error (equal shards),
+            # and their sample totals
+            stats = pdist.all_sum(torch.stack([
+                loss.detach().double(),
+                torch.mean((results["rgb"] - target["rgb"]) ** 2).double(),
+                results["rm_samples"].double(),
+                results["vr_samples"].double()]))
+            return {"loss": (stats[0] / sh.world).float(),
+                    "psnr": -10.0 * torch.log10((stats[1] / sh.world).float()),
+                    "rm_s": stats[2].long() / b, "vr_s": stats[3].long() / b,
+                    "lr": lr}
+
+    def average_gradients(self):
+        """Average every gradient the optimiser holds (the field's, and
+        ``dR``/``dT`` under ``--optimize_ext``) over the ranks."""
+        pdist.average_gradients([p for group in self.optimizer.param_groups
+                                 for p in group["params"]])
 
     def fit(self, n_steps=None):
         """Train ``n_steps`` more steps (default: up to num_epochs *
@@ -452,44 +532,77 @@ class NeRFSystem:
         self.set_step(ck["step"])
 
     @torch.no_grad()
-    def validate(self, save_dir=None):
+    def validate(self, save_dir=None, eval_lpips=False):
         """Render every test view with ``render_test`` (HDR-NeRF views at
         their own exposure); print a line an image and return the mean
-        ``test/psnr`` and ``test/ssim``. With ``save_dir``, write each
-        view's ``NNN.png`` and its depth map ``NNN_d.png`` there."""
+        ``test/psnr`` and ``test/ssim`` and, with ``eval_lpips``,
+        ``test/lpips_vgg`` (the weights of ``--lpips_weights``, checked
+        before the first render). With ``save_dir``, write each view's
+        ``NNN.png`` and its depth map ``NNN_d.png`` there. Under data
+        parallelism rank r renders the views i with i % W == r, the
+        metrics are gathered (``allgather_ragged``) and every rank returns
+        the same dict; rank 0 writes every view's images."""
+        lpips_weights = getattr(self.hparams, "lpips_weights", None)
+        if eval_lpips:
+            check_lpips_weights(lpips_weights)
         ds, dev = self.test_dataset, self.device
+        rank, size = self.rank, self.world
         w, h = ds.img_wh
         directions = torch.from_numpy(ds.directions).to(dev)
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
         for i in range(len(ds)):
-            view = ds[i]
-            self.synchronize()
-            t0 = time.perf_counter()
-            out = render_test(self.model, self.occ, *get_rays(
-                directions, torch.from_numpy(view["pose"]).to(dev)),
-                self.rcfg, exposure=view.get("exposure"))
-            self.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3      # the render's time
-            rgb_pred = out["rgb"].reshape(h, w, 3)
-            logs = {}
-            if "rgb" in view:
-                rgb_gt = torch.from_numpy(view["rgb"]).to(dev).reshape(h, w, 3)
-                logs["psnr"] = float(psnr_fn(rgb_pred, rgb_gt))
-                logs["ssim"] = float(ssim_fn(rgb_pred, rgb_gt))
-                psnrs.append(logs["psnr"])
-                ssims.append(logs["ssim"])
-            if save_dir is not None:
+            if i % size == rank:
+                view = ds[i]
+                self.synchronize()
+                t0 = time.perf_counter()
+                out = render_test(self.model, self.occ, *get_rays(
+                    directions, torch.from_numpy(view["pose"]).to(dev)),
+                    self.rcfg, exposure=view.get("exposure"))
+                self.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3  # the render's time
+                rgb_pred = out["rgb"].reshape(h, w, 3)
+                logs = {}
+                if "rgb" in view:
+                    rgb_gt = torch.from_numpy(view["rgb"]).to(dev).reshape(
+                        h, w, 3)
+                    logs["psnr"] = float(psnr_fn(rgb_pred, rgb_gt))
+                    logs["ssim"] = float(ssim_fn(rgb_pred, rgb_gt))
+                    psnrs.append(logs["psnr"])
+                    ssims.append(logs["ssim"])
+                    if eval_lpips:
+                        logs["lpips"] = float(lpips_vgg(
+                            rgb_pred, rgb_gt, weights_path=lpips_weights))
+                        lpipss.append(logs["lpips"])
+                print(f"val image {i + 1}/{len(ds)}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in logs.items())
+                    + f" [{ms:.1f} ms]", flush=True)
+            if save_dir is None:
+                continue
+            if size > 1:     # the view's rgb and depth to every rank
+                both = torch.zeros((h * w, 4), device=dev)
+                if i % size == rank:
+                    both[:, :3] = rgb_pred.reshape(-1, 3)
+                    both[:, 3] = out["depth"]
+                pdist.all_sum(both)
+                rgb_pred, depth = both[:, :3].reshape(h, w, 3), both[:, 3]
+            else:
+                depth = out["depth"]
+            if rank == 0:
                 write_png(os.path.join(save_dir, f"{i:03d}.png"),
                           (rgb_pred.cpu().numpy() * 255).astype(np.uint8))
                 write_png(os.path.join(save_dir, f"{i:03d}_d.png"),
-                          depth2img(out["depth"].reshape(h, w).cpu().numpy()))
-            print(f"val image {i + 1}/{len(ds)}: " + ", ".join(
-                f"{k}={v:.4f}" for k, v in logs.items())
-                + f" [{ms:.1f} ms]", flush=True)
-        if not psnrs:
-            return {}
-        return {"test/psnr": float(np.mean(psnrs)),
-                "test/ssim": float(np.mean(ssims))}
+                          depth2img(depth.reshape(h, w).cpu().numpy()))
+        if size > 1:
+            n = len(ds)
+            psnrs, ssims, lpipss = (pdist.allgather_ragged(v, n, dev)
+                                    for v in (psnrs, ssims, lpipss))
+        out = {}
+        if psnrs:
+            out["test/psnr"] = float(np.mean(psnrs))
+            out["test/ssim"] = float(np.mean(ssims))
+        if lpipss:
+            out["test/lpips_vgg"] = float(np.mean(lpipss))
+        return out
 
 
 def profile(system, trace_dir):
@@ -513,22 +626,53 @@ def profile(system, trace_dir):
     finally:
         hp.num_epochs, system.steps_per_epoch = saved
     system.set_step(0)
-    os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"profiler trace written to {trace_dir}", flush=True)
+    if system.rank == 0:      # under data parallelism rank 0's trace
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {trace_dir}", flush=True)
     return path
 
 
-def main(hparams, device=None):
+def main(hparams, device=None, devices=None):
     """The command line's run (``mfnerf_tpu/train.py:640-729``) on ``device``
     (default: the CUDA device; raises without one): train unless
     ``--val_only``, save the checkpoints, validate, print and return the
     test metrics. ``--ckpt_path`` restores parameters, occupancy, the Adam
-    state (not under ``--val_only``) and the step first."""
-    t_start = time.time()
+    state (not under ``--val_only``) and the step first.
+
+    Data parallelism: inside a process group (``torchrun`` made one, or
+    the caller did) every rank runs the same; else ``--num_gpus N > 1``
+    starts N ranks (``parallel/dist.py::spawn``), one a card: asking for
+    more cards than the machine has raises ``ValueError``. With
+    ``device="cpu"`` the ranks are CPU processes (gloo); ``devices``, a
+    list of a device a rank, is for tests, where ranks may share a card.
+    Returns rank 0's metrics."""
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
+    if hparams.eval_lpips:       # before any step or render
+        check_lpips_weights(getattr(hparams, "lpips_weights", None))
+    no_tf32()
+    if pdist.in_group():
+        return _run(hparams, device)
+    joined = pdist.join_from_env()       # under torchrun
+    if joined is not None:
+        return _run(hparams, joined)
+    num = getattr(hparams, "num_gpus", 1)
+    if num > 1:
+        return pdist.spawn(_run_rank, pdist.rank_devices(num, device, devices),
+                           (hparams,))[0]
+    return _run(hparams, device)
+
+
+def _run_rank(rank, device, hparams):
+    return _run(hparams, device)
+
+
+def _run(hparams, device):
+    """:func:`main`'s run in one process (a rank of a process group, or
+    alone)."""
+    t_start = time.time()
     for name, default in TPU_ONLY.items():
         if getattr(hparams, name) != default:
             print(f"--{name} {getattr(hparams, name)}: a TPU formulation "
@@ -537,17 +681,19 @@ def main(hparams, device=None):
     system = NeRFSystem(hparams, device=device)
     system.setup()
     system.configure(hparams.seed)
+    lead = system.rank == 0      # rank 0 alone writes and logs
 
     ckpt_dir = f"ckpts/{hparams.dataset_name}/{hparams.exp_name}"
-    os.makedirs(ckpt_dir, exist_ok=True)
     log_dir = f"logs/{hparams.dataset_name}/{hparams.exp_name}"
-    os.makedirs(log_dir, exist_ok=True)
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(log_dir)
-    except ImportError:
-        pass
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        os.makedirs(log_dir, exist_ok=True)
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(log_dir)
+        except ImportError:
+            pass
 
     if hparams.ckpt_path:
         system.restore(hparams.ckpt_path,
@@ -565,12 +711,13 @@ def main(hparams, device=None):
         while system.global_step < total:
             m = system.fit(min(system.steps_per_epoch,
                                total - system.global_step))
-            print(f"step {system.global_step:6d}/{total} "
-                  f"loss {float(m['loss'][-1]):.4f} "
-                  f"psnr {float(m['psnr'][-1]):.2f} "
-                  f"rm_s {float(m['rm_s'][-1]):.1f} "
-                  f"vr_s {float(m['vr_s'][-1]):.1f} "
-                  f"[{time.perf_counter() - t0:.0f}s]", flush=True)
+            if lead:
+                print(f"step {system.global_step:6d}/{total} "
+                      f"loss {float(m['loss'][-1]):.4f} "
+                      f"psnr {float(m['psnr'][-1]):.2f} "
+                      f"rm_s {float(m['rm_s'][-1]):.1f} "
+                      f"vr_s {float(m['vr_s'][-1]):.1f} "
+                      f"[{time.perf_counter() - t0:.0f}s]", flush=True)
             if writer is not None:    # the chunk's last step, as JAX logs
                 writer.add_scalar("lr", float(m["lr"][-1]),
                                   system.global_step - 1)
@@ -579,18 +726,23 @@ def main(hparams, device=None):
                                       system.global_step - 1)
         system.synchronize()
         train_s = time.perf_counter() - t0
-        print(f"training took {train_s:.1f}s", flush=True)
+        if lead:
+            print(f"training took {train_s:.1f}s", flush=True)
+            system.save(ckpt_dir)
         if system.global_step > start:
             train_ms = train_s * 1e3 / (system.global_step - start)
-        system.save(ckpt_dir)
 
     save_dir = None
     if not hparams.no_save_test:
         save_dir = f"results/{hparams.dataset_name}/{hparams.exp_name}"
-        os.makedirs(save_dir, exist_ok=True)
-    metrics = system.validate(save_dir=save_dir)
+        if lead:
+            os.makedirs(save_dir, exist_ok=True)
+    metrics = system.validate(save_dir=save_dir,
+                              eval_lpips=hparams.eval_lpips)
     if train_ms is not None:     # host clock, synchronised around fit
         metrics["train/ms_per_step"] = train_ms
+    if not lead:
+        return metrics
     for k, v in metrics.items():
         print(f"{k}: {v:.4f}")
         if writer is not None:

@@ -1,8 +1,9 @@
-"""Image metrics: port of ``mfnerf_tpu/utils/metrics.py`` (mse, psnr, ssim).
+"""Image metrics: port of ``mfnerf_tpu/utils/metrics.py`` (mse, psnr, ssim,
+lpips_vgg).
 
 SSIM is the Wang et al. formulation with an 11x11 Gaussian window (sigma
 1.5), VALID windows, k1 0.01 and k2 0.03 on data_range 1, as the JAX
-package (and torchmetrics) computes it. LPIPS is not ported.
+package (and torchmetrics) computes it. LPIPS is ``utils/lpips.py``'s.
 """
 import numpy as np
 import torch
@@ -56,3 +57,25 @@ def ssim(img_pred, img_gt):
     num = (2 * mu_p * mu_g + c1) * (2 * cov + c2)
     den = (mu_p ** 2 + mu_g ** 2 + c1) * (var_p + var_g + c2)
     return torch.mean(num / den)
+
+
+_LPIPS_WEIGHTS = {}      # (path, device) -> weights
+
+
+def lpips_vgg(img_pred, img_gt, weights_path=None):
+    """LPIPS(vgg) distance of two (H, W, 3) images in [0, 1] on their
+    device (a 0-d tensor), with the weights of the npz ``weights_path``
+    (``--lpips_weights``), loaded once a path and device. The pretrained
+    weights do not ship: the JAX package's ``misc/export_lpips_weights.py``
+    writes the npz on a machine with ``torchvision`` and ``lpips``."""
+    from .lpips import load_lpips_weights, lpips_from_weights
+    if weights_path is None:
+        raise RuntimeError(
+            "LPIPS needs pretrained VGG16 weights, which do not ship: write "
+            "them with misc/export_lpips_weights.py and pass "
+            "--lpips_weights <file.npz>, or drop --eval_lpips")
+    key = (weights_path, str(img_pred.device))
+    if key not in _LPIPS_WEIGHTS:
+        _LPIPS_WEIGHTS[key] = load_lpips_weights(weights_path,
+                                                 img_pred.device)
+    return lpips_from_weights(_LPIPS_WEIGHTS[key], img_pred, img_gt)

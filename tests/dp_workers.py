@@ -1,0 +1,143 @@
+"""The ranks of tests/test_torch_dp.py: functions that
+``mfnerf_tpu_torch.parallel.dist.spawn`` runs in processes of their own,
+one a rank, joined in a gloo group on the CPU. This module imports torch,
+numpy and the port only, so that a rank starts without JAX."""
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from mfnerf_tpu_torch import train as ttrain
+from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+from mfnerf_tpu_torch.datasets.ray_utils import get_rays
+from mfnerf_tpu_torch.models.ngp import NGP, NGPConfig, OccupancyState
+from mfnerf_tpu_torch.models.rendering import (RenderConfig, render_test,
+                                               render_test_sharded)
+from mfnerf_tpu_torch.opt import get_opts
+from mfnerf_tpu_torch.parallel import dist as pdist
+from mfnerf_tpu_torch.utils.procedural import make_scene
+
+
+def multichip_hparams(batch_size=256, **kw):
+    """tests/test_multichip.py's system (``_make_system``): the LowRank
+    field at grid 32, batch 256, one epoch of 64 steps."""
+    d = dict(
+        root_dir="<memory>", dataset_name="nsvf", split="train",
+        downsample=1.0, scale=0.5, use_exposure=False, distortion_loss_w=0.0,
+        batch_size=batch_size, ray_sampling_strategy="all_images",
+        num_epochs=1, num_gpus=1, lr=1e-2, optimize_ext=False,
+        random_bg=False, eval_lpips=False, val_only=False, no_save_test=True,
+        exp_name="mc", ckpt_path=None, weight_path=None, grid="LowRank",
+        L=8, F=2, T=14, N_min=16, N_max=128, N_tables=1, rgb_channels=16,
+        rgb_layers=1, seed=7, s_max_train=16, s_max_test=16, test_chunk=1024,
+        lpips_weights=None, profile=False, steps_per_epoch=64,
+        grid_size=32, max_samples=128, lr_levels=2, lr_rank=8, lr_frames=1,
+        lr_k_max=64, s_flat=0)
+    d.update(kw)
+    return argparse.Namespace(**d)
+
+
+def multichip_system(hp, device="cpu"):
+    """A NeRFSystem of ``hp`` on test_multichip's 64x64 scene (4 train
+    views; 3 test views, so that two ranks each render one), its field
+    drawn from seed 3."""
+    scene = make_scene(n_train=4, n_test=3, wh=64, seed=0)
+    system = ttrain.NeRFSystem(hp, device=device)
+    system.setup(MemoryDataset.from_scene(scene, "train"),
+                 MemoryDataset.from_scene(scene, "test"))
+    system.configure(3)
+    return system
+
+
+def fit(rank, device, hp, n_steps):
+    """``n_steps`` of ``fit`` from step 0, then ``validate``: the
+    parameters, the bitfield, every step's metrics and the validation."""
+    torch.set_num_threads(1)
+    system = multichip_system(hp, device)
+    metrics = system.fit(n_steps)
+    return {"params": {k: v.detach().cpu().numpy()
+                       for k, v in system.model.state_dict().items()},
+            "bitfield": system.occ.density_bitfield.cpu().numpy(),
+            "metrics": {k: v.numpy() for k, v in metrics.items()},
+            "refreshes": system.n_refresh, "validate": system.validate(),
+            "shard": (system.shard.lo, system.shard.hi)
+            if system.shard is not None else None}
+
+
+def trainer_step(rank, device, hp, state, bits, train, img, pix, noise,
+                 step):
+    """One step of the trainer at ``step`` on this rank's shard of the
+    batch (``img``, ``pix``, ``noise``), the field's weights ``state`` and
+    the occupancy ``bits`` given, the gradients averaged over the ranks:
+    (the ranks' mean loss, the averaged gradients, this rank's marched
+    samples, the samples it kept)."""
+    torch.set_num_threads(1)
+    system = ttrain.NeRFSystem(hp, device=device)
+    system.setup(MemoryDataset(*train))
+    system.configure(0)
+    system.rcfg = dataclasses.replace(system.rcfg, s_strata=32)
+    system.model.load_state_dict({k: torch.from_numpy(v)
+                                  for k, v in state.items()})
+    system.occ = dataclasses.replace(
+        system.occ, density_bitfield=torch.from_numpy(bits)
+    ).refresh_coarse(system.model_cfg)
+    system.global_step = step
+    sh = system.shard
+    loss, res, _ = system.step_loss(
+        *(sh.take(torch.from_numpy(a)) for a in (img, pix, noise)))
+    system.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    system.average_gradients()
+    mean = pdist.all_sum(loss.detach().double()) / sh.world
+    return (float(mean), {k: p.grad.numpy() for k, p
+                          in system.model.named_parameters()},
+            int(res["rm_samples"]), int(res["mask"].sum()))
+
+
+def ragged(rank, device, lists, n_max):
+    """``allgather_ragged`` of rank r's list ``lists[r]``."""
+    return pdist.allgather_ragged(lists[rank], n_max)
+
+
+def render_setup(seed=0):
+    """A small LowRank field, its occupancy after one dense refresh, and
+    the 24x24 rays of a test view of the procedural scene."""
+    g = torch.Generator().manual_seed(seed)
+    cfg = NGPConfig(lr_k_max=64, lr_levels=2, lr_rank=8, lr_fused=True,
+                    grid_size=32, rgb_channels=16, rgb_layers=1)
+    model = NGP(cfg, g, device="cpu")
+    occ = model.update_density_grid(
+        OccupancyState.create(cfg, "cpu"), 0.5,
+        torch.rand((1, cfg.n_cells, 3), generator=g) * 2 - 1)
+    scene = make_scene(n_train=1, n_test=1, wh=24, seed=0)
+    rays = get_rays(torch.from_numpy(scene["directions"]),
+                    torch.from_numpy(scene["test_poses"][0]))
+    return model, occ, rays
+
+
+RENDER_CFG = RenderConfig(max_samples=128, s_max_test=256, test_chunk=512)
+
+
+def render(rank, device, n):
+    """``render_test_sharded`` of the first ``n`` rays of
+    :func:`render_setup`'s view, as numpy arrays."""
+    torch.set_num_threads(1)
+    model, occ, (ro, rd) = render_setup()
+    out = render_test_sharded(model, occ, ro[:n], rd[:n], RENDER_CFG)
+    return {k: (v.numpy() if torch.is_tensor(v) else v)
+            for k, v in out.items()}
+
+
+def render_whole(n):
+    """``render_test`` of the same rays in one process."""
+    model, occ, (ro, rd) = render_setup()
+    out = render_test(model, occ, ro[:n], rd[:n], RENDER_CFG)
+    return {k: (v.numpy() if torch.is_tensor(v) else v)
+            for k, v in out.items()}
+
+
+def main_rank(rank, device, argv):
+    """The command line's ``main`` as this rank of the group."""
+    torch.set_num_threads(1)
+    return ttrain.main(get_opts(argv), device=device)

@@ -448,12 +448,21 @@ def test_main_writes_checkpoints_and_results(cli_dir, capsys, grid):
 
 @pytest.mark.parametrize("flag", [["--num_gpus", "2"], ["--eval_lpips"],
                                   ["--num_gpus", "4"]])
-def test_unported_flags_raise(cli_dir, flag):
-    """Data parallelism (on two cards, and on the four of a multi-card
-    machine) and LPIPS raise; ``--profile`` is ported
-    (tests/test_torch_eval.py)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _main(_argv(*flag))
+def test_unported_flags_raise(cli_dir, monkeypatch, flag):
+    """The command line refuses, before any step, what it cannot run:
+    data parallelism on more cards than the machine has (two and four on a
+    one-card machine: the ranks never share a card and never fall back to
+    the CPU; the JAX ``make_mesh``'s message) and LPIPS without
+    ``--lpips_weights`` (the JAX message). ``--profile`` is ported
+    (tests/test_torch_eval.py); data parallelism on CPU ranks is
+    tests/test_torch_dp.py's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(ttrain, "_run", None)      # nothing may train
+    match = "lpips_weights" if flag == ["--eval_lpips"] \
+        else f"requested {flag[1]} devices, have 1"
+    with pytest.raises(ValueError, match=match):
+        ttrain.main(topt.get_opts(_argv(*flag)))
 
 
 def _hdr_scene(root):

@@ -362,9 +362,9 @@ def test_hdr_scene_trains_without_use_exposure(hdr_root, monkeypatch):
     seen = {}
     render_train = ttrain.render_train
 
-    def spy(*args):
-        seen["exposure"] = args[-1]
-        return render_train(*args)
+    def spy(*args, **kwargs):
+        seen["exposure"] = args[8]
+        return render_train(*args, **kwargs)
 
     monkeypatch.setattr(ttrain, "render_train", spy)
     img = torch.from_numpy(sample["img_idxs"])

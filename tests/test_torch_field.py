@@ -112,6 +112,36 @@ def test_lowrank_encode_matches(fused):
     _check(got, want, same)
 
 
+@pytest.mark.parametrize("part", ["encode", "field"])
+def test_fp32_fused_encoder_matches_jax(part):
+    """The fused encoder in its fp32 mode (``lr_matmul_dtype="float32"``,
+    the JAX ``matmul_dtype="float32"`` of tests/test_lowrank.py:77,109):
+    no bf16 step, so every sample is held to 1e-4, the encoding and the
+    whole field (density and colour) alike."""
+    jmodel, params, tmodel = _models(lr_k_max=256, lr_fused=True,
+                                     lr_matmul_dtype="float32")
+    assert tmodel.lowrank_cfg.matmul_dtype == "float32"
+    rng = np.random.default_rng(2)
+    everywhere = np.ones(N, bool)
+    if part == "encode":
+        xn = rng.random((N, 3), dtype=np.float32)
+        want = np.asarray(jlowrank.lowrank_encode(
+            params["lowrank"], jnp.asarray(xn), jmodel.lowrank_cfg))
+        with torch.no_grad():
+            got = tlowrank.lowrank_encode(
+                {"lines": tmodel.lowrank.lines, "proj": tmodel.lowrank.proj},
+                torch.from_numpy(xn), tmodel.lowrank_cfg).numpy()
+        _check(got, want, everywhere)
+        return
+    x = rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)
+    d = rng.normal(size=(N, 3)).astype(np.float32)
+    sig_j, rgb_j = jmodel.forward(params, jnp.asarray(x), jnp.asarray(d))
+    with torch.no_grad():
+        sig_t, rgb_t = tmodel(torch.from_numpy(x), torch.from_numpy(d))
+    _check(sig_t.numpy(), np.asarray(sig_j), everywhere)
+    _check(rgb_t.numpy(), np.asarray(rgb_j), everywhere)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_density_and_forward_match(fused):
     jmodel, params, tmodel = _models(lr_k_max=256, lr_fused=fused)

@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: in a subprocess where ``jax``,
 ``mfnerf_tpu``, ``imageio``, ``PIL``, ``cv2`` and ``tqdm`` cannot be
-imported, import every module of ``mfnerf_tpu_torch``, serve a 64-ray frame,
+imported, import every module of ``mfnerf_tpu_torch`` (``parallel/`` and
+``utils/lpips.py`` among them; an LPIPS distance), serve a 64-ray frame,
 take two training steps of a LowRank and of a MixedFeature field, run
 the command line's ``main`` on a small scene written to disk, then the
 offline entry points on its checkpoint (``eval`` with ``--mesh``, the
@@ -23,6 +24,13 @@ names = [m.name for m in pkgutil.walk_packages(mfnerf_tpu_torch.__path__,
                                                "mfnerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"mfnerf_tpu_torch.parallel.dist", "mfnerf_tpu_torch.utils.lpips",
+        "mfnerf_tpu_torch.ops.hatmul"} <= set(names)
+from mfnerf_tpu_torch.utils import lpips
+img = torch.rand((16, 16, 3), generator=torch.Generator().manual_seed(0))
+lp = lpips.lpips_from_weights(lpips.random_lpips_weights(
+    torch.Generator().manual_seed(1)), img, img.flip(0))
+assert float(lp) > 0
 from mfnerf_tpu_torch.datasets.ray_utils import get_rays
 from mfnerf_tpu_torch.models.ngp import NGP, NGPConfig, OccupancyState
 from mfnerf_tpu_torch.models.rendering import RenderConfig, render_test

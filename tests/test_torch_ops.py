@@ -217,6 +217,30 @@ def test_hat_prod_plain_matches_jax(k, kp, r, n, ref):
     assert thatmul.hat_prod.launches == 0
 
 
+@pytest.mark.parametrize("k,r,n", [(65, 16, 637), (257, 128, 600)])
+def test_hat_prod_plain_fp32_matches_jax(k, r, n):
+    """The fp32 mode (lr_matmul_dtype="float32"): the plain version in fp32
+    end to end against the JAX _hat_cp_prod with mm_dtype float32, rtol
+    1e-5 with atol 1e-5 of the largest value (the dense sums in another
+    order); through hat_prod on the CPU too."""
+    rng = np.random.default_rng(8)
+    u3 = rng.random((n, 3), dtype=np.float32)
+    u3[:5] = 1.0
+    u3[5:10] = np.float32(np.round(u3[5:10] * (k - 1)) / (k - 1))
+    w = (1.0 + 0.3 * rng.normal(size=(3, k, r))).astype(np.float32)
+    want = _np(jlowrank._hat_cp_prod(jnp.asarray(u3), jnp.asarray(w), k,
+                                     jnp.float32))
+    for got in (thatmul.hat_prod_plain(_t(u3), _t(w), k, "float32"),
+                thatmul.hat_prod(_t(u3), _t(w), k, "float32")):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+    bf16 = thatmul.hat_prod_plain(_t(u3), _t(w), k).numpy()
+    assert np.abs(bf16 - want).max() > 1e-3 * np.abs(want).max()
+    with pytest.raises(ValueError, match="dtype"):
+        thatmul.hat_prod(_t(u3), _t(w), k, "float16")
+    assert thatmul.hat_prod.launches == 0
+
+
 def test_hat_prod_rejects_other_devices():
     u3 = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):

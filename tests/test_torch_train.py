@@ -143,6 +143,28 @@ def test_hat_prod_bwd_matches_jax(k, kp, r, n, ref):
     assert thatmul.hat_prod.launches == thatmul.hat_prod_bwd.launches == 0
 
 
+@pytest.mark.parametrize("k,r,n", [(65, 16, 637), (257, 128, 600)])
+def test_hat_prod_bwd_fp32_matches_jax(k, r, n):
+    """The fp32 mode's VJP (lr_matmul_dtype="float32": g_d, the basis and
+    W in fp32) against the JAX _hat_cp_prod's with mm_dtype float32, the
+    plain version and through autograd: rtol 1e-5 with atol 1e-5 of the
+    largest value; du 0 on the knots."""
+    u3, w, g, knot = _hat_operands(k, k, r, n)
+    _, vjp = jax.vjp(lambda u, w_: jlowrank._hat_cp_prod(u, w_, k,
+                                                         jnp.float32),
+                     jnp.asarray(u3), jnp.asarray(w))
+    du_j, dw_j = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    du_p, dw_p = thatmul.hat_prod_bwd_plain(_t(u3), _t(w), k, _t(g),
+                                            dtype="float32")
+    uu, ww = _t(u3).requires_grad_(), _t(w).requires_grad_()
+    thatmul.hat_prod(uu, ww, k, "float32").backward(_t(g))
+    for du, dw in ((du_p, dw_p), (uu.grad, ww.grad)):
+        _close(dw.numpy(), dw_j, rtol=1e-5, rel_atol=1e-5)
+        _close(du.numpy(), du_j, rtol=1e-5, rel_atol=1e-5)
+        assert (du.numpy()[knot] == 0).all() and (du_j[knot] == 0).all()
+    assert thatmul.hat_prod.launches == thatmul.hat_prod_bwd.launches == 0
+
+
 @pytest.mark.parametrize("u0", [0.5, 1.0, 0.375])
 def test_hat_prod_gradient_is_zero_on_knots(u0):
     """d(out.sum())/du at a knot is the hat's subgradient 0, as in the JAX
@@ -240,9 +262,9 @@ def test_lowrank_backward_hands_hat_prod_a_strided_g(monkeypatch):
                 t.requires_grad_()
     seen, plain_bwd = [], thatmul.hat_prod_bwd
 
-    def recorder(u3, w3, k_res, g, need_du=True):
+    def recorder(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
         seen.append((g.shape, g.stride(), g.is_contiguous()))
-        return plain_bwd(u3, w3, k_res, g, need_du)
+        return plain_bwd(u3, w3, k_res, g, need_du, dtype)
 
     monkeypatch.setattr(thatmul, "hat_prod_bwd", recorder)
     x = torch.from_numpy(np.random.default_rng(12).random(
@@ -453,7 +475,8 @@ def _torch_step(tmodel, bits, rays_o, rays_d, noise, target, rcfg, loss_mod,
     pytest.param("LowRank", True, 8, "exposure-ext", id="exposure-ext-True"),
     pytest.param("LowRank", False, 8, "bf16", id="bf16-False"),
     pytest.param("LowRank", True, 8, "bf16", id="bf16-True"),
-    pytest.param("Hash", False, 8, "bf16", id="bf16-Hash")])
+    pytest.param("Hash", False, 8, "bf16", id="bf16-Hash"),
+    pytest.param("LowRank", True, 8, "fp32", id="fp32-True")])
 def test_train_step_matches_jax(grid, fused, m, flags):
     """A whole step's loss and every parameter gradient, for the LowRank
     encoder (unfused fp32 and fused bf16) and the hash grids (MixedFeature
@@ -462,8 +485,10 @@ def test_train_step_matches_jax(grid, fused, m, flags):
     uniforms for all N*S slots; the port is handed the valid samples' rows.
     With ``flags`` the step is the trainer's (``NeRFSystem.step_loss``)
     under ``--optimize_ext`` (``dR`` and ``dT`` held too; "ext-flat" past
-    ``FLAT_AFTER`` on the flat budget), ``--use_exposure`` or ``--bf16``:
-    :func:`_check_trainer_step`."""
+    ``FLAT_AFTER`` on the flat budget), ``--use_exposure`` or ``--bf16``,
+    or ("fp32") with the fused encoder in its fp32 mode
+    (``lr_matmul_dtype="float32"``: no bf16 step, held as the unfused
+    encoder): :func:`_check_trainer_step`."""
     if flags:
         return _check_trainer_step(grid, fused, m, flags)
     kw = dict(N_tables=2, hash_grad_samples=m) if grid == "MixedFeature" \
@@ -562,6 +587,7 @@ def _trainer_system(grid, fused, m, flags, params, train):
     budget at 32 (the exact march's samples on this batch)."""
     kw = dict(grid=grid, lr_fused=fused, lr_levels=SMALL["lr_levels"],
               lr_k_max=SMALL["lr_k_max"],
+              lr_matmul_dtype="float32" if flags == "fp32" else "bfloat16",
               use_exposure="exposure" in flags, optimize_ext="ext" in flags,
               bf16=flags == "bf16", s_flat=4 if flags == "ext-flat" else 0,
               distortion_loss_w=1e-3)
@@ -737,7 +763,9 @@ def _check_trainer_step(grid, fused, m, flags):
     hdr = "exposure" in flags
     bits, poses, dirs, images, img, pix, noise = _trainer_batch(
         exposure=hdr)
+    fp32 = flags == "fp32"      # the fused encoder's fp32 mode
     cfg = dict(SMALL, grid=grid, lr_fused=fused, max_samples=256,
+               lr_matmul_dtype="float32" if fp32 else "bfloat16",
                rgb_act="None" if hdr else "Sigmoid",
                compute_dtype="bfloat16" if flags == "bf16" else "float32")
     if grid != "LowRank":
@@ -762,7 +790,7 @@ def _check_trainer_step(grid, fused, m, flags):
         keep = _clear_relu_rays(system, img, pix, noise)
         assert keep.mean() > 0.9, keep.mean()
         img, pix, noise = img[keep], pix[keep], noise[keep]
-    if fused:   # the rays whose bf16 hat bases agree on both sides
+    if fused and not fp32:   # the rays whose bf16 hat bases agree
         ro, rd = (x.numpy() for x in ttrain.get_rays(
             _t(dirs)[_t(pix)], _t(poses)[_t(img)]))
         with torch.no_grad():
@@ -837,7 +865,7 @@ def _check_trainer_step(grid, fused, m, flags):
             err = np.linalg.norm(g - want[name].numpy())
             assert err <= BF16_GRAD_RTOL * np.linalg.norm(
                 want[name].numpy()), (name, err)
-        elif fused:
+        elif fused and not fp32:
             w = want[name].numpy()
             top = float(np.abs(w).max())
             within = np.abs(g - w) <= 1e-4 * np.abs(w) + 1e-4 * top
@@ -1250,13 +1278,16 @@ def test_default_sampling_draws_an_image_a_ray():
 
 
 @pytest.mark.parametrize("knob,error", [
-    (dict(eval_lpips=True), NotImplementedError),
-    (dict(num_gpus=2), NotImplementedError),
-    (dict(ray_sampling_strategy="one_ray"), ValueError),
-    (dict(num_gpus=4), NotImplementedError)])
+    (dict(eval_lpips=True), "lpips_weights"),
+    (dict(num_gpus=2), "process group of 2 ranks"),
+    (dict(ray_sampling_strategy="one_ray"), "ray_sampling_strategy"),
+    (dict(num_gpus=4), "process group of 4 ranks")])
 def test_unported_trainer_knobs_raise(knob, error):
-    """LPIPS, data parallelism on two or four cards and an unknown ray
-    sampling raise; ``profile`` is ported (tests/test_torch_eval.py)."""
-    with pytest.raises(error):
+    """What the trainer cannot run raises ``ValueError`` when it is built:
+    LPIPS without its weights (``--lpips_weights``), data parallelism on
+    two or four ranks outside a process group of as many (``main`` or
+    ``torchrun`` makes one; tests/test_torch_dp.py) and an unknown ray
+    sampling; ``profile`` is ported (tests/test_torch_eval.py)."""
+    with pytest.raises(ValueError, match=error):
         ttrain.NeRFSystem(_hparams(**knob), device="cpu")
     ttrain.NeRFSystem(_hparams(weight_path=None, num_gpus=1), device="cpu")
