@@ -2,7 +2,8 @@
 NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, on
 a synthetic scene and on a multi-cascade COLMAP scene, the encoder
 formulation probes (mfnerf_tpu_torch/benchmarking/), data parallelism
-(two ranks sharing the card), the fp32 hat kernels and LPIPS.
+(two ranks sharing the card), the fp32 hat kernels, LPIPS, and RTMV from
+its OpenEXR frames.
 
     python3 chip_smoke.py
 
@@ -175,7 +176,23 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 33. lpips: seeded random LPIPS weights (the pretrained VGG16 weights do
    not ship) in an npz; two 800x800 views, card against the CPU port, ms
    a pair; and --val_only --eval_lpips on phase 19's checkpoint
-   (test/lpips_vgg).
+   (test/lpips_vgg);
+34. exr (after 2c. build_exr, which compiles csrc/exr.cpp with the host
+   compiler beside the kernels' nvcc and lists what it links: no zlib or
+   OpenEXR library): a procedural view at RTMV's 1600x1600 as an RTMV
+   frame (linear light, RGBA HALF) under ZIP and PIZ, and in FLOAT under
+   ZIP, each decode bit for bit the encoder's input; the median decode
+   ms beside png.py's on the view's 8-bit PNG, and the host CPU;
+35. cli_rtmv: a scene of 110 distinct 800x800 views written as RTMV
+   publishes it (EXR frames, ZIP, beside their jsons), "python -m
+   mfnerf_tpu_torch.misc.prepare_rtmv" on it (wall seconds), and the
+   same scene written as PNG; the PNG bytes in which the two images/
+   folders differ (the half round trip and the truncation move a byte by
+   at most one); main with the reference's RTMV recipe (RTMV_ARGS: Hash
+   grid, batch 16384, lr 2e-2, 600 steps) on each: load seconds, ms/step,
+   test PSNR and SSIM (within RTMV_PSNR_TOL of each other), the first
+   test view's rendered foreground colour (a saturated rgb head renders
+   one colour: PERF.md §6) and the hash-grid kernels' launch counts.
 
 Each phase that times a kernel prints it beside its bound (bytes at
 3.35 TB/s or fp32 operations at 67 TFLOP/s), its plain version's time and,
@@ -193,6 +210,7 @@ import io
 import json
 import math
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -387,6 +405,28 @@ FP32_CHUNKS = 2                   # 100 warm + 2 x 100 timed steps a mode
 # ship), card against the CPU port; float32 convolutions, TF32 off
 LPIPS_TOL = 1e-5                  # relative
 LPIPS_REPEAT = 5
+# the host OpenEXR decoder (phase 34): one frame at RTMV's 1600x1600 in
+# RGBA HALF under ZIP and PIZ, and in FLOAT under ZIP; median of 5 decodes
+EXR_SRC = "mfnerf_tpu_torch/csrc/exr.cpp"
+EXR_WH = 1600
+EXR_REPEAT = 5
+EXR_LINKS = ("libz", "OpenEXR", "IlmImf", "Imath")   # none may be linked
+# cli_rtmv (phase 35): the reference's RTMV recipe (benchmarking/
+# benchmark_rtmv.sh:4-7: --batch_size 16384 --lr 2e-2, the default Hash
+# grid) on a procedural scene written as RTMV publishes it, EXR frames
+# (ZIP) converted by misc/prepare_rtmv.py, and on the same scene written
+# as PNG. Cuts: a procedural scene for RTMV's renders (none ships), 800x800
+# of RTMV's 1600x1600 (100 training frames at 1600^2 are 3.1 GB of host
+# rays), 110 frames of 150 (train 0-100, test 105-110), 600 steps of 20
+# epochs
+RTMV_ARGS = ("--dataset_name", "rtmv", "--no_save_test", "--num_epochs",
+             "1", "--steps_per_epoch", "600", "--batch_size", "16384",
+             "--lr", "2e-2")
+RTMV_CUTS = ("a procedural scene for RTMV's renders (none ships)",
+             "800x800 of 1600x1600", "110 of 150 frames", "600 steps")
+RTMV_FRAMES = 110
+RTMV_ROOT = os.path.join("RTMV", "google_scanned")
+RTMV_PSNR_TOL = 0.5               # dB, the EXR scene's run against the PNG's
 
 
 def check(ok, what):
@@ -860,6 +900,20 @@ def render_view(system, rays, rcfg, occ=None):
                       *rays, rcfg)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def foreground_colour(system):
+    """The first test view rendered (render_test at TEST_T): over the
+    pixels whose true colour is not white, the rendered colour's mean and
+    spread (standard deviation, averaged over the channels) beside the
+    true spread. A head whose sigmoid saturated renders one colour."""
+    rays, rgb, rcfg = held_out_view(system)
+    out, _ = render_view(system, rays, rcfg)
+    fg = (rgb < 0.99).any(1)
+    return {"mean": out["rgb"][fg].mean(0).tolist(),
+            "spread": float(out["rgb"][fg].std(0).mean()),
+            "true_spread": float(rgb[fg].std(0).mean())}
 
 
 def train_steps(system, read_launches):
@@ -1456,12 +1510,23 @@ def lpips_validate(argv, ckpt, npz, dev):
     return dict(metrics, seconds=time.perf_counter() - t0)
 
 
-def jpeg_links():
-    """The shared libraries the built JPEG decoder needs (ldd)."""
+def host_links(lib):
+    """The shared libraries that the built host library ``lib`` (a decoder
+    in csrc/) needs (ldd)."""
     from mfnerf_tpu_torch import build
-    out = subprocess.run(["ldd", str(build.build("jpeg"))], check=True,
+    out = subprocess.run(["ldd", str(build.build(lib))], check=True,
                          capture_output=True, text=True).stdout
     return [line.split()[0] for line in out.splitlines() if line.strip()]
+
+
+def median_seconds(fn, repeat):
+    """The median host seconds of ``repeat`` calls of ``fn``."""
+    times = []
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def jpeg_phase():
@@ -1488,27 +1553,160 @@ def jpeg_phase():
     scene = make_scene(n_train=1, n_test=1, wh=WH, seed=SEED)
     img = (scene["images"][0].reshape(WH, WH, 3) * 255).astype(np.uint8)
     data = encode_jpeg(img, 95, (2, 2))
-    jpeg_s = []
-    for _ in range(JPEG_REPEAT):
-        t0 = time.perf_counter()
-        decoded = decode_jpeg(data)
-        jpeg_s.append(time.perf_counter() - t0)
-    err = np.abs(decoded.astype(np.int64) - img)
-    png_s = []
+    decode_s = median_seconds(lambda: decode_jpeg(data), JPEG_REPEAT)
+    err = np.abs(decode_jpeg(data).astype(np.int64) - img)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "view.png")
         write_png(path, img)
-        for _ in range(JPEG_REPEAT):
-            t0 = time.perf_counter()
-            read_png(path)
-            png_s.append(time.perf_counter() - t0)
+        png_s = median_seconds(lambda: read_png(path), JPEG_REPEAT)
         png_bytes = os.path.getsize(path)
     return dict(fixtures=fixtures, wh=WH, sampling="4:2:0", quality=95,
                 jpeg_bytes=len(data), png_bytes=png_bytes,
-                decode_seconds=float(np.median(jpeg_s)),
-                png_decode_seconds=float(np.median(png_s)),
+                decode_seconds=decode_s, png_decode_seconds=png_s,
                 repeats=JPEG_REPEAT, mean_abs_err=float(err.mean()),
                 max_abs_err=int(err.max()))
+
+
+def host_cpu():
+    """The host CPU's model name (lscpu, else /proc/cpuinfo; else the
+    architecture) and its logical CPUs, which the decode times stand
+    beside."""
+    try:
+        text = subprocess.run(["lscpu"], capture_output=True,
+                              text=True).stdout
+    except OSError:
+        text = ""
+    with open("/proc/cpuinfo") as f:
+        text += f.read()
+    names = re.findall(r"^(?:Model name|model name|cpu model)\s*:\s*(.+)$",
+                       text, re.M)
+    name = names[0].strip() if names else platform.machine()
+    return f"{name} ({os.cpu_count()} logical)"
+
+
+def exr_phase():
+    """34: one procedural view at RTMV's 1600x1600 as RTMV stores a frame
+    (linear light, RGBA HALF, alpha 1) encoded under ZIP and PIZ, and in
+    FLOAT under ZIP (utils/procedural.py's encoder); each decode equals
+    the encoder's input bit for bit; the median of EXR_REPEAT decodes each,
+    beside png.py on the view's 8-bit PNG. Returns the fields."""
+    from mfnerf_tpu_torch.datasets.color_utils import srgb_to_linear
+    from mfnerf_tpu_torch.datasets.exr import decode_exr
+    from mfnerf_tpu_torch.datasets.png import read_png, write_png
+    from mfnerf_tpu_torch.utils.procedural import encode_exr, make_scene
+    scene = make_scene(n_train=1, n_test=1, wh=EXR_WH, seed=SEED)
+    img = (scene["images"][0].reshape(EXR_WH, EXR_WH, 3) * 255).astype(
+        np.uint8)
+    linear = srgb_to_linear(img.astype(np.float32) / 255)
+    rgba = np.concatenate([linear, np.ones_like(linear[..., :1])], -1)
+    frames = {}
+    for label, compression, pixel_type in (("half_zip", "zip", "half"),
+                                           ("half_piz", "piz", "half"),
+                                           ("float_zip", "zip", "float")):
+        t0 = time.perf_counter()
+        data = encode_exr(rgba, compression, pixel_type)
+        encode_s = time.perf_counter() - t0
+        want = (rgba.astype(np.float16).astype(np.float32)
+                if pixel_type == "half" else rgba)
+        got = decode_exr(data, label)
+        check(got.shape == want.shape and np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)),
+            f"{label}: the decode differs from the encoder's input")
+        frames[label] = dict(
+            bytes=len(data), encode_seconds=encode_s,
+            decode_ms=1e3 * median_seconds(lambda: decode_exr(data, label),
+                                           EXR_REPEAT))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "view.png")
+        write_png(path, img)
+        png_ms = 1e3 * median_seconds(lambda: read_png(path), EXR_REPEAT)
+        png_bytes = os.path.getsize(path)
+    return dict(wh=EXR_WH, channels="RGBA", frames=frames,
+                png_decode_ms=png_ms, png_bytes=png_bytes, repeats=EXR_REPEAT,
+                bit_exact=True, host_cpu=host_cpu())
+
+
+def png_bytes_apart(root_a, root_b):
+    """Over the images/ PNGs of two scenes: the bytes that differ, all
+    bytes, and the largest difference."""
+    from mfnerf_tpu_torch.datasets.png import read_png
+    names = sorted(os.listdir(os.path.join(root_a, "images")))
+    check(names == sorted(os.listdir(os.path.join(root_b, "images"))),
+          f"{root_a} and {root_b} hold other images")
+    differ = total = largest = 0
+    for name in names:
+        a = read_png(os.path.join(root_a, "images", name)).astype(np.int16)
+        b = read_png(os.path.join(root_b, "images", name)).astype(np.int16)
+        check(a.shape == b.shape, f"{name}: {a.shape} against {b.shape}")
+        differ += int((a != b).sum())
+        total += a.size
+        largest = max(largest, int(np.abs(a - b).max()))
+    return differ, total, largest
+
+
+def cli_rtmv(dev, read_launches):
+    """35: a procedural scene of RTMV_FRAMES distinct views at 800x800
+    written as RTMV publishes it (NNNNN.exr, ZIP, beside NNNNN.json),
+    "python -m mfnerf_tpu_torch.misc.prepare_rtmv" on it, and the same
+    scene written as PNG; then main with the reference's RTMV recipe on
+    each. Returns the fields."""
+    from mfnerf_tpu_torch.datasets.rtmv import RTMVDataset
+    from mfnerf_tpu_torch.utils.procedural import make_scene, write_rtmv_scene
+    repo = os.path.dirname(os.path.abspath(__file__))
+    scene = make_scene(n_train=RTMV_FRAMES, n_test=1, wh=WH, seed=SEED)
+    roots = {"exr": os.path.join(RTMV_ROOT, "spheres_exr"),
+             "png": os.path.join(RTMV_ROOT, "spheres_png")}
+    t0 = time.perf_counter()
+    write_rtmv_scene(roots["exr"], scene, n_frames=RTMV_FRAMES,
+                     image_format="exr", compression="zip")
+    write_s = time.perf_counter() - t0
+    exr_bytes = sum(os.path.getsize(os.path.join(roots["exr"], name))
+                    for name in os.listdir(roots["exr"])
+                    if name.endswith(".exr"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "mfnerf_tpu_torch.misc.prepare_rtmv",
+                           roots["exr"]], env=env, capture_output=True,
+                          text=True, timeout=300)
+    prepare_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"prepare_rtmv exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(proc.stdout.split() == [f"{i:05d}.png" for i in range(
+        RTMV_FRAMES)], f"prepare_rtmv printed {proc.stdout[:200]}")
+    write_rtmv_scene(roots["png"], scene, n_frames=RTMV_FRAMES)
+    differ, total, largest = png_bytes_apart(roots["exr"], roots["png"])
+    check(largest <= 1, f"the EXR scene's PNGs differ by up to {largest}")
+    del scene
+    runs = {}
+    for label, root in roots.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            views = [RTMVDataset(root, split=split).rays.shape
+                     for split in ("train", "test")]
+        load_s = time.perf_counter() - t0
+        check(views == [(100, WH * WH, 3), (5, WH * WH, 3)],
+              f"RTMV views {views}")
+        argv = ["--root_dir", root, *RTMV_ARGS, "--exp_name", f"rtmv_{label}"]
+        metrics, log, system, launches = run_main(argv, dev, read_launches)
+        runs[label] = dict(
+            argv=argv, load_seconds=load_s,
+            ms_per_step=metrics["train/ms_per_step"],
+            test_psnr=metrics["test/psnr"], test_ssim=metrics["test/ssim"],
+            train_psnr_last_step=float(re.findall(
+                r"^step .* psnr ([0-9.]+)", log, re.M)[-1]),
+            foreground=foreground_colour(system),
+            val_ms_per_frame=val_ms(log), **launches)
+        del system
+        check(min(launches.values()) > 0,
+              f"the RTMV run ({label}) launched {launches}")
+        torch.cuda.empty_cache()
+    return dict(wh=WH, frames=RTMV_FRAMES, cuts=list(RTMV_CUTS),
+                write_seconds=write_s, exr_bytes=exr_bytes,
+                prepare_seconds=prepare_s, png_bytes_differ=differ,
+                png_bytes=total, png_max_diff=largest,
+                psnr_tol=RTMV_PSNR_TOL, runs=runs)
 
 
 def offline_phases(argv, ckpt, val_psnr, dev, read_launches):
@@ -2009,20 +2207,27 @@ def main():
         build.load_library(lib)
         return fresh, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = {lib: pool.submit(timed_build, lib)
-                  for lib in ("hatmul", "hashgrid", "linetable", "jpeg")}
+                  for lib in ("hatmul", "hashgrid", "linetable", "jpeg",
+                              "exr")}
         for label, lib, source in (("build", "hatmul", src),
                                    ("build_hashgrid", "hashgrid", hash_src),
                                    ("build_linetable", "linetable",
                                     line_src),
-                                   ("build_jpeg", "jpeg", JPEG_SRC)):
+                                   ("build_jpeg", "jpeg", JPEG_SRC),
+                                   ("build_exr", "exr", EXR_SRC)):
             fresh, seconds = builds[lib].result()
             extra = {}
             if lib == "jpeg":     # host code: no libjpeg behind it
-                extra = dict(compiler=build.cxx(), linked=jpeg_links())
+                extra = dict(compiler=build.cxx(), linked=host_links(lib))
                 check(not any("jpeg" in dep for dep in extra["linked"]),
                       f"{JPEG_SRC} links {extra['linked']}")
+            if lib == "exr":      # host code: no zlib or OpenEXR behind it
+                extra = dict(compiler=build.cxx(), linked=host_links(lib))
+                check(not any(name in dep for dep in extra["linked"]
+                              for name in EXR_LINKS),
+                      f"{EXR_SRC} links {extra['linked']}")
             phase(label, source=source, built=fresh, seconds=seconds,
                   **extra, card=card)
 
@@ -2516,6 +2721,25 @@ def main():
     phase("lpips", **lpips_fields, validate=offline["lpips_val"], card=card)
     lpips_dir.cleanup()
 
+    # ---- 34. the OpenEXR decoder at RTMV's frame size (host only)
+    phase("exr", **exr_phase(), card=card)
+
+    # ---- 35. cli_rtmv: RTMV's EXR frames through prepare_rtmv, then the
+    # RTMV recipe through main, beside the same scene in PNG
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rtmv = cli_rtmv(dev, hash_launches)
+        finally:
+            os.chdir(cwd)
+    phase("cli_rtmv", **rtmv, card=card)
+    rtmv_gap = abs(rtmv["runs"]["exr"]["test_psnr"]
+                   - rtmv["runs"]["png"]["test_psnr"])
+    check(rtmv_gap <= RTMV_PSNR_TOL,
+          f"RTMV test PSNR from EXR {rtmv['runs']['exr']['test_psnr']} "
+          f"against PNG {rtmv['runs']['png']['test_psnr']}")
+
     fwd_bound_ms, fwd_bound_by = fwd_bound(N_KERNEL, k, w3.shape[2])
     fp32_train = fp32["train"]["float32"]
     print(json.dumps({"kernels": [{
@@ -2561,6 +2785,7 @@ def main():
         "replaces": "mfnerf_tpu/ops/hashgrid.py:197",
         "launches": mf_fwd,
         "cli_colmap_launches": colmap_mf["hashgrid_fwd_launches"],
+        "cli_rtmv_launches": rtmv["runs"]["exr"]["hashgrid_fwd_launches"],
         "max_abs_err": hash_train["fwd_max_abs_err"],
         "ms": hash_train["fwd_ms"], "plain_ms": hash_train["fwd_plain_ms"],
         "bound_ms": hash_train["fwd_bound_ms"],
@@ -2569,6 +2794,7 @@ def main():
         "replaces": "mfnerf_tpu/ops/hashgrid.py:246",
         "launches": mf_bwd,
         "cli_colmap_launches": colmap_mf["hashgrid_bwd_launches"],
+        "cli_rtmv_launches": rtmv["runs"]["exr"]["hashgrid_bwd_launches"],
         "train_dx_ms": hash_train["bwd_dx_ms"],
         "train_dx_bound_ms": hash_train["bwd_dx_bound_ms"],
         "max_abs_err": hash_train["exact_dp_max_abs_err"],

@@ -7,19 +7,21 @@ wants), a bilinear resize, flattened to (H*W, 3).
 The decoders are ``png.py`` (8-bit PNG) and ``jpeg.py`` (JPEG, libjpeg's
 default decode bit for bit: LLFF, mip-NeRF 360, HDR-NeRF), chosen by the
 file's leading bytes. They run on the host, where the loaders run; they
-stand in for no device kernel. An OpenEXR file (only ``misc/prepare_rtmv.py``
-reads one) raises a ``ValueError`` that names the file and its format.
+stand in for no device kernel. An OpenEXR file raises a ``ValueError``
+that names the file and its format, as the JAX package's reader does not
+read one either: ``misc/prepare_rtmv.py`` (``datasets/exr.py``) turns
+RTMV's frames into PNGs first.
 """
 import numpy as np
 import torch
 
+from .exr import SIGNATURE as OPENEXR_SIGNATURE
 from .jpeg import SIGNATURE as JPEG_SIGNATURE, read_jpeg
 from .png import SIGNATURE as PNG_SIGNATURE, read_png
 
 # uint8 -> [0, 1] as the JAX package's native loader scales (a product with
 # the float32 reciprocal)
 INV_255 = np.float32(1) / np.float32(255)
-OPENEXR_SIGNATURE = b"v/1\x01"
 
 
 def srgb_to_linear(img):
@@ -55,7 +57,9 @@ def read_image(img_path, img_wh, blend_a=True):
         img = read_jpeg(img_path)
     elif head.startswith(OPENEXR_SIGNATURE):
         raise ValueError(f"{img_path}: an OpenEXR file; the port reads 8-bit "
-                         f"PNG and JPEG (datasets/png.py, datasets/jpeg.py)")
+                         f"PNG and JPEG (datasets/png.py, datasets/jpeg.py); "
+                         f"python -m mfnerf_tpu_torch.misc.prepare_rtmv "
+                         f"converts RTMV's frames")
     else:
         raise ValueError(f"{img_path}: neither a PNG nor a JPEG file")
     img = img.astype(np.float32) * INV_255

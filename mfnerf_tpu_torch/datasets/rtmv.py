@@ -4,8 +4,10 @@ Port of ``mfnerf_tpu/datasets/rtmv.py`` on the tables of
 ``conventions.py``: intrinsics and the scene box from ``00000.json``,
 index-range splits (``RTMV_SPLITS``), ``cam2world`` stored transposed in
 ``rub`` axes, and the box normalisation of the ``RTMV_BOUND_SCENES``.
-RTMV ships OpenEXR images, which ``color_utils.read_image`` refuses by
-name; PNG frames load.
+RTMV ships OpenEXR frames, which ``color_utils.read_image`` refuses by
+name: ``python -m mfnerf_tpu_torch.misc.prepare_rtmv <root_dir>`` writes
+them to ``images/`` as the PNGs this loader reads, as the JAX package's
+``misc/prepare_rtmv.py`` does.
 """
 import glob
 import json

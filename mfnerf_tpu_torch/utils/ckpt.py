@@ -51,6 +51,11 @@ def load_ckpt(path):
     return out
 
 
+def extract_model_state(path):
+    """The checkpoint's flat {path: ndarray} params section."""
+    return load_ckpt(path)["params"]
+
+
 def _write(path, sections, step):
     """Write {section: {path: ndarray}} and its manifest to ``path``."""
     blobs = {}

@@ -14,19 +14,24 @@ shaded spheres on a white background, seen from cameras on a ring of radius
 loaders (``datasets/``), with ``datasets/png.py`` as the PNG writer:
 pixels are ``(img * 255).astype(uint8)``, as the JAX package writes them.
 :func:`write_jpeg` is a numpy baseline JPEG encoder (Annex K tables) for
-scenes in JPEG, as LLFF and mip-NeRF 360 ship them.
+scenes in JPEG, as LLFF and mip-NeRF 360 ship them, and
+:func:`encode_exr` a numpy OpenEXR encoder (NONE, RLE, ZIPS, ZIP and PIZ;
+HALF and FLOAT) for RTMV's frames.
 The JAX package has no Blender, COLMAP or HDR-NeRF writer.
 :func:`perturb_poses` shifts training poses for the pose refinement
 (``--optimize_ext``) to recover.
 """
+import heapq
 import json
 import os
 import struct
+import zlib
 
 import numpy as np
 
 import torch
 
+from ..datasets.color_utils import srgb_to_linear
 from ..datasets.colmap_utils import rotmat2qvec
 from ..datasets.conventions import (COLMAP_TEST_EVERY, HDR_EXPOSURES,
                                     scene_name)
@@ -323,15 +328,24 @@ def write_nerfpp_scene(root, scene=None, **kwargs):
     return scene
 
 
-def write_rtmv_scene(root, scene=None, n_frames=110, **kwargs):
+def write_rtmv_scene(root, scene=None, n_frames=110, image_format="png",
+                     compression="zip", **kwargs):
     """Write a procedural scene in the RTMV layout: images/NNNNN.png and a
     NNNNN.json a frame whose camera_data holds the intrinsics, a unit scene
     box and ``cam2world`` transposed in [right up back] axes, as
     ``mfnerf_tpu.utils.procedural.write_rtmv_scene`` writes it. RTMV splits
     are index ranges (train 0-100, test 105-150), so ``n_frames`` frames
-    cycle through the scene's training views. Returns the scene."""
+    cycle through the scene's training views. With ``image_format="exr"``
+    the frames are NNNNN.exr beside the jsons, as RTMV publishes them:
+    linear light (``srgb_to_linear`` of the PNG's pixels) in HALF RGBA with
+    alpha 1, under ``compression`` (:func:`encode_exr`); the RTMV
+    preparation (``misc/prepare_rtmv.py``) turns them into images/.
+    Returns the scene."""
+    if image_format not in ("png", "exr"):
+        raise ValueError(f"image_format {image_format!r}: png or exr")
     scene = scene or make_scene(**kwargs)
-    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images") if image_format == "png"
+                else root, exist_ok=True)
     w, h = scene["img_wh"]
     k = scene["K"]
     n_cycle = len(scene["poses"])
@@ -349,8 +363,13 @@ def write_rtmv_scene(root, scene=None, n_frames=110, **kwargs):
         }}
         with open(os.path.join(root, f"{i:05d}.json"), "w") as f:
             json.dump(meta, f)
-        write_png(os.path.join(root, "images", f"{i:05d}.png"),
-                  _to_uint8(scene["images"][i % n_cycle], (w, h)))
+        pixels = _to_uint8(scene["images"][i % n_cycle], (w, h))
+        if image_format == "png":
+            write_png(os.path.join(root, "images", f"{i:05d}.png"), pixels)
+            continue
+        linear = srgb_to_linear(pixels.astype(np.float32) / 255)
+        rgba = np.concatenate([linear, np.ones((h, w, 1), np.float32)], -1)
+        write_exr(os.path.join(root, f"{i:05d}.exr"), rgba, compression)
     return scene
 
 
@@ -714,3 +733,293 @@ def write_jpeg(path, img, quality=95, sampling=(2, 2)):
     """Write :func:`encode_jpeg` of ``img`` to ``path``."""
     with open(path, "wb") as f:
         f.write(encode_jpeg(img, quality, sampling))
+
+
+# ------------------------------------------------------------------ OpenEXR
+# The OpenEXR File Layout document's header, offset table and chunks, and
+# the codecs as the OpenEXR library's ImfRle, ImfZip, ImfPizCompressor,
+# ImfHuf and ImfWav write them (test tooling: datasets/exr.py reads them).
+EXR_COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4}
+EXR_LINES = {"none": 1, "rle": 1, "zips": 1, "zip": 16, "piz": 32}
+EXR_PIXEL_TYPE = {"half": (1, "<f2"), "float": (2, "<f4")}
+EXR_LINE_ORDER = {"increasing": 0, "decreasing": 1}
+EXR_ZIP_LEVEL = 4           # the OpenEXR library's default zlib level
+
+
+def _exr_attr(name, kind, value):
+    return (name.encode() + b"\0" + kind.encode() + b"\0"
+            + struct.pack("<i", len(value)) + value)
+
+
+def _exr_header(width, height, channels, compression, line_order=0):
+    """Magic, version 2 and a scanline header: ``channels`` [(name, pixel
+    type)] sorted by name, the data and display windows (0, 0) - (width -
+    1, height - 1), ``compression`` and ``line_order`` as the format's
+    numbers."""
+    chlist = b"".join(name.encode() + b"\0" + struct.pack("<iB3xii", kind, 0,
+                                                          1, 1)
+                      for name, kind in channels) + b"\0"
+    box = struct.pack("<4i", 0, 0, width - 1, height - 1)
+    return b"".join([
+        b"v/1\x01", struct.pack("<I", 2),
+        _exr_attr("channels", "chlist", chlist),
+        _exr_attr("compression", "compression", bytes([compression])),
+        _exr_attr("dataWindow", "box2i", box),
+        _exr_attr("displayWindow", "box2i", box),
+        _exr_attr("lineOrder", "lineOrder", bytes([line_order])),
+        _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1.0)),
+        _exr_attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0)),
+        _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1.0)),
+        b"\0"])
+
+
+def _exr_predict(raw):
+    """ImfZip / ImfRleCompressor: the even bytes then the odd ones, each
+    byte minus its predecessor plus 128."""
+    b = np.frombuffer(raw, np.uint8)
+    t = np.concatenate([b[0::2], b[1::2]])
+    d = t.copy()
+    d[1:] = t[1:] - t[:-1] + 128
+    return d
+
+
+def _exr_rle(data):
+    """Runs of three or more equal bytes as (count - 1, byte), up to 128;
+    the bytes between them as (-count, bytes), up to 127."""
+    out = bytearray()
+    n = len(data)
+    starts = np.flatnonzero(np.concatenate([[True], data[1:] != data[:-1]]))
+    lengths = np.diff(np.append(starts, n))
+
+    def literal(a, b):
+        for i in range(a, b, 127):
+            k = min(127, b - i)
+            out.append(256 - k)
+            out.extend(data[i:i + k].tobytes())
+
+    pos = 0
+    for start, length in zip(starts[lengths >= 3], lengths[lengths >= 3]):
+        literal(pos, start)
+        for k in range(length, 0, -128):
+            out.extend((min(k, 128) - 1, int(data[start])))
+        pos = start + length
+    literal(pos, n)
+    return bytes(out)
+
+
+def _msb_bits(values, nbits):
+    """The fields ``values`` of ``nbits`` bits each, most significant bit
+    first, packed into bytes (the last one padded with zeros): (bytes,
+    bit count)."""
+    values = np.asarray(values, np.uint64)
+    nbits = np.asarray(nbits, np.int64)
+    total = int(nbits.sum())
+    field = np.repeat(np.arange(len(values)), nbits)
+    pos = np.arange(total) - np.repeat(np.cumsum(nbits) - nbits, nbits)
+    shift = (nbits[field] - 1 - pos).astype(np.uint64)
+    bits = (values[field] >> shift) & np.uint64(1)
+    return np.packbits(bits.astype(np.uint8)).tobytes(), total
+
+
+def _huf_lengths(freq):
+    """Huffman code lengths of the symbols with a non-zero ``freq``."""
+    syms = np.flatnonzero(freq)
+    heap = [(int(freq[s]), i) for i, s in enumerate(syms)]
+    heapq.heapify(heap)
+    parent = list(range(len(syms)))
+    while len(heap) > 1:
+        (f1, a), (f2, b) = heapq.heappop(heap), heapq.heappop(heap)
+        node = len(parent)
+        parent.append(node)
+        parent[a] = parent[b] = node
+        heapq.heappush(heap, (f1 + f2, node))
+    depth = [0] * len(parent)
+    for node in range(len(parent) - 2, -1, -1):
+        depth[node] = depth[parent[node]] + 1
+    lengths = np.zeros(len(freq), np.int64)
+    lengths[syms] = depth[:len(syms)]
+    if lengths.max() > 58:
+        raise ValueError("a Huffman code longer than 58 bits")
+    return lengths
+
+
+def _huf_codes(lengths):
+    """ImfHuf's canonical codes: longer codes numerically lower, codes of
+    one length increasing with the symbol."""
+    count = np.bincount(lengths, minlength=59)
+    first, c = np.zeros(59, np.uint64), 0
+    for length in range(58, 0, -1):
+        first[length], c = c, (c + int(count[length])) >> 1
+    syms = np.flatnonzero(lengths)
+    order = syms[np.lexsort((syms, lengths[syms]))]
+    ls = lengths[order]
+    rank = np.arange(len(order)) - np.searchsorted(ls, ls)
+    codes = np.zeros(len(lengths), np.uint64)
+    codes[order] = first[ls] + rank.astype(np.uint64)
+    return codes
+
+
+def _huf_table(lengths, im, i_max):
+    """ImfHuf's code-length table: 6 bits a symbol from ``im`` to ``i_max``;
+    zero runs as 59-62 (2-5 zeros) or 63 and 8 bits (6-261 zeros)."""
+    fields = []
+    prev = im
+    for s in np.flatnonzero(lengths[im:i_max + 1]) + im:
+        gap = int(s - prev)
+        while gap:
+            run = min(gap, 261)
+            if run == 1:
+                fields.append((0, 6))
+            elif run < 6:
+                fields.append((59 + run - 2, 6))
+            else:
+                fields += [(63, 6), (run - 6, 8)]
+            gap -= run
+        fields.append((int(lengths[s]), 6))
+        prev = s + 1
+    values, nbits = zip(*fields)
+    return _msb_bits(values, nbits)[0]
+
+
+def _huf_compress(data):
+    """ImfHuf's hufCompress of uint16 ``data``: the 20-byte header (min and
+    max symbol, table bytes, data bits, 0), the code-length table and the
+    codes; the pseudo symbol after the largest codes runs of up to 255
+    repeats of the previous value where that is shorter."""
+    freq = np.bincount(data, minlength=(1 << 16) + 1).astype(np.int64)
+    nz = np.flatnonzero(freq)
+    im, rlc = int(nz[0]), int(nz[-1]) + 1
+    freq[rlc] = 1
+    lengths = _huf_lengths(freq)
+    codes = _huf_codes(lengths)
+    table = _huf_table(lengths, im, rlc)
+    starts = np.flatnonzero(np.concatenate([[True], data[1:] != data[:-1]]))
+    run = np.diff(np.append(starts, len(data)))
+    pieces = -(-run // 256)
+    sym = np.repeat(data[starts], pieces).astype(np.int64)
+    size = np.full(int(pieces.sum()), 256)
+    size[np.cumsum(pieces) - 1] = run - 256 * (pieces - 1)
+    cs = size - 1
+    ls = lengths[sym]
+    use_run = ls + lengths[rlc] + 8 < ls * cs
+    k = np.where(use_run, 3, cs + 1)
+    piece = np.repeat(np.arange(len(sym)), k)
+    j = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    ur = use_run[piece]
+    values = np.where(ur & (j == 1), codes[rlc],
+                      np.where(ur & (j == 2), cs[piece].astype(np.uint64),
+                               codes[sym[piece]]))
+    nbits = np.where(ur & (j == 1), lengths[rlc],
+                     np.where(ur & (j == 2), 8, ls[piece]))
+    body, total = _msb_bits(values, nbits)
+    return struct.pack("<5I", im, rlc, len(table), total, 0) + table + body
+
+
+def _wenc(a, b, w14):
+    """ImfWav's wenc14 / wenc16 on uint16 arrays: (l, h)."""
+    if w14:
+        a = a.astype(np.int16).astype(np.int32)
+        b = b.astype(np.int16).astype(np.int32)
+        return ((a + b) >> 1).astype(np.uint16), (a - b).astype(np.uint16)
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    ao = (a + (1 << 15)) & 0xFFFF
+    m = (ao + b) >> 1
+    d = ao - b
+    m = np.where(d < 0, (m + (1 << 15)) & 0xFFFF, m)
+    return m.astype(np.uint16), (d & 0xFFFF).astype(np.uint16)
+
+
+def _wav2_encode(a, max_value):
+    """ImfWav's wav2Encode of the 2D uint16 view ``a`` in place."""
+    w14 = max_value < (1 << 14)
+    ny, nx = a.shape
+    n = min(nx, ny)
+    p, p2 = 1, 2
+    while p2 <= n:
+        ny_b, nx_b = ny // p2 * p2, nx // p2 * p2
+        y0, y1 = slice(0, ny_b, p2), slice(p, ny_b, p2)
+        x0, x1 = slice(0, nx_b, p2), slice(p, nx_b, p2)
+        i00, i01 = _wenc(a[y0, x0], a[y0, x1], w14)
+        i10, i11 = _wenc(a[y1, x0], a[y1, x1], w14)
+        a[y0, x0], a[y1, x0] = _wenc(i00, i10, w14)
+        a[y0, x1], a[y1, x1] = _wenc(i01, i11, w14)
+        if nx & p:      # the odd column
+            a[y0, nx_b], a[y1, nx_b] = _wenc(a[y0, nx_b], a[y1, nx_b], w14)
+        if ny & p:      # the odd line
+            a[ny_b, x0], a[ny_b, x1] = _wenc(a[ny_b, x0], a[ny_b, x1], w14)
+        p, p2 = p2, p2 << 1
+
+
+def _exr_piz(raw, lines, width, size):
+    """ImfPizCompressor of one chunk: ``lines`` lines of channels of
+    ``width`` pixels, ``size`` 16-bit words a pixel (1 HALF, 2 FLOAT)."""
+    u = np.frombuffer(raw, "<u2").reshape(lines, -1, width * size)
+    tmp = np.ascontiguousarray(u.transpose(1, 0, 2)).reshape(-1)
+    present = np.zeros(1 << 16, bool)
+    present[tmp] = True
+    present[0] = False
+    bitmap = np.packbits(present, bitorder="little")
+    nz = np.flatnonzero(bitmap)
+    lo, hi = (int(nz[0]), int(nz[-1])) if len(nz) else (len(bitmap) - 1, 0)
+    present[0] = True
+    lut = (np.cumsum(present) - 1).astype(np.uint16)
+    tmp = lut[tmp]
+    max_value = int(present.sum()) - 1
+    for plane in tmp.reshape(-1, lines, width * size):
+        for j in range(size):
+            _wav2_encode(plane[:, j::size], max_value)
+    huf = _huf_compress(tmp)
+    return (struct.pack("<HH", lo, hi)
+            + (bitmap[lo:hi + 1].tobytes() if lo <= hi else b"")
+            + struct.pack("<i", len(huf)) + huf)
+
+
+def encode_exr(img, compression="zip", pixel_type="half",
+               line_order="increasing"):
+    """OpenEXR bytes of ``img`` (H, W, 3) or (H, W, 4) as R, G, B[, A]: a
+    single-part scanline file, ``pixel_type`` "half" (a float16 ``img``
+    keeps its bits) or "float", ``compression`` one of EXR_COMPRESSION,
+    chunks in ``line_order`` "increasing" or "decreasing" y. A chunk that
+    does not shrink is stored raw, as the OpenEXR library stores it."""
+    img = np.asarray(img)
+    h, w, c = img.shape
+    names = "RGBA"[:c]
+    order = sorted(range(c), key=lambda i: names[i])
+    kind, dtype = EXR_PIXEL_TYPE[pixel_type]
+    size = np.dtype(dtype).itemsize // 2
+    lines = np.ascontiguousarray(
+        img.astype(dtype)[..., order].transpose(0, 2, 1))   # (H, C, W)
+    header = _exr_header(w, h, [(names[i], kind) for i in order],
+                        EXR_COMPRESSION[compression],
+                        EXR_LINE_ORDER[line_order])
+    n_lines = EXR_LINES[compression]
+    chunks = []
+    for y in range(0, h, n_lines):
+        raw = lines[y:y + n_lines].tobytes()
+        if compression in ("zip", "zips"):
+            packed = zlib.compress(_exr_predict(raw).tobytes(), EXR_ZIP_LEVEL)
+        elif compression == "rle":
+            packed = _exr_rle(_exr_predict(raw))
+        elif compression == "piz":
+            packed = _exr_piz(raw, min(n_lines, h - y), w, size)
+        else:
+            packed = raw
+        if len(packed) >= len(raw):
+            packed = raw
+        chunks.append(struct.pack("<ii", y, len(packed)) + packed)
+    seq = list(range(len(chunks)))
+    if line_order == "decreasing":
+        seq.reverse()
+    offsets, at = [0] * len(chunks), len(header) + 8 * len(chunks)
+    for i in seq:
+        offsets[i] = at
+        at += len(chunks[i])
+    return b"".join([header, struct.pack(f"<{len(chunks)}Q", *offsets),
+                     *(chunks[i] for i in seq)])
+
+
+def write_exr(path, img, compression="zip", pixel_type="half",
+              line_order="increasing"):
+    """Write :func:`encode_exr` of ``img`` to ``path``."""
+    with open(path, "wb") as f:
+        f.write(encode_exr(img, compression, pixel_type, line_order))

@@ -9,6 +9,8 @@
   resize agree to about 1e-3; tests/test_native.py allows the JAX native
   loader 2e-3 against cv2).
 * ``depth2img`` against the JAX ``depth2img`` (cv2's TURBO), bit for bit.
+* ``utils/ckpt.py::extract_model_state`` against the JAX one on the same
+  checkpoint: the same keys and arrays, bit for bit.
 """
 import struct
 import zlib
@@ -21,10 +23,12 @@ from PIL import Image
 
 from mfnerf_tpu import train as jtrain
 from mfnerf_tpu.datasets import color_utils as jcolor
+from mfnerf_tpu.utils import ckpt as jckpt
 
 from mfnerf_tpu_torch import train as ttrain
 from mfnerf_tpu_torch.datasets import color_utils as tcolor
 from mfnerf_tpu_torch.datasets import png
+from mfnerf_tpu_torch.utils import ckpt as tckpt
 
 RESIZE_TOL = 2e-3
 
@@ -245,3 +249,28 @@ def test_depth2img_matches_jax(seed):
     ramp = np.arange(256, dtype=np.float32).reshape(16, 16)
     np.testing.assert_array_equal(ttrain.depth2img(ramp),
                                   jtrain.depth2img(ramp))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_extract_model_state_matches_jax(tmp_path, writer):
+    """The params section of a checkpoint either package wrote, as the JAX
+    ``extract_model_state`` returns it: keys and arrays bit for bit."""
+    rng = np.random.default_rng(0)
+    params = {"sigma_mlp/0": rng.normal(size=(4, 8)).astype(np.float32),
+              "lowrank/lines/0/3/2": rng.normal(size=(16,)).astype(
+                  np.float32),
+              "rgb_mlp/1": rng.normal(size=(8, 3)).astype(np.float32)}
+    occ = {"density_bitfield": rng.integers(0, 255, 64).astype(np.uint8)}
+    path = str(tmp_path / "m.ckpt.npz")
+    if writer == "jax":
+        jckpt.save_ckpt(path, {"sigma_mlp": [params["sigma_mlp/0"]],
+                               "rgb_mlp": [None, params["rgb_mlp/1"]]},
+                        occ=occ, step=3)
+    else:
+        tckpt.save_ckpt(path, params, occ=occ, step=3)
+    want = jckpt.extract_model_state(path)
+    got = tckpt.extract_model_state(path)
+    assert sorted(got) == sorted(want) and len(got) >= 2
+    for key in want:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])

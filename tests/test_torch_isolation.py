@@ -5,8 +5,9 @@ imported, import every module of ``mfnerf_tpu_torch`` (``parallel/`` and
 take two training steps of a LowRank and of a MixedFeature field, run
 the command line's ``main`` on a small scene written to disk, then the
 offline entry points on its checkpoint (``eval`` with ``--mesh``, the
-viewer's orbit render), a JPEG through ``read_image`` and a PFM through
-``read_pfm``, on the CPU."""
+viewer's orbit render), a JPEG through ``read_image``, a PFM through
+``read_pfm`` and an OpenEXR frame through ``misc/prepare_rtmv.py``, on the
+CPU."""
 import os
 import subprocess
 import sys
@@ -25,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(mfnerf_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"mfnerf_tpu_torch.parallel.dist", "mfnerf_tpu_torch.utils.lpips",
-        "mfnerf_tpu_torch.ops.hatmul"} <= set(names)
+        "mfnerf_tpu_torch.ops.hatmul", "mfnerf_tpu_torch.datasets.exr",
+        "mfnerf_tpu_torch.misc.prepare_rtmv"} <= set(names)
 from mfnerf_tpu_torch.utils import lpips
 img = torch.rand((16, 16, 3), generator=torch.Generator().manual_seed(0))
 lp = lpips.lpips_from_weights(lpips.random_lpips_weights(
@@ -107,6 +109,12 @@ with tempfile.TemporaryDirectory() as tmp:
     with open("d.pfm", "wb") as f:
         f.write(b"Pf\n2 1\n-1.0\n" + np.float32([1, 2]).tobytes())
     assert read_pfm("d.pfm")[0].shape == (1, 2)
+    from mfnerf_tpu_torch.misc import prepare_rtmv
+    from mfnerf_tpu_torch.utils.procedural import write_exr
+    os.makedirs("rtmv")
+    write_exr("rtmv/00000.exr", scene["images"][0].reshape(16, 16, 3), "piz")
+    prepare_rtmv.main(["rtmv"])
+    assert read_image("rtmv/images/00000.png", (16, 16)).shape == (256, 3)
     os.chdir("/")
 assert np.isfinite(metrics["test/psnr"]) and np.isfinite(metrics["test/ssim"])
 assert not any(m.split(".")[0] in BLOCKED

@@ -180,6 +180,76 @@ def test_aabb_and_clamp_near():
     assert (want[:, 0] == -1).sum() > 100 and (want[:50, 0] == 0.01).all()
 
 
+def _boxes_and_rays(seed):
+    """Rays from around the unit box through a few boxes, one box twice
+    (equal t_near on two indices: the stable sort's order), rays that miss
+    everything and rays starting inside a box."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-0.6, 0.6, (6, 3)).astype(np.float32)
+    centers[5] = centers[2]
+    half = rng.uniform(0.05, 0.3, (6, 3)).astype(np.float32)
+    half[5] = half[2]
+    rays_o = rng.normal(size=(512, 3)).astype(np.float32)
+    rays_o *= 2.5 / np.linalg.norm(rays_o, axis=1, keepdims=True)
+    target = rng.uniform(-0.5, 0.5, (512, 3)).astype(np.float32)
+    rays_d = target - rays_o
+    rays_d /= np.linalg.norm(rays_d, axis=1, keepdims=True)
+    rays_d[:40] = -rays_d[:40]              # pointing away: misses
+    rays_o[40:60] = centers[0]              # inside box 0
+    return rays_o, rays_d, centers, half
+
+
+@pytest.mark.parametrize("max_hits", [1, 3, 8])
+def test_ray_aabb_intersect_matches_jax(max_hits):
+    """Several boxes, the nearest ``max_hits`` (below, near and above the
+    hit counts, and above the box count: padded) sorted near to far; t
+    1e-6, counts and indices exact."""
+    rays_o, rays_d, centers, half = _boxes_and_rays(11)
+    want = jinter.ray_aabb_intersect(jnp.asarray(rays_o), jnp.asarray(rays_d),
+                                     jnp.asarray(centers), jnp.asarray(half),
+                                     max_hits)
+    got = tinter.ray_aabb_intersect(_t(rays_o), _t(rays_d), _t(centers),
+                                    _t(half), max_hits)
+    cnt, hits_t, idx = (_np(w) for w in want)
+    np.testing.assert_array_equal(got[0].numpy(), cnt)
+    np.testing.assert_allclose(got[1].numpy(), hits_t, atol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), idx)
+    assert got[0].dtype == got[2].dtype == torch.int32
+    assert (cnt[:40] == 0).all() and (hits_t[:40] == -1).all()
+    assert (hits_t[40:60, 0, 0] == 0).all()     # inside: t_near clamped
+    assert cnt.max() > max_hits or max_hits == 8
+    assert ((cnt > 0) & (cnt < max_hits)).any() or max_hits == 1
+    # the twin boxes tie: the lower index first, as jnp.argsort keeps them
+    twins = (idx == 2).any(1) & (idx == 5).any(1)
+    assert twins.any() or max_hits == 1
+    assert (np.argmax(idx == 2, 1) < np.argmax(idx == 5, 1))[twins].all()
+
+
+@pytest.mark.parametrize("max_hits", [1, 2, 6])
+def test_ray_sphere_intersect_matches_jax(max_hits):
+    """Several spheres as the boxes above, and a ray tangent to a sphere
+    (discriminant exactly 0: a miss in both); t 1e-5 (sums of three
+    products and a square root), counts and indices exact."""
+    rays_o, rays_d, centers, _ = _boxes_and_rays(12)
+    radii = np.random.default_rng(13).uniform(0.1, 0.35, 6).astype(
+        np.float32)
+    radii[5] = radii[2]
+    centers[4], radii[4] = 0.0, 1.0
+    rays_o[60], rays_d[60] = [-2.0, 1.0, 0.0], [1.0, 0.0, 0.0]   # tangent
+    want = jinter.ray_sphere_intersect(jnp.asarray(rays_o),
+                                       jnp.asarray(rays_d),
+                                       jnp.asarray(centers),
+                                       jnp.asarray(radii), max_hits)
+    got = tinter.ray_sphere_intersect(_t(rays_o), _t(rays_d), _t(centers),
+                                      _t(radii), max_hits)
+    cnt, hits_t, idx = (_np(w) for w in want)
+    np.testing.assert_array_equal(got[0].numpy(), cnt)
+    np.testing.assert_allclose(got[1].numpy(), hits_t, atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), idx)
+    assert cnt[60] == 0 and (idx[60] == -1).all()
+    assert (cnt[:40] == 0).all() and (cnt > min(max_hits, 3)).any()
+
+
 def test_sh_and_trunc_exp():
     rng = np.random.default_rng(6)
     d = rng.normal(size=(2000, 3)).astype(np.float32)

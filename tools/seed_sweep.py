@@ -2,7 +2,7 @@
 their quality.
 
     python3 tools/seed_sweep.py [--steps 600] [--seeds 1337 0 1 2 ...]
-        [--batch_seed S] [--data memory|nsvf|colmap|hdr] [--wh 800] \
+        [--batch_seed S] [--data memory|nsvf|colmap|hdr|rtmv] [--wh 800] \
         [--spread 5 --scale 4] [--perturb 0.03] [--extra --flag value ...]
 
 The hyperparameters are ``get_opts`` of ``chip_smoke.py``'s CLI_ARGS with
@@ -32,7 +32,13 @@ synthetic layout (``write_hdr_scene``, 18 train and 17 test poses,
 ``--perturb SIGMA`` shifts the training poses (``perturb_poses``), trains
 with ``--optimize_ext`` and adds the gauge-corrected camera-centre error
 before and after: the counterparts of ``tools/seed_sweep_jax.py --hdr``
-and ``--perturb``.
+and ``--perturb``. ``--data rtmv`` trains ``chip_smoke.py``'s cli_rtmv
+recipe (RTMV_ARGS: the Hash grid, batch 16384, lr 2e-2) on its scene
+(RTMV_FRAMES distinct views written in the RTMV layout as PNG, loaded
+with ``--dataset_name rtmv``: train frames 0-100, test 105-110) and adds
+the first test view's rendered colour over its foreground (mean and
+spread beside the true spread: a head whose sigmoid saturates renders one
+colour). Every row gives the mean train PSNR of each 100 steps.
 """
 import argparse
 import contextlib
@@ -85,8 +91,8 @@ def main():
                     default=[1337, 0, 1, 2, 3, 4, 5, 6, 7])
     ap.add_argument("--batch_seed", type=int, default=None)
     ap.add_argument("--perturb", type=float, default=None)
-    ap.add_argument("--data", choices=("memory", "nsvf", "colmap", "hdr"),
-                    default="memory")
+    ap.add_argument("--data", choices=("memory", "nsvf", "colmap", "hdr",
+                                       "rtmv"), default="memory")
     ap.add_argument("--wh", type=int, default=None)
     ap.add_argument("--spread", type=float, default=1.0)
     ap.add_argument("--scale", type=float, default=None)
@@ -101,6 +107,7 @@ def main():
     from mfnerf_tpu_torch.datasets.colmap import ColmapDataset
     from mfnerf_tpu_torch.datasets.memory import MemoryDataset
     from mfnerf_tpu_torch.datasets.nsvf import NSVFDataset
+    from mfnerf_tpu_torch.datasets.rtmv import RTMVDataset
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import UPDATE_INTERVAL, NeRFSystem
     from mfnerf_tpu_torch.utils.procedural import (HDR_TEST, HDR_TRAIN,
@@ -108,7 +115,8 @@ def main():
                                                    make_scene, perturb_poses,
                                                    write_colmap_scene,
                                                    write_hdr_scene,
-                                                   write_nsvf_scene)
+                                                   write_nsvf_scene,
+                                                   write_rtmv_scene)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -116,7 +124,9 @@ def main():
     print(f"card: {card}", flush=True)
     colmap = args.data in ("colmap", "hdr")
     hdr = args.data == "hdr"
+    rtmv = args.data == "rtmv"
     scene = make_scene(n_train=HDR_TRAIN[0] if hdr
+                       else chip_smoke.RTMV_FRAMES if rtmv
                        else chip_smoke.N_TRAIN_VIEWS,
                        n_test=HDR_TEST[0] if hdr
                        else chip_smoke.COLMAP_TEST_VIEWS if colmap
@@ -136,6 +146,13 @@ def main():
             with contextlib.redirect_stdout(io.StringIO()):
                 datasets = (ColmapDataset(tmp, "train"),
                             ColmapDataset(tmp, "test"))
+    elif rtmv:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, chip_smoke.RTMV_ROOT, "spheres_png")
+            write_rtmv_scene(root, scene, n_frames=chip_smoke.RTMV_FRAMES)
+            with contextlib.redirect_stdout(io.StringIO()):
+                datasets = (RTMVDataset(root, "train"),
+                            RTMVDataset(root, "test"))
     elif args.data == "nsvf":
         with tempfile.TemporaryDirectory() as tmp:
             root = os.path.join(tmp, "Synthetic_NeRF_proc", "Spheres")
@@ -149,7 +166,9 @@ def main():
         datasets[0].poses = perturb_poses(datasets[0].poses, args.perturb)[0]
     for seed in args.seeds:
         batch_seed = seed if args.batch_seed is None else args.batch_seed
-        hp = get_opts(["--root_dir", "<memory>", *chip_smoke.CLI_ARGS,
+        hp = get_opts(["--root_dir", "<memory>",
+                       *(chip_smoke.RTMV_ARGS if rtmv
+                         else chip_smoke.CLI_ARGS),
                        "--steps_per_epoch", str(args.steps),
                        "--seed", str(batch_seed)]
                       + (["--dataset_name", "colmap"] if colmap else [])
@@ -162,9 +181,10 @@ def main():
         system = NeRFSystem(hp, device=torch.device("cuda"))
         system.setup(*datasets)
         system.configure(seed)
-        system.fit(UPDATE_INTERVAL)
+        first_steps = system.fit(UPDATE_INTERVAL)
         first = occupied(system)
         m = system.fit(args.steps - UPDATE_INTERVAL)
+        psnrs = torch.cat([first_steps["psnr"], m["psnr"]])
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             val = system.validate()
@@ -186,6 +206,10 @@ def main():
             "batch_seed": batch_seed, "steps": args.steps,
             "occupied_first_refresh": first, "occupied_end": occupied(system),
             "train_psnr": float(m["psnr"][-50:].mean()),
+            "train_psnr_per_100": [round(float(p.mean()), 2)
+                                   for p in psnrs.split(100)],
+            "foreground": (chip_smoke.foreground_colour(system)
+                           if rtmv else None),
             "rm_s": float(m["rm_s"][-50:].mean()),
             "vr_s": float(m["vr_s"][-50:].mean()),
             "test_psnr": val["test/psnr"], "test_ssim": val["test/ssim"],
