@@ -2,24 +2,25 @@
 NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, on
 a synthetic scene and on a multi-cascade COLMAP scene, the encoder
 formulation probes (mfnerf_tpu_torch/benchmarking/), data parallelism
-(two ranks sharing the card), the fp32 hat kernels, LPIPS, and RTMV from
-its OpenEXR frames.
+(two ranks sharing the card), the fp32 hat kernels, LPIPS, RTMV from
+its OpenEXR frames, and the march kernels against their plain versions.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc, Triton;
-2. build, 11. build_hashgrid and 16a. build_linetable: compile the
-   hat-product, the hash-grid and the line-table kernels from
-   mfnerf_tpu_torch/csrc/, one nvcc each, started together;
+2. build, 11. build_hashgrid, 16a. build_linetable and 36. build_raymarch:
+   compile the hat-product, the hash-grid, the line-table and the march
+   kernels from mfnerf_tpu_torch/csrc/, one nvcc each, started together;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
    (2,097,152 cells through the kernel);
 5. serve: eight distinct 800x800 frames of the procedural scene through
    render_test (the alive-ray loop), T_threshold 1e-2; the kernel's launch
-   count is reset just before and read just after;
+   count and the window march's are reset just before and read just
+   after;
 6. oracle: a strided ~8k-ray subset of frame 0 against the plain dense
    oracle render_test_dense (run on the CPU, where hat_prod is the plain
    version);
@@ -40,7 +41,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 9. train: the JAX bench's training configuration (bench.py: 8192-ray
    batches, lr 1e-2, half-dense refresh every 16 steps) on 16 procedural
    800x800 views for 900 steps through NeRFSystem.fit; both kernels' launch
-   counts are reset just before and read just after;
+   counts and the training march's are reset just before and read just
+   after (at least one march a step);
 10. test_view: the held-out 800x800 view through render_test (T_threshold
    1e-4) before and after training;
 9b. train_bf16: phase 9 under --bf16, its ms/step and held-out view beside
@@ -82,6 +84,24 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 12b. kernel_hashgrid (shape "train"): phase 12's checks and times on one
    real step's operands of the trained MixedFeature field (x and g as
    HashGridEncode.backward receives them);
+36. march, 36a-c: each march kernel of csrc/raymarch.cu (march_train,
+   march_window) against its plain version on the card, bit for bit (ts,
+   deltas, xyzs, mask, n_samples, t_start, rm_samples, and k_idx on the
+   valid slots; for the window every output, the cursor and exhausted):
+   36a on the trained bench field (phase 9) for one step's rays (the
+   two-level strata), N_MARCH_DEGENERATE degenerate rays (missing the box,
+   starting inside it, along the axes, grazing a face), an empty and a
+   full bitfield (each budgeted and exact), the dense oracle's rank
+   windows on every MARCH_ORACLE_STRIDE-th ray of the held-out view, and
+   every window march of one render_test frame of it; 36b on a step of
+   the trained MixedFeature field (phase 14); 36c in phase 20, on each
+   recipe's cascade step (the union grid's strata, and exact) and on the
+   windows of its five-cascade serving loop. The step's march and the
+   frame's first window are timed by CUDA-graph replay beside their plain
+   versions and bounds (bytes of the rays, the bitfield, the stage-A grid
+   and the sample buffers; MARCH_OPS_PER_RUNG a rung up to each ray's
+   last sample). The train, train_mf, cli and cli_colmap phases count the
+   march kernels' launches over their runs;
 19. cli: the command line (mfnerf_tpu_torch/train.py main, CLI_ARGS: the
    bench.py LowRank model, 600 steps) on the 800x800 procedural scene
    (16 train and 2 test views) written in the NSVF layout under a temporary
@@ -427,6 +447,14 @@ RTMV_CUTS = ("a procedural scene for RTMV's renders (none ships)",
 RTMV_FRAMES = 110
 RTMV_ROOT = os.path.join("RTMV", "google_scanned")
 RTMV_PSNR_TOL = 0.5               # dB, the EXR scene's run against the PNG's
+# the march kernels (csrc/raymarch.cu): each set is marched by the kernel
+# and by its plain version on the card, and the two must agree bit for bit
+MARCH_GRAPH_ITERS = 20            # kernel calls a CUDA graph replays
+# fp32 operations of one rung test (the ladder, calc_dt, the position, the
+# cascade and the three cell coordinates)
+MARCH_OPS_PER_RUNG = 30
+N_MARCH_DEGENERATE = 4096         # rays of the degenerate set
+MARCH_ORACLE_STRIDE = 8           # of the test view's rays, the oracle set
 
 
 def check(ok, what):
@@ -842,6 +870,346 @@ def hash_operand_sets():
                 cfg, seed, 1 << 16), SEED + 12)]
 
 
+def march_counts(reset=False):
+    """The march kernels' launch counts, {"train": .., "window": ..}, after
+    zeroing them with ``reset``."""
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_train,
+                                                march_rays_window)
+    if reset:
+        march_rays_train.launches = march_rays_window.launches = 0
+    return {"train": march_rays_train.launches,
+            "window": march_rays_window.launches}
+
+
+def _float_bits(t):
+    """A float32 tensor's bits as int32 (bit for bit comparisons)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def march_differs(got, want, names, masked_k=None):
+    """The names among ``names`` where two marches' results differ in a
+    bit; with ``masked_k`` (the training march's mask), k_idx is compared
+    on the valid slots only."""
+    bad = [n for n in names if not torch.equal(
+        _float_bits(getattr(got, n)), _float_bits(getattr(want, n)))]
+    if masked_k is not None and not torch.equal(got.k_idx[masked_k],
+                                                want.k_idx[masked_k]):
+        bad.append("k_idx")
+    return bad
+
+
+def march_max_err(got, want):
+    return max(float((getattr(got, n) - getattr(want, n)).abs().max())
+               if getattr(got, n).numel() else 0.0
+               for n in ("xyzs", "deltas", "ts"))
+
+
+def march_train_bound(args, kw, res):
+    """(least ms, bound_by) of one training march: each input read once
+    (the bitfield and the stage-A grid whole), each output written once;
+    MARCH_OPS_PER_RUNG a rung up to each ray's last sample (the rungs any
+    march must test)."""
+    bits = args[3]
+    n, s = res.mask.shape
+    strata = kw.get("strata")
+    grid_bytes = bits.numel() + (0 if strata is None
+                                 else strata.stage_a.numel())
+    n_bytes = n * (12 + 12 + 8 + 4) + grid_bytes \
+        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 4)
+    last = torch.where(res.n_samples > 0, res.k_idx.gather(
+        1, (res.n_samples - 1).clamp_min(0)[:, None])[:, 0] + 1, 0)
+    return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.sum()))
+
+
+def march_window_bound(args, res):
+    """(least ms, bound_by) of one window march, as march_train_bound: the
+    rungs from each cursor to its ray's last sample."""
+    cursor, bits, n_window = args[4], args[5], args[11]
+    n, s = res.mask.shape
+    n_bytes = n * (12 + 12 + 4 + 4 + 8) + bits.numel() \
+        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 8 + 1)
+    last = torch.where(res.n_samples > 0, res.k_idx.gather(
+        1, (res.n_samples - 1).clamp_min(0)[:, None])[:, 0] + 1 - cursor, 0)
+    return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.clamp_max(
+        n_window).sum()))
+
+
+def march_grads(fn, args, kw, window=False):
+    """The samples and gradients of one march whose rays require gradients
+    (as pose refinement marches): ts, deltas, xyzs (and t_start), and the
+    gradients of their sum with respect to rays_o and rays_d, flattened
+    into one list. The training march's hits are the box's intersections
+    of those rays."""
+    from mfnerf_tpu_torch.models.rendering import _clamp_near
+    from mfnerf_tpu_torch.ops.intersection import ray_aabb_intersect_single
+    ro = args[0].detach().clone().requires_grad_()
+    rd = args[1].detach().clone().requires_grad_()
+    if window:
+        res = fn(ro, rd, *args[2:], **kw)
+        outs = [res.ts, res.deltas, res.xyzs]
+    else:
+        hits = _clamp_near(ray_aabb_intersect_single(
+            ro, rd, torch.zeros(3), torch.full((3,), args[5])))
+        res = fn(ro, rd, hits, *args[3:], **kw)
+        outs = [res.ts, res.deltas, res.xyzs, res.t_start]
+    grads = torch.autograd.grad(sum(o.sum() for o in outs), (ro, rd))
+    return [o.detach() for o in outs] + list(grads)
+
+
+def check_march_train(label, args, kw, timed=False, grad=False):
+    """One set of the training march's operands (march_rays_train's
+    positional ``args`` and keywords ``kw``): the kernel against its plain
+    version on the card, bit for bit in ts, deltas, xyzs, mask, n_samples,
+    t_start and rm_samples, and k_idx on the valid slots (the kernel writes
+    n_rungs - 1 on the others); with ``grad``, the samples recomputed for
+    autograd and their gradients (march_grads) bit for bit too; with
+    ``timed``, the kernel's device time by CUDA-graph replay, the plain
+    version's, and the bound. Returns the fields; raises on a
+    difference."""
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_train,
+                                                march_rays_train_plain)
+    got = march_rays_train(*args, **kw)
+    want = march_rays_train_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bad = march_differs(got, want, ("ts", "deltas", "xyzs", "mask",
+                                    "n_samples", "t_start", "rm_samples"),
+                        masked_k=want.mask)
+    n_rungs = args[10]
+    fill_ok = bool((got.k_idx[~got.mask] == n_rungs - 1).all())
+    strata = kw.get("strata")
+    fields = dict(
+        set=label, kernel="march_train", rays=int(args[0].shape[0]),
+        mode="exact" if strata is None else "union" if strata.union
+        else "twolevel", rank_start=kw.get("rank_start", 0),
+        s_max=args[11], n_rungs=n_rungs, samples=int(want.rm_samples),
+        rays_with_samples=int((want.n_samples > 0).sum()),
+        full_rays=int((want.n_samples == args[11]).sum()),
+        bit_equal=not bad, differs=bad,
+        max_abs_err=march_max_err(got, want), masked_k_idx_fill=fill_ok)
+    check(not bad, f"march_train {label}: differs from its plain version "
+          f"in {bad}")
+    check(fill_ok, f"march_train {label}: masked k_idx not n_rungs - 1")
+    if grad:
+        fields["grad_bit_equal"] = all(
+            torch.equal(_float_bits(a), _float_bits(b)) for a, b in zip(
+                march_grads(march_rays_train, args, kw),
+                march_grads(march_rays_train_plain, args, kw)))
+        check(fields["grad_bit_equal"], f"march_train {label}: the "
+              f"differentiable samples or their gradients differ")
+    if timed:
+        fields["ms"] = graph_ms(lambda: march_rays_train(*args, **kw),
+                                MARCH_GRAPH_ITERS)
+        fields["plain_ms"] = cuda_ms(
+            lambda: march_rays_train_plain(*args, **kw), 5)
+        fields["bound_ms"], fields["bound_by"] = march_train_bound(
+            args, kw, want)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    return fields
+
+
+def check_march_window(label, args, timed=False):
+    """check_march_train for the window march (march_rays_window's
+    positional ``args``): every output bit for bit, k_idx everywhere, the
+    new cursor and exhausted; the timed set with gradients too."""
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_window,
+                                                march_rays_window_plain)
+    got = march_rays_window(*args)
+    want = march_rays_window_plain(*args)
+    torch.cuda.synchronize()
+    bad = march_differs(got, want, ("ts", "deltas", "xyzs", "mask",
+                                    "n_samples", "cursor", "exhausted",
+                                    "k_idx"))
+    fields = dict(
+        set=label, kernel="march_window", rays=int(args[0].shape[0]),
+        n_window=args[11], s_cap=args[12],
+        cursor_min=int(args[4].min()) if args[4].numel() else 0,
+        cursor_max=int(args[4].max()) if args[4].numel() else 0,
+        samples=int(want.n_samples.sum()),
+        exhausted=int(want.exhausted.sum()), bit_equal=not bad,
+        differs=bad, max_abs_err=march_max_err(got, want))
+    check(not bad, f"march_window {label}: differs from its plain version "
+          f"in {bad}")
+    if timed:
+        fields["grad_bit_equal"] = all(
+            torch.equal(_float_bits(a), _float_bits(b)) for a, b in zip(
+                march_grads(march_rays_window, args, {}, window=True),
+                march_grads(march_rays_window_plain, args, {}, window=True)))
+        check(fields["grad_bit_equal"], f"march_window {label}: the "
+              f"differentiable samples or their gradients differ")
+        fields["ms"] = graph_ms(lambda: march_rays_window(*args),
+                                MARCH_GRAPH_ITERS)
+        fields["plain_ms"] = cuda_ms(lambda: march_rays_window_plain(*args),
+                                     5)
+        fields["bound_ms"], fields["bound_by"] = march_window_bound(args,
+                                                                    want)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    return fields
+
+
+@contextlib.contextmanager
+def capturing_marches():
+    """Within the context, each call of the rendering module's marches
+    appends ("train", args, kwargs) or ("window", args, {}) to the yielded
+    list, tensors detached, and marches as before."""
+    from mfnerf_tpu_torch.models import rendering
+    captured = []
+    inner = {name: getattr(rendering, name)
+             for name in ("march_rays_train", "march_rays_window")}
+
+    def recorder(kind, name):
+        def call(*args, **kwargs):
+            captured.append((kind, tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args),
+                dict(kwargs)))
+            return inner[name](*args, **kwargs)
+        return call
+
+    rendering.march_rays_train = recorder("train", "march_rays_train")
+    rendering.march_rays_window = recorder("window", "march_rays_window")
+    try:
+        yield captured
+    finally:
+        for name, fn in inner.items():
+            setattr(rendering, name, fn)
+
+
+@torch.no_grad()
+def step_march_operands(system, seed):
+    """The training march's operands of one step of ``system``
+    (``NeRFSystem.step_loss`` on a ray batch drawn from ``seed``): (args,
+    kwargs) of march_rays_train as render_train calls it."""
+    dev, b = system.device, system.hparams.batch_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_img, hw = system.rays.shape[:2]
+    img = torch.randint(n_img, (b,), generator=gen, device=dev)
+    pix = torch.randint(hw, (b,), generator=gen, device=dev)
+    with capturing_marches() as captured:
+        system.step_loss(img, pix, torch.rand((b,), generator=gen,
+                                              device=dev))
+    check(len(captured) == 1 and captured[0][0] == "train",
+          f"a step marched {[c[0] for c in captured]}")
+    return captured[0][1:]
+
+
+def degenerate_rays(scale, n, seed, dev):
+    """Rays that exercise the march's edges, n // 4 of each kind: from
+    outside the box pointing away (they miss), from inside the box (t_near
+    0, clamped to NEAR_DISTANCE), along the axes (1/d infinite) from inside
+    and outside, and grazing the box's faces."""
+    rng = np.random.default_rng(seed)
+    q = n // 4
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.empty((n, 3))
+    o[:q] = 3.0 * scale * d[:q]                     # outward: miss
+    o[q:2 * q] = rng.uniform(-scale, scale, (q, 3))  # inside the box
+    axes = np.eye(3)[rng.integers(0, 3, q)] * rng.choice([-1.0, 1.0], (q, 1))
+    o[2 * q:3 * q] = np.where(rng.random((q, 1)) < 0.5,
+                              rng.uniform(-scale, scale, (q, 3)),
+                              -2.0 * scale * axes)
+    d[2 * q:3 * q] = axes
+    face = rng.integers(0, 3, n - 3 * q)              # grazing a face
+    o[3 * q:] = rng.uniform(-scale, scale, (n - 3 * q, 3))
+    o[3 * q:, :][np.arange(n - 3 * q), face] = scale
+    d[3 * q:][np.arange(n - 3 * q), face] = 0.0
+    d[3 * q:] /= np.linalg.norm(d[3 * q:], axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def march_sets_of(system, seed):
+    """The training march's sets of ``system``'s configuration: one step's
+    operands (rays drawn from ``seed``), the degenerate rays (budgeted and
+    exact), an empty and a full bitfield (budgeted and exact) on the step's
+    rays, as (label, args, kwargs)."""
+    from mfnerf_tpu_torch.models.rendering import _scene_hits, train_strata
+    cfg, rcfg, dev, occ = (system.model_cfg, system.rcfg, system.device,
+                           system.occ)
+    args, kw = step_march_operands(system, seed)
+    sets = [("step", args, kw)]
+    ro, rd = degenerate_rays(cfg.scale, N_MARCH_DEGENERATE, seed + 1, dev)
+    hits = _scene_hits(system.model, ro, rd)
+    noise = torch.rand((ro.shape[0],), generator=torch.Generator(
+        device=dev).manual_seed(seed + 2), device=dev)
+    deg = (ro, rd, hits, *args[3:9], noise, *args[10:])
+    sets += [("degenerate", deg, kw), ("degenerate_exact", deg, {})]
+    for label, byte in (("empty", 0), ("full", 255)):
+        bits = torch.full_like(occ.density_bitfield, byte)
+        occ_b = dataclasses.replace(occ, density_bitfield=bits
+                                    ).refresh_coarse(cfg)
+        strata = train_strata(cfg, occ_b, rcfg)
+        a = (*args[:3], bits, *args[4:])
+        sets += [(label, a, dict(kw, strata=strata)),
+                 (label + "_exact", a, {})]
+    return sets
+
+
+def oracle_march_sets(system, rays, rcfg):
+    """The dense oracle's exact march (render_test_dense's chunks) on every
+    MARCH_ORACLE_STRIDE-th ray of a view: one set a rank window."""
+    from mfnerf_tpu_torch.models.rendering import _scene_hits
+    cfg = system.model_cfg
+    ro = rays[0][::MARCH_ORACLE_STRIDE].contiguous()
+    rd = rays[1][::MARCH_ORACLE_STRIDE].contiguous()
+    hits = _scene_hits(system.model, ro, rd)
+    base = (ro, rd, hits, system.occ.density_bitfield, cfg.cascades,
+            cfg.scale, rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples,
+            torch.zeros_like(hits[:, 0]),
+            rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True),
+            rcfg.s_max_test)
+    return [(f"oracle_window_{j}", base,
+             dict(dt_scale=rcfg._dt_scale(cfg.scale, True),
+                  rank_start=j * rcfg.s_max_test))
+            for j in range(-(-rcfg.max_samples // rcfg.s_max_test))]
+
+
+def frame_window_sets(system, rays, rcfg):
+    """Every window march of one render_test frame (the alive-ray loop's
+    rounds, their cursors, s_cap and n_window as the loop chose them)."""
+    from mfnerf_tpu_torch.models.rendering import render_test
+    with torch.no_grad(), capturing_marches() as captured:
+        render_test(system.model, system.occ, *rays, rcfg)
+    check(captured and all(c[0] == "window" for c in captured),
+          f"render_test marched {[c[0] for c in captured]}")
+    return [c[1] for c in captured]
+
+
+def march_phase(label, train_sets, window_sets=(), timed_train=0):
+    """The march checks of a configuration: every training-march set
+    (label, args, kwargs) and every window set (args: one a round of the
+    alive-ray loop) against the plain version, bit for bit; the training
+    set at ``timed_train`` also with gradients (check_march_train's
+    ``grad``) and timed, and the first (largest) window timed. Prints a
+    phase line a training set and one for the window sets; returns the
+    timed sets' fields and the worst error."""
+    timed = {}
+    err = 0.0
+    for i, (name, args, kw) in enumerate(train_sets):
+        fields = check_march_train(name, args, kw, timed=i == timed_train,
+                                   grad=i == timed_train)
+        phase("march", config=label, **fields)
+        err = max(err, fields["max_abs_err"])
+        if i == timed_train:
+            timed["train"] = fields
+        torch.cuda.empty_cache()
+    if window_sets:
+        rounds = [check_march_window(f"round_{i}", args, timed=i == 0)
+                  for i, args in enumerate(window_sets)]
+        timed["window"] = rounds[0]
+        err = max([err] + [r["max_abs_err"] for r in rounds])
+        phase("march", config=label, set="frame", kernel="march_window",
+              rounds=len(rounds), rays=[r["rays"] for r in rounds],
+              s_caps=sorted({r["s_cap"] for r in rounds}),
+              n_windows=sorted({r["n_window"] for r in rounds}),
+              cursor_max=max(r["cursor_max"] for r in rounds),
+              samples=sum(r["samples"] for r in rounds),
+              exhausted=sum(r["exhausted"] for r in rounds),
+              bit_equal=all(r["bit_equal"] for r in rounds),
+              max_abs_err=err, first_round=rounds[0])
+        torch.cuda.empty_cache()
+    return timed, err
+
+
 def start_system(hp, datasets, dev):
     """A NeRFSystem of the hyperparameters ``hp`` on the (train, test)
     datasets, its field drawn from SEED."""
@@ -1038,7 +1406,8 @@ def cli_phase(dev, read_launches, offline=None):
         load_tol=CLI_LOAD_TOL, argv=argv, ms_per_step=metrics[
             "train/ms_per_step"], test_psnr=metrics["test/psnr"],
         test_ssim=metrics["test/ssim"], psnr_min=PSNR_MIN,
-        val_ms_per_frame=val_ms(log.getvalue()), **launches,
+        val_ms_per_frame=val_ms(log.getvalue()),
+        steps=hp.num_epochs * hp.steps_per_epoch, **launches,
         ckpt_bytes=sizes, results=results, val_only_psnr=val_psnr,
         val_only_ms_per_frame=val_ms(proc.stdout),
         val_only_seconds=val_only_s, psnr_tol=CLI_PSNR_TOL), after
@@ -1699,7 +2068,9 @@ def cli_rtmv(dev, read_launches):
             foreground=foreground_colour(system),
             val_ms_per_frame=val_ms(log), **launches)
         del system
-        check(min(launches.values()) > 0,
+        counts = [v for key, v in launches.items()
+                  if key.endswith("_launches")]
+        check(min(counts + list(launches["march"].values())) > 0,
               f"the RTMV run ({label}) launched {launches}")
         torch.cuda.empty_cache()
     return dict(wh=WH, frames=RTMV_FRAMES, cuts=list(RTMV_CUTS),
@@ -1896,11 +2267,12 @@ def cascade_step_oracle(argv, datasets, dev, seed):
     fields, _ = step_oracle(system.model, cpu_model, occ0, rcfg, system.loss,
                             batch)
     ro, rd = batch["rays_o"].to(dev), batch["rays_d"].to(dev)
-    exact = march_rays_train(
+    march_args = (
         ro, rd, _scene_hits(system.model, ro, rd), occ0.density_bitfield,
         cfg.cascades, cfg.scale, rcfg.exp_step_factor, cfg.grid_size,
         rcfg.max_samples, batch["noise"].to(dev),
         rcfg.n_rungs(cfg.scale, cfg.grid_size), rcfg.s_max_train)
+    exact = march_rays_train(*march_args)
     samples_exact = int(exact.rm_samples)
     check(samples_exact > fields["samples_card"] > 0,
           f"the cascade budget kept {fields['samples_card']} of "
@@ -1910,8 +2282,9 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                       torch.from_numpy(ds.poses[0]))
     ro, rd = ro[::COLMAP_ORACLE_STRIDE], rd[::COLMAP_ORACLE_STRIDE]
     test_rcfg = dataclasses.replace(rcfg, T_threshold=TEST_T)
-    loop = render_test(system.model, occ0, ro.to(dev), rd.to(dev),
-                       test_rcfg)
+    with capturing_marches() as windows:
+        loop = render_test(system.model, occ0, ro.to(dev), rd.to(dev),
+                           test_rcfg)
     ref = render_test_dense(cpu_model, occ0.to("cpu"), ro, rd,
                             dataclasses.replace(test_rcfg, test_chunk=2048))
     errs = {key: float((loop[key].cpu() - ref[key]).abs().max())
@@ -1919,6 +2292,12 @@ def cascade_step_oracle(argv, datasets, dev, seed):
     check(errs["rgb"] <= RGB_TOL and errs["opacity"] <= RGB_TOL
           and errs["depth"] <= DEPTH_TOL,
           f"render_test at {cfg.cascades} cascades vs oracle: {errs}")
+    # 36c. the march kernels on this step's rays (the union grid's strata,
+    # and exact) and on the serving loop's windows at five cascades
+    timed, march_err = march_phase(
+        f"cascades_{cfg.grid}", [("step", march_args, dict(strata=strata)),
+                                 ("step_exact", march_args, {})],
+        [c[1] for c in windows])
     return dict(grid=cfg.grid, random_bg=rcfg.random_bg, scale=cfg.scale,
                 cascades=cfg.cascades,
                 stratum=strata.stratum, s_strata=strata.s_strata,
@@ -1927,7 +2306,11 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                 samples_exact=samples_exact, **fields,
                 oracle_rays=int(ro.shape[0]),
                 oracle_samples=ref["total_samples"],
-                **{f"oracle_max_abs_{k_}": v for k_, v in errs.items()})
+                **{f"oracle_max_abs_{k_}": v for k_, v in errs.items()},
+                march={kind: {key: f[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "rays",
+                    "samples")} for kind, f in timed.items()},
+                march_max_abs_err=march_err)
 
 
 def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
@@ -1938,10 +2321,10 @@ def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.train import main as train_main
     log = io.StringIO()
+    hp = get_opts(["--root_dir", root, *argv])
     read_launches(reset=True)
     with contextlib.redirect_stdout(log):
-        metrics = train_main(get_opts(["--root_dir", root, *argv]),
-                             device=dev)
+        metrics = train_main(hp, device=dev)
     launches = read_launches()
     print(log.getvalue(), end="", flush=True)
     last = re.findall(r"^step .* psnr ([0-9.]+) rm_s ([0-9.]+) vr_s "
@@ -1952,7 +2335,8 @@ def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
                 train_psnr_last_step=float(last[0]), rm_s=float(last[1]),
                 vr_s=float(last[2]), test_psnr=metrics["test/psnr"],
                 test_ssim=metrics["test/ssim"],
-                val_ms_per_frame=val_ms(log.getvalue()), **launches)
+                val_ms_per_frame=val_ms(log.getvalue()),
+                steps=hp.num_epochs * hp.steps_per_epoch, **launches)
 
 
 def trainer_step_oracle(hp, datasets, dev, seed, module, loss_tol,
@@ -2170,6 +2554,8 @@ def main():
                                              hat_prod_plain)
     from mfnerf_tpu_torch.ops.linetable import hat_basis_dw, table_lerp
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_train,
+                                                march_rays_window)
     from mfnerf_tpu_torch.utils.metrics import psnr
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
@@ -2200,6 +2586,7 @@ def main():
     src = "mfnerf_tpu_torch/csrc/hatmul.cu"
     hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
     line_src = "mfnerf_tpu_torch/csrc/linetable.cu"
+    march_src = "mfnerf_tpu_torch/csrc/raymarch.cu"
 
     def timed_build(lib):
         fresh = not build.library_path(lib).exists()
@@ -2207,14 +2594,16 @@ def main():
         build.load_library(lib)
         return fresh, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = {lib: pool.submit(timed_build, lib)
-                  for lib in ("hatmul", "hashgrid", "linetable", "jpeg",
-                              "exr")}
+                  for lib in ("hatmul", "hashgrid", "linetable", "raymarch",
+                              "jpeg", "exr")}
         for label, lib, source in (("build", "hatmul", src),
                                    ("build_hashgrid", "hashgrid", hash_src),
                                    ("build_linetable", "linetable",
                                     line_src),
+                                   ("build_raymarch", "raymarch",
+                                    march_src),
                                    ("build_jpeg", "jpeg", JPEG_SRC),
                                    ("build_exr", "exr", EXR_SRC)):
             fresh, seconds = builds[lib].result()
@@ -2283,7 +2672,7 @@ def main():
             for p in scene["test_poses"]]
     rcfg = RenderConfig(T_threshold=T_THRESHOLD)
     render_test(model, occ, *rays[0], rcfg)           # warm-up frame
-    hat_prod.launches = 0
+    hat_prod.launches = march_rays_window.launches = 0
     frame_ms, samples, rounds, outs = [], [], [], []
     for ro, rd in rays:
         torch.cuda.synchronize()
@@ -2295,7 +2684,10 @@ def main():
         rounds.append(out["rounds"])
         outs.append(out)
     launches = hat_prod.launches
+    serve_window_launches = march_rays_window.launches
     check(launches > 0, "render_test never launched the hat_prod kernel")
+    check(serve_window_launches > 0,
+          "render_test never launched the march_window kernel")
     for out in outs:
         op = out["opacity"]
         check(out["rgb"].shape == (WH * WH, 3)
@@ -2312,6 +2704,7 @@ def main():
           ms_per_frame=frame_ms, ms_median=ms_med, fps=1e3 / ms_med,
           samples_per_frame=samples, rounds_per_frame=rounds,
           hat_prod_launches=launches,
+          march_window_launches=serve_window_launches,
           max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
           card=card)
 
@@ -2404,10 +2797,17 @@ def main():
 
     # ---- 9. train: 300 steps, then 6 timed chunks of 100
     hat_prod.launches = hat_prod_bwd.launches = 0
+    march_counts(reset=True)
     fields = train_steps(system, lambda: dict(
         hat_prod_launches=hat_prod.launches,
-        hat_prod_bwd_launches=hat_prod_bwd.launches))
+        hat_prod_bwd_launches=hat_prod_bwd.launches,
+        march=march_counts()))
+    fields["march_train_per_step"] = fields["march"]["train"] \
+        / fields["steps"]
     phase("train", **fields, card=card)
+    march_train_launches = fields["march"]["train"]
+    check(fields["march_train_per_step"] >= 1,
+          f"training launched march_train {fields['march']} times")
     train_fp32 = fields
     launches_fwd = fields["hat_prod_launches"]
     launches_bwd = fields["hat_prod_bwd_launches"]
@@ -2441,7 +2841,16 @@ def main():
     phase("kernel_bwd", name="hat_prod_bwd", **bwd_train,
           fwd_ms=fwd_train_ms, fwd_bound_ms=fwd_train_bound,
           fwd_share_of_bound=fwd_train_bound / fwd_train_ms, card=card)
-    del captured, u3, g, system, out
+    del captured, u3, g
+
+    # ---- 36a. the march kernels against their plain versions on the
+    # trained field: a step's rays, the degenerate rays, an empty and a
+    # full bitfield, the dense oracle's rank windows, a frame's windows
+    bench_march, march_err = march_phase(
+        "bench", march_sets_of(system, SEED + 80)
+        + oracle_march_sets(system, test_rays, test_rcfg),
+        frame_window_sets(system, test_rays, test_rcfg))
+    del system, out
     torch.cuda.empty_cache()
 
     # ---- 9b. the train phase's configuration under --bf16: ms/step and the
@@ -2507,10 +2916,18 @@ def main():
 
     # ---- 14. train the MixedFeature field: 300 steps, 6 timed chunks of 100
     hashgrid_encode.launches = hashgrid_bwd.launches = 0
+    march_counts(reset=True)
     fields = train_steps(mf, lambda: dict(
         hashgrid_fwd_launches=hashgrid_encode.launches,
-        hashgrid_bwd_launches=hashgrid_bwd.launches))
+        hashgrid_bwd_launches=hashgrid_bwd.launches,
+        march=march_counts()))
+    fields["march_train_per_step"] = fields["march"]["train"] \
+        / fields["steps"]
     phase("train_mf", **fields, card=card)
+    march_mf_launches = fields["march"]["train"]
+    check(fields["march_train_per_step"] >= 1,
+          f"MixedFeature training launched march_train {fields['march']} "
+          f"times")
     mf_fwd = fields["hashgrid_fwd_launches"]
     mf_bwd = fields["hashgrid_bwd_launches"]
     check(mf_fwd > 0 and mf_bwd > 0,
@@ -2546,7 +2963,13 @@ def main():
     hash_train = check_hashgrid("train", cfg_t, params_t, x_t, g_t,
                                 SEED + 30)
     phase("kernel_hashgrid", **hash_train, card=card)
-    del captured, params_t, x_t, g_t, mf
+    del captured, params_t, x_t, g_t
+
+    # ---- 36b. the march kernel on a step of the trained MixedFeature field
+    mf_march, err = march_phase(
+        "mf", [("step", *step_march_operands(mf, SEED + 82))])
+    march_err = max(march_err, err)
+    del mf
     torch.cuda.empty_cache()
 
     # ---- 19. cli: the command line on the procedural scene on disk
@@ -2554,7 +2977,8 @@ def main():
         if reset:
             hat_prod.launches = hat_prod_bwd.launches = 0
         return dict(hat_prod_launches=hat_prod.launches,
-                    hat_prod_bwd_launches=hat_prod_bwd.launches)
+                    hat_prod_bwd_launches=hat_prod_bwd.launches,
+                    march=march_counts(reset))
 
     # ---- 24. the JPEG decoder: the fixtures, an 800x800 file's time
     phase("jpeg", **jpeg_phase(), card=card)
@@ -2575,6 +2999,10 @@ def main():
           and fields["hat_prod_bwd_launches"] > 0,
           f"the command line launched hat_prod {fields['hat_prod_launches']}"
           f", hat_prod_bwd {fields['hat_prod_bwd_launches']} times")
+    check(fields["march"]["train"] >= fields["steps"]
+          and fields["march"]["window"] > 0,
+          f"the command line launched the marches {fields['march']}")
+    cli_march = fields["march"]
     check(len(fields["results"]) == 2 * CLI_TEST_VIEWS,
           f"results written: {fields['results']}")
     check(fields["test_psnr"] >= PSNR_MIN,
@@ -2613,7 +3041,8 @@ def main():
         if reset:
             hashgrid_encode.launches = hashgrid_bwd.launches = 0
         return dict(hashgrid_fwd_launches=hashgrid_encode.launches,
-                    hashgrid_bwd_launches=hashgrid_bwd.launches)
+                    hashgrid_bwd_launches=hashgrid_bwd.launches,
+                    march=march_counts(reset))
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2624,11 +3053,15 @@ def main():
             phase("colmap_scene", root=COLMAP_ROOT, spread=COLMAP_SPREAD,
                   views=[len(train_v), len(test_v)], wh=WH,
                   write_seconds=write_s, load_seconds=load_s, card=card)
+            cascade_march = {}
             for label, argv in (("LowRank", LR360_ARGS),
                                 ("MixedFeature", MF360_ARGS)):
-                phase("train_step_oracle_cascades", recipe=label,
-                      **cascade_step_oracle(argv, (train_v, test_v), dev,
-                                            SEED + 40), card=card)
+                fields = cascade_step_oracle(argv, (train_v, test_v), dev,
+                                             SEED + 40)
+                phase("train_step_oracle_cascades", recipe=label, **fields,
+                      card=card)
+                cascade_march[label] = fields["march"]
+                march_err = max(march_err, fields["march_max_abs_err"])
                 torch.cuda.empty_cache()
             del train_v, test_v
             runs = {}
@@ -2663,6 +3096,9 @@ def main():
         counts = [v for key, v in run.items() if key.endswith("_launches")]
         check(len(counts) == 2 and min(counts) > 0,
               f"the COLMAP run {label} launched {counts}")
+        check(run["march"]["train"] >= run["steps"]
+              and run["march"]["window"] > 0,
+              f"the COLMAP run {label} launched the marches {run['march']}")
 
 
     # ---- 16-18. the encoder formulation probes: each run() at the probe's
@@ -2829,7 +3265,38 @@ def main():
         "max_abs_err": probe_hat["max_abs_err"], "ms": probe_hat["ms"],
         "plain_ms": probe_hat["plain_ms"], "bound_ms": probe_hat["bound_ms"],
         "bound_by": probe_hat["bound_by"], "library_ms": None,
-        "shape": "probe_hatmul: N 2^19, K 513, R 128"}]}), flush=True)
+        "shape": "probe_hatmul: N 2^19, K 513, R 128"}, {
+        "name": "march_train", "route": "cuda", "source": march_src,
+        "replaces": "mfnerf_tpu/ops/ray_march.py:107, "
+                    "mfnerf_tpu/ops/ray_march.py:220, "
+                    "mfnerf_tpu/ops/ray_march.py:388",
+        "launches": march_train_launches,
+        "launches_per_step": march_train_launches / train_fp32["steps"],
+        "train_mf_launches": march_mf_launches,
+        "cli_launches": cli_march["train"],
+        "cli_colmap_launches": {label: run["march"]["train"]
+                                for label, run in runs.items()},
+        "max_abs_err": march_err, **{key: bench_march["train"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "shape": "bench.py's step: 8192 rays, the two-level strata",
+        "mf": {key: mf_march["train"][key] for key in (
+            "rays", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "cascades": {label: m["train"] for label, m in
+                     cascade_march.items()}}, {
+        "name": "march_window", "route": "cuda", "source": march_src,
+        "replaces": "mfnerf_tpu/ops/ray_march.py:876",
+        "launches": serve_window_launches,
+        "cli_launches": cli_march["window"],
+        "cli_colmap_launches": {label: run["march"]["window"]
+                                for label, run in runs.items()},
+        "max_abs_err": march_err, **{key: bench_march["window"][key]
+                                     for key in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": "the first round of the trained bench field's held-out "
+                 "800x800 view",
+        "cascades": {label: m["window"] for label, m in
+                     cascade_march.items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

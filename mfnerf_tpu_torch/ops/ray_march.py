@@ -30,15 +30,29 @@ the march equals the exact one. Two stage-A tests, one a march:
 The port applies the budget to its exact march (``strata=``) without the
 TPU's neighbourhood-row tables and block sums: the samples are the JAX
 march's, sample for sample.
+
+On CUDA tensors :func:`march_rays_train` and :func:`march_rays_window`
+launch the hand-written kernels of ``csrc/raymarch.cu`` (a warp a ray,
+which walks only the chosen strata's rungs and stops at the buffer's end
+or the ray's exit), bit for bit their plain versions
+:func:`march_rays_train_plain` and :func:`march_rays_window_plain`; on CPU
+tensors they run the plain versions, which evaluate every rung as (N, K)
+tensors. Every division by a Python float is a true division
+(``stepping.true_div``), as in the kernels, the JAX package and on the CPU.
 """
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .. import build
 from .morton import (bitfield_lookup, morton3d, morton_values_to_spatial,
                      unpack_bits_morton)
-from .stepping import SQRT3, calc_dt, mip_from_dt, mip_from_pos, t_ladder
+from .stepping import (SQRT3, calc_dt, mip_from_dt, mip_from_pos, t_ladder,
+                       true_div)
 
 NBR_SPAN = 8   # the JAX march's neighbourhood-row width in cells
 
@@ -178,7 +192,7 @@ def _live_twolevel(rays_o, rays_d, t_start, t2, strata, scale, max_samples,
     t_c = t_ladder(t_start, (first[:, None] + offs[None, :]).reshape(-1),
                    0.0, max_samples, grid_size, scale)
     xyz_c = rays_o[:, None, :] + t_c[..., None] * rays_d[:, None, :]
-    nxyz = torch.clamp(0.5 * (xyz_c / scale + 1.0) * g_c, 0.0,
+    nxyz = torch.clamp(0.5 * (true_div(xyz_c, scale) + 1.0) * g_c, 0.0,
                        g_c - 1.0).to(torch.int64)
     live = strata.stage_a[nxyz[..., 2], nxyz[..., 1], nxyz[..., 0]]
     live = live.reshape(n, n_strata, -1).any(2)
@@ -200,7 +214,7 @@ def _live_union(rays_o, rays_d, t_start, t2, strata, scale, exp_step_factor,
                     grid_size, dt_scale)
     t_mid = 0.5 * (t_lo + t_hi)
     xyz_c = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
-    nxyz = torch.clamp(0.5 * (xyz_c / scale + 1.0) * grid_size, 0.0,
+    nxyz = torch.clamp(0.5 * (true_div(xyz_c, scale) + 1.0) * grid_size, 0.0,
                        grid_size - 1.0).to(torch.int32)
     live = bitfield_lookup(strata.stage_a, morton3d(nxyz))
     return live & (t_lo < t2[:, None])
@@ -226,6 +240,15 @@ def _rung_of_rank(csum, ranks):
     return torch.searchsorted(csum, ranks.to(csum.dtype).contiguous())
 
 
+def _jittered_start(hits_t, noise, exp_step_factor, max_samples, grid_size,
+                    dt_scale):
+    """Each ray's ladder origin: its entry t1 plus ``noise`` steps, or 0
+    where the ray misses the box."""
+    t1 = hits_t[:, 0]
+    dt0 = calc_dt(t1, exp_step_factor, max_samples, grid_size, dt_scale)
+    return torch.where(t1 >= 0, t1 + dt0 * noise, 0.0)
+
+
 def _samples_at(rays_o, rays_d, t_start, k_idx, mask, exp_step_factor,
                 max_samples, grid_size, dt_scale):
     """(ts, deltas, xyzs) at the selected rungs, zero where masked out."""
@@ -240,12 +263,13 @@ def _samples_at(rays_o, rays_d, t_start, k_idx, mask, exp_step_factor,
     return ts, deltas, xyzs
 
 
-def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
-                     scale, exp_step_factor, grid_size, max_samples, noise,
-                     n_rungs, s_max, dt_scale=None,
-                     rank_start=0, strata=None) -> MarchResults:
+def march_rays_train_plain(rays_o, rays_d, hits_t, density_bitfield,
+                           cascades, scale, exp_step_factor, grid_size,
+                           max_samples, noise, n_rungs, s_max, dt_scale=None,
+                           rank_start=0, strata=None) -> MarchResults:
     """March rays over the whole ladder; return each ray's occupied samples
-    ranked rank_start+1 .. rank_start+s_max (at most max_samples per ray).
+    ranked rank_start+1 .. rank_start+s_max (at most max_samples per ray):
+    :func:`march_rays_train`'s plain version, every rung as (N, K) tensors.
 
     Args:
         hits_t: (N, 2) scene-AABB entry/exit (-1 if miss), t_near clamped.
@@ -257,9 +281,8 @@ def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
         dt_scale = scale
     t1, t2 = hits_t[:, 0], hits_t[:, 1]
     valid_ray = t1 >= 0
-
-    dt0 = calc_dt(t1, exp_step_factor, max_samples, grid_size, dt_scale)
-    t_start = torch.where(valid_ray, t1 + dt0 * noise, 0.0)
+    t_start = _jittered_start(hits_t, noise, exp_step_factor, max_samples,
+                              grid_size, dt_scale)
 
     ks = torch.arange(n_rungs, device=rays_o.device)
     ts_all = t_ladder(t_start, ks, exp_step_factor, max_samples, grid_size,
@@ -299,12 +322,13 @@ def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
                         rm_samples=n_samples.sum(), t_start=t_start)
 
 
-def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
-                      cascades, scale, exp_step_factor, grid_size,
-                      max_samples, n_window, s_cap, dt_scale=None
-                      ) -> WindowMarchResults:
+def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
+                            density_bitfield, cascades, scale,
+                            exp_step_factor, grid_size, max_samples, n_window,
+                            s_cap, dt_scale=None) -> WindowMarchResults:
     """March ``n_window`` ladder rungs from each ray's ``cursor``, emitting
-    at most ``s_cap`` occupied samples.
+    at most ``s_cap`` occupied samples: :func:`march_rays_window`'s plain
+    version, the window's rungs as (C, W) tensors.
 
     The resume point of the reference's ``raymarching_test`` (its in-place
     ``hits_t`` update) is the integer ``cursor`` on the ladder: it resumes
@@ -344,3 +368,279 @@ def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
     return WindowMarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
                               n_samples=n_samples, cursor=cursor_new,
                               exhausted=t_next >= t2, k_idx=k_glob)
+
+
+# ------------------------------------------------------------------ kernels
+MAX_PROBES = 16        # csrc/raymarch.cu's limits
+MAX_STRATA = 4096
+MAX_CHOSEN = 512
+
+
+class _MarchParams(ctypes.Structure):
+    """csrc/raymarch.cu's MarchParams, passed by pointer."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "a", "b", "e", "ta", "tb", "log1pe", "dt_min", "dt_max", "scale",
+        "grid_f", "grid_m1", "gc_f", "gc_m1")] \
+        + [("probe_off", ctypes.c_float * MAX_PROBES)] \
+        + [(name, ctypes.c_int) for name in (
+            "grid", "cascades", "n_rungs", "s_max", "max_samples",
+            "rank_start", "mode", "stratum", "s_strata", "n_strata", "g_c",
+            "n_probes", "expo")]
+
+
+def _f32(x):
+    """A Python float rounded once to float32, as torch rounds a scalar."""
+    return float(np.float32(x))
+
+
+def march_params(scale, exp_step_factor, grid_size, cascades, max_samples,
+                 dt_scale, n_rungs, s_max, rank_start=0, strata=None):
+    """The kernels' constants, each computed in double as the plain version
+    computes it (``stepping.calc_dt``, ``stepping.t_ladder``,
+    ``_occupancy_at``, ``_live_twolevel``, ``_live_union``) and rounded once
+    to float32."""
+    a = SQRT3 / max_samples
+    b = SQRT3 * 2.0 * dt_scale / grid_size
+    e = exp_step_factor
+    p = _MarchParams(
+        a=_f32(a), b=_f32(b), e=_f32(e),
+        ta=_f32(a / e) if e else 0.0, tb=_f32(b / e) if e else 0.0,
+        log1pe=_f32(math.log1p(e)), dt_min=_f32(a), dt_max=_f32(b),
+        scale=_f32(scale), grid_f=_f32(grid_size),
+        grid_m1=_f32(grid_size - 1.0), grid=grid_size, cascades=cascades,
+        n_rungs=n_rungs, s_max=s_max, max_samples=max_samples,
+        rank_start=rank_start,
+        mode=0 if strata is None else 2 if strata.union else 1,
+        expo=int(e != 0.0))
+    if strata is None:
+        return p
+    st = p.stratum = strata.stratum
+    p.s_strata = strata.s_strata
+    if strata.union:
+        p.n_strata = -(-n_rungs // st)
+        return p
+    g_c = p.g_c = strata.stage_a.shape[0]
+    p.gc_f, p.gc_m1 = _f32(g_c), _f32(g_c - 1.0)
+    dt_min = SQRT3 / max_samples * strata.dir_norm
+    cell = 2.0 * scale / g_c
+    offs = stage_a_probes(st, dt_min, cell)
+    if len(offs) > MAX_PROBES:
+        raise ValueError(f"{len(offs)} stage-A probes a stratum; the kernel "
+                         f"takes {MAX_PROBES}")
+    p.n_probes = len(offs)
+    for i, off in enumerate(offs):
+        p.probe_off[i] = _f32(off)
+    s_a = superstrata_len(st, dt_min, cell)
+    n_cover = -(-n_rungs // st)                  # as _live_twolevel pads
+    p.n_strata = -(-n_cover // s_a) * s_a
+    return p
+
+
+@functools.cache
+def _kernels():
+    """The C entry points of csrc/raymarch.cu (built on first use)."""
+    lib = build.load_library("raymarch")
+    train, window = lib.march_train, lib.march_window
+    train.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 14
+    window.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 15
+    train.restype = window.restype = ctypes.c_int
+    return train, window
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _operand(t, name, dtype, shape, device):
+    """``t`` contiguous, after checking its type, shape and device."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name} must be {shape} {dtype} on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def _check_counts(p, n_rungs, s_max):
+    if n_rungs < 1 or s_max < 1 or n_rungs >= 2 ** 24:
+        raise ValueError(f"n_rungs {n_rungs} and s_max {s_max}: the kernels "
+                         f"take 1 <= n_rungs < 2^24 and s_max >= 1")
+    if p.mode and (p.n_strata > MAX_STRATA or p.s_strata > MAX_CHOSEN):
+        raise ValueError(f"{p.n_strata} strata and s_strata {p.s_strata}: "
+                         f"the kernel takes {MAX_STRATA} and {MAX_CHOSEN}")
+
+
+def _launch_train(rays_o, rays_d, hits_t, density_bitfield, cascades, scale,
+                  exp_step_factor, grid_size, max_samples, noise, n_rungs,
+                  s_max, dt_scale, rank_start, strata):
+    dev, n = rays_o.device, rays_o.shape[0]
+    p = march_params(scale, exp_step_factor, grid_size, cascades,
+                     max_samples, dt_scale, n_rungs, s_max, rank_start,
+                     strata)
+    _check_counts(p, n_rungs, s_max)
+    f32 = torch.float32
+    rays_o = _operand(rays_o, "rays_o", f32, (n, 3), dev)
+    rays_d = _operand(rays_d, "rays_d", f32, (n, 3), dev)
+    hits_t = _operand(hits_t, "hits_t", f32, (n, 2), dev)
+    noise = _operand(noise, "noise", f32, (n,), dev)
+    bits = _operand(density_bitfield, "density_bitfield", torch.uint8,
+                    tuple(density_bitfield.shape), dev)
+    stage_a = None
+    if strata is not None:
+        want = torch.uint8 if strata.union else torch.bool
+        stage_a = _operand(strata.stage_a, "strata.stage_a", want,
+                           tuple(strata.stage_a.shape), dev)
+    xyzs = torch.empty((n, s_max, 3), dtype=f32, device=dev)
+    deltas = torch.empty((n, s_max), dtype=f32, device=dev)
+    ts = torch.empty((n, s_max), dtype=f32, device=dev)
+    mask = torch.empty((n, s_max), dtype=torch.bool, device=dev)
+    n_samples = torch.empty((n,), dtype=torch.int64, device=dev)
+    k_idx = torch.empty((n, s_max), dtype=torch.int64, device=dev)
+    t_start = torch.empty((n,), dtype=f32, device=dev)
+    if n:
+        rc = _kernels()[0](
+            ctypes.byref(p), n, rays_o.data_ptr(), rays_d.data_ptr(),
+            hits_t.data_ptr(), noise.data_ptr(), bits.data_ptr(),
+            None if stage_a is None else stage_a.data_ptr(),
+            xyzs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
+            mask.data_ptr(), n_samples.data_ptr(), k_idx.data_ptr(),
+            t_start.data_ptr(), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"march_train launch failed: cudaError {rc}")
+        march_rays_train.launches += 1
+    return MarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
+                        n_samples=n_samples, k_idx=k_idx,
+                        rm_samples=n_samples.sum(), t_start=t_start)
+
+
+def _launch_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
+                   cascades, scale, exp_step_factor, grid_size, max_samples,
+                   n_window, s_cap, dt_scale):
+    dev, n = rays_o.device, rays_o.shape[0]
+    p = march_params(scale, exp_step_factor, grid_size, cascades,
+                     max_samples, dt_scale, n_window, s_cap)
+    _check_counts(p, n_window, s_cap)
+    f32 = torch.float32
+    rays_o = _operand(rays_o, "rays_o", f32, (n, 3), dev)
+    rays_d = _operand(rays_d, "rays_d", f32, (n, 3), dev)
+    t_start = _operand(t_start, "t_start", f32, (n,), dev)
+    t2 = _operand(t2, "t2", f32, (n,), dev)
+    cursor = _operand(cursor, "cursor", torch.int64, (n,), dev)
+    bits = _operand(density_bitfield, "density_bitfield", torch.uint8,
+                    tuple(density_bitfield.shape), dev)
+    xyzs = torch.empty((n, s_cap, 3), dtype=f32, device=dev)
+    deltas = torch.empty((n, s_cap), dtype=f32, device=dev)
+    ts = torch.empty((n, s_cap), dtype=f32, device=dev)
+    mask = torch.empty((n, s_cap), dtype=torch.bool, device=dev)
+    n_samples = torch.empty((n,), dtype=torch.int64, device=dev)
+    cursor_new = torch.empty((n,), dtype=torch.int64, device=dev)
+    exhausted = torch.empty((n,), dtype=torch.bool, device=dev)
+    k_idx = torch.empty((n, s_cap), dtype=torch.int64, device=dev)
+    if n:
+        rc = _kernels()[1](
+            ctypes.byref(p), n, rays_o.data_ptr(), rays_d.data_ptr(),
+            t_start.data_ptr(), t2.data_ptr(), cursor.data_ptr(),
+            bits.data_ptr(), xyzs.data_ptr(), deltas.data_ptr(),
+            ts.data_ptr(), mask.data_ptr(), n_samples.data_ptr(),
+            cursor_new.data_ptr(), exhausted.data_ptr(), k_idx.data_ptr(),
+            _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"march_window launch failed: cudaError {rc}")
+        march_rays_window.launches += 1
+    return WindowMarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
+                              n_samples=n_samples, cursor=cursor_new,
+                              exhausted=exhausted, k_idx=k_idx)
+
+
+def _needs_grad(*tensors):
+    """Whether autograd records a function of ``tensors`` here."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _device_type(t):
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"the march runs on cpu or cuda, not {t.device}")
+    return kind
+
+
+def march_rays_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
+                     scale, exp_step_factor, grid_size, max_samples, noise,
+                     n_rungs, s_max, dt_scale=None,
+                     rank_start=0, strata=None) -> MarchResults:
+    """March rays over the whole ladder; return each ray's occupied samples
+    ranked rank_start+1 .. rank_start+s_max (at most max_samples per ray).
+
+    Args:
+        hits_t: (N, 2) scene-AABB entry/exit (-1 if miss), t_near clamped.
+        noise: (N,) start jitter in [0, 1) (zeros at test time).
+        n_rungs: ladder length K; s_max: per-ray sample-buffer width S.
+        strata: a :class:`Strata` budget, or None for every occupied rung.
+
+    CUDA tensors run csrc/raymarch.cu's ``march_train`` kernel, which walks
+    only the rungs it needs and equals :func:`march_rays_train_plain` bit
+    for bit, but for ``k_idx`` on masked slots: the kernel writes
+    ``n_rungs - 1`` there, where the plain version keeps the rung of a rank
+    between ``max_samples`` and the ray's total (nothing reads them). The
+    kernel's samples carry no autograd graph: where autograd records a
+    function of the rays, the hits or the jitter (pose refinement),
+    ``t_start``, ``ts``, ``deltas`` and ``xyzs`` are recomputed from the
+    kernel's rungs by the plain version's differentiable part
+    (``_jittered_start``, ``_samples_at``), to the same values. CPU tensors
+    run the plain version. ``march_rays_train.launches`` counts kernel
+    launches.
+    """
+    if dt_scale is None:
+        dt_scale = scale
+    if _device_type(rays_o) == "cpu":
+        return march_rays_train_plain(
+            rays_o, rays_d, hits_t, density_bitfield, cascades, scale,
+            exp_step_factor, grid_size, max_samples, noise, n_rungs, s_max,
+            dt_scale, rank_start, strata)
+    mr = _launch_train(rays_o, rays_d, hits_t, density_bitfield, cascades,
+                       scale, exp_step_factor, grid_size, max_samples,
+                       noise, n_rungs, s_max, dt_scale, rank_start, strata)
+    if _needs_grad(rays_o, rays_d, hits_t, noise):
+        ladder = (exp_step_factor, max_samples, grid_size, dt_scale)
+        t_start = _jittered_start(hits_t, noise, *ladder)
+        ts, deltas, xyzs = _samples_at(rays_o, rays_d, t_start, mr.k_idx,
+                                       mr.mask, *ladder)
+        mr = mr._replace(xyzs=xyzs, deltas=deltas, ts=ts, t_start=t_start)
+    return mr
+
+
+def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
+                      cascades, scale, exp_step_factor, grid_size,
+                      max_samples, n_window, s_cap, dt_scale=None
+                      ) -> WindowMarchResults:
+    """March ``n_window`` ladder rungs from each ray's ``cursor``, emitting
+    at most ``s_cap`` occupied samples; the new cursor and whether the ray
+    passed its exit there.
+
+    CUDA tensors run csrc/raymarch.cu's ``march_window`` kernel, bit for bit
+    :func:`march_rays_window_plain` (its samples recomputed differentiably
+    where autograd records a function of the rays or ``t_start``, as in
+    :func:`march_rays_train`); CPU tensors run the plain version.
+    ``march_rays_window.launches`` counts kernel launches.
+    """
+    if dt_scale is None:
+        dt_scale = scale
+    if _device_type(rays_o) == "cpu":
+        return march_rays_window_plain(
+            rays_o, rays_d, t_start, t2, cursor, density_bitfield, cascades,
+            scale, exp_step_factor, grid_size, max_samples, n_window, s_cap,
+            dt_scale)
+    mr = _launch_window(rays_o, rays_d, t_start, t2, cursor,
+                        density_bitfield, cascades, scale, exp_step_factor,
+                        grid_size, max_samples, n_window, s_cap, dt_scale)
+    if _needs_grad(rays_o, rays_d, t_start):
+        ts, deltas, xyzs = _samples_at(
+            rays_o, rays_d, t_start, mr.k_idx, mr.mask, exp_step_factor,
+            max_samples, grid_size, dt_scale)
+        mr = mr._replace(xyzs=xyzs, deltas=deltas, ts=ts)
+    return mr
+
+
+march_rays_train.launches = 0
+march_rays_window.launches = 0

@@ -13,6 +13,15 @@ import torch
 SQRT3 = 1.7320508075688772
 
 
+def true_div(x, s):
+    """``x / s`` for a Python float ``s``, divided as IEEE division on
+    every device. On a CUDA tensor torch evaluates ``tensor / python_float``
+    as a multiply by the float reciprocal, which rounds differently (the
+    CPU, the JAX package and the march kernels divide): a 0-d tensor on
+    ``x``'s device takes the true division."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def calc_dt(t, exp_step_factor, max_samples, grid_size, scale):
     """Step size at distance ``t``: clamp(t * e, SQRT3/max_samples,
     2*SQRT3*scale/grid_size)."""
@@ -72,13 +81,14 @@ def t_ladder(t0, ks, exp_step_factor, max_samples, grid_size, scale):
 
     ta = a / e
     tb = b / e
-    n1 = torch.ceil(torch.clamp_min(ta - t0, 0.0) / a)
+    # true divisions throughout (:func:`true_div`): torch evaluates
+    # ``scalar / tensor`` as a reciprocal times the scalar, and on CUDA
+    # ``tensor / scalar`` as a multiply by the reciprocal
+    n1 = torch.ceil(true_div(torch.clamp_min(ta - t0, 0.0), a))
     t_g0 = t0 + n1 * a
     log1pe = math.log1p(e)
-    # a true division: torch evaluates ``scalar / tensor`` as a reciprocal
-    # times the scalar, which rounds differently
-    m2 = torch.ceil(torch.clamp_min(torch.log(torch.clamp_min(
-        torch.full_like(t_g0, tb) / t_g0, 1.0)), 0.0) / log1pe)
+    m2 = torch.ceil(true_div(torch.clamp_min(torch.log(torch.clamp_min(
+        torch.full_like(t_g0, tb) / t_g0, 1.0)), 0.0), log1pe))
 
     k1 = torch.minimum(ks, n1)
     kg = torch.clamp(ks - n1, min=0.0)

@@ -50,19 +50,49 @@ def multichip_system(hp, device="cpu"):
     return system
 
 
-def fit(rank, device, hp, n_steps):
+def fit(rank, device, hp, n_steps, reduce_count=None):
     """``n_steps`` of ``fit`` from step 0, then ``validate``: the
-    parameters, the bitfield, every step's metrics and the validation."""
+    parameters, the bitfield, every step's metrics and the validation; and
+    the trace that tests/test_torch_dp.py compares step by step: each
+    step's gradients as the optimiser took them (averaged over the ranks)
+    and its parameters after the step, and each refresh's density grid and
+    bitfield (rank 0's alone). ``reduce_count``: average the gradients over that many ranks
+    instead of the world size (a deliberately wrong reduction)."""
     torch.set_num_threads(1)
     system = multichip_system(hp, device)
-    metrics = system.fit(n_steps)
-    return {"params": {k: v.detach().cpu().numpy()
-                       for k, v in system.model.state_dict().items()},
+    if reduce_count is not None:
+        right = system.average_gradients
+
+        def wrong():
+            right()
+            for p in system.model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(system.world / reduce_count)
+        system.average_gradients = wrong
+    names = [n for n, _ in system.model.named_parameters()]
+    trace = {"grads": [], "params": [], "refresh": {}}
+    system.optimizer.register_step_pre_hook(
+        lambda opt, args, kwargs: trace["grads"].append({
+            n: p.grad.detach().cpu().numpy().copy() for n, p in zip(
+                names, system.model.parameters()) if p.grad is not None}))
+    metrics = []
+    for _ in range(n_steps):
+        step = system.global_step
+        metrics.append(system.fit(1))
+        if step % ttrain.UPDATE_INTERVAL == 0:
+            trace["refresh"][step] = (
+                system.occ.density_grid.cpu().numpy().copy(),
+                system.occ.density_bitfield.cpu().numpy().copy())
+        trace["params"].append({k: v.detach().cpu().numpy().copy()
+                                for k, v in system.model.state_dict().items()})
+    return {"params": trace["params"][-1],
             "bitfield": system.occ.density_bitfield.cpu().numpy(),
-            "metrics": {k: v.numpy() for k, v in metrics.items()},
+            "metrics": {k: torch.cat([m[k] for m in metrics]).numpy()
+                        for k in metrics[0]},
             "refreshes": system.n_refresh, "validate": system.validate(),
             "shard": (system.shard.lo, system.shard.hi)
-            if system.shard is not None else None}
+            if system.shard is not None else None,
+            "trace": trace if rank == 0 else None}
 
 
 def trainer_step(rank, device, hp, state, bits, train, img, pix, noise,

@@ -9,11 +9,13 @@ Tolerances:
 
 * W ranks against one (tests/test_multichip.py's system and rule, the
   JAX package's 8-device mesh against one device): the last step's loss
-  rtol 1e-4; of each parameter over 95% of the elements within
-  1e-4 + 5e-4 |a| and all within 5e-3 (a refresh thresholds the density:
-  a sum in another order can flip a marginal occupancy bit, after which a
-  few parameters genuinely part). The ranks' parameters and bitfields are
-  bitwise equal to each other.
+  rtol 1e-4; the first step's averaged gradients rtol 1e-4 with atol
+  1e-5 of the largest value; the runs part at the first step whose
+  gradients leave that bound (a ReLU or a refresh's threshold meets a
+  last-bit difference of the reduction: ``_check_against_one``), and at
+  the step before it of each parameter over 95% of the elements within
+  1e-4 + 5e-4 |a| and all within 5e-3. The ranks' parameters and
+  bitfields are bitwise equal to each other.
 * One step of two ranks against the JAX trainer's step on the whole batch
   (tests/test_torch_train.py's machinery and tolerances: loss 1e-5
   relative, gradients rtol 1e-4 with atol 1e-5 of the largest value),
@@ -79,6 +81,63 @@ def _multichip_close(got, want):
     assert err.max() < 5e-3, err.max()
 
 
+def _grads_close(got, want):
+    """One step's averaged gradients against one process's: the trainer
+    step's tolerance (rtol 1e-4, atol 1e-5 of the largest value); False
+    where a parameter leaves it."""
+    return set(got) == set(want) and all(
+        np.allclose(g, want[k], rtol=1e-4,
+                    atol=1e-5 * float(np.abs(want[k]).max()))
+        for k, g in got.items())
+
+
+def _marginal_flips(got, want):
+    """Whether two refreshes' bitfields differ only in cells whose density
+    lies within 1e-4 (relative) of its run's threshold, the bitfield's
+    min(mean positive density, training threshold)."""
+    (dens_g, bits_g), (dens_w, bits_w) = got, want
+    differ = np.unpackbits(bits_g, bitorder="little") \
+        != np.unpackbits(bits_w, bitorder="little")
+    for dens in (dens_g, dens_w):
+        d = dens.reshape(-1).astype(np.float64)
+        thr = min(d[d > 0].mean(), 0.01 * 1024 / np.sqrt(3))
+        if not np.all(np.abs(d[differ] - thr) <= 1e-4 * thr):
+            return False
+    return True
+
+
+def _check_against_one(got, one):
+    """Rank 0's trace against one process's, step by step.
+
+    The runs part where a last-bit difference of the sharded reduction
+    meets a step function: a pre-activation within rounding of zero takes
+    the other side of a ReLU (at step 28 of the three-rank LowRank run on
+    the CPU: 1.5e-8 in one process, -3.8e-8 on the ranks), or a density
+    within rounding of the threshold takes the other side of the refresh's
+    packbits. Adam's eps of 1e-15 then turns the differing gradient into
+    steps of O(lr), and the parameters drift apart by more than the
+    multichip rule allows. So: the first step's averaged gradients are
+    held tightly to one process's (a reduction over the wrong count, or a
+    rank on the wrong rays, fails here: Adam is nearly scale-free, so a
+    wrong count hardly shows in the parameters); the runs part at the
+    first step whose gradients leave that tolerance; every refresh up to
+    that step leaves the same bitfield but for marginal cells; and the
+    parameters after the step before it keep the multichip rule."""
+    g, w = got["trace"], one["trace"]
+    assert _grads_close(g["grads"][0], w["grads"][0]), \
+        "the first step's averaged gradients differ from one process's"
+    part = next((s for s in range(len(w["grads"]))
+                 if not _grads_close(g["grads"][s], w["grads"][s])),
+                len(w["grads"]))
+    for step, refresh in w["refresh"].items():
+        if step <= part:
+            assert _marginal_flips(g["refresh"][step], refresh), step
+    assert set(g["params"][part - 1]) == set(w["params"][part - 1])
+    for k, v in g["params"][part - 1].items():
+        _multichip_close(v, w["params"][part - 1][k])
+    return part
+
+
 @pytest.mark.parametrize("world,grid,batch", [
     pytest.param(2, "LowRank", 256, id="2-LowRank"),
     pytest.param(3, "LowRank", 258, id="3-LowRank"),
@@ -87,9 +146,11 @@ def test_fit_on_ranks_matches_one_rank(world, grid, batch):
     """48 steps of test_multichip's system (LowRank; and the Hash grid with
     hash_grad_samples 2, whose noise rows the ranks draw for the global
     batch) on ``world`` ranks against the same steps in one process: the
-    multichip tolerance, the ranks bitwise equal to each other (the
-    parameters and the occupancy bitfields that their refreshes left), and
-    every rank's metrics and validation equal."""
+    ranks bitwise equal to each other (the parameters and the occupancy
+    bitfields that their refreshes left), every rank's metrics and
+    validation equal; against one process the last step's loss, the
+    marched samples and the validation, and step by step
+    :func:`_check_against_one`."""
     kw = {} if grid == "LowRank" else dict(grid="Hash", hash_grad_samples=2)
     hp = dp_workers.multichip_hparams(batch_size=batch, **kw)
     one = dp_workers.fit(0, "cpu", hp, N_STEPS)
@@ -109,11 +170,20 @@ def test_fit_on_ranks_matches_one_rank(world, grid, batch):
                                one["metrics"]["loss"][-1], rtol=1e-4)
     np.testing.assert_allclose(got["metrics"]["rm_s"],
                                one["metrics"]["rm_s"], rtol=1e-2)
-    assert set(got["params"]) == set(one["params"])
-    for k, v in got["params"].items():
-        _multichip_close(v, one["params"][k])
+    _check_against_one(got, one)
     for k, v in got["validate"].items():
         np.testing.assert_allclose(v, one["validate"][k], rtol=1e-3)
+
+
+def test_fit_on_ranks_fails_a_wrong_reduction():
+    """The three ranks of test_fit_on_ranks_matches_one_rank[3-LowRank]
+    averaging their gradients over two ranks instead of three: the
+    step-by-step comparison fails at the first step's gradients."""
+    hp = dp_workers.multichip_hparams(batch_size=258)
+    one = dp_workers.fit(0, "cpu", hp, 2)
+    got = _spawn(dp_workers.fit, 3, hp, 2, 2)[0]
+    with pytest.raises(AssertionError, match="first step's averaged"):
+        _check_against_one(got, one)
 
 
 @pytest.mark.parametrize("flat", [False, True], ids=["padded", "flat"])

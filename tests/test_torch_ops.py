@@ -15,6 +15,8 @@ to the JAX function and to its port. Tolerances:
 * hat product: atol/rtol 1e-4. Both sides round the same operands to bf16
   and accumulate in fp32; only the summation order differs.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -479,6 +481,231 @@ def test_march_rays_window_bit_exact():
     np.testing.assert_allclose(got.ts.numpy(), _np(want.ts), atol=1e-6)
     np.testing.assert_allclose(got.xyzs.numpy(), _np(want.xyzs), atol=1e-6)
     assert got.exhausted.any() and not got.exhausted.all()
+
+
+def _twolevel_pair(g, max_samples, fill, s_strata, s_max, n=256, seed=21):
+    """The JAX two-level march and the port's budgeted march on the same
+    camera-like rays (|d| up to 1.25, the training jitter) and bitfield."""
+    scale, dir_norm = 0.5, 1.25
+    rays_o, rays_d = _rays(n, seed, miss_every=11)
+    rays_d = rays_d * np.random.default_rng(seed + 1).uniform(
+        1.0, dir_norm, (n, 1)).astype(np.float32)
+    bits = _bitfield(g, seed + 2, fill)
+    n_rungs = jrendering.RenderConfig(max_samples=max_samples).n_rungs(
+        scale, g)
+    stratum = tmarch.twolevel_stratum(0.0, max_samples, scale, g, 1,
+                                      dir_norm)
+    hits = _np(jrendering._clamp_near(jinter.ray_aabb_intersect_single(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.zeros(3),
+        jnp.full(3, scale))))
+    noise = np.random.default_rng(seed + 3).random(n, dtype=np.float32)
+    tables = jmorton.occupancy_nbr_tables(jnp.asarray(bits), g)
+    want = jmarch.march_rays_train_twolevel(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.asarray(hits),
+        tables[1], tables[0], scale, 0.0, g, max_samples,
+        jnp.asarray(noise), n_rungs, s_max, stratum, s_strata=s_strata,
+        dir_norm=dir_norm)
+    strata = tmarch.Strata(tmarch.stage_a_grid(_t(bits), g, 2), stratum,
+                           s_strata, dir_norm)
+    args = (_t(rays_o), _t(rays_d), _t(hits), _t(bits), 1, scale, 0.0, g,
+            max_samples, _t(noise), n_rungs, s_max)
+    return want, tmarch.march_rays_train(*args, strata=strata), args, strata
+
+
+def _assert_march_equal(got, want):
+    """Sample for sample: n_samples, mask, k_idx on the valid slots, ts,
+    deltas and xyzs."""
+    mask = _np(want.mask)
+    np.testing.assert_array_equal(got.n_samples.numpy(), _np(want.n_samples))
+    np.testing.assert_array_equal(got.mask.numpy(), mask)
+    np.testing.assert_array_equal(got.k_idx.numpy()[mask],
+                                  _np(want.k_idx)[mask])
+    for name in ("ts", "deltas", "xyzs"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   _np(getattr(want, name)), atol=1e-6,
+                                   err_msg=name)
+
+
+def test_march_chosen_strata_beyond_s_max():
+    """A full grid and a buffer of 4 slots: a hitting ray's first chosen
+    stratum fills the buffer, so the rest of its chosen strata lie beyond
+    s_max (the kernel stops walking there); JAX's two-level march keeps
+    the same 4 samples."""
+    want, got, args, strata = _twolevel_pair(32, 256, 0xFF, 4, 4)
+    _assert_march_equal(got, want)
+    hit = args[2][:, 0] >= 0
+    assert strata.stratum > 4
+    assert float((got.n_samples[hit] == 4).float().mean()) > 0.95
+
+
+def test_march_more_live_strata_than_s_strata():
+    """Half the cells occupied and s_strata 3: rays with more live strata
+    than the budget take 3 of them at even ranks, as the JAX march does."""
+    want, got, args, strata = _twolevel_pair(32, 256, 0x55, 3, 64)
+    _assert_march_equal(got, want)
+    ro, rd, hits, bits = args[:4]
+    dt0 = tstep.calc_dt(hits[:, 0], 0.0, 256, 32, 0.5)
+    t_start = torch.where(hits[:, 0] >= 0, hits[:, 0] + dt0 * args[9], 0.0)
+    live = tmarch._live_twolevel(ro, rd, t_start, hits[:, 1], strata, 0.5,
+                                 256, 32, args[10]) & (hits[:, :1] >= 0)
+    assert int((live.sum(1) > 3).sum()) > 50
+    exact = tmarch.march_rays_train(*args)
+    assert bool((exact.n_samples > got.n_samples).any())
+
+
+@pytest.mark.parametrize("rank_start", [40, 128, 200])
+def test_march_rank_start_past_ray_totals(rank_start):
+    """Rank windows that start past some or all rays' totals (the dense
+    oracle's late windows): those rays keep no sample, as in JAX."""
+    g, max_samples, s_max = 32, 128, 32
+    rays_o, rays_d = _rays(256, 8, miss_every=9)
+    bits = _bitfield(g, 9, 0x77)
+    n_rungs = jrendering.RenderConfig(max_samples=max_samples).n_rungs(
+        0.5, g, test=True)
+    hits = _np(jrendering._clamp_near(jinter.ray_aabb_intersect_single(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.zeros(3),
+        jnp.full(3, 0.5))))
+    noise = np.zeros(256, np.float32)
+    args = (1, 0.5, 0.0, g, max_samples)
+    want = jmarch.march_rays_train(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.asarray(hits),
+        jnp.asarray(bits), *args, jnp.asarray(noise), n_rungs, s_max,
+        dt_scale=1, rank_start=rank_start)
+    got = tmarch.march_rays_train(
+        _t(rays_o), _t(rays_d), _t(hits), _t(bits), *args, _t(noise),
+        n_rungs, s_max, dt_scale=1, rank_start=rank_start)
+    _assert_march_equal(got, want)
+    total = tmarch.march_rays_train(
+        _t(rays_o), _t(rays_d), _t(hits), _t(bits), *args, _t(noise),
+        n_rungs, max_samples, dt_scale=1).n_samples
+    past = total <= rank_start
+    assert bool(past.any()) and not bool(got.mask[past].any())
+    assert (rank_start < int(total.max())) == bool(got.mask.any())
+
+
+def test_march_window_s_cap_th_rung_is_its_last():
+    """Windows whose s_cap-th occupied rung is the window's last rung: the
+    ray emits s_cap samples, the last at cursor + n_window - 1, and resumes
+    at cursor + n_window, as in JAX."""
+    g, max_samples, n_window, s_cap = 32, 1024, 40, 3
+    rays_o, rays_d = _rays(300, 10)
+    bits = _bitfield(g, 11, 0x33)
+    hits = _np(jrendering._clamp_near(jinter.ray_aabb_intersect_single(
+        jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.zeros(3),
+        jnp.full(3, 0.5))))
+    keep = hits[:, 0] >= 0
+    rays_o, rays_d, hits = rays_o[keep], rays_d[keep], hits[keep]
+    n_all = 1200
+    every = tmarch.march_rays_window(
+        _t(rays_o), _t(rays_d), _t(hits[:, 0]), _t(hits[:, 1]),
+        torch.zeros(len(hits), dtype=torch.int64), _t(bits), 1, 0.5, 0.0, g,
+        max_samples, n_all, n_all, dt_scale=1)
+    cursor, rows = [], []
+    for i in range(len(hits)):   # a cursor putting the s_cap-th at the end
+        occ = every.k_idx[i][every.mask[i]].numpy()
+        for j in range(s_cap - 1, len(occ)):
+            c = occ[j] - (n_window - 1)
+            if c >= 0 and occ[j - s_cap + 1] >= c \
+                    and (j < s_cap or occ[j - s_cap] < c):
+                cursor.append(c)
+                rows.append(i)
+                break
+    assert len(rows) > 100
+    rows = np.asarray(rows)
+    cursor = np.asarray(cursor, np.int64)
+    args = (1, 0.5, 0.0, g, max_samples, n_window, s_cap)
+    want = jmarch.march_rays_window(
+        jnp.asarray(rays_o[rows]), jnp.asarray(rays_d[rows]),
+        jnp.asarray(hits[rows, 0]), jnp.asarray(hits[rows, 1]),
+        jnp.asarray(cursor.astype(np.int32)), jnp.asarray(bits), *args,
+        dt_scale=1)
+    got = tmarch.march_rays_window(
+        _t(rays_o[rows]), _t(rays_d[rows]), _t(hits[rows, 0]),
+        _t(hits[rows, 1]), _t(cursor), _t(bits), *args, dt_scale=1)
+    for name in ("mask", "n_samples", "cursor", "exhausted", "k_idx"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      _np(getattr(want, name)), err_msg=name)
+    np.testing.assert_allclose(got.xyzs.numpy(), _np(want.xyzs), atol=1e-6)
+    assert bool((got.n_samples == s_cap).all())
+    np.testing.assert_array_equal(got.k_idx[:, -1].numpy(),
+                                  cursor + n_window - 1)
+    np.testing.assert_array_equal(got.cursor.numpy(), cursor + n_window)
+
+
+def test_march_params_are_the_plain_versions_constants():
+    """The kernels' constants (``march_params``) are the plain march's: the
+    strata count of each stage A, the probes' float32 offsets, and the
+    ladder's and calc_dt's scalars rounded once from double."""
+    want, got, args, strata = _twolevel_pair(32, 256, 0x55, 3, 64, n=16)
+    ro, rd, hits, bits = args[:4]
+    p = tmarch.march_params(0.5, 0.0, 32, 1, 256, 0.5, args[10], 64,
+                            strata=strata)
+    live = tmarch._live_twolevel(ro, rd, hits[:, 0], hits[:, 1], strata,
+                                 0.5, 256, 32, args[10])
+    assert (p.mode, p.expo, p.n_strata) == (1, 0, live.shape[1])
+    dt_min = tstep.SQRT3 / 256 * strata.dir_norm
+    offs = torch.tensor(tmarch.stage_a_probes(strata.stratum, dt_min,
+                                              2.0 * 0.5 / p.g_c))
+    assert list(p.probe_off)[:p.n_probes] == offs.tolist()
+    union = tmarch.Strata(_t(_bitfield(32, 5, 0x11)), 8, 4, 1.0, union=True)
+    e = 1 / 256
+    p = tmarch.march_params(4.0, e, 32, 4, 256, 4.0, 900, 64, strata=union)
+    live = tmarch._live_union(ro, rd, hits[:, 0], hits[:, 1], union, 4.0, e,
+                              256, 32, 900, 4.0)
+    assert (p.mode, p.expo, p.n_strata) == (2, 1, live.shape[1])
+    a, b = tstep.SQRT3 / 256, tstep.SQRT3 * 2.0 * 4.0 / 32
+    for got_, want_ in ((p.a, a), (p.b, b), (p.ta, a / e), (p.tb, b / e),
+                        (p.log1pe, math.log1p(e)), (p.dt_min, a),
+                        (p.dt_max, b), (p.e, e)):
+        assert got_ == float(np.float32(want_))
+
+
+def test_march_dispatch():
+    """CPU tensors run the plain marches (the kernels' launch counts stay
+    0); a tensor on another device raises."""
+    tmarch.march_rays_train.launches = tmarch.march_rays_window.launches = 0
+    g = 32
+    rays_o, rays_d = _t(_rays(64, 3)[0]), _t(_rays(64, 3)[1])
+    hits = trendering._clamp_near(tinter.ray_aabb_intersect_single(
+        rays_o, rays_d, torch.zeros(3), torch.full((3,), 0.5)))
+    bits = _t(_bitfield(g, 4, 0x77))
+    args = (rays_o, rays_d, hits, bits, 1, 0.5, 0.0, g, 128,
+            torch.zeros(64), 300, 16)
+    for got, want in (
+            (tmarch.march_rays_train(*args),
+             tmarch.march_rays_train_plain(*args)),
+            (tmarch.march_rays_window(
+                rays_o, rays_d, hits[:, 0], hits[:, 1],
+                torch.zeros(64, dtype=torch.int64), bits, 1, 0.5, 0.0, g,
+                128, 48, 8),
+             tmarch.march_rays_window_plain(
+                 rays_o, rays_d, hits[:, 0], hits[:, 1],
+                 torch.zeros(64, dtype=torch.int64), bits, 1, 0.5, 0.0, g,
+                 128, 48, 8))):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert tmarch.march_rays_train.launches == 0
+    assert tmarch.march_rays_window.launches == 0
+    meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tmarch.march_rays_train(*meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tmarch.march_rays_window(*meta[:4], meta[4], *meta[3:8], 128, 48, 8)
+
+
+def test_true_div_matches_jax_where_the_reciprocal_does_not():
+    """``stepping.true_div`` divides as JAX does, at values where the
+    multiply by the float reciprocal (torch's ``tensor / python_float`` on
+    CUDA) rounds to another float: the ladder's ``/ a`` and ``/ log1p(e)``
+    and a cell's ``/ scale``."""
+    x = np.random.default_rng(31).uniform(0.0, 4.0, 1 << 16).astype(
+        np.float32)
+    for s in (1.7320508075688772 / 1024, math.log1p(1 / 256), 1.5):
+        want = _np(jnp.asarray(x) / s)
+        np.testing.assert_array_equal(tstep.true_div(_t(x), s).numpy(),
+                                      want)
+        recip = x * np.float32(1.0 / np.float32(s))
+        assert (recip != want).sum() > 100
 
 
 # ------------------------------------------------------------- compositing
