@@ -3,24 +3,26 @@ NVIDIA GPU, for a LowRank field and for a MixedFeature hash-grid field, on
 a synthetic scene and on a multi-cascade COLMAP scene, the encoder
 formulation probes (mfnerf_tpu_torch/benchmarking/), data parallelism
 (two ranks sharing the card), the fp32 hat kernels, LPIPS, RTMV from
-its OpenEXR frames, and the march kernels against their plain versions.
+its OpenEXR frames, and the march and composite kernels against their
+plain versions.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc, Triton;
-2. build, 11. build_hashgrid, 16a. build_linetable and 36. build_raymarch:
-   compile the hat-product, the hash-grid, the line-table and the march
-   kernels from mfnerf_tpu_torch/csrc/, one nvcc each, started together;
+2. build, 11. build_hashgrid, 16a. build_linetable, 36. build_raymarch and
+   37. build_composite: compile the hat-product, the hash-grid, the
+   line-table, the march and the composite kernels from
+   mfnerf_tpu_torch/csrc/, one nvcc each, started together;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
    (2,097,152 cells through the kernel);
 5. serve: eight distinct 800x800 frames of the procedural scene through
    render_test (the alive-ray loop), T_threshold 1e-2; the kernel's launch
-   count and the window march's are reset just before and read just
-   after;
+   count, the window march's and the compositing round's are reset just
+   before and read just after (one round a window march);
 6. oracle: a strided ~8k-ray subset of frame 0 against the plain dense
    oracle render_test_dense (run on the CPU, where hat_prod is the plain
    version);
@@ -102,6 +104,26 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    and the sample buffers; MARCH_OPS_PER_RUNG a rung up to each ray's
    last sample). The train, train_mf, cli and cli_colmap phases count the
    march kernels' launches over their runs;
+37. composite, 37a-c: each composite kernel of csrc/composite.cu
+   (composite_train's forward and analytic backward, composite_test_step
+   and its in-place form) against its plain version on the card: the
+   forward's ws, opacity, depth and rgb within COMPOSITE_FWD_TOL x max and
+   each row's included samples equal, on the rows clear of T_threshold
+   (rows within COMPOSITE_TIE_ULPS of it are counted apart); the backward
+   within COMPOSITE_BWD_TOL relative L2 of composite_train_bwd_plain and
+   of autograd through composite_train_plain, for seeded incoming
+   gradients of all four outputs and for the loss's own; each kernel bit
+   for bit across two launches. 37a on the trained bench field (phase 9):
+   one step's block, the edge blocks (an opaque first sample, the
+   threshold tie, masked holes, empty rows, S = 256), every round of one
+   render_test frame of the held-out view, and the edge blocks as serving
+   rounds; 37b on a step of the trained MixedFeature field (phase 14); 37c
+   in phase 20, on each recipe's cascade step (the card's step of the
+   oracle) and the rounds of its five-cascade serving loop. The step's
+   forward and backward and the frame's first round are timed by
+   CUDA-graph replay beside their plain versions and bounds. The train,
+   train_mf, cli and cli_colmap phases check one forward and one backward
+   launch a step and one round a window march;
 19. cli: the command line (mfnerf_tpu_torch/train.py main, CLI_ARGS: the
    bench.py LowRank model, 600 steps) on the 800x800 procedural scene
    (16 train and 2 test views) written in the NSVF layout under a temporary
@@ -455,6 +477,18 @@ MARCH_GRAPH_ITERS = 20            # kernel calls a CUDA graph replays
 MARCH_OPS_PER_RUNG = 30
 N_MARCH_DEGENERATE = 4096         # rays of the degenerate set
 MARCH_ORACLE_STRIDE = 8           # of the test view's rays, the oracle set
+# the composite kernels (csrc/composite.cu) against their plain versions:
+# the same operations in another order (a shuffle scan and trees against
+# torch's cumprod and sums)
+COMPOSITE_FWD_TOL = 1e-6          # x max |plain|: ws, opacity, depth, rgb
+COMPOSITE_BWD_TOL = 1e-5          # relative L2 of each gradient
+# rows whose transmittance lies this close to T_threshold (float32 ulps of
+# it) may include a sample on one side and not on the other
+COMPOSITE_TIE_ULPS = 4
+COMPOSITE_GRAPH_ITERS = 20
+# fp32 operations of a sample in the forward (exp, alpha, the scan's
+# product, w, the five sums)
+COMPOSITE_OPS_PER_SAMPLE = 12
 
 
 def check(ok, what):
@@ -1206,6 +1240,471 @@ def march_phase(label, train_sets, window_sets=(), timed_train=0):
               exhausted=sum(r["exhausted"] for r in rounds),
               bit_equal=all(r["bit_equal"] for r in rounds),
               max_abs_err=err, first_round=rounds[0])
+        torch.cuda.empty_cache()
+    return timed, err
+
+
+def composite_counts(reset=False):
+    """The composite kernels' launch counts, {"fwd": .., "bwd": ..,
+    "round": ..}, after zeroing them with ``reset``."""
+    from mfnerf_tpu_torch.ops.composite import (composite_test_step,
+                                                composite_train,
+                                                composite_train_bwd)
+    if reset:
+        composite_train.launches = composite_train_bwd.launches = 0
+        composite_test_step.launches = 0
+    return {"fwd": composite_train.launches,
+            "bwd": composite_train_bwd.launches,
+            "round": composite_test_step.launches}
+
+
+def check_composite_launches(label, fields):
+    """Exactly one composite forward and one backward launch a step of a
+    run's ``steps``, and one round a window march (each round of each
+    served frame)."""
+    c, m = fields["composite"], fields["march"]
+    check(c["fwd"] == c["bwd"] == fields["steps"]
+          and c["round"] == m["window"],
+          f"{label}: composite launches {c} in {fields['steps']} steps and "
+          f"{m['window']} window marches")
+
+
+@contextlib.contextmanager
+def capturing_composites():
+    """Within the context, each call of the rendering module's
+    composite_train appends ("train", (sigmas, rgbs,
+    deltas, ts, mask), T_threshold, grads) to the yielded list, detached,
+    ``grads`` a dict that the backward fills with the incoming gradients of
+    the outputs it reaches (opacity, depth, rgb, ws); each call of
+    composite_test_step_into appends ("round", (sigmas,
+    rgbs, deltas, ts, mask, index, opacity, depth, rgb), T_threshold, None),
+    the accumulators copied as the call found them. Calls run as before."""
+    from mfnerf_tpu_torch.models import rendering
+    captured = []
+    train, into = rendering.composite_train, rendering.composite_test_step_into
+
+    def train_rec(sigmas, rgbs, deltas, ts, mask, T_threshold=1e-4):
+        comp = train(sigmas, rgbs, deltas, ts, mask, T_threshold)
+        grads = {}
+        for name in ("opacity", "depth", "rgb", "ws"):
+            out = getattr(comp, name)
+            if out.requires_grad:    # a hook may see None: not reached
+                out.register_hook(lambda g, name=name: None if g is None
+                                  else grads.__setitem__(
+                                      name, g.detach().clone()))
+        captured.append(("train", tuple(x.detach() for x in (
+            sigmas, rgbs, deltas, ts, mask)), T_threshold, grads))
+        return comp
+
+    def into_rec(sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb,
+                 T_threshold):
+        captured.append(("round", tuple(x.detach().clone() for x in (
+            sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb)),
+            T_threshold, None))
+        return into(sigmas, rgbs, deltas, ts, mask, index, opacity, depth,
+                    rgb, T_threshold)
+
+    rendering.composite_train = train_rec
+    rendering.composite_test_step_into = into_rec
+    try:
+        yield captured
+    finally:
+        rendering.composite_train = train
+        rendering.composite_test_step_into = into
+
+
+def step_composite_operands(system, seed):
+    """The composite's operands of one training step of ``system``
+    (``NeRFSystem.step_loss`` and its backward on a ray batch drawn from
+    ``seed``; weights and optimiser untouched): (args, T_threshold, the
+    loss's incoming gradients)."""
+    dev, b = system.device, system.hparams.batch_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_img, hw = system.rays.shape[:2]
+    img = torch.randint(n_img, (b,), generator=gen, device=dev)
+    pix = torch.randint(hw, (b,), generator=gen, device=dev)
+    with capturing_composites() as captured:
+        system.step_loss(img, pix, torch.rand(
+            (b,), generator=gen, device=dev))[0].backward()
+    system.optimizer.zero_grad(set_to_none=True)
+    check(len(captured) == 1 and captured[0][0] == "train",
+          f"a step composited {[c[0] for c in captured]}")
+    return captured[0][1:]
+
+
+def frame_round_sets(system, rays, rcfg, occ=None):
+    """Every compositing round of one render_test frame (the alive-ray
+    loop's blocks, their rows' accumulator entries and the accumulators as
+    the round found them), as (args, T_threshold)."""
+    from mfnerf_tpu_torch.models.rendering import render_test
+    with torch.no_grad(), capturing_composites() as captured:
+        render_test(system.model, system.occ if occ is None else occ, *rays,
+                    rcfg)
+    check(captured and all(c[0] == "round" for c in captured),
+          f"render_test composited {[c[0] for c in captured]}")
+    return [c[1:3] for c in captured]
+
+
+def composite_edge_sets(dev, seed, n=4096):
+    """Synthetic training blocks at the edges, (label, args, T_threshold):
+    an opaque first sample (sigma * delta = 30: 1 - alpha == 0 exactly),
+    the threshold tie (two samples that leave the transmittance before the
+    third at T_threshold or a few ulps from it, row by row), masked holes between valid samples,
+    empty rows (all masked), and S = 256 (the oracle chunk's rows, eight
+    passes of a warp), with seeded random samples elsewhere."""
+    rng = np.random.default_rng(seed)
+
+    def block(s, sigma_scale=20.0, valid=0.9):
+        sig = rng.exponential(sigma_scale, (n, s)).astype(np.float32)
+        dl = rng.uniform(2e-3, 2e-2, (n, s)).astype(np.float32)
+        mask = rng.random((n, s)) < valid
+        return sig, dl, mask
+
+    sets = []
+    sig, dl, mask = block(64)
+    sig[:, 0], dl[:, 0], mask[:, 0] = 3000.0, 0.01, True
+    sets.append(("opaque_first", sig, dl, mask, 1e-4))
+    # the tie: 1 - alpha of the first sample 1.0002 x T_threshold, the
+    # second's alpha swept so that the transmittance before the third
+    # crosses T_threshold in steps of about one of its ulps
+    sig, dl, mask = block(64, 2.0)
+    om0 = np.float32(1) - (np.float32(1) - np.exp(-np.float32(9.2101)))
+    x1 = (om0 / np.float32(1e-4) - 1 + np.arange(-(n // 2), n - n // 2)
+          * 1e-8).astype(np.float32)
+    sig[:, :2] = np.stack([np.full(n, 9.2101, np.float32), x1], axis=1)
+    dl[:, :2], mask[:, :3] = 1.0, True
+    sets.append(("threshold_tie", sig, dl, mask, 1e-4))
+    sig, dl, mask = block(64, valid=0.5)
+    sets.append(("masked_holes", sig, dl, mask, 1e-4))
+    sig, dl, mask = block(64)
+    mask[: n // 2] = False
+    sets.append(("empty_rows", sig, dl, mask, 1e-4))
+    sig, dl, mask = block(256, 1.0)
+    sets.append(("s256", sig, dl, mask, 1e-4))
+    out = []
+    for label, sig, dl, mask, thr in sets:
+        s = sig.shape[1]
+        ts = (np.cumsum(dl, axis=1) + 0.05).astype(np.float32)
+        rgbs = rng.random((n, s, 3), dtype=np.float32)
+        out.append((label, tuple(torch.from_numpy(a).to(dev) for a in (
+            sig, rgbs, dl, ts, mask)), thr))
+    return out
+
+
+def composite_round_edge_sets(dev, seed):
+    """The edge blocks as serving rounds, (label, args, T_threshold): each
+    row's accumulators drawn (opacities in [0, 1), a tenth of them within
+    1e-3 of 1 - T_threshold) into a frame of twice the rows, at a random
+    entry of it, at T_threshold 1e-2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for label, (sig, rgbs, dl, ts, mask), _ in composite_edge_sets(
+            dev, seed):
+        n = sig.shape[0]
+        m = 2 * n
+        op = rng.uniform(0.0, 1.0, m).astype(np.float32)
+        near = rng.random(m) < 0.1
+        op[near] = (1.0 - 1e-2 + rng.uniform(-1e-3, 1e-3, near.sum())
+                    ).astype(np.float32)
+        frame = [torch.from_numpy(a).to(dev) for a in (
+            op, rng.random(m, dtype=np.float32),
+            rng.random((m, 3), dtype=np.float32))]
+        index = torch.from_numpy(rng.permutation(m)[:n]).to(dev)
+        out.append((label, (sig, rgbs, dl, ts, mask, index, *frame), 1e-2))
+    return out
+
+
+def _plain_transmittance(sigmas, deltas, mask, t_start=None):
+    """The plain version's transmittance before each sample and, last, after
+    the row: (N, S + 1)."""
+    alpha = torch.where(mask, 1.0 - torch.exp(-sigmas * deltas), 0.0)
+    t = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]),
+                                 1.0 - alpha], dim=1), dim=1)
+    return t if t_start is None else t_start[:, None] * t
+
+
+def composite_tie_rows(sigmas, deltas, mask, thr, t_start=None):
+    """Rows with a valid sample whose transmittance before it, or the row's
+    after it, lies within COMPOSITE_TIE_ULPS float32 ulps of thr: where the
+    kernel's and torch's orders of the product may fall on either side."""
+    t = _plain_transmittance(sigmas, deltas, mask, t_start)
+    ulp = float(np.spacing(np.float32(thr)))
+    near = (t - np.float32(thr)).abs() <= COMPOSITE_TIE_ULPS * ulp
+    return (near & torch.cat([mask, torch.ones_like(mask[:, :1])],
+                             dim=1)).any(dim=1)
+
+
+def _rows_err(got, want, keep):
+    """max |got - want| over the rows ``keep``, and max |want| there."""
+    if not bool(keep.any()):
+        return 0.0, 0.0
+    return (float((got[keep] - want[keep]).abs().max()),
+            float(want[keep].abs().max()))
+
+
+def _rel_l2(got, want, keep):
+    """||got - want|| / ||want|| over the rows ``keep`` (0 where both are
+    0)."""
+    num = float((got[keep] - want[keep]).norm())
+    den = float(want[keep].norm())
+    return num / den if den else (0.0 if num == 0 else math.inf)
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(_float_bits(x), _float_bits(y))
+               for x, y in zip(a, b))
+
+
+def composite_fwd_bound(args, included):
+    """(least ms, bound_by) of one training forward: the mask read whole,
+    sigma, delta, t and rgb of the included samples (the slots that decide
+    the row), ws written whole, the rows' outputs once;
+    COMPOSITE_OPS_PER_SAMPLE a sample."""
+    n, s = args[0].shape
+    n_bytes = n * s * (1 + 4) + included * (4 + 4 + 4 + 12) + n * 24
+    return bound(n_bytes, COMPOSITE_OPS_PER_SAMPLE * included)
+
+
+def composite_bwd_bound(args, included, ups, needs):
+    """(least ms, bound_by) of one backward: the mask whole, the included
+    samples' operands and g_ws, the rows' incoming gradients, the asked-for
+    gradients written whole; twice the forward's operations."""
+    n, s = args[0].shape
+    g_row = sum(4 * (3 if i == 2 else 1) for i, g in enumerate(ups[:3])
+                if g is not None)
+    out = sum(b for b, need in zip((4, 12, 4, 4), needs) if need)
+    n_bytes = n * s * (1 + out) + included * (
+        24 + (4 if ups[3] is not None else 0)) + n * g_row
+    return bound(n_bytes, 2 * COMPOSITE_OPS_PER_SAMPLE * included)
+
+
+def composite_round_bound(args, included):
+    """(least ms, bound_by) of one serving round: the mask whole, the
+    included samples' operands, the rows' accumulators (and entries) read
+    and written, alive written."""
+    n, s = args[0].shape
+    n_bytes = n * s * 1 + included * 24 + n * (8 + 20 + 20 + 1)
+    return bound(n_bytes, COMPOSITE_OPS_PER_SAMPLE * included)
+
+
+def check_composite_train(label, args, thr, loss_grads=None, timed=False):
+    """One training block (sigmas, rgbs, deltas, ts, mask on the card): the
+    forward kernel against composite_train_fwd_plain (ws, opacity, depth
+    and rgb within COMPOSITE_FWD_TOL x max, the rows' included counts
+    equal) and the backward kernel against composite_train_bwd_plain and
+    autograd through composite_train_plain (each gradient within
+    COMPOSITE_BWD_TOL relative L2), with seeded random incoming gradients
+    for all four outputs and, where given, the loss's own (``loss_grads``:
+    {output: gradient}); rows within COMPOSITE_TIE_ULPS of the threshold
+    are counted apart and may differ by one sample's weight. Each kernel
+    twice, bit for bit. With ``timed``, device times by CUDA-graph replay
+    beside the plain versions' and the bounds. Returns the fields."""
+    from mfnerf_tpu_torch.ops.composite import (
+        composite_train_bwd, composite_train_bwd_plain, composite_train_fwd,
+        composite_train_fwd_plain, composite_train_plain)
+    sig, rgbs, dl, ts, mask = args
+    n, s = sig.shape
+    got = composite_train_fwd(*args, thr)
+    again = composite_train_fwd(*args, thr)
+    want = composite_train_fwd_plain(*args, thr)
+    torch.cuda.synchronize()
+    ties = composite_tie_rows(sig, dl, mask, thr)
+    keep = ~ties
+    counts_differ = got[4] != want[4]
+    fwd_err = {}
+    for name, g, w in zip(("opacity", "depth", "rgb", "ws"), got, want):
+        err, scale = _rows_err(g, w, keep)
+        fwd_err[name] = err / scale if scale else err
+    tie_err = max(_rows_err(g, w, ties)[0] for g, w in zip(got[:4], want))
+    included = int(want[4].sum())
+    at_thr = _plain_transmittance(sig, dl, mask)[:, :-1] == np.float32(thr)
+    fields = dict(
+        set=label, kernel="composite_train", rays=n, s=s, T_threshold=thr,
+        samples=int(mask.sum()), included=included,
+        slots_at_threshold=int((at_thr & mask).sum()),
+        vr_samples_equal=int(got[4].sum()) == included,
+        tie_rows=int(ties.sum()), tie_rows_differing=int(
+            (counts_differ & ties).sum()), tie_max_abs_err=tie_err,
+        fwd_rel_err=fwd_err, fwd_tol=COMPOSITE_FWD_TOL,
+        fwd_bit_equal=_bits_equal(got, again),
+        max_abs_err=max(_rows_err(g, w, keep)[0]
+                        for g, w in zip(got[:4], want)))
+    check(not bool((counts_differ & keep).any()),
+          f"composite_train {label}: included counts differ on "
+          f"{int((counts_differ & keep).sum())} rows clear of the threshold")
+    check(max(fwd_err.values()) <= COMPOSITE_FWD_TOL,
+          f"composite_train {label}: forward {fwd_err}")
+    check(tie_err <= thr * 1.001 + COMPOSITE_FWD_TOL,
+          f"composite_train {label}: tie rows differ by {tie_err}")
+    check(fields["fwd_bit_equal"], f"composite_train {label}: two launches "
+          f"differ")
+    rng = np.random.default_rng(n + s)
+    rand = tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                  ).to(sig.device)
+                 for shape in ((n,), (n,), (n, 3), (n, s)))
+    ups_sets = [("all", rand)]
+    if loss_grads is not None:
+        ups_sets.append(("loss", tuple(loss_grads.get(k) for k in (
+            "opacity", "depth", "rgb", "ws"))))
+    bwd = {}
+    for ups_label, ups in ups_sets:
+        g1 = composite_train_bwd(*args, *ups, thr)
+        g2 = composite_train_bwd(*args, *ups, thr)
+        plain = composite_train_bwd_plain(*args, *ups, thr)
+        leaves = [x.clone().requires_grad_() for x in args[:4]]
+        comp = composite_train_plain(*leaves, mask, thr)
+        outs = [(getattr(comp, k), g) for k, g in zip(
+            ("opacity", "depth", "rgb", "ws"), ups) if g is not None]
+        auto = torch.autograd.grad([o for o, _ in outs], leaves,
+                                   [g for _, g in outs], allow_unused=True)
+        auto = [torch.zeros_like(x) if a is None else a
+                for a, x in zip(auto, leaves)]
+        torch.cuda.synchronize()
+        names = ("d_sigmas", "d_rgbs", "d_deltas", "d_ts")
+        rel_plain = {k: _rel_l2(a, b, keep) for k, a, b in
+                     zip(names, g1, plain)}
+        rel_auto = {k: _rel_l2(a, b, keep) for k, a, b in
+                    zip(names, g1, auto)}
+        bwd[ups_label] = dict(
+            rel_l2_plain=rel_plain, rel_l2_autograd=rel_auto,
+            bit_equal=_bits_equal(g1, g2),
+            max_abs_err=max(_rows_err(a, b, keep)[0]
+                            for a, b in zip(g1, plain)))
+        check(max(rel_plain.values()) <= COMPOSITE_BWD_TOL
+              and max(rel_auto.values()) <= COMPOSITE_BWD_TOL,
+              f"composite_train_bwd {label} ({ups_label}): plain "
+              f"{rel_plain}, autograd {rel_auto}")
+        check(bwd[ups_label]["bit_equal"], f"composite_train_bwd {label}: "
+              f"two launches differ")
+    fields["bwd"] = bwd
+    fields["bwd_tol"] = COMPOSITE_BWD_TOL
+    fields["bwd_max_abs_err"] = max(b["max_abs_err"] for b in bwd.values())
+    if timed:
+        fields["ms"] = graph_ms(lambda: composite_train_fwd(*args, thr),
+                                COMPOSITE_GRAPH_ITERS)
+        fields["plain_ms"] = cuda_ms(
+            lambda: composite_train_fwd_plain(*args, thr), 5)
+        fields["bound_ms"], fields["bound_by"] = composite_fwd_bound(
+            args, included)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+        ups = ups_sets[-1][1]
+        needs = (True, True, False, False)     # a training step's
+        fields["bwd_ms"] = graph_ms(
+            lambda: composite_train_bwd(*args, *ups, thr, needs=needs),
+            COMPOSITE_GRAPH_ITERS)
+        fields["bwd_plain_ms"] = cuda_ms(
+            lambda: composite_train_bwd_plain(*args, *ups, thr), 5)
+        fields["bwd_bound_ms"], fields["bwd_bound_by"] = \
+            composite_bwd_bound(args, included, ups, needs)
+        fields["bwd_share_of_bound"] = fields["bwd_bound_ms"] \
+            / fields["bwd_ms"]
+        fields["bwd_incoming"] = ups_sets[-1][0]
+    return fields
+
+
+def check_composite_round(label, args, thr, timed=False):
+    """One serving round (sigmas, rgbs, deltas, ts, mask, the rows' entries
+    ``index`` and the frame's accumulators opacity, depth, rgb, on the
+    card): composite_test_step_into (the kernel, in place on copies of the
+    accumulators) and composite_test_step (the kernel, on the gathered
+    accumulators) against composite_test_step_plain: opacity, depth and
+    rgb within COMPOSITE_FWD_TOL x max, alive equal, on the rows clear of
+    the threshold; the entries of other rows untouched; the kernel twice
+    bit for bit. With ``timed``, composite_test_step's device time by
+    CUDA-graph replay, the plain version's and the bound."""
+    from mfnerf_tpu_torch.ops.composite import (composite_test_step,
+                                                composite_test_step_into,
+                                                composite_test_step_plain)
+    sig, rgbs, dl, ts, mask, index, op, de, rgb = args
+    n, s = sig.shape
+    block = (sig, rgbs, dl, ts, mask)
+    acc = (op[index], de[index], rgb[index])
+    alive = torch.ones((n,), dtype=torch.bool, device=sig.device)
+    frames, alives = [], []
+    for _ in range(2):
+        frame = [x.clone() for x in (op, de, rgb)]
+        alives.append(composite_test_step_into(*block, index, *frame, thr))
+        frames.append(frame)
+    func = composite_test_step(*block, *acc, alive, thr)
+    want = composite_test_step_plain(*block, *acc, alive, thr)
+    torch.cuda.synchronize()
+    ties = composite_tie_rows(sig, dl, mask, thr, 1.0 - acc[0])
+    keep = ~ties
+    others = torch.ones_like(op, dtype=torch.bool)
+    others[index] = False
+    got = [x[index] for x in frames[0]] + [alives[0]]
+    err = {}
+    for form, outs in (("into", got), ("functional", func)):
+        for name, g, w in zip(("opacity", "depth", "rgb"), outs, want):
+            e, scale = _rows_err(g, w, keep)
+            err[f"{form}_{name}"] = e / scale if scale else e
+    alive_differs = {form: int((outs[3] != want[3])[keep].sum())
+                     for form, outs in (("into", got), ("functional", func))}
+    t_start = 1.0 - acc[0]
+    included = int(((_plain_transmittance(sig, dl, mask, t_start)[:, :-1]
+                     > np.float32(thr)) & mask).sum())
+    fields = dict(
+        set=label, kernel="composite_test_step", rays=n, s=s,
+        T_threshold=thr, included=included, tie_rows=int(ties.sum()),
+        rel_err=err, tol=COMPOSITE_FWD_TOL, alive_differs=alive_differs,
+        alive_after=int(want[3].sum()),
+        others_untouched=all(torch.equal(f[others], x[others])
+                             for f, x in zip(frames[0], (op, de, rgb))),
+        bit_equal=_bits_equal(frames[0] + [alives[0]],
+                              frames[1] + [alives[1]])
+        and _bits_equal(got, func),
+        max_abs_err=max(_rows_err(g, w, keep)[0]
+                        for g, w in zip(got[:3], want)))
+    check(max(err.values()) <= COMPOSITE_FWD_TOL
+          and not any(alive_differs.values()),
+          f"composite_test_step {label}: {err}, alive {alive_differs}")
+    check(fields["others_untouched"], f"composite_test_step_into {label}: "
+          f"wrote other rows' entries")
+    check(fields["bit_equal"], f"composite_test_step {label}: launches or "
+          f"forms differ")
+    if timed:
+        fields["ms"] = graph_ms(
+            lambda: composite_test_step(*block, *acc, alive, thr),
+            COMPOSITE_GRAPH_ITERS)
+        fields["plain_ms"] = cuda_ms(
+            lambda: composite_test_step_plain(*block, *acc, alive, thr), 5)
+        fields["bound_ms"], fields["bound_by"] = composite_round_bound(
+            args, included)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    return fields
+
+
+def composite_phase(label, train_sets, round_sets=(), timed_train=0):
+    """The composite checks of a configuration: every training block
+    (label, args, T_threshold, loss gradients or None) and every serving
+    round (args, T_threshold) against the plain versions; the training
+    block at ``timed_train`` and the first (largest) round timed. Prints a
+    phase line a training block and one for the rounds; returns the timed
+    sets' fields and the worst errors {"fwd", "bwd", "round"}."""
+    timed, err = {}, {"fwd": 0.0, "bwd": 0.0, "round": 0.0}
+    for i, (name, args, thr, grads) in enumerate(train_sets):
+        fields = check_composite_train(name, args, thr, grads,
+                                       timed=i == timed_train)
+        phase("composite", config=label, **fields)
+        err["fwd"] = max(err["fwd"], fields["max_abs_err"])
+        err["bwd"] = max(err["bwd"], fields["bwd_max_abs_err"])
+        if i == timed_train:
+            timed["train"] = fields
+        torch.cuda.empty_cache()
+    if round_sets:
+        rounds = [check_composite_round(f"round_{i}", args, thr,
+                                        timed=i == 0)
+                  for i, (args, thr) in enumerate(round_sets)]
+        timed["round"] = rounds[0]
+        err["round"] = max(r["max_abs_err"] for r in rounds)
+        phase("composite", config=label, set="frame",
+              kernel="composite_test_step", rounds=len(rounds),
+              rays=[r["rays"] for r in rounds],
+              s=sorted({r["s"] for r in rounds}),
+              tie_rows=sum(r["tie_rows"] for r in rounds),
+              alive_after=[r["alive_after"] for r in rounds],
+              bit_equal=all(r["bit_equal"] for r in rounds),
+              max_abs_err=err["round"], first_round=rounds[0])
         torch.cuda.empty_cache()
     return timed, err
 
@@ -2264,8 +2763,12 @@ def cascade_step_oracle(argv, datasets, dev, seed):
             np.random.default_rng(seed + 2).random(3, dtype=np.float32))
     cpu_model = NGP(cfg, device="cpu")
     cpu_model.load_state_dict(system.model.state_dict())
-    fields, _ = step_oracle(system.model, cpu_model, occ0, rcfg, system.loss,
-                            batch)
+    with capturing_composites() as step_comp:
+        fields, _ = step_oracle(system.model, cpu_model, occ0, rcfg,
+                                system.loss, batch)
+    # the card's step, then the CPU's
+    check(len(step_comp) == 2, f"the two steps composited "
+          f"{len(step_comp)} times")
     ro, rd = batch["rays_o"].to(dev), batch["rays_d"].to(dev)
     march_args = (
         ro, rd, _scene_hits(system.model, ro, rd), occ0.density_bitfield,
@@ -2282,7 +2785,7 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                       torch.from_numpy(ds.poses[0]))
     ro, rd = ro[::COLMAP_ORACLE_STRIDE], rd[::COLMAP_ORACLE_STRIDE]
     test_rcfg = dataclasses.replace(rcfg, T_threshold=TEST_T)
-    with capturing_marches() as windows:
+    with capturing_marches() as windows, capturing_composites() as rounds:
         loop = render_test(system.model, occ0, ro.to(dev), rd.to(dev),
                            test_rcfg)
     ref = render_test_dense(cpu_model, occ0.to("cpu"), ro, rd,
@@ -2298,6 +2801,10 @@ def cascade_step_oracle(argv, datasets, dev, seed):
         f"cascades_{cfg.grid}", [("step", march_args, dict(strata=strata)),
                                  ("step_exact", march_args, {})],
         [c[1] for c in windows])
+    # 37c. the composite kernels on the step and the serving loop's rounds
+    comp_timed, comp_err = composite_phase(
+        f"cascades_{cfg.grid}", [("step", *step_comp[0][1:])],
+        [c[1:3] for c in rounds])
     return dict(grid=cfg.grid, random_bg=rcfg.random_bg, scale=cfg.scale,
                 cascades=cfg.cascades,
                 stratum=strata.stratum, s_strata=strata.s_strata,
@@ -2310,7 +2817,14 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                 march={kind: {key: f[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "rays",
                     "samples")} for kind, f in timed.items()},
-                march_max_abs_err=march_err)
+                march_max_abs_err=march_err,
+                composite={kind: {key: f[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "rays")}
+                    for kind, f in comp_timed.items()},
+                composite_bwd={key: comp_timed["train"][key] for key in (
+                    "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                    "bwd_bound_by")},
+                composite_max_abs_err=comp_err)
 
 
 def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
@@ -2587,6 +3101,7 @@ def main():
     hash_src = "mfnerf_tpu_torch/csrc/hashgrid.cu"
     line_src = "mfnerf_tpu_torch/csrc/linetable.cu"
     march_src = "mfnerf_tpu_torch/csrc/raymarch.cu"
+    comp_src = "mfnerf_tpu_torch/csrc/composite.cu"
 
     def timed_build(lib):
         fresh = not build.library_path(lib).exists()
@@ -2594,16 +3109,18 @@ def main():
         build.load_library(lib)
         return fresh, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         builds = {lib: pool.submit(timed_build, lib)
                   for lib in ("hatmul", "hashgrid", "linetable", "raymarch",
-                              "jpeg", "exr")}
+                              "composite", "jpeg", "exr")}
         for label, lib, source in (("build", "hatmul", src),
                                    ("build_hashgrid", "hashgrid", hash_src),
                                    ("build_linetable", "linetable",
                                     line_src),
                                    ("build_raymarch", "raymarch",
                                     march_src),
+                                   ("build_composite", "composite",
+                                    comp_src),
                                    ("build_jpeg", "jpeg", JPEG_SRC),
                                    ("build_exr", "exr", EXR_SRC)):
             fresh, seconds = builds[lib].result()
@@ -2673,6 +3190,7 @@ def main():
     rcfg = RenderConfig(T_threshold=T_THRESHOLD)
     render_test(model, occ, *rays[0], rcfg)           # warm-up frame
     hat_prod.launches = march_rays_window.launches = 0
+    composite_counts(reset=True)
     frame_ms, samples, rounds, outs = [], [], [], []
     for ro, rd in rays:
         torch.cuda.synchronize()
@@ -2685,6 +3203,11 @@ def main():
         outs.append(out)
     launches = hat_prod.launches
     serve_window_launches = march_rays_window.launches
+    serve_rounds = composite_counts()["round"]
+    check(serve_rounds == serve_window_launches == sum(rounds),
+          f"render_test launched composite_test_step {serve_rounds} times "
+          f"in {sum(rounds)} rounds ({serve_window_launches} window "
+          f"marches)")
     check(launches > 0, "render_test never launched the hat_prod kernel")
     check(serve_window_launches > 0,
           "render_test never launched the march_window kernel")
@@ -2705,6 +3228,7 @@ def main():
           samples_per_frame=samples, rounds_per_frame=rounds,
           hat_prod_launches=launches,
           march_window_launches=serve_window_launches,
+          composite_test_step_launches=serve_rounds,
           max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
           card=card)
 
@@ -2798,16 +3322,19 @@ def main():
     # ---- 9. train: 300 steps, then 6 timed chunks of 100
     hat_prod.launches = hat_prod_bwd.launches = 0
     march_counts(reset=True)
+    composite_counts(reset=True)
     fields = train_steps(system, lambda: dict(
         hat_prod_launches=hat_prod.launches,
         hat_prod_bwd_launches=hat_prod_bwd.launches,
-        march=march_counts()))
+        march=march_counts(), composite=composite_counts()))
     fields["march_train_per_step"] = fields["march"]["train"] \
         / fields["steps"]
     phase("train", **fields, card=card)
     march_train_launches = fields["march"]["train"]
     check(fields["march_train_per_step"] >= 1,
           f"training launched march_train {fields['march']} times")
+    check_composite_launches("train", fields)
+    train_composite = fields["composite"]
     train_fp32 = fields
     launches_fwd = fields["hat_prod_launches"]
     launches_bwd = fields["hat_prod_bwd_launches"]
@@ -2850,6 +3377,19 @@ def main():
         "bench", march_sets_of(system, SEED + 80)
         + oracle_march_sets(system, test_rays, test_rcfg),
         frame_window_sets(system, test_rays, test_rcfg))
+
+    # ---- 37a. the composite kernels against their plain versions: a step
+    # of the trained field, the edge blocks, every round of a trained frame
+    # and the edge blocks as serving rounds
+    bench_comp, comp_err = composite_phase(
+        "bench", [("step", *step_composite_operands(system, SEED + 90))]
+        + [(label, args, thr, None) for label, args, thr
+           in composite_edge_sets(dev, SEED + 91)],
+        frame_round_sets(system, test_rays, test_rcfg))
+    for label, args, thr in composite_round_edge_sets(dev, SEED + 92):
+        fields = check_composite_round(label, args, thr)
+        phase("composite", config="edges", **fields)
+        comp_err["round"] = max(comp_err["round"], fields["max_abs_err"])
     del system, out
     torch.cuda.empty_cache()
 
@@ -2917,14 +3457,17 @@ def main():
     # ---- 14. train the MixedFeature field: 300 steps, 6 timed chunks of 100
     hashgrid_encode.launches = hashgrid_bwd.launches = 0
     march_counts(reset=True)
+    composite_counts(reset=True)
     fields = train_steps(mf, lambda: dict(
         hashgrid_fwd_launches=hashgrid_encode.launches,
         hashgrid_bwd_launches=hashgrid_bwd.launches,
-        march=march_counts()))
+        march=march_counts(), composite=composite_counts()))
     fields["march_train_per_step"] = fields["march"]["train"] \
         / fields["steps"]
     phase("train_mf", **fields, card=card)
     march_mf_launches = fields["march"]["train"]
+    check_composite_launches("train_mf", fields)
+    mf_composite = fields["composite"]
     check(fields["march_train_per_step"] >= 1,
           f"MixedFeature training launched march_train {fields['march']} "
           f"times")
@@ -2969,6 +3512,10 @@ def main():
     mf_march, err = march_phase(
         "mf", [("step", *step_march_operands(mf, SEED + 82))])
     march_err = max(march_err, err)
+    # ---- 37b. the composite kernels on a step of it
+    mf_comp, err = composite_phase(
+        "mf", [("step", *step_composite_operands(mf, SEED + 93))])
+    comp_err = {k: max(v, err[k]) for k, v in comp_err.items()}
     del mf
     torch.cuda.empty_cache()
 
@@ -2978,7 +3525,8 @@ def main():
             hat_prod.launches = hat_prod_bwd.launches = 0
         return dict(hat_prod_launches=hat_prod.launches,
                     hat_prod_bwd_launches=hat_prod_bwd.launches,
-                    march=march_counts(reset))
+                    march=march_counts(reset),
+                    composite=composite_counts(reset))
 
     # ---- 24. the JPEG decoder: the fixtures, an 800x800 file's time
     phase("jpeg", **jpeg_phase(), card=card)
@@ -3003,6 +3551,8 @@ def main():
           and fields["march"]["window"] > 0,
           f"the command line launched the marches {fields['march']}")
     cli_march = fields["march"]
+    check_composite_launches("cli", fields)
+    cli_composite = fields["composite"]
     check(len(fields["results"]) == 2 * CLI_TEST_VIEWS,
           f"results written: {fields['results']}")
     check(fields["test_psnr"] >= PSNR_MIN,
@@ -3042,7 +3592,8 @@ def main():
             hashgrid_encode.launches = hashgrid_bwd.launches = 0
         return dict(hashgrid_fwd_launches=hashgrid_encode.launches,
                     hashgrid_bwd_launches=hashgrid_bwd.launches,
-                    march=march_counts(reset))
+                    march=march_counts(reset),
+                    composite=composite_counts(reset))
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3053,7 +3604,7 @@ def main():
             phase("colmap_scene", root=COLMAP_ROOT, spread=COLMAP_SPREAD,
                   views=[len(train_v), len(test_v)], wh=WH,
                   write_seconds=write_s, load_seconds=load_s, card=card)
-            cascade_march = {}
+            cascade_march, cascade_comp = {}, {}
             for label, argv in (("LowRank", LR360_ARGS),
                                 ("MixedFeature", MF360_ARGS)):
                 fields = cascade_step_oracle(argv, (train_v, test_v), dev,
@@ -3062,6 +3613,10 @@ def main():
                       card=card)
                 cascade_march[label] = fields["march"]
                 march_err = max(march_err, fields["march_max_abs_err"])
+                cascade_comp[label] = dict(fields["composite"],
+                                           bwd=fields["composite_bwd"])
+                comp_err = {k: max(v, fields["composite_max_abs_err"][k])
+                            for k, v in comp_err.items()}
                 torch.cuda.empty_cache()
             del train_v, test_v
             runs = {}
@@ -3099,6 +3654,7 @@ def main():
         check(run["march"]["train"] >= run["steps"]
               and run["march"]["window"] > 0,
               f"the COLMAP run {label} launched the marches {run['march']}")
+        check_composite_launches(f"cli_colmap {label}", run)
 
 
     # ---- 16-18. the encoder formulation probes: each run() at the probe's
@@ -3296,7 +3852,59 @@ def main():
         "shape": "the first round of the trained bench field's held-out "
                  "800x800 view",
         "cascades": {label: m["window"] for label, m in
-                     cascade_march.items()}}]}), flush=True)
+                     cascade_march.items()}}, {
+        "name": "composite_train", "route": "cuda", "source": comp_src,
+        "replaces": "mfnerf_tpu/ops/composite.py:35",
+        "launches": train_composite["fwd"],
+        "launches_per_step": train_composite["fwd"] / train_fp32["steps"],
+        "train_mf_launches": mf_composite["fwd"],
+        "cli_launches": cli_composite["fwd"],
+        "cli_colmap_launches": {label: run["composite"]["fwd"]
+                                for label, run in runs.items()},
+        "max_abs_err": comp_err["fwd"], **{key: bench_comp["train"][key]
+                                           for key in ("ms", "plain_ms",
+                                                       "bound_ms",
+                                                       "bound_by")},
+        "library_ms": None,
+        "shape": "bench.py's step on the trained field: 8192 rays, 64 "
+                 "slots a row",
+        "mf": {key: mf_comp["train"][key] for key in (
+            "rays", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "cascades": {label: c["train"] for label, c in
+                     cascade_comp.items()}}, {
+        "name": "composite_train_bwd", "route": "cuda", "source": comp_src,
+        "replaces": "mfnerf_tpu/ops/composite.py:35 (its VJP)",
+        "launches": train_composite["bwd"],
+        "launches_per_step": train_composite["bwd"] / train_fp32["steps"],
+        "train_mf_launches": mf_composite["bwd"],
+        "cli_launches": cli_composite["bwd"],
+        "cli_colmap_launches": {label: run["composite"]["bwd"]
+                                for label, run in runs.items()},
+        "max_abs_err": comp_err["bwd"],
+        **{key: bench_comp["train"]["bwd_" + key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": "the same step, the loss's incoming gradients (opacity, "
+                 "rgb), d_sigmas and d_rgbs",
+        "mf": {key: mf_comp["train"]["bwd_" + key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "cascades": {label: c["bwd"] for label, c in
+                     cascade_comp.items()}}, {
+        "name": "composite_test_step", "route": "cuda", "source": comp_src,
+        "replaces": "mfnerf_tpu/ops/composite.py:489",
+        "launches": serve_rounds,
+        "cli_launches": cli_composite["round"],
+        "cli_colmap_launches": {label: run["composite"]["round"]
+                                for label, run in runs.items()},
+        "max_abs_err": comp_err["round"], **{key: bench_comp["round"][key]
+                                             for key in ("ms", "plain_ms",
+                                                         "bound_ms",
+                                                         "bound_by")},
+        "library_ms": None,
+        "shape": "the first round of the trained bench field's held-out "
+                 "800x800 view at T 1e-4",
+        "cascades": {label: c["round"] for label, c in
+                     cascade_comp.items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,7 +35,8 @@ import math
 
 import torch
 
-from ..ops.composite import composite_test_step, composite_train
+from ..ops.composite import (composite_test_step, composite_test_step_into,
+                             composite_train)
 from ..ops.intersection import ray_aabb_intersect_single
 from ..ops.ray_march import (Strata, cascades_stratum, march_rays_train,
                              march_rays_window, twolevel_stratum)
@@ -352,12 +353,11 @@ def _render_alive(model, occ, rays_o, rays_d, rcfg, exposure=None):
                           < room[:, None])
         sigmas, rgbs = _eval_valid(model, mr.xyzs, rd, mask,
                                    exposure=exposure)
-        op, de, co, transparent = composite_test_step(
-            sigmas, rgbs, mr.deltas, mr.ts, mask, opacity[alive],
-            depth[alive], rgb[alive], torch.ones_like(mask[:, 0]),
+        # the frame's accumulators of the alive rows, updated in place
+        transparent = composite_test_step_into(
+            sigmas, rgbs, mr.deltas, mr.ts, mask, alive, opacity, depth, rgb,
             rcfg.T_threshold)
         emitted = mask.sum(dim=1)
-        opacity[alive], depth[alive], rgb[alive] = op, de, co
         cursor[alive] = mr.cursor
         taken_a = taken_a + emitted
         taken[alive] = taken_a

@@ -4,18 +4,40 @@ Port of ``mfnerf_tpu/ops/composite.py``:
 
 * :func:`composite_train` (the reference's ``composite_train_fw/bw``): the
   transmittance before each sample is an exclusive cumulative product of
-  ``1 - alpha``, differentiated by autograd through ``cumprod``, as the JAX
-  package differentiates it.
+  ``1 - alpha``. On CUDA tensors its backward is the analytic one of
+  :func:`composite_train_bwd_plain` (:class:`CompositeTrain`); on CPU
+  tensors autograd differentiates the plain version's cumprod, as the JAX
+  package differentiates it, to the same gradients.
 * :func:`composite_test_step` (the reference's ``composite_test_fw``): each
   ray resumes from its accumulated transmittance ``1 - opacity`` and folds a
-  new block of samples into its accumulators.
+  new block of samples into its accumulators; :func:`composite_test_step_into`
+  is its in-place form for the serving loop's alive rows.
 
-A sample contributes iff the transmittance before it exceeds
-``T_threshold``.
+A sample contributes iff it is valid (``mask``) and the transmittance before
+it exceeds ``T_threshold``.
+
+On CUDA tensors the three functions launch the hand-written kernels of
+``csrc/composite.cu`` (a row on up to a warp's lanes, a shuffle scan of
+``1 - alpha``); on CPU tensors they run their plain versions
+(:func:`composite_train_plain` and :func:`composite_train_fwd_plain`,
+:func:`composite_train_bwd_plain`, :func:`composite_test_step_plain`). The kernels round every operation on
+its own but scan and sum in another order than torch, so they agree with
+the plain versions to rounding, and with themselves bit for bit from launch
+to launch. ``composite_train.launches``, ``composite_train_bwd.launches``
+and ``composite_test_step.launches`` count kernel launches.
 """
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
+
+from .. import build
+
+# the backward kernel's shared memory holds a float a pass of 32 slots for
+# each of a block's 8 rows: 48 KB
+MAX_BWD_SLOTS = 49152
+_FLOATS = (torch.float32, torch.bfloat16)    # --bf16 may hand either
 
 
 class CompositeResults(NamedTuple):
@@ -33,26 +55,368 @@ def _exclusive_transmittance(one_minus):
                   dim=1), dim=1)
 
 
+def _weights(sigmas, deltas, mask, T_threshold, t_start=None):
+    """(alpha, 1 - alpha, T before each sample, included, w) of a block,
+    from the transmittance ``t_start`` (N,) or 1."""
+    alpha = torch.where(mask, 1.0 - torch.exp(
+        -sigmas.to(torch.float32) * deltas.to(torch.float32)), 0.0)
+    one_minus = 1.0 - alpha
+    t_excl = _exclusive_transmittance(one_minus)
+    if t_start is not None:
+        t_excl = t_start[:, None] * t_excl
+    include = (t_excl > T_threshold) & mask
+    w = torch.where(include, alpha * t_excl, 0.0)
+    return alpha, one_minus, t_excl, include, w
+
+
+def composite_train_fwd_plain(sigmas, rgbs, deltas, ts, mask, T_threshold):
+    """The plain version of :func:`composite_train_fwd`: (opacity, depth,
+    rgb, ws, each row's included samples as int32)."""
+    _, _, _, include, w = _weights(sigmas, deltas, mask, T_threshold)
+    return (w.sum(dim=1), (w * ts).sum(dim=1),
+            (w[..., None] * rgbs.to(torch.float32)).sum(dim=1), w,
+            include.sum(dim=1, dtype=torch.int32))
+
+
+def composite_train_plain(sigmas, rgbs, deltas, ts, mask, T_threshold=1e-4):
+    """The plain version of :func:`composite_train`, differentiable by
+    autograd through ``cumprod`` (as the JAX package differentiates it). A
+    sample with sigma * delta beyond ~17 has ``1 - alpha == 0`` exactly;
+    torch's cumprod backward takes its zero-aware path there."""
+    opacity, depth, rgb, w, counts = composite_train_fwd_plain(
+        sigmas, rgbs, deltas, ts, mask, T_threshold)
+    return CompositeResults(opacity=opacity, depth=depth, rgb=rgb, ws=w,
+                            vr_samples=counts.sum())
+
+
+def composite_train_bwd_plain(sigmas, rgbs, deltas, ts, mask, g_opacity,
+                              g_depth, g_rgb, g_ws, T_threshold=1e-4):
+    """The analytic backward of :func:`composite_train`, division-free with
+    true suffix sums: for each included sample k, ``G_k = g_ws[k] +
+    g_opacity + g_depth t_k + sum_c g_rgb[c] rgb_k[c]``, and
+
+        B_i = G_i T_i (1 - alpha_i) - sum_{k > i, included} G_k w_k
+            = T_i (1 - alpha_i) (G_i - R_i),
+        R_i = sum_{k > i, included} G_k alpha_k prod_{i < j < k} (1 - alpha_j)
+        d sigma_i = delta_i B_i,  d delta_i = sigma_i B_i,
+        d rgb_i = w_i g_rgb,      d t_i = w_i g_depth,
+
+    0 for the excluded slots. R is taken back to front, ``R_i = [i+1
+    included] G_{i+1} alpha_{i+1} + (1 - alpha_{i+1}) R_{i+1}``; the leading
+    ``1 - alpha_i`` is ``exp(-sigma_i delta_i)``, its exact value, as
+    autodiff through the exp takes it (the rounded ``1 - (1 - e)`` of a
+    dense sample is off by up to 3e-8 / e of itself, and 0 above sigma *
+    delta ~17). Each incoming gradient (g_opacity, g_depth (N,), g_rgb
+    (N, 3), g_ws (N, S)) may be None (0). Returns (d_sigmas, d_rgbs,
+    d_deltas, d_ts) in float32."""
+    f32 = torch.float32
+    sigmas, rgbs, deltas, ts = (x.to(f32) for x in (sigmas, rgbs, deltas,
+                                                   ts))
+    alpha, one_minus, t_excl, include, w = _weights(sigmas, deltas, mask,
+                                                    T_threshold)
+    big_g = torch.zeros_like(w) if g_ws is None else g_ws.to(f32).clone()
+    if g_opacity is not None:
+        big_g = big_g + g_opacity.to(f32)[:, None]
+    if g_depth is not None:
+        big_g = big_g + g_depth.to(f32)[:, None] * ts
+    if g_rgb is not None:
+        big_g = big_g + (g_rgb.to(f32)[:, None, :] * rgbs).sum(dim=2)
+    g_alpha = torch.where(include, big_g * alpha, 0.0)
+    r = torch.empty_like(w)
+    after = torch.zeros_like(w[:, 0])
+    for i in range(w.shape[1] - 1, -1, -1):
+        r[:, i] = after
+        after = g_alpha[:, i] + one_minus[:, i] * after
+    big_b = torch.where(include, t_excl * torch.exp(-sigmas * deltas)
+                        * (big_g - r), 0.0)
+    return (
+        deltas * big_b, torch.zeros_like(rgbs) if g_rgb is None
+        else w[..., None] * g_rgb.to(f32)[:, None, :],
+        sigmas * big_b, torch.zeros_like(ts) if g_depth is None
+        else w * g_depth.to(f32)[:, None])
+
+
+def composite_test_step_plain(sigmas, rgbs, deltas, ts, mask, opacity, depth,
+                              rgb, alive, T_threshold):
+    """The plain version of :func:`composite_test_step`."""
+    mask = mask & alive[:, None]
+    _, one_minus, t_excl, _, w = _weights(sigmas, deltas, mask, T_threshold,
+                                          1.0 - opacity)
+    opacity = opacity + w.sum(dim=1)
+    depth = depth + (w * ts).sum(dim=1)
+    rgb = rgb + (w[..., None] * rgbs.to(torch.float32)).sum(dim=1)
+    t_final = t_excl[:, -1] * one_minus[:, -1]
+    alive = alive & (t_final > T_threshold)
+    return opacity, depth, rgb, alive
+
+
+# ------------------------------------------------------------- the kernels
+@functools.cache
+def _kernels():
+    """The C entry points of csrc/composite.cu (built on first use)."""
+    lib = build.load_library("composite")
+    fw, bw, test = (lib.composite_train_fw, lib.composite_train_bw,
+                    lib.composite_test)
+    head = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+    fw.argtypes = head + [ctypes.c_void_p] * 11
+    bw.argtypes = head + [ctypes.c_void_p] * 14
+    test.argtypes = head + [ctypes.c_void_p] * 15
+    fw.restype = bw.restype = test.restype = ctypes.c_int
+    return fw, bw, test
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_device(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"compositing runs on cpu or cuda, not {t.device}")
+
+
+def _check(name, t, shape, dtypes, device):
+    """Raise ValueError unless ``t`` has ``shape``, one of ``dtypes`` and
+    ``device``."""
+    if tuple(t.shape) != tuple(shape) or t.dtype not in dtypes \
+            or t.device != device:
+        want = "/".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name} must be {tuple(shape)} {want} on {device}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_block(sigmas, rgbs, deltas, ts, mask):
+    """The (N, S) block's checks; returns (N, S)."""
+    _check_device(sigmas)
+    if sigmas.dim() != 2:
+        raise ValueError(f"sigmas must be (N, S), got {tuple(sigmas.shape)}")
+    n, s = sigmas.shape
+    dev = sigmas.device
+    _check("sigmas", sigmas, (n, s), _FLOATS, dev)
+    _check("rgbs", rgbs, (n, s, 3), _FLOATS, dev)
+    _check("deltas", deltas, (n, s), _FLOATS, dev)
+    _check("ts", ts, (n, s), _FLOATS, dev)
+    _check("mask", mask, (n, s), (torch.bool,), dev)
+    if s < 1:
+        raise ValueError("a row needs at least one slot")
+    return n, s
+
+
+def _contiguous(*tensors):
+    return [None if t is None else t.contiguous() for t in tensors]
+
+
+def _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold):
+    """composite_train_fw on fp32 operands: (opacity, depth, rgb, ws,
+    counts)."""
+    n, s = sigmas.shape
+    dev, f32 = sigmas.device, torch.float32
+    sigmas, rgbs, deltas, ts, mask = _contiguous(sigmas, rgbs, deltas, ts,
+                                                 mask)
+    opacity = torch.empty((n,), dtype=f32, device=dev)
+    depth = torch.empty((n,), dtype=f32, device=dev)
+    rgb = torch.empty((n, 3), dtype=f32, device=dev)
+    ws = torch.empty((n, s), dtype=f32, device=dev)
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        rc = _kernels()[0](
+            n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
+            deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(),
+            opacity.data_ptr(), depth.data_ptr(), rgb.data_ptr(),
+            ws.data_ptr(), counts.data_ptr(), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"composite_train_fw launch failed: "
+                               f"cudaError {rc}")
+        composite_train.launches += 1
+    return opacity, depth, rgb, ws, counts
+
+
+def _launch_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
+                      g_rgb, g_ws, T_threshold, needs):
+    n, s = sigmas.shape
+    if s > MAX_BWD_SLOTS:
+        raise ValueError(f"{s} slots a row: the backward kernel takes at "
+                         f"most {MAX_BWD_SLOTS}")
+    dev, f32 = sigmas.device, torch.float32
+    sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth, g_rgb, g_ws = \
+        _contiguous(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
+                    g_rgb, g_ws)
+    outs = [torch.empty(shape, dtype=f32, device=dev) if need else None
+            for need, shape in zip(needs, ((n, s), (n, s, 3), (n, s),
+                                           (n, s)))]
+    if n and any(needs):
+        rc = _kernels()[1](
+            n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
+            deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(),
+            _ptr(g_opacity), _ptr(g_depth), _ptr(g_rgb), _ptr(g_ws),
+            *(_ptr(t) for t in outs), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"composite_train_bw launch failed: "
+                               f"cudaError {rc}")
+        composite_train_bwd.launches += 1
+    return tuple(outs)
+
+
+def _launch_test(sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb,
+                 alive, T_threshold, out):
+    """composite_test on fp32 operands: the accumulators ``opacity``,
+    ``depth``, ``rgb`` at each row's ``index`` entry (None: the row's own),
+    written to ``out`` (three tensors, which may be the inputs); returns
+    alive after the round (N,)."""
+    n, s = sigmas.shape
+    dev = sigmas.device
+    sigmas, rgbs, deltas, ts, mask = _contiguous(sigmas, rgbs, deltas, ts,
+                                                 mask)
+    alive_out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        rc = _kernels()[2](
+            n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
+            deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(), _ptr(index),
+            opacity.data_ptr(), depth.data_ptr(), rgb.data_ptr(),
+            _ptr(alive), *(t.data_ptr() for t in out), alive_out.data_ptr(),
+            _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"composite_test launch failed: cudaError "
+                               f"{rc}")
+        composite_test_step.launches += 1
+    return alive_out
+
+
+class CompositeTrain(torch.autograd.Function):
+    """composite_train's forward and analytic backward on fp32 operands:
+    the kernels on CUDA tensors; on CPU tensors the plain forward and
+    :func:`composite_train_bwd_plain`. Returns (opacity, depth, rgb, ws,
+    each row's included samples as int32)."""
+
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, deltas, ts, mask, T_threshold):
+        ctx.set_materialize_grads(False)
+        out = _train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold)
+        ctx.save_for_backward(sigmas, rgbs, deltas, ts, mask)
+        ctx.T_threshold = T_threshold
+        ctx.mark_non_differentiable(out[4])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_opacity, g_depth, g_rgb, g_ws, _):
+        sigmas, rgbs, deltas, ts, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = _train_bwd(
+            sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth, g_rgb, g_ws,
+            ctx.T_threshold, (need[0], need[1] and g_rgb is not None,
+                              need[2], need[3] and g_depth is not None))
+        return (*grads, None, None)
+
+
+def _train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold):
+    """composite_train_fwd on checked fp32 operands."""
+    if sigmas.is_cuda:
+        return _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold)
+    return composite_train_fwd_plain(sigmas, rgbs, deltas, ts, mask,
+                                     T_threshold)
+
+
+def _train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth, g_rgb,
+               g_ws, T_threshold, needs):
+    """composite_train_bwd on checked fp32 operands and gradients."""
+    if sigmas.is_cuda:
+        return _launch_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity,
+                                 g_depth, g_rgb, g_ws, T_threshold, needs)
+    grads = composite_train_bwd_plain(sigmas, rgbs, deltas, ts, mask,
+                                      g_opacity, g_depth, g_rgb, g_ws,
+                                      T_threshold)
+    return tuple(g if need else None for g, need in zip(grads, needs))
+
+
+def _analytic(sigmas, rgbs, deltas, ts, mask, T_threshold):
+    """composite_train_analytic on checked operands."""
+    f32 = torch.float32
+    opacity, depth, rgb, ws, counts = CompositeTrain.apply(
+        sigmas.to(f32), rgbs.to(f32), deltas.to(f32), ts.to(f32), mask,
+        float(T_threshold))
+    return CompositeResults(opacity=opacity, depth=depth, rgb=rgb, ws=ws,
+                            vr_samples=counts.sum())
+
+
+def composite_train_analytic(sigmas, rgbs, deltas, ts, mask,
+                             T_threshold=1e-4):
+    """:func:`composite_train` through :class:`CompositeTrain` on either
+    device: operands cast to fp32 (their gradients come back in their
+    dtypes), differentiable in sigmas, rgbs, deltas and ts by the analytic
+    backward; any of opacity, depth, rgb and ws may be left out of the
+    loss. On CUDA tensors it is what :func:`composite_train` runs; on CPU
+    tensors it runs the plain forward and :func:`composite_train_bwd_plain`
+    (the tests hold it to autograd through the plain version's cumprod).
+    Raises ValueError for a shape, dtype or device the kernels do not take.
+    """
+    _check_block(sigmas, rgbs, deltas, ts, mask)
+    return _analytic(sigmas, rgbs, deltas, ts, mask, T_threshold)
+
+
 def composite_train(sigmas, rgbs, deltas, ts, mask, T_threshold=1e-4):
     """Composite padded sample rows front to back.
 
     Args:
-        sigmas, deltas, ts: (N, S); rgbs: (N, S, 3).
-        mask: (N, S) bool sample validity.
+        sigmas, deltas, ts: (N, S) fp32 or bf16 (computed in fp32);
+            rgbs: (N, S, 3) fp32 or bf16.
+        mask: (N, S) bool sample validity; masked slots may sit between
+            valid ones.
     Returns:
-        :class:`CompositeResults`, differentiable in sigmas and rgbs. A sample
-        with sigma * delta beyond ~88 has ``1 - alpha == 0`` exactly; torch's
-        cumprod backward takes its zero-aware path there.
+        :class:`CompositeResults`, differentiable in sigmas, rgbs, deltas
+        and ts (their gradients in their dtypes).
+
+    CUDA tensors run :func:`composite_train_analytic`: csrc/composite.cu's
+    forward kernel, and its backward kernel in the backward. CPU tensors run
+    :func:`composite_train_plain`, differentiated by autograd as the JAX
+    package differentiates it. Raises ValueError for a shape, dtype or
+    device the kernels do not take.
     """
-    alpha = torch.where(mask, 1.0 - torch.exp(
-        -sigmas.to(torch.float32) * deltas.to(torch.float32)), 0.0)
-    t_excl = _exclusive_transmittance(1.0 - alpha)
-    include = (t_excl > T_threshold) & mask
-    w = torch.where(include, alpha * t_excl, 0.0)
-    return CompositeResults(
-        opacity=w.sum(dim=1), depth=(w * ts).sum(dim=1),
-        rgb=(w[..., None] * rgbs.to(torch.float32)).sum(dim=1), ws=w,
-        vr_samples=include.sum())
+    _check_block(sigmas, rgbs, deltas, ts, mask)
+    if sigmas.is_cuda:
+        return _analytic(sigmas, rgbs, deltas, ts, mask, T_threshold)
+    return composite_train_plain(sigmas, rgbs, deltas, ts, mask, T_threshold)
+
+
+def composite_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold=1e-4):
+    """:func:`composite_train`'s outputs without autograd: (opacity, depth,
+    rgb, ws, each row's included samples as int32), float32. CUDA tensors
+    launch csrc/composite.cu's forward kernel (``composite_train.launches``
+    counts it), CPU tensors run :func:`composite_train_fwd_plain`."""
+    _check_block(sigmas, rgbs, deltas, ts, mask)
+    f32 = torch.float32
+    return _train_fwd(sigmas.to(f32), rgbs.to(f32), deltas.to(f32),
+                      ts.to(f32), mask, float(T_threshold))
+
+
+def composite_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
+                        g_rgb, g_ws, T_threshold=1e-4,
+                        needs=(True, True, True, True)):
+    """:func:`composite_train_bwd_plain`'s gradients (d_sigmas, d_rgbs,
+    d_deltas, d_ts) in float32, each only where ``needs`` asks for it (else
+    None): CUDA tensors launch csrc/composite.cu's backward kernel, CPU
+    tensors run the plain version."""
+    n, s = _check_block(sigmas, rgbs, deltas, ts, mask)
+    f32 = torch.float32
+    for name, g, shape in (("g_opacity", g_opacity, (n,)),
+                           ("g_depth", g_depth, (n,)),
+                           ("g_rgb", g_rgb, (n, 3)),
+                           ("g_ws", g_ws, (n, s))):
+        if g is not None:
+            _check(name, g, shape, (f32,), sigmas.device)
+    return _train_bwd(sigmas.to(f32), rgbs.to(f32), deltas.to(f32),
+                      ts.to(f32), mask, g_opacity, g_depth, g_rgb, g_ws,
+                      float(T_threshold), needs)
+
+
+def _check_accumulators(n_acc, opacity, depth, rgb, device):
+    f32 = (torch.float32,)
+    _check("opacity", opacity, (n_acc,), f32, device)
+    _check("depth", depth, (n_acc,), f32, device)
+    _check("rgb", rgb, (n_acc, 3), f32, device)
 
 
 def composite_test_step(sigmas, rgbs, deltas, ts, mask, opacity, depth, rgb,
@@ -61,24 +425,65 @@ def composite_test_step(sigmas, rgbs, deltas, ts, mask, opacity, depth, rgb,
 
     Args:
         sigmas, deltas, ts, mask: (N, S) new samples; rgbs (N, S, 3).
-        opacity, depth: (N,); rgb: (N, 3) running accumulators.
+        opacity, depth: (N,); rgb: (N, 3) running accumulators (fp32).
         alive: (N,) bool rays still marching.
     Returns:
         (opacity, depth, rgb, alive); a ray dies when its transmittance after
         the block is <= T_threshold.
+
+    CUDA tensors launch csrc/composite.cu's round kernel; CPU tensors run
+    :func:`composite_test_step_plain`.
     """
-    mask = mask & alive[:, None]
-    alpha = torch.where(mask, 1.0 - torch.exp(
-        -sigmas.to(torch.float32) * deltas.to(torch.float32)), 0.0)
-    one_minus = 1.0 - alpha
-    t_excl = (1.0 - opacity)[:, None] * _exclusive_transmittance(one_minus)
-    include = (t_excl > T_threshold) & mask
-    w = torch.where(include, alpha * t_excl, 0.0)
+    n, _ = _check_block(sigmas, rgbs, deltas, ts, mask)
+    dev = sigmas.device
+    _check_accumulators(n, opacity, depth, rgb, dev)
+    _check("alive", alive, (n,), (torch.bool,), dev)
+    if not sigmas.is_cuda:
+        return composite_test_step_plain(sigmas, rgbs, deltas, ts, mask,
+                                         opacity, depth, rgb, alive,
+                                         T_threshold)
+    f32 = torch.float32
+    opacity, depth, rgb, alive = _contiguous(opacity, depth, rgb, alive)
+    out = (torch.empty_like(opacity), torch.empty_like(depth),
+           torch.empty_like(rgb))
+    alive = _launch_test(sigmas.to(f32), rgbs.to(f32), deltas.to(f32),
+                         ts.to(f32), mask, None, opacity, depth, rgb, alive,
+                         float(T_threshold), out)
+    return (*out, alive)
 
-    opacity = opacity + w.sum(dim=1)
-    depth = depth + (w * ts).sum(dim=1)
-    rgb = rgb + (w[..., None] * rgbs.to(torch.float32)).sum(dim=1)
 
-    t_final = t_excl[:, -1] * one_minus[:, -1]
-    alive = alive & (t_final > T_threshold)
-    return opacity, depth, rgb, alive
+def composite_test_step_into(sigmas, rgbs, deltas, ts, mask, index, opacity,
+                             depth, rgb, T_threshold):
+    """:func:`composite_test_step` in place, for the alive rows of a frame:
+    row r of the block composites into entry ``index[r]`` of the frame's
+    accumulators ``opacity``, ``depth`` (M,) and ``rgb`` (M, 3), which it
+    updates; every row is alive. ``index`` (N,) int64 holds distinct
+    entries. Returns alive after the round (N,) bool.
+
+    CUDA tensors launch csrc/composite.cu's round kernel (one launch, with
+    ``composite_test_step.launches``); CPU tensors gather, run
+    :func:`composite_test_step_plain` and scatter back."""
+    n, _ = _check_block(sigmas, rgbs, deltas, ts, mask)
+    dev = sigmas.device
+    _check("index", index, (n,), (torch.int64,), dev)
+    _check_accumulators(opacity.shape[0], opacity, depth, rgb, dev)
+    if not sigmas.is_cuda:
+        op, de, co, alive = composite_test_step_plain(
+            sigmas, rgbs, deltas, ts, mask, opacity[index], depth[index],
+            rgb[index], torch.ones((n,), dtype=torch.bool, device=dev),
+            T_threshold)
+        opacity[index], depth[index], rgb[index] = op, de, co
+        return alive
+    for name, t in (("opacity", opacity), ("depth", depth), ("rgb", rgb)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous: it is updated in "
+                             f"place")
+    f32 = torch.float32
+    return _launch_test(sigmas.to(f32), rgbs.to(f32), deltas.to(f32),
+                        ts.to(f32), mask, index.contiguous(), opacity, depth,
+                        rgb, None, float(T_threshold), (opacity, depth, rgb))
+
+
+composite_train.launches = 0
+composite_train_bwd.launches = 0
+composite_test_step.launches = 0

@@ -27,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 assert {"mfnerf_tpu_torch.parallel.dist", "mfnerf_tpu_torch.utils.lpips",
         "mfnerf_tpu_torch.ops.hatmul", "mfnerf_tpu_torch.datasets.exr",
-        "mfnerf_tpu_torch.misc.prepare_rtmv"} <= set(names)
+        "mfnerf_tpu_torch.misc.prepare_rtmv",
+        "mfnerf_tpu_torch.ops.composite"} <= set(names)
 from mfnerf_tpu_torch.utils import lpips
 img = torch.rand((16, 16, 3), generator=torch.Generator().manual_seed(0))
 lp = lpips.lpips_from_weights(lpips.random_lpips_weights(

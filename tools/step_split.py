@@ -23,7 +23,8 @@ the stages and times each on the host clock:
   every 16 steps (amortised);
 
 and, inside the field stages, the encoder kernels' wrappers with CUDA
-events (host gaps included). Then ``torch.profiler`` over 16 unsynced steps
+events (host gaps included), and so the composite kernels' launches
+inside the composite stages. Then ``torch.profiler`` over 16 unsynced steps
 gives the kernels launched a step and the device's busy time. Prints one
 JSON line per part and the card's name and power limit; exits non-zero
 without a CUDA device.
@@ -92,7 +93,7 @@ def main():
     from mfnerf_tpu_torch.datasets.ray_utils import get_rays
     from mfnerf_tpu_torch.models import rendering
     from mfnerf_tpu_torch.opt import get_opts
-    from mfnerf_tpu_torch.ops import hashgrid, hatmul
+    from mfnerf_tpu_torch.ops import composite, hashgrid, hatmul
     from mfnerf_tpu_torch.train import UPDATE_INTERVAL
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
@@ -123,13 +124,17 @@ def main():
     stages = ("sampling", "march", "field_fwd", "composite_loss_fwd",
               "composite_loss_bwd", "field_bwd", "adam", "refresh")
     total = dict.fromkeys(stages, 0.0)
-    kernel = {"fwd_ms": 0.0, "fwd_calls": 0, "bwd_ms": 0.0, "bwd_calls": 0}
+    kernel = {f"{key}_{x}": 0 for key in ("fwd", "bwd", "comp_fwd",
+                                          "comp_bwd")
+              for x in ("ms", "calls")}
     samples = 0
     mod = hashgrid if system.model_cfg.grid != "LowRank" else hatmul
     fwd_name = "_launch_fwd" if mod is hashgrid else "_launch"
     rcfg, b, dev = system.rcfg, hp["batch_size"], system.device
     with KernelClock(mod, fwd_name) as kf, \
-            KernelClock(mod, "_launch_bwd") as kb:
+            KernelClock(mod, "_launch_bwd") as kb, \
+            KernelClock(composite, "_launch_train_fwd") as cf, \
+            KernelClock(composite, "_launch_train_bwd") as cb:
         for _ in range(args.steps):
             t = [time.perf_counter()]
 
@@ -188,7 +193,8 @@ def main():
                      "field_bwd", "adam")
             for name, t0, t1 in zip(order, t[:-1], t[1:]):
                 total[name] += (t1 - t0) * 1e3
-            for key, clock in (("fwd", kf), ("bwd", kb)):
+            for key, clock in (("fwd", kf), ("bwd", kb), ("comp_fwd", cf),
+                               ("comp_bwd", cb)):
                 ms, calls = clock.take_ms()
                 kernel[f"{key}_ms"] += ms
                 kernel[f"{key}_calls"] += calls
@@ -203,6 +209,12 @@ def main():
         "kernel_fwd_calls_per_step": kernel["fwd_calls"] / args.steps,
         "kernel_bwd_ms_per_step": kernel["bwd_ms"] / args.steps,
         "kernel_bwd_calls_per_step": kernel["bwd_calls"] / args.steps,
+        "composite_fwd_ms_per_step": kernel["comp_fwd_ms"] / args.steps,
+        "composite_fwd_calls_per_step": kernel["comp_fwd_calls"]
+        / args.steps,
+        "composite_bwd_ms_per_step": kernel["comp_bwd_ms"] / args.steps,
+        "composite_bwd_calls_per_step": kernel["comp_bwd_calls"]
+        / args.steps,
         "card": card}), flush=True)
 
     # unsynced steps, then the same under the profiler
