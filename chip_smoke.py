@@ -89,20 +89,31 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 36. march, 36a-c: each march kernel of csrc/raymarch.cu (march_train,
    march_window) against its plain version on the card, bit for bit (ts,
    deltas, xyzs, mask, n_samples, t_start, rm_samples, and k_idx on the
-   valid slots; for the window every output, the cursor and exhausted):
+   valid slots; for the window, run in place as the serving loop runs it
+   (march_rays_window_into), every output, the cursor and exhausted, the
+   frame's cursor after it (the alive rows moved, the others unchanged),
+   and each window set also against the skip model
+   march_rays_window_skip_plain):
    36a on the trained bench field (phase 9) for one step's rays (the
    two-level strata), N_MARCH_DEGENERATE degenerate rays (missing the box,
    starting inside it, along the axes, grazing a face), an empty and a
    full bitfield (each budgeted and exact), the dense oracle's rank
-   windows on every MARCH_ORACLE_STRIDE-th ray of the held-out view, and
-   every window march of one render_test frame of it; 36b on a step of
-   the trained MixedFeature field (phase 14); 36c in phase 20, on each
-   recipe's cascade step (the union grid's strata, and exact) and on the
-   windows of its five-cascade serving loop. The step's march and the
-   frame's first window are timed by CUDA-graph replay beside their plain
+   windows on every MARCH_ORACLE_STRIDE-th ray of the held-out view, every
+   window march of one render_test frame of it (the stage-A skip), and the
+   window edge sets (an empty and a full bitfield, degenerate rays at
+   mid-ladder cursors, |d| three times dir_norm, windows of stratum + 1 and
+   3 stratum - 1 rungs; three quarters of each set's rows alive); 36b on a
+   step of the trained MixedFeature field (phase 14); 36c in phase 20, on
+   each recipe's cascade step (the union grid's strata, and exact), on the
+   windows of its five-cascade serving loop and on the edge sets there
+   (every rung walked). The step's march and every round of the bench
+   frame (the cascade frames': the first) are timed by CUDA-graph replay,
+   the window in place (each replay restores the frame's cursor first, and
+   the restore's own time is taken off), beside their plain
    versions and bounds (bytes of the rays, the bitfield, the stage-A grid
    and the sample buffers; MARCH_OPS_PER_RUNG a rung up to each ray's
-   last sample). The train, train_mf, cli and cli_colmap phases count the
+   last sample), with the operations of the rung-by-rung walk's rungs
+   beside them. The train, train_mf, cli and cli_colmap phases count the
    march kernels' launches over their runs;
 37. composite, 37a-c: each composite kernel of csrc/composite.cu
    (composite_train's forward and analytic backward, composite_test_step
@@ -955,17 +966,67 @@ def march_train_bound(args, kw, res):
     return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.sum()))
 
 
-def march_window_bound(args, res):
-    """(least ms, bound_by) of one window march, as march_train_bound: the
-    rungs from each cursor to its ray's last sample."""
+def march_window_bound(args, res, skip=None):
+    """(least ms, bound_by) of one window march in place (``args`` the
+    gathered rows, as march_rays_window takes them), as march_train_bound:
+    the rows' index, rays, t_start, t2 and cursor read once, the cursor
+    written back, the bitfield and the stage-A grid whole. The operations
+    term counts only the rungs from each cursor to its ray's last sample,
+    so a ray that finds nothing counts zero, though every march tests some
+    of its rungs (window_rung_work counts a rung-by-rung walk's)."""
     cursor, bits, n_window = args[4], args[5], args[11]
     n, s = res.mask.shape
-    n_bytes = n * (12 + 12 + 4 + 4 + 8) + bits.numel() \
-        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 8 + 1)
+    grid_bytes = bits.numel() + (0 if skip is None else skip.stage_a.numel())
+    n_bytes = n * (8 + 12 + 12 + 4 + 4 + 8) + grid_bytes \
+        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 8 + 1 + 8)
     last = torch.where(res.n_samples > 0, res.k_idx.gather(
         1, (res.n_samples - 1).clamp_min(0)[:, None])[:, 0] + 1 - cursor, 0)
     return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.clamp_max(
         n_window).sum()))
+
+
+def window_rung_work(args):
+    """Rungs a rung-by-rung walk of the window (``args`` the gathered rows,
+    march_rays_window's positional args) tests: each ray's up to its
+    (s_cap + 1)-th occupied rung, its first rung past the exit, or the
+    window's end."""
+    from mfnerf_tpu_torch.ops.ray_march import _occupancy_at, _window_rungs
+    ro, rd, t0, t2, cursor, bits, cascades, scale, e, grid, max_samples, \
+        n_window, s_cap, dt_scale = args
+    xyz, dt, in_box = _window_rungs(ro, rd, t0, t2, cursor, n_window,
+                                    (e, max_samples, grid, dt_scale))
+    occ = _occupancy_at(xyz, dt, bits, cascades, scale, grid) & in_box
+    stop = (torch.cumsum(occ.to(torch.int32), 1) > s_cap) | ~in_box
+    walked = torch.where(stop.any(1), stop.to(torch.int32).argmax(1) + 1,
+                         n_window)
+    return int(walked.sum())
+
+
+def window_skip_stats(args, skip):
+    """The stage-A skip on a window set (``args`` the gathered rows): the
+    share of its grid's cells that are occupied, the rays it takes and the
+    share of their strata (before the exit) that its test keeps."""
+    from mfnerf_tpu_torch.ops.ray_march import (_window_live, _window_skips,
+                                                window_params)
+    from mfnerf_tpu_torch.ops.stepping import t_ladder
+    ro, rd, t0, t2, cursor, bits, cascades, scale, e, grid, max_samples, \
+        n_window, s_cap, dt_scale = args
+    p = window_params(scale, e, grid, cascades, max_samples, dt_scale,
+                      n_window, s_cap, skip)
+    if not p.mode:
+        return dict(skip_mode=0)
+    ladder = (e, max_samples, grid, dt_scale)
+    skips = _window_skips(p, ro, rd, t0, cursor, ladder)
+    live = _window_live(p, skip.stage_a, ro, rd, t0, t2, cursor)
+    first = (cursor[:, None] + torch.arange(live.shape[1], device=ro.device)
+             * p.stratum).to(torch.float32)
+    before = t_ladder(t0, first, *ladder) < t2[:, None]
+    kept = int(live[skips].sum())
+    tested = int(before[skips].sum())
+    return dict(skip_mode=p.mode, stratum=p.stratum,
+                stage_a_share=float(skip.stage_a.float().mean()),
+                rays_skipping=int(skips.sum()),
+                live_strata_share=kept / tested if tested else 0.0)
 
 
 def march_grads(fn, args, kw, window=False):
@@ -1041,65 +1102,154 @@ def check_march_train(label, args, kw, timed=False, grad=False):
     return fields
 
 
-def check_march_window(label, args, timed=False):
-    """check_march_train for the window march (march_rays_window's
-    positional ``args``): every output bit for bit, k_idx everywhere, the
-    new cursor and exhausted; the timed set with gradients too."""
-    from mfnerf_tpu_torch.ops.ray_march import (march_rays_window,
-                                                march_rays_window_plain)
-    got = march_rays_window(*args)
-    want = march_rays_window_plain(*args)
+def window_rows(args):
+    """march_rays_window's positional args of a window set in place
+    (march_rays_window_into's ``args``): the rows ``alive`` of the frame's
+    arrays, gathered."""
+    alive = args[5]
+    return tuple(x[alive] for x in args[:5]) + tuple(args[6:])
+
+
+def _window_into_fresh(ro, rd, t0, t2, cursor, alive, *rest, **kw):
+    """march_rays_window_into on a copy of the frame's cursor."""
+    from mfnerf_tpu_torch.ops.ray_march import march_rays_window_into
+    return march_rays_window_into(ro, rd, t0, t2, cursor.clone(), alive,
+                                  *rest, **kw)
+
+
+def _window_plain_rows(ro, rd, t0, t2, cursor, alive, *rest, skip=None):
+    """The plain window march of the rows ``alive`` (gathered)."""
+    from mfnerf_tpu_torch.ops.ray_march import march_rays_window_plain
+    return march_rays_window_plain(*window_rows(
+        (ro, rd, t0, t2, cursor, alive, *rest)))
+
+
+def window_into_ms(args, kw):
+    """Device ms of the in-place window march of a set (CUDA-graph replay):
+    each replay first restores the frame's cursor, so every replay marches
+    the same rows from the same cursors; the restore's own replay time is
+    taken off. Returns (ms, restore ms); the cursor is left as it was."""
+    from mfnerf_tpu_torch.ops.ray_march import march_rays_window_into
+    cursor = args[4]
+    saved = cursor.clone()
+
+    def run():
+        cursor.copy_(saved)
+        march_rays_window_into(*args, **kw)
+
+    both = graph_ms(run, MARCH_GRAPH_ITERS)
+    restore = graph_ms(lambda: cursor.copy_(saved), MARCH_GRAPH_ITERS)
+    cursor.copy_(saved)
+    return both - restore, restore
+
+
+def check_march_window(label, args, kw=None, timed=False):
+    """check_march_train for the window march in place, as the serving loop
+    runs it (march_rays_window_into's positional ``args``: the frame's
+    arrays, its cursor before the round and the rows ``alive``; ``kw`` the
+    skip): the kernel, on a copy of the frame's cursor, against the plain
+    version of the gathered rows and against the skip model
+    (march_rays_window_skip_plain), every output bit for bit, k_idx
+    everywhere, the new cursor and exhausted; the frame's cursor after the
+    kernel against the plain version's scattered into it (the rows
+    ``alive`` moved, every other row as it was); the rung-by-rung walk's
+    rungs (window_rung_work) and their operations' least time beside the
+    byte bound; with ``timed`` the gradients too, and the kernel's time
+    (window_into_ms)."""
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_window_into,
+                                                march_rays_window_plain,
+                                                march_rays_window_skip_plain,
+                                                window_lanes, window_params)
+    kw = kw or {}
+    cursor, alive = args[4], args[5]
+    rows = window_rows(args)
+    frame_cursor = cursor.clone()
+    got = march_rays_window_into(*args[:4], frame_cursor, *args[5:], **kw)
+    want = march_rays_window_plain(*rows)
+    model = march_rays_window_skip_plain(*rows, **kw)
+    expect = cursor.clone()
+    expect[alive] = want.cursor
+    outside = torch.ones_like(cursor, dtype=torch.bool)
+    outside[alive] = False
     torch.cuda.synchronize()
-    bad = march_differs(got, want, ("ts", "deltas", "xyzs", "mask",
-                                    "n_samples", "cursor", "exhausted",
-                                    "k_idx"))
+    names = ("ts", "deltas", "xyzs", "mask", "n_samples", "cursor",
+             "exhausted", "k_idx")
+    bad = march_differs(got, want, names)
+    bad_model = march_differs(model, want, names)
+    in_place = torch.equal(frame_cursor, expect)
+    untouched = torch.equal(frame_cursor[outside], cursor[outside])
+    n = int(alive.shape[0])
+    skip = kw.get("skip")
+    p = window_params(rows[7], rows[8], rows[9], rows[6], rows[10],
+                      rows[13], rows[11], rows[12], skip)
+    rungs = window_rung_work(rows)
+    bytes_ms, _ = march_window_bound(rows, want, skip)
     fields = dict(
-        set=label, kernel="march_window", rays=int(args[0].shape[0]),
-        n_window=args[11], s_cap=args[12],
-        cursor_min=int(args[4].min()) if args[4].numel() else 0,
-        cursor_max=int(args[4].max()) if args[4].numel() else 0,
+        set=label, kernel="march_window", rays=n,
+        frame_rows=int(cursor.shape[0]), n_window=rows[11], s_cap=rows[12],
+        lanes=window_lanes(n, rows[11], p),
+        cursor_min=int(rows[4].min()) if n else 0,
+        cursor_max=int(rows[4].max()) if n else 0,
         samples=int(want.n_samples.sum()),
         exhausted=int(want.exhausted.sum()), bit_equal=not bad,
-        differs=bad, max_abs_err=march_max_err(got, want))
+        differs=bad, model_bit_equal=not bad_model,
+        model_differs=bad_model, cursor_in_place_equal=in_place,
+        rows_outside_unchanged=untouched,
+        max_abs_err=march_max_err(got, want), rung_by_rung_rungs=rungs,
+        rung_by_rung_ops_ms=bound(0, MARCH_OPS_PER_RUNG * rungs)[0],
+        **window_skip_stats(rows, skip))
     check(not bad, f"march_window {label}: differs from its plain version "
           f"in {bad}")
+    check(not bad_model, f"march_window {label}: the skip model differs "
+          f"from the plain version in {bad_model}")
+    check(in_place and untouched, f"march_window {label}: the frame's "
+          f"cursor after the march differs from the plain version's "
+          f"scattered (rows outside alive unchanged: {untouched})")
     if timed:
         fields["grad_bit_equal"] = all(
             torch.equal(_float_bits(a), _float_bits(b)) for a, b in zip(
-                march_grads(march_rays_window, args, {}, window=True),
-                march_grads(march_rays_window_plain, args, {}, window=True)))
+                march_grads(_window_into_fresh, args, kw, window=True),
+                march_grads(_window_plain_rows, args, {}, window=True)))
         check(fields["grad_bit_equal"], f"march_window {label}: the "
               f"differentiable samples or their gradients differ")
-        fields["ms"] = graph_ms(lambda: march_rays_window(*args),
-                                MARCH_GRAPH_ITERS)
-        fields["plain_ms"] = cuda_ms(lambda: march_rays_window_plain(*args),
-                                     5)
-        fields["bound_ms"], fields["bound_by"] = march_window_bound(args,
-                                                                    want)
+        fields["ms"], fields["restore_ms"] = window_into_ms(args, kw)
+        fields["plain_ms"] = cuda_ms(
+            lambda: march_rays_window_plain(*rows), 5)
+        fields["bound_ms"], fields["bound_by"] = march_window_bound(
+            rows, want, skip)
         fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    fields["bytes_ms"] = bytes_ms
     return fields
 
 
 @contextlib.contextmanager
 def capturing_marches():
     """Within the context, each call of the rendering module's marches
-    appends ("train", args, kwargs) or ("window", args, {}) to the yielded
-    list, tensors detached, and marches as before."""
+    appends ("train", args, kwargs) or, for a serving round's in-place
+    window march, ("window", args, {"skip": ..}) to the yielded list, with
+    march_rays_window_into's positional args: the frame's arrays, copies
+    of its cursor before the round and of the round's rows ``alive``;
+    tensors detached. The marches run as before."""
     from mfnerf_tpu_torch.models import rendering
     captured = []
     inner = {name: getattr(rendering, name)
-             for name in ("march_rays_train", "march_rays_window")}
+             for name in ("march_rays_train", "march_rays_window_into")}
 
-    def recorder(kind, name):
-        def call(*args, **kwargs):
-            captured.append((kind, tuple(
-                a.detach() if torch.is_tensor(a) else a for a in args),
-                dict(kwargs)))
-            return inner[name](*args, **kwargs)
-        return call
+    def train(*args, **kwargs):
+        captured.append(("train", tuple(
+            a.detach() if torch.is_tensor(a) else a for a in args),
+            dict(kwargs)))
+        return inner["march_rays_train"](*args, **kwargs)
 
-    rendering.march_rays_train = recorder("train", "march_rays_train")
-    rendering.march_rays_window = recorder("window", "march_rays_window")
+    def window(rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=None):
+        frame = tuple(x.detach() for x in (rays_o, rays_d, t_start, t2)) \
+            + (cursor.clone(), alive.clone())
+        captured.append(("window", frame + tuple(rest), {"skip": skip}))
+        return inner["march_rays_window_into"](
+            rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=skip)
+
+    rendering.march_rays_train = train
+    rendering.march_rays_window_into = window
     try:
         yield captured
     finally:
@@ -1199,23 +1349,87 @@ def oracle_march_sets(system, rays, rcfg):
 
 def frame_window_sets(system, rays, rcfg):
     """Every window march of one render_test frame (the alive-ray loop's
-    rounds, their cursors, s_cap and n_window as the loop chose them)."""
+    rounds, their cursors, s_cap, n_window and stage-A skip as the loop
+    chose them), as (args, kwargs)."""
     from mfnerf_tpu_torch.models.rendering import render_test
     with torch.no_grad(), capturing_marches() as captured:
         render_test(system.model, system.occ, *rays, rcfg)
     check(captured and all(c[0] == "window" for c in captured),
           f"render_test marched {[c[0] for c in captured]}")
-    return [c[1] for c in captured]
+    return [c[1:] for c in captured]
 
 
-def march_phase(label, train_sets, window_sets=(), timed_train=0):
+def window_edge_sets(model, occ, rcfg, rays, seed):
+    """The window march's edge sets on ``model``'s configuration, beside a
+    frame's rounds, as (label, args, kwargs) in place
+    (march_rays_window_into's args: each set's rays as a frame, three
+    quarters of its rows alive, in a random order): ``rays`` (a view's,
+    every MARCH_ORACLE_STRIDE-th) against an empty and a full bitfield
+    (their grids refreshed), the degenerate rays at mid-ladder cursors, the
+    view's rays with |d| three times the grids' dir_norm (walked rung by
+    rung), and windows of stratum + 1 and 3 stratum - 1 rungs at mid-ladder
+    cursors (indivisible; without a skip, of the cascade march's
+    stratum)."""
+    from mfnerf_tpu_torch.models.rendering import _scene_hits, window_skip
+    from mfnerf_tpu_torch.ops.ray_march import cascades_stratum
+    cfg = model.cfg
+    dev = occ.density_bitfield.device
+    k_total = rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True)
+    static = (cfg.cascades, cfg.scale, rcfg.exp_step_factor, cfg.grid_size,
+              rcfg.max_samples)
+    dt_scale = rcfg._dt_scale(cfg.scale, True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def window_args(ro, rd, bits, cursor, n_window, s_cap):
+        hits = _scene_hits(model, ro, rd)
+        m = ro.shape[0]
+        alive = torch.randperm(m, generator=gen, device=dev)[:m - m // 4]
+        return (ro, rd, hits[:, 0].contiguous(), hits[:, 1].contiguous(),
+                cursor, alive, bits, *static, n_window, s_cap, dt_scale)
+
+    ro = rays[0][::MARCH_ORACLE_STRIDE].contiguous()
+    rd = rays[1][::MARCH_ORACLE_STRIDE].contiguous()
+    n = ro.shape[0]
+    zeros = torch.zeros((n,), dtype=torch.int64, device=dev)
+    mid = torch.randint(0, k_total // 2, (n,), generator=gen, device=dev)
+    skip = window_skip(cfg, occ, rcfg)
+    sets = []
+    for label, byte, s_cap in (("empty", 0, 1), ("full", 255, 4)):
+        bits = torch.full_like(occ.density_bitfield, byte)
+        occ_b = dataclasses.replace(occ, density_bitfield=bits
+                                    ).refresh_coarse(cfg)
+        sets.append((label, window_args(ro, rd, bits, zeros, 70, s_cap),
+                     dict(skip=window_skip(cfg, occ_b, rcfg))))
+    dro, drd = degenerate_rays(cfg.scale, N_MARCH_DEGENERATE, seed + 1, dev)
+    dmid = torch.randint(0, k_total // 2, (dro.shape[0],), generator=gen,
+                         device=dev)
+    sets.append(("degenerate", window_args(
+        dro, drd, occ.density_bitfield, dmid, 64, 8), dict(skip=skip)))
+    long_d = rd * (3.0 * cfg.dir_norm / rd.norm(dim=1, keepdim=True))
+    sets.append(("long_d", window_args(
+        ro, long_d, occ.density_bitfield, mid, 70, 2), dict(skip=skip)))
+    st = skip.stratum if skip is not None else cascades_stratum(
+        rcfg.exp_step_factor, cfg.scale, cfg.cascades,
+        dir_norm=cfg.dir_norm)[0] or 8
+    for label, n_window in (("stratum+1", st + 1),
+                            ("3stratum-1", 3 * st - 1)):
+        sets.append((label, window_args(ro, rd, occ.density_bitfield, mid,
+                                        n_window, 4), dict(skip=skip)))
+    return sets
+
+
+def march_phase(label, train_sets, window_sets=(), timed_train=0,
+                window_edges=(), time_rounds=False):
     """The march checks of a configuration: every training-march set
-    (label, args, kwargs) and every window set (args: one a round of the
-    alive-ray loop) against the plain version, bit for bit; the training
+    (label, args, kwargs), every window set ((args, kwargs): one a round of
+    the alive-ray loop) and every window edge set (label, args, kwargs)
+    against the plain version and the skip model, bit for bit; the training
     set at ``timed_train`` also with gradients (check_march_train's
-    ``grad``) and timed, and the first (largest) window timed. Prints a
-    phase line a training set and one for the window sets; returns the
-    timed sets' fields and the worst error."""
+    ``grad``) and timed, the first (largest) window timed with gradients,
+    and with ``time_rounds`` every round timed (CUDA-graph replay) and the
+    rounds' sum. Prints a phase line a training set, one an edge set and
+    one for the window sets; returns the timed sets' fields (the rounds'
+    times under "window_rounds") and the worst error."""
     timed = {}
     err = 0.0
     for i, (name, args, kw) in enumerate(train_sets):
@@ -1226,20 +1440,48 @@ def march_phase(label, train_sets, window_sets=(), timed_train=0):
         if i == timed_train:
             timed["train"] = fields
         torch.cuda.empty_cache()
+    for name, args, kw in window_edges:
+        fields = check_march_window(name, args, kw)
+        phase("march", config=label, **fields)
+        err = max(err, fields["max_abs_err"])
+        torch.cuda.empty_cache()
     if window_sets:
-        rounds = [check_march_window(f"round_{i}", args, timed=i == 0)
-                  for i, args in enumerate(window_sets)]
+        rounds = []
+        for i, (args, kw) in enumerate(window_sets):
+            rounds.append(check_march_window(f"round_{i}", args, kw,
+                                             timed=i == 0))
+            if time_rounds and i:
+                rounds[-1]["ms"], rounds[-1]["restore_ms"] = \
+                    window_into_ms(args, kw)
         timed["window"] = rounds[0]
         err = max([err] + [r["max_abs_err"] for r in rounds])
+        fields = dict(
+            rounds=len(rounds), rays=[r["rays"] for r in rounds],
+            s_caps=sorted({r["s_cap"] for r in rounds}),
+            n_windows=sorted({r["n_window"] for r in rounds}),
+            lanes=[r["lanes"] for r in rounds],
+            cursor_max=max(r["cursor_max"] for r in rounds),
+            samples=sum(r["samples"] for r in rounds),
+            exhausted=sum(r["exhausted"] for r in rounds),
+            bit_equal=all(r["bit_equal"] for r in rounds),
+            model_bit_equal=all(r["model_bit_equal"] for r in rounds),
+            cursor_in_place_equal=all(r["cursor_in_place_equal"]
+                                      for r in rounds),
+            rung_by_rung_rungs=sum(r["rung_by_rung_rungs"] for r in rounds),
+            max_abs_err=err, first_round=rounds[0])
+        if time_rounds:
+            fields["round_ms"] = [r["ms"] for r in rounds]
+            fields["rounds_ms_sum"] = sum(fields["round_ms"])
+            fields["round_restore_ms"] = [r["restore_ms"] for r in rounds]
+            fields["round_bytes_ms"] = [r["bytes_ms"] for r in rounds]
+            fields["round_rung_by_rung_ops_ms"] = [
+                r["rung_by_rung_ops_ms"] for r in rounds]
+            timed["window_rounds"] = {key: fields[key] for key in (
+                "round_ms", "rounds_ms_sum", "round_restore_ms",
+                "round_bytes_ms",
+                "round_rung_by_rung_ops_ms", "rays", "lanes")}
         phase("march", config=label, set="frame", kernel="march_window",
-              rounds=len(rounds), rays=[r["rays"] for r in rounds],
-              s_caps=sorted({r["s_cap"] for r in rounds}),
-              n_windows=sorted({r["n_window"] for r in rounds}),
-              cursor_max=max(r["cursor_max"] for r in rounds),
-              samples=sum(r["samples"] for r in rounds),
-              exhausted=sum(r["exhausted"] for r in rounds),
-              bit_equal=all(r["bit_equal"] for r in rounds),
-              max_abs_err=err, first_round=rounds[0])
+              **fields)
         torch.cuda.empty_cache()
     return timed, err
 
@@ -2800,7 +3042,9 @@ def cascade_step_oracle(argv, datasets, dev, seed):
     timed, march_err = march_phase(
         f"cascades_{cfg.grid}", [("step", march_args, dict(strata=strata)),
                                  ("step_exact", march_args, {})],
-        [c[1] for c in windows])
+        [c[1:] for c in windows],
+        window_edges=window_edge_sets(system.model, occ0, test_rcfg,
+                                      (ro.to(dev), rd.to(dev)), seed + 3))
     # 37c. the composite kernels on the step and the serving loop's rounds
     comp_timed, comp_err = composite_phase(
         f"cascades_{cfg.grid}", [("step", *step_comp[0][1:])],
@@ -3376,7 +3620,10 @@ def main():
     bench_march, march_err = march_phase(
         "bench", march_sets_of(system, SEED + 80)
         + oracle_march_sets(system, test_rays, test_rcfg),
-        frame_window_sets(system, test_rays, test_rcfg))
+        frame_window_sets(system, test_rays, test_rcfg),
+        window_edges=window_edge_sets(system.model, system.occ, test_rcfg,
+                                      test_rays, SEED + 82),
+        time_rounds=True)
 
     # ---- 37a. the composite kernels against their plain versions: a step
     # of the trained field, the edge blocks, every round of a trained frame
@@ -3841,16 +4088,22 @@ def main():
                      cascade_march.items()}}, {
         "name": "march_window", "route": "cuda", "source": march_src,
         "replaces": "mfnerf_tpu/ops/ray_march.py:876",
+        "redesigned": "in place through the alive index, 4-32 lanes a "
+                      "ray, the two-level stage-A skip over the window's "
+                      "strata at one cascade",
         "launches": serve_window_launches,
         "cli_launches": cli_march["window"],
         "cli_colmap_launches": {label: run["march"]["window"]
                                 for label, run in runs.items()},
         "max_abs_err": march_err, **{key: bench_march["window"][key]
                                      for key in ("ms", "plain_ms",
-                                                 "bound_ms", "bound_by")},
+                                                 "bound_ms", "bound_by",
+                                                 "rung_by_rung_ops_ms",
+                                                 "lanes")},
         "library_ms": None,
         "shape": "the first round of the trained bench field's held-out "
                  "800x800 view",
+        "frame_rounds": bench_march["window_rounds"],
         "cascades": {label: m["window"] for label, m in
                      cascade_march.items()}}, {
         "name": "composite_train", "route": "cuda", "source": comp_src,

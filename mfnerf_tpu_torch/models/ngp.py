@@ -129,13 +129,16 @@ class OccupancyState:
     from the bitfield: ``stage_a`` at one cascade (``ray_march
     .stage_a_grid``), ``union_bits`` at several (``morton.union_bitfield``,
     where ``ray_march.cascades_stratum`` gives a stratum); None elsewhere.
-    ``derived_from`` is the bitfield they were derived from."""
+    ``derived_from`` is the bitfield they were derived from;
+    ``stage_a_share`` the share of ``stage_a``'s cells that are set, which
+    the serving loop reads once a derivation (None until then)."""
     density_grid: torch.Tensor
     density_bitfield: torch.Tensor
     count_grid: torch.Tensor = None
     stage_a: torch.Tensor = None
     union_bits: torch.Tensor = None
     derived_from: torch.Tensor = dataclasses.field(default=None, repr=False)
+    stage_a_share: float = dataclasses.field(default=None, repr=False)
 
     @staticmethod
     def create(cfg: NGPConfig, device=None) -> "OccupancyState":
@@ -164,17 +167,18 @@ class OccupancyState:
                 union = union_bitfield(bits, cfg.grid_size, cfg.cascades,
                                        dilate)
         return dataclasses.replace(self, stage_a=stage_a, union_bits=union,
-                                   derived_from=bits)
+                                   derived_from=bits, stage_a_share=None)
 
     def to(self, device) -> "OccupancyState":
         """A copy on ``device``, its derived grids with it."""
         moved = {f.name: None if getattr(self, f.name) is None
                  else getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
-                 if f.name != "derived_from"}
+                 if f.name not in ("derived_from", "stage_a_share")}
         fresh = self.derived_from is self.density_bitfield
         return OccupancyState(**moved, derived_from=(
-            moved["density_bitfield"] if fresh else None))
+            moved["density_bitfield"] if fresh else None),
+            stage_a_share=self.stage_a_share)
 
 
 def _mlp_params(sizes):

@@ -24,9 +24,13 @@ Port of ``mfnerf_tpu/models/rendering.py``.
   alive ray from its ladder cursor, evaluates the field on the valid samples
   only, and composites from ``1 - opacity``. A ray dies when its
   transmittance falls to ``T_threshold``, when its ladder passes the box
-  exit, or at ``max_samples`` samples. The JAX package's round schedules,
-  wavefront pool and rasterised prepass are TPU throughput devices and are
-  not ported.
+  exit, or at ``max_samples`` samples. On the card each round marches the
+  alive rows in place on the frame's arrays (``march_rays_window_into``)
+  and, at one cascade, skips the strata that the occupancy's stage-A grid
+  proves empty where that grid is sparse (:func:`serving_skip`); the
+  samples are those of the rung-by-rung march.
+  The JAX package's round schedules, wavefront pool and rasterised prepass
+  are TPU throughput devices and are not ported.
 * :func:`render_test_sharded` serves a frame with its rays split over the
   ranks of a process group (``parallel/dist.py``).
 """
@@ -38,8 +42,9 @@ import torch
 from ..ops.composite import (composite_test_step, composite_test_step_into,
                              composite_train)
 from ..ops.intersection import ray_aabb_intersect_single
-from ..ops.ray_march import (Strata, cascades_stratum, march_rays_train,
-                             march_rays_window, twolevel_stratum)
+from ..ops.ray_march import (SKIP_MAX_SHARE, Strata, WindowSkip,
+                             cascades_stratum, march_rays_train,
+                             march_rays_window_into, twolevel_stratum)
 from ..ops.stepping import max_ladder_steps
 from .ngp import NEAR_DISTANCE
 
@@ -112,14 +117,18 @@ def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
     return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
 
 
+def _check_fresh(occ):
+    if occ.derived_from is not occ.density_bitfield:
+        raise ValueError("the occupancy's stage-A grids are stale: call "
+                         "refresh_coarse(cfg) after editing the bitfield")
+
+
 def train_strata(cfg, occ, rcfg):
     """The strata budget of the JAX ``render_train``'s march, or None for
     the exact march: the two-level march's where ``twolevel_stratum`` gives
     a stratum (one cascade, uniform steps), else the cascade march's where
     ``cascades_stratum`` does (several cascades, exponential steps)."""
-    if occ.derived_from is not occ.density_bitfield:
-        raise ValueError("the occupancy's stage-A grids are stale: call "
-                         "refresh_coarse(cfg) after editing the bitfield")
+    _check_fresh(occ)
     stratum = twolevel_stratum(rcfg.exp_step_factor, rcfg.max_samples,
                                cfg.scale, cfg.grid_size, cfg.cascades,
                                cfg.dir_norm)
@@ -131,6 +140,32 @@ def train_strata(cfg, occ, rcfg):
         return Strata(occ.union_bits, stratum, rcfg.s_strata, cfg.dir_norm,
                       union=True)
     return None
+
+
+def window_skip(cfg, occ, rcfg):
+    """The serving window march's stage-A skip (``ray_march.WindowSkip``)
+    on the two-level march's grid, where ``twolevel_stratum`` gives a
+    stratum (one cascade, uniform steps), else None (every rung tested).
+    Raises on stale grids."""
+    _check_fresh(occ)
+    stratum = twolevel_stratum(rcfg.exp_step_factor, rcfg.max_samples,
+                               cfg.scale, cfg.grid_size, cfg.cascades,
+                               cfg.dir_norm)
+    return WindowSkip(occ.stage_a, stratum, cfg.dir_norm) if stratum else None
+
+
+def serving_skip(cfg, occ, rcfg):
+    """The skip the serving loop marches with: :func:`window_skip`, unless
+    more than ``SKIP_MAX_SHARE`` of its stage-A cells are set (a dense
+    grid, as an untrained field's: nearly every stratum is live, and
+    walking every rung is faster). The share is read from the device once
+    a derivation of the grid and kept in ``occ.stage_a_share``."""
+    skip = window_skip(cfg, occ, rcfg)
+    if skip is None:
+        return None
+    if occ.stage_a_share is None:
+        occ.stage_a_share = float(skip.stage_a.float().mean())
+    return skip if occ.stage_a_share <= SKIP_MAX_SHARE else None
 
 
 def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
@@ -323,10 +358,13 @@ def _render_alive(model, occ, rays_o, rays_d, rcfg, exposure=None):
     n = rays_o.shape[0]
     dev = rays_o.device
     exposure = _exposure(exposure, dev)
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     hits_t = _scene_hits(model, rays_o, rays_d)
-    t_start, t2 = hits_t[:, 0], hits_t[:, 1]
+    t_start, t2 = hits_t[:, 0].contiguous(), hits_t[:, 1].contiguous()
     k_total = rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True)
     dt_scale = rcfg._dt_scale(cfg.scale, True)
+    # the plain march on the CPU tests every rung: it needs no stage A
+    skip = serving_skip(cfg, occ, rcfg) if dev.type == "cuda" else None
 
     opacity = torch.zeros((n,), device=dev)
     depth = torch.zeros((n,), device=dev)
@@ -340,12 +378,13 @@ def _render_alive(model, occ, rays_o, rays_d, rcfg, exposure=None):
         n_alive = alive.numel()
         s_cap = max(min(n // n_alive, 64), 1)
         window = min(k_total, max(s_cap, MARCH_BUDGET // n_alive))
-        rd = rays_d[alive]
-        mr = march_rays_window(
-            rays_o[alive], rd, t_start[alive], t2[alive], cursor[alive],
+        # the alive rows' cursors advance in place
+        mr = march_rays_window_into(
+            rays_o, rays_d, t_start, t2, cursor, alive,
             occ.density_bitfield, cfg.cascades, cfg.scale,
             rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples, window,
-            s_cap, dt_scale)
+            s_cap, dt_scale, skip=skip)
+        rd = rays_d[alive]
         # per-ray cap: a ray composites at most max_samples samples
         taken_a = taken[alive]
         room = rcfg.max_samples - taken_a
@@ -358,7 +397,6 @@ def _render_alive(model, occ, rays_o, rays_d, rcfg, exposure=None):
             sigmas, rgbs, mr.deltas, mr.ts, mask, alive, opacity, depth, rgb,
             rcfg.T_threshold)
         emitted = mask.sum(dim=1)
-        cursor[alive] = mr.cursor
         taken_a = taken_a + emitted
         taken[alive] = taken_a
         total += emitted.sum()

@@ -31,14 +31,20 @@ The port applies the budget to its exact march (``strata=``) without the
 TPU's neighbourhood-row tables and block sums: the samples are the JAX
 march's, sample for sample.
 
-On CUDA tensors :func:`march_rays_train` and :func:`march_rays_window`
-launch the hand-written kernels of ``csrc/raymarch.cu`` (a warp a ray,
-which walks only the chosen strata's rungs and stops at the buffer's end
-or the ray's exit), bit for bit their plain versions
-:func:`march_rays_train_plain` and :func:`march_rays_window_plain`; on CPU
-tensors they run the plain versions, which evaluate every rung as (N, K)
-tensors. Every division by a Python float is a true division
-(``stepping.true_div``), as in the kernels, the JAX package and on the CPU.
+On CUDA tensors :func:`march_rays_train` and :func:`march_rays_window_into`
+(and :func:`march_rays_window`, its form over every row) launch the
+hand-written kernels of ``csrc/raymarch.cu`` (the training march a warp a
+ray, which walks only the chosen strata's rungs; the window march a few
+lanes a ray, in place on the frame's rows, which at one cascade skips the
+strata that the two-level stage-A grid proves empty: :class:`WindowSkip`),
+each stopping at the buffer's end or the ray's exit, bit for bit their
+plain versions :func:`march_rays_train_plain` and
+:func:`march_rays_window_plain`; on CPU tensors they run the plain
+versions, which evaluate every rung as (N, K) tensors.
+:func:`march_rays_window_skip_plain` models the window kernel's skip
+(which strata it tests, its cell arithmetic) in torch. Every division by a
+Python float is a true division (``stepping.true_div``), as in the
+kernels, the JAX package and on the CPU.
 """
 import ctypes
 import functools
@@ -66,6 +72,18 @@ class Strata(NamedTuple):
     s_strata: int            # live strata a ray samples
     dir_norm: float          # bound on |rays_d| over every ray
     union: bool = False      # the cascade march's stage A
+
+
+class WindowSkip(NamedTuple):
+    """The serving window march's empty-space skip (one cascade, uniform
+    steps): the window is cut into strata of ``stratum`` rungs from each
+    ray's cursor, and only the strata whose probes find an occupied cell
+    of the two-level march's :func:`stage_a_grid` have their rungs tested.
+    With no budget the march's results are the rung-by-rung march's
+    (:func:`window_params` derives why)."""
+    stage_a: torch.Tensor    # (g, g, g) bool [z, y, x]
+    stratum: int             # rungs a stratum
+    dir_norm: float          # bound on |rays_d| the grid was sized for
 
 
 class MarchResults(NamedTuple):
@@ -337,16 +355,29 @@ def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
     """
     if dt_scale is None:
         dt_scale = scale
-    ks = cursor[:, None] + torch.arange(n_window, device=cursor.device)
-    ts_all = t_ladder(t_start, ks, exp_step_factor, max_samples, grid_size,
-                      dt_scale)                                   # (C, W)
-    dt_all = calc_dt(ts_all, exp_step_factor, max_samples, grid_size,
-                     dt_scale)
-    xyz = rays_o[:, None, :] + ts_all[..., None] * rays_d[:, None, :]
+    ladder = (exp_step_factor, max_samples, grid_size, dt_scale)
+    xyz, dt_all, in_box = _window_rungs(rays_o, rays_d, t_start, t2, cursor,
+                                        n_window, ladder)
     occ = _occupancy_at(xyz, dt_all, density_bitfield, cascades, scale,
-                        grid_size)
-    occ = occ & (ts_all < t2[:, None])
+                        grid_size) & in_box
+    return _window_results(rays_o, rays_d, t_start, t2, cursor, occ, s_cap,
+                           ladder)
 
+
+def _window_rungs(rays_o, rays_d, t_start, t2, cursor, n_window, ladder):
+    """The window's rungs as (C, W) tensors: positions, steps, and whether
+    each lies before the ray's exit."""
+    ks = cursor[:, None] + torch.arange(n_window, device=cursor.device)
+    ts_all = t_ladder(t_start, ks, *ladder)                       # (C, W)
+    dt_all = calc_dt(ts_all, *ladder)
+    xyz = rays_o[:, None, :] + ts_all[..., None] * rays_d[:, None, :]
+    return xyz, dt_all, ts_all < t2[:, None]
+
+
+def _window_results(rays_o, rays_d, t_start, t2, cursor, occ, s_cap,
+                    ladder):
+    """The window march's results from its (C, W) occupied rungs."""
+    n_window = occ.shape[1]
     csum = torch.cumsum(occ.to(torch.int32), dim=1)
     n_found = csum[:, -1].to(torch.int64)
     n_samples = torch.clamp_max(n_found, s_cap)
@@ -358,22 +389,138 @@ def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
     mask = ranks[None, :] <= n_samples[:, None]
     k_glob = cursor[:, None] + k_local
     ts, deltas, xyzs = _samples_at(rays_o, rays_d, t_start, k_glob, mask,
-                                   exp_step_factor, max_samples, grid_size,
-                                   dt_scale)
+                                   *ladder)
 
     cursor_new = torch.where(n_found > s_cap, cursor + k_local[:, -1] + 1,
                              cursor + n_window)
-    t_next = t_ladder(t_start, cursor_new[:, None], exp_step_factor,
-                      max_samples, grid_size, dt_scale)[:, 0]
+    t_next = t_ladder(t_start, cursor_new[:, None], *ladder)[:, 0]
     return WindowMarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
                               n_samples=n_samples, cursor=cursor_new,
                               exhausted=t_next >= t2, k_idx=k_glob)
+
+
+def march_rays_window_skip_plain(rays_o, rays_d, t_start, t2, cursor,
+                                 density_bitfield, cascades, scale,
+                                 exp_step_factor, grid_size, max_samples,
+                                 n_window, s_cap, dt_scale=None,
+                                 skip=None) -> WindowMarchResults:
+    """The window kernel's walk as (C, W) tensors: which rungs it tests and
+    how it tests them. Each ray that :func:`window_params`' margins admit
+    tests only the rungs of the strata (``skip.stratum`` rungs from its
+    cursor) that pass the kernel's stage-A test, in the kernel's fp32
+    arithmetic, and, where :func:`window_lanes` gives a ray 16 or 32
+    lanes, the kernel's head of that many rungs from the cursor; every
+    other ray, and every ray without ``skip``, tests every rung; a rung's
+    cell is found as
+    the kernel finds it (the cascade's half-width from its exponent bits, a
+    product by the exact reciprocal of a power-of-two divisor). The untested
+    rungs count as empty, so where the stage-A test is a superset of the
+    rung test this equals :func:`march_rays_window_plain` bit for bit."""
+    if dt_scale is None:
+        dt_scale = scale
+    ladder = (exp_step_factor, max_samples, grid_size, dt_scale)
+    xyz, dt_all, in_box = _window_rungs(rays_o, rays_d, t_start, t2, cursor,
+                                        n_window, ladder)
+    occ = _occupancy_kernel(xyz, dt_all, density_bitfield, cascades, scale,
+                            grid_size) & in_box
+    p = window_params(scale, exp_step_factor, grid_size, cascades,
+                      max_samples, dt_scale, n_window, s_cap, skip)
+    if p.mode:
+        lanes = window_lanes(rays_o.shape[0], n_window, p)
+        live = _window_live(p, skip.stage_a, rays_o, rays_d, t_start, t2,
+                            cursor)
+        k = torch.arange(n_window, device=cursor.device)
+        skips = _window_skips(p, rays_o, rays_d, t_start, cursor, ladder)
+        head = k < (lanes if lanes >= 16 else 0)
+        occ = occ & (live[:, k // p.stratum] | head | ~skips[:, None])
+    return _window_results(rays_o, rays_d, t_start, t2, cursor, occ, s_cap,
+                           ladder)
+
+
+def _f32t(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _div_exact(x, div):
+    """``x / div`` as csrc/raymarch.cu's ``div_exact`` rounds it: a product
+    by the exact reciprocal where ``div`` (float32, broadcast to ``x``) is a
+    power of two with a normal reciprocal, else a true division."""
+    bits = div.view(torch.int32)
+    ex = (bits >> 23) & 0xFF
+    pow2 = ((bits & (0x807FFFFF - (1 << 32))) == 0) & (ex >= 1) & (ex <= 253)
+    recip = ((254 - ex).clamp(1, 254) << 23).view(torch.float32)
+    return torch.where(pow2, x * recip, x / div)
+
+
+def _cells_kernel(xyz, div, g):
+    """clamp(0.5 * (x / div + 1) * g, 0, g - 1) truncated, as the kernel's
+    ``cell_of``."""
+    q = 0.5 * (_div_exact(xyz, div) + 1.0) * g
+    return torch.clamp(q, 0.0, g - 1.0).to(torch.int32)
+
+
+def _occupancy_kernel(xyz, dt, density_bitfield, cascades, scale,
+                      grid_size):
+    """:func:`_occupancy_at` in the kernel's arithmetic: the half-width
+    2^(mip - 1) built from its exponent bits, the cell by ``_div_exact``."""
+    mip = torch.maximum(mip_from_pos(xyz, cascades),
+                        mip_from_dt(dt, grid_size, cascades))
+    half = ((mip + 126) << 23).view(torch.float32)
+    bound = torch.minimum(half, _f32t(scale, xyz.device))
+    nxyz = _cells_kernel(xyz, bound[..., None], grid_size)
+    idx = mip.to(torch.int64) * grid_size ** 3 + morton3d(nxyz)
+    return bitfield_lookup(density_bitfield, idx)
+
+
+def _window_skips(p, rays_o, rays_d, t_start, cursor, ladder):
+    """(C,) bool: the rays the kernel's stage-A skip takes
+    (``window_skips``): |d|^2 within ``p.d2_max`` and the bound on their
+    positions' rounding error within ``p.slack_max``."""
+    dev = rays_o.device
+    n2 = (rays_d[:, 0] * rays_d[:, 0] + rays_d[:, 1] * rays_d[:, 1]) \
+        + rays_d[:, 2] * rays_d[:, 2]
+    n_strata = -(-p.n_rungs // p.stratum)
+    t_end = t_ladder(t_start, (cursor + n_strata * p.stratum)[:, None],
+                     *ladder)[:, 0]
+    o1 = (rays_o[:, 0].abs() + rays_o[:, 1].abs()) + rays_o[:, 2].abs()
+    d1 = (rays_d[:, 0].abs() + rays_d[:, 1].abs()) + rays_d[:, 2].abs()
+    err = _f32t(POS_ERR, dev) * (o1 + (t_start.abs() + t_end.abs()) * d1)
+    return (n2 <= _f32t(p.d2_max, dev)) & (err <= _f32t(p.slack_max, dev))
+
+
+def _window_live(p, stage_a, rays_o, rays_d, t_start, t2, cursor):
+    """(C, n_strata) bool: the window strata the kernel's stage A keeps (a
+    stratum starting before the exit whose probes are occupied), in its
+    arithmetic."""
+    dev = rays_o.device
+    a = _f32t(p.a, dev)
+    first = (cursor[:, None] + torch.arange(
+        -(-p.n_rungs // p.stratum), device=dev) * p.stratum).to(torch.float32)
+    t_first = t_start[:, None] + first * a
+    offs = _f32t(list(p.probe_off)[:p.n_probes], dev)
+    t = t_start[:, None, None] + (first[..., None] + offs) * a
+    xyz = rays_o[:, None, None, :] + t[..., None] * rays_d[:, None, None, :]
+    c = _cells_kernel(xyz, _f32t(p.scale, dev), p.g_c).to(torch.int64)
+    hit = stage_a[c[..., 2], c[..., 1], c[..., 0]].any(-1)
+    return hit & (t_first < t2[:, None])
 
 
 # ------------------------------------------------------------------ kernels
 MAX_PROBES = 16        # csrc/raymarch.cu's limits
 MAX_STRATA = 4096
 MAX_CHOSEN = 512
+# the window march's stage-A skip: the share of a stage-A cell that its
+# proof keeps clear, and csrc/raymarch.cu's kPosErr
+SKIP_MARGIN = 1.0 / 64
+POS_ERR = 2.0 ** -20
+# threads an H100 keeps resident (132 SMs of 2,048): the window kernel
+# gives a ray more lanes while its rays leave them unfilled
+RESIDENT_THREADS = 132 * 2048
+# above this share of set stage-A cells the serving loop walks every rung:
+# most strata along a ray are live there, and the stage-A pass costs more
+# than it skips (tools/march_check.py --share-sweep along a bench training:
+# the skip won at 0.41 and below, walking at 0.43 and above; PERF.md §6)
+SKIP_MAX_SHARE = 0.42
 
 
 class _MarchParams(ctypes.Structure):
@@ -385,12 +532,25 @@ class _MarchParams(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "grid", "cascades", "n_rungs", "s_max", "max_samples",
             "rank_start", "mode", "stratum", "s_strata", "n_strata", "g_c",
-            "n_probes", "expo")]
+            "n_probes", "expo")] \
+        + [(name, ctypes.c_float) for name in ("d2_max", "slack_max")]
 
 
 def _f32(x):
     """A Python float rounded once to float32, as torch rounds a scalar."""
     return float(np.float32(x))
+
+
+def _f32_down(x):
+    """The largest float32 at or below a Python float ``x`` >= 0."""
+    f = np.float32(x)
+    if float(f) > x:
+        f = np.nextafter(f, np.float32(0.0))
+    return float(f)
+
+
+def _pow2(x):
+    return x > 0 and math.frexp(x)[0] == 0.5
 
 
 def march_params(scale, exp_step_factor, grid_size, cascades, max_samples,
@@ -436,6 +596,87 @@ def march_params(scale, exp_step_factor, grid_size, cascades, max_samples,
     return p
 
 
+def window_params(scale, exp_step_factor, grid_size, cascades, max_samples,
+                  dt_scale, n_window, s_cap, skip=None):
+    """The window kernel's constants (:func:`march_params`) and, with
+    ``skip``, its stage A, where the proof below holds (else mode 0: every
+    ray walks every rung).
+
+    Why the stage-A test is a superset of the rung test (one cascade,
+    uniform steps). A rung is occupied when its position x's cell is set in
+    cascade 0's grid, whose cells' half-width is ``scale`` (<= 0.5), so the
+    fine coordinate is ``0.5 * v * G`` and the stage-A one ``0.5 * v * g``,
+    from the same ``v = x / scale + 1`` rounded once; with G and g powers
+    of two both products are exact, so the stage-A cell of x is its fine
+    cell floor-divided by the pool, clamps included, with no rounding
+    between them. The stage-A grid is the pooled grid dilated one cell, so
+    a probe whose stage-A coordinate lies within one cell of x's finds that
+    cell set. Probes sit at ``stage_a_probes`` of a stratum, spaced for
+    steps of ``a * dir_norm / (1 - SKIP_MARGIN)``, so every rung lies within
+    ``r`` rungs of one (r = (stratum - 1) / (2 p)) and, for |d| <= ``d_max``
+    = cell (1 - SKIP_MARGIN) / (r a) (at least ``dir_norm``), within cell
+    (1 - SKIP_MARGIN) of it on each axis.
+
+    Rounding: the kernel computes every position with errors below
+    ``POS_ERR`` (|o|_1 + (|t_start| + |t_end|) |d|_1), at least four times
+    the bound the ladder's, the product's and the sum's roundings reach,
+    and admits a ray only where that bound is below ``slack_max`` = a
+    quarter of SKIP_MARGIN cells (two positions: half of it) and |d|^2 is
+    below ``d2_max`` = min(d_max, dir_norm)^2 (1 - 2^-20) rounded down (a
+    ray beyond the grids' ``dir_norm`` walks every rung, as does one beyond
+    the proof's d_max; the fp32 sum of squares is within 2^-21 of |d|^2);
+    the cell coordinates' own rounding (~1e-4 cells at G 1024) takes less
+    than the half left. A stratum whose first rung is at or past the exit
+    is empty, with every later one: the ladder rises by at least a step,
+    far above an ulp, a rung.
+    """
+    p = march_params(scale, exp_step_factor, grid_size, cascades,
+                     max_samples, dt_scale, n_window, s_cap)
+    if skip is None:
+        return p
+    st = skip.stratum
+    a = SQRT3 / max_samples
+    g_c = skip.stage_a.shape[0]
+    if not (cascades == 1 and exp_step_factor == 0.0 and scale <= 0.5
+            and _pow2(grid_size) and _pow2(g_c) and g_c <= grid_size):
+        return p
+    cell = 2.0 * scale / g_c
+    offs = stage_a_probes(st, a * skip.dir_norm / (1.0 - SKIP_MARGIN), cell)
+    if len(offs) > MAX_PROBES:
+        return p
+    r = (st - 1) / (2.0 * len(offs))
+    d_max = math.inf if r == 0 else cell * (1.0 - SKIP_MARGIN) / (r * a)
+    p.mode, p.g_c, p.n_probes = 1, g_c, len(offs)
+    p.gc_f, p.gc_m1 = _f32(g_c), _f32(g_c - 1.0)
+    for i, off in enumerate(offs):
+        p.probe_off[i] = _f32(off)
+    p.stratum, p.s_strata = st, 1
+    p.n_strata = -(-n_window // st)
+    d_max = min(d_max, skip.dir_norm)
+    p.d2_max = _f32_down(d_max * d_max * (1.0 - 2.0 ** -20))
+    p.slack_max = _f32_down(cell * SKIP_MARGIN / 4.0)
+    return p
+
+
+def window_lanes(n, n_window, p):
+    """Lanes a ray of the window kernel takes: the power of two at or above
+    its window's strata (``p.stratum`` rungs, or 8 without a stage A), 4 to
+    32; halved while n rays would ask for more than eight times
+    RESIDENT_THREADS, down to 4 with a stage A and 8 without; doubled while
+    they leave them unfilled. (On a trained bench frame's eleven rounds
+    this was within 7% of the best count in each, PERF.md §6.)"""
+    units = -(-n_window // (p.stratum if p.mode else 8))
+    floor = 4 if p.mode else 8
+    lanes = 4
+    while lanes < min(units, 32):
+        lanes *= 2
+    while lanes > floor and n * lanes > 8 * RESIDENT_THREADS:
+        lanes //= 2
+    while lanes < 32 and n * lanes < RESIDENT_THREADS:
+        lanes *= 2
+    return lanes
+
+
 @functools.cache
 def _kernels():
     """The C entry points of csrc/raymarch.cu (built on first use)."""
@@ -443,8 +684,8 @@ def _kernels():
     train, window = lib.march_train, lib.march_window
     train.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_longlong] \
         + [ctypes.c_void_p] * 14
-    window.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 15
+    window.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_int,
+                       ctypes.c_longlong] + [ctypes.c_void_p] * 17
     train.restype = window.restype = ctypes.c_int
     return train, window
 
@@ -514,21 +755,30 @@ def _launch_train(rays_o, rays_d, hits_t, density_bitfield, cascades, scale,
                         rm_samples=n_samples.sum(), t_start=t_start)
 
 
-def _launch_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
-                   cascades, scale, exp_step_factor, grid_size, max_samples,
-                   n_window, s_cap, dt_scale):
-    dev, n = rays_o.device, rays_o.shape[0]
-    p = march_params(scale, exp_step_factor, grid_size, cascades,
-                     max_samples, dt_scale, n_window, s_cap)
+def _launch_window(rays_o, rays_d, t_start, t2, cursor, alive,
+                   density_bitfield, cascades, scale, exp_step_factor,
+                   grid_size, max_samples, n_window, s_cap, dt_scale, skip):
+    """The window kernel on the rows ``alive`` of the frame's arrays, their
+    new cursors written into ``cursor`` in place."""
+    dev, m, n = rays_o.device, rays_o.shape[0], alive.shape[0]
+    p = window_params(scale, exp_step_factor, grid_size, cascades,
+                      max_samples, dt_scale, n_window, s_cap, skip)
     _check_counts(p, n_window, s_cap)
     f32 = torch.float32
-    rays_o = _operand(rays_o, "rays_o", f32, (n, 3), dev)
-    rays_d = _operand(rays_d, "rays_d", f32, (n, 3), dev)
-    t_start = _operand(t_start, "t_start", f32, (n,), dev)
-    t2 = _operand(t2, "t2", f32, (n,), dev)
-    cursor = _operand(cursor, "cursor", torch.int64, (n,), dev)
+    rays_o = _operand(rays_o, "rays_o", f32, (m, 3), dev)
+    rays_d = _operand(rays_d, "rays_d", f32, (m, 3), dev)
+    t_start = _operand(t_start, "t_start", f32, (m,), dev)
+    t2 = _operand(t2, "t2", f32, (m,), dev)
+    alive = _operand(alive, "alive", torch.int64, (n,), dev)
+    _operand(cursor, "cursor", torch.int64, (m,), dev)
+    if not cursor.is_contiguous():
+        raise ValueError("cursor must be contiguous: it is written in place")
     bits = _operand(density_bitfield, "density_bitfield", torch.uint8,
                     tuple(density_bitfield.shape), dev)
+    stage_a = None
+    if p.mode:
+        stage_a = _operand(skip.stage_a, "skip.stage_a", torch.bool,
+                           tuple(skip.stage_a.shape), dev)
     xyzs = torch.empty((n, s_cap, 3), dtype=f32, device=dev)
     deltas = torch.empty((n, s_cap), dtype=f32, device=dev)
     ts = torch.empty((n, s_cap), dtype=f32, device=dev)
@@ -539,12 +789,13 @@ def _launch_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
     k_idx = torch.empty((n, s_cap), dtype=torch.int64, device=dev)
     if n:
         rc = _kernels()[1](
-            ctypes.byref(p), n, rays_o.data_ptr(), rays_d.data_ptr(),
-            t_start.data_ptr(), t2.data_ptr(), cursor.data_ptr(),
-            bits.data_ptr(), xyzs.data_ptr(), deltas.data_ptr(),
-            ts.data_ptr(), mask.data_ptr(), n_samples.data_ptr(),
-            cursor_new.data_ptr(), exhausted.data_ptr(), k_idx.data_ptr(),
-            _stream(dev))
+            ctypes.byref(p), window_lanes(n, n_window, p), n,
+            rays_o.data_ptr(), rays_d.data_ptr(), t_start.data_ptr(),
+            t2.data_ptr(), cursor.data_ptr(), alive.data_ptr(),
+            bits.data_ptr(), None if stage_a is None else stage_a.data_ptr(),
+            xyzs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
+            mask.data_ptr(), n_samples.data_ptr(), cursor_new.data_ptr(),
+            exhausted.data_ptr(), k_idx.data_ptr(), _stream(dev))
         if rc != 0:
             raise RuntimeError(f"march_window launch failed: cudaError {rc}")
         march_rays_window.launches += 1
@@ -616,28 +867,66 @@ def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
                       ) -> WindowMarchResults:
     """March ``n_window`` ladder rungs from each ray's ``cursor``, emitting
     at most ``s_cap`` occupied samples; the new cursor and whether the ray
-    passed its exit there.
+    passed its exit there. ``cursor`` is left as it is.
 
-    CUDA tensors run csrc/raymarch.cu's ``march_window`` kernel, bit for bit
-    :func:`march_rays_window_plain` (its samples recomputed differentiably
-    where autograd records a function of the rays or ``t_start``, as in
-    :func:`march_rays_train`); CPU tensors run the plain version.
-    ``march_rays_window.launches`` counts kernel launches.
+    :func:`march_rays_window_into` over every row, on a copy of ``cursor``,
+    with every rung tested: CUDA tensors run csrc/raymarch.cu's
+    ``march_window`` kernel, bit for bit :func:`march_rays_window_plain`;
+    CPU tensors run the plain version. ``march_rays_window.launches`` counts
+    the kernel's launches (this function's and
+    :func:`march_rays_window_into`'s).
     """
-    if dt_scale is None:
-        dt_scale = scale
     if _device_type(rays_o) == "cpu":
         return march_rays_window_plain(
             rays_o, rays_d, t_start, t2, cursor, density_bitfield, cascades,
             scale, exp_step_factor, grid_size, max_samples, n_window, s_cap,
             dt_scale)
-    mr = _launch_window(rays_o, rays_d, t_start, t2, cursor,
+    rows = torch.arange(rays_o.shape[0], device=rays_o.device)
+    return march_rays_window_into(
+        rays_o, rays_d, t_start, t2, cursor.clone(), rows, density_bitfield,
+        cascades, scale, exp_step_factor, grid_size, max_samples, n_window,
+        s_cap, dt_scale)
+
+
+def march_rays_window_into(rays_o, rays_d, t_start, t2, cursor, alive,
+                           density_bitfield, cascades, scale,
+                           exp_step_factor, grid_size, max_samples, n_window,
+                           s_cap, dt_scale=None, skip=None
+                           ) -> WindowMarchResults:
+    """:func:`march_rays_window` of the frame's rows ``alive`` (int64,
+    distinct rows), in place: row r marches row ``alive[r]`` of ``rays_o``,
+    ``rays_d``, ``t_start``, ``t2`` and ``cursor`` (the frame's arrays), and
+    its new cursor is written into ``cursor[alive[r]]``. Returns the
+    results of the rows (their new cursors in ``cursor`` too).
+
+    CUDA tensors run csrc/raymarch.cu's ``march_window`` kernel, which
+    reads and writes the frame's arrays through ``alive`` (no gather, no
+    scatter) and, with ``skip`` (a :class:`WindowSkip`), tests only the
+    strata its stage-A grid cannot prove empty; bit for bit
+    :func:`march_rays_window_plain` of the gathered rows with or without
+    it (its samples recomputed differentiably where autograd records a
+    function of the rays or ``t_start``, as in :func:`march_rays_train`).
+    CPU tensors gather the rows, run :func:`march_rays_window_plain` and
+    scatter the cursor.
+    """
+    if dt_scale is None:
+        dt_scale = scale
+    if _device_type(rays_o) == "cpu":
+        mr = march_rays_window_plain(
+            rays_o[alive], rays_d[alive], t_start[alive], t2[alive],
+            cursor[alive], density_bitfield, cascades, scale,
+            exp_step_factor, grid_size, max_samples, n_window, s_cap,
+            dt_scale)
+        cursor[alive] = mr.cursor
+        return mr
+    mr = _launch_window(rays_o, rays_d, t_start, t2, cursor, alive,
                         density_bitfield, cascades, scale, exp_step_factor,
-                        grid_size, max_samples, n_window, s_cap, dt_scale)
+                        grid_size, max_samples, n_window, s_cap, dt_scale,
+                        skip)
     if _needs_grad(rays_o, rays_d, t_start):
         ts, deltas, xyzs = _samples_at(
-            rays_o, rays_d, t_start, mr.k_idx, mr.mask, exp_step_factor,
-            max_samples, grid_size, dt_scale)
+            rays_o[alive], rays_d[alive], t_start[alive], mr.k_idx, mr.mask,
+            exp_step_factor, max_samples, grid_size, dt_scale)
         mr = mr._replace(xyzs=xyzs, deltas=deltas, ts=ts)
     return mr
 
