@@ -14,7 +14,10 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 2. build, 11. build_hashgrid, 16a. build_linetable, 36. build_raymarch and
    37. build_composite: compile the hat-product, the hash-grid, the
    line-table, the march and the composite kernels from
-   mfnerf_tpu_torch/csrc/, one nvcc each, started together;
+   mfnerf_tpu_torch/csrc/, one nvcc each, started together; then (ptxas)
+   what ptxas said in those builds (build.ptxas_report) of the registers,
+   spills and shared memory of march_train_kernel and of each
+   instantiation of the composite backward's kernels;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
@@ -98,8 +101,12 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    two-level strata), N_MARCH_DEGENERATE degenerate rays (missing the box,
    starting inside it, along the axes, grazing a face), an empty and a
    full bitfield (each budgeted and exact), the dense oracle's rank
-   windows on every MARCH_ORACLE_STRIDE-th ray of the held-out view, every
-   window march of one render_test frame of it (the stage-A skip), and the
+   windows on every MARCH_ORACLE_STRIDE-th ray of the held-out view, the
+   training kernel's edge sets with gradients (the cap and the exit inside
+   a pass, rank_start 40, 128 and 200, exact marches of 20, 50 and 1000
+   rungs, budgets of one and two strata, one stratum at 1,024 rays), every
+   window march of one
+   render_test frame of it (the stage-A skip), and the
    window edge sets (an empty and a full bitfield, degenerate rays at
    mid-ladder cursors, |d| three times dir_norm, windows of stratum + 1 and
    3 stratum - 1 rungs; three quarters of each set's rows alive); 36b on a
@@ -123,16 +130,23 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    (rows within COMPOSITE_TIE_ULPS of it are counted apart); the backward
    within COMPOSITE_BWD_TOL relative L2 of composite_train_bwd_plain and
    of autograd through composite_train_plain, for seeded incoming
-   gradients of all four outputs and for the loss's own; each kernel bit
-   for bit across two launches. 37a on the trained bench field (phase 9):
-   one step's block, the edge blocks (an opaque first sample, the
-   threshold tie, masked holes, empty rows, S = 256), every round of one
+   gradients of all four outputs, of all but ws and the loss's own, and
+   bit for bit this tree's two-walk backward kernel (kept for rows of
+   more than four passes; an earlier tree's kernel is built only by
+   tools/composite_check.py --bwd-ab) on each (and, reported, to the
+   kernels' order model composite_train_bwd_order_plain), each output left
+   out once without changing the others' bits; each kernel bit for bit across two launches.
+   37a on the trained bench field (phase 9): one step's block, the edge
+   blocks (an opaque first sample, the threshold tie, masked holes, empty
+   rows, S = 256, and S = 8, 40, 64, 128 and 200 with holes and rows
+   saturating in mid-pass), every round of one
    render_test frame of the held-out view, and the edge blocks as serving
    rounds; 37b on a step of the trained MixedFeature field (phase 14); 37c
    in phase 20, on each recipe's cascade step (the card's step of the
    oracle) and the rounds of its five-cascade serving loop. The step's
-   forward and backward and the frame's first round are timed by
-   CUDA-graph replay beside their plain versions and bounds. The train,
+   forward and backward (and the two-walk backward) and the frame's first
+   round are timed by CUDA-graph replay beside their plain versions and
+   bounds. The train,
    train_mf, cli and cli_colmap phases check one forward and one backward
    launch a step and one round a window march;
 19. cli: the command line (mfnerf_tpu_torch/train.py main, CLI_ARGS: the
@@ -1328,6 +1342,58 @@ def march_sets_of(system, seed):
     return sets
 
 
+def march_train_edge_sets(system, seed):
+    """The training kernel's edges on ``system``'s configuration, as
+    (label, args, kwargs), each checked with gradients: on a full bitfield
+    the cap inside a pass (s_max 40 and 100) and the exit inside one (the
+    degenerate rays that start inside the box, cap max_samples: every ray
+    stops at its exit); rank_start 40, 128 and 200 on the step; the exact
+    march over n_rungs 20, 50 and 1000 (none a multiple of 32); budgets of
+    one and two strata a ray, and of one at 1,024 rays (the five-cascade
+    steps' count);
+    each budgeted and exact where both apply."""
+    from mfnerf_tpu_torch.models.rendering import _scene_hits, train_strata
+    cfg, dev, occ = system.model_cfg, system.device, system.occ
+    args, kw = step_march_operands(system, seed)
+    strata = kw["strata"]
+    full = torch.full_like(occ.density_bitfield, 255)
+    strata_f = train_strata(cfg, dataclasses.replace(
+        occ, density_bitfield=full).refresh_coarse(cfg), system.rcfg)
+
+    def changed(a, **at):
+        a = list(a)
+        for i, v in at.items():
+            a[int(i[1:])] = v
+        return tuple(a)
+
+    sets = []
+    for s_max in (40, 100):
+        a = changed(args, a3=full, a11=s_max)
+        sets += [(f"cap_{s_max}", a, dict(kw, strata=strata_f)),
+                 (f"cap_{s_max}_exact", a, {})]
+    ro, rd = degenerate_rays(cfg.scale, 4 * 1024, seed + 1, dev)
+    ro, rd = ro[1024:2048].contiguous(), rd[1024:2048].contiguous()
+    noise = torch.rand((1024,), generator=torch.Generator(
+        device=dev).manual_seed(seed + 2), device=dev)
+    a = changed(args, a0=ro, a1=rd, a2=_scene_hits(system.model, ro, rd),
+                a3=full, a9=noise, a11=args[8])
+    sets += [("exit", a, dict(kw, strata=strata_f)), ("exit_exact", a, {})]
+    for r in (40, 128, 200):
+        sets += [(f"rank_start_{r}", args, dict(kw, rank_start=r)),
+                 (f"rank_start_{r}_exact", args, dict(rank_start=r))]
+    for n_rungs in (20, 50, 1000):
+        sets.append((f"exact_{n_rungs}_rungs", changed(args, a10=n_rungs),
+                     {}))
+    for s_strata in (1, 2):
+        sets.append((f"s_strata_{s_strata}", args,
+                     dict(kw, strata=strata._replace(s_strata=s_strata))))
+    few = changed(args, **{f"a{i}": args[i][:1024].contiguous()
+                           for i in (0, 1, 2, 9)})
+    sets.append(("s_strata_1_1024_rays", few,
+                 dict(kw, strata=strata._replace(s_strata=1))))
+    return sets
+
+
 def oracle_march_sets(system, rays, rcfg):
     """The dense oracle's exact march (render_test_dense's chunks) on every
     MARCH_ORACLE_STRIDE-th ray of a view: one set a rank window."""
@@ -1419,7 +1485,7 @@ def window_edge_sets(model, occ, rcfg, rays, seed):
 
 
 def march_phase(label, train_sets, window_sets=(), timed_train=0,
-                window_edges=(), time_rounds=False):
+                window_edges=(), time_rounds=False, train_edges=()):
     """The march checks of a configuration: every training-march set
     (label, args, kwargs), every window set ((args, kwargs): one a round of
     the alive-ray loop) and every window edge set (label, args, kwargs)
@@ -1428,7 +1494,8 @@ def march_phase(label, train_sets, window_sets=(), timed_train=0,
     ``grad``) and timed, the first (largest) window timed with gradients,
     and with ``time_rounds`` every round timed (CUDA-graph replay) and the
     rounds' sum. Prints a phase line a training set, one an edge set and
-    one for the window sets; returns the timed sets' fields (the rounds'
+    one for the window sets; every training edge set (label, args,
+    kwargs) with gradients. Returns the timed sets' fields (the rounds'
     times under "window_rounds") and the worst error."""
     timed = {}
     err = 0.0
@@ -1439,6 +1506,11 @@ def march_phase(label, train_sets, window_sets=(), timed_train=0,
         err = max(err, fields["max_abs_err"])
         if i == timed_train:
             timed["train"] = fields
+        torch.cuda.empty_cache()
+    for name, args, kw in train_edges:
+        fields = check_march_train(name, args, kw, grad=True)
+        phase("march", config=label, edge=True, **fields)
+        err = max(err, fields["max_abs_err"])
         torch.cuda.empty_cache()
     for name, args, kw in window_edges:
         fields = check_march_window(name, args, kw)
@@ -1623,6 +1695,13 @@ def composite_edge_sets(dev, seed, n=4096):
     sets.append(("empty_rows", sig, dl, mask, 1e-4))
     sig, dl, mask = block(256, 1.0)
     sets.append(("s256", sig, dl, mask, 1e-4))
+    # the backward's row lengths (a pass of 8 lanes; 2, 2, 4 and 4 passes in
+    # registers; 7 passes, the two-walk kernel), with holes, and a quarter
+    # of the rows saturating in mid-pass (opaque from slot s // 3 + 5)
+    for s_ in (8, 40, 64, 128, 200):
+        sig, dl, mask = block(s_, 2.0, valid=0.7)
+        sig[: n // 4, s_ // 3 + 5:] = 400.0
+        sets.append((f"bwd_s{s_}", sig, dl, mask, 1e-4))
     out = []
     for label, sig, dl, mask, thr in sets:
         s = sig.shape[1]
@@ -1742,7 +1821,9 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
     twice, bit for bit. With ``timed``, device times by CUDA-graph replay
     beside the plain versions' and the bounds. Returns the fields."""
     from mfnerf_tpu_torch.ops.composite import (
-        composite_train_bwd, composite_train_bwd_plain, composite_train_fwd,
+        _launch_train_bwd, bwd_passes, composite_train_bwd,
+        composite_train_bwd_order_plain, composite_train_bwd_plain,
+        composite_train_fwd,
         composite_train_fwd_plain, composite_train_plain)
     sig, rgbs, dl, ts, mask = args
     n, s = sig.shape
@@ -1784,7 +1865,7 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
     rand = tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                   ).to(sig.device)
                  for shape in ((n,), (n,), (n, 3), (n, s)))
-    ups_sets = [("all", rand)]
+    ups_sets = [("all", rand), ("no_ws", rand[:3] + (None,))]
     if loss_grads is not None:
         ups_sets.append(("loss", tuple(loss_grads.get(k) for k in (
             "opacity", "depth", "rgb", "ws"))))
@@ -1818,6 +1899,26 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
               f"{rel_plain}, autograd {rel_auto}")
         check(bwd[ups_label]["bit_equal"], f"composite_train_bwd {label}: "
               f"two launches differ")
+        # the two-walk kernel on the same operands
+        two = _launch_train_bwd(*(x.float() for x in args[:4]), mask,
+                                *ups, thr, (True,) * 4, passes=0)
+        bwd[ups_label]["two_walk_bit_equal"] = _bits_equal(g1, two)
+        check(bwd[ups_label]["two_walk_bit_equal"], f"composite_train_bwd "
+              f"{label} ({ups_label}): differs from the two-walk kernel")
+        bwd[ups_label]["order_model_bit_equal"] = _bits_equal(
+            g1, composite_train_bwd_order_plain(*args, *ups, thr))
+    # each output left out: the others' bits unchanged
+    full = composite_train_bwd(*args, *rand, thr)
+    for k in range(4):
+        needs = tuple(j != k for j in range(4))
+        part = composite_train_bwd(*args, *rand, thr, needs=needs)
+        ok = part[k] is None and _bits_equal(
+            [g for j, g in enumerate(part) if j != k],
+            [g for j, g in enumerate(full) if j != k])
+        check(ok, f"composite_train_bwd {label}: output {k} left out "
+              f"changes the others")
+    fields["bwd_outputs_left_out_equal"] = True
+    fields["bwd_passes"] = bwd_passes(s)
     fields["bwd"] = bwd
     fields["bwd_tol"] = COMPOSITE_BWD_TOL
     fields["bwd_max_abs_err"] = max(b["max_abs_err"] for b in bwd.values())
@@ -1840,6 +1941,10 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
             composite_bwd_bound(args, included, ups, needs)
         fields["bwd_share_of_bound"] = fields["bwd_bound_ms"] \
             / fields["bwd_ms"]
+        fields["bwd_two_walk_ms"] = graph_ms(
+            lambda: _launch_train_bwd(*(x.float() for x in args[:4]), mask,
+                                      *ups, thr, needs, passes=0),
+            COMPOSITE_GRAPH_ITERS)
         fields["bwd_incoming"] = ups_sets[-1][0]
     return fields
 
@@ -3067,7 +3172,7 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                     for kind, f in comp_timed.items()},
                 composite_bwd={key: comp_timed["train"][key] for key in (
                     "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
-                    "bwd_bound_by")},
+                    "bwd_bound_by", "bwd_two_walk_ms", "bwd_passes")},
                 composite_max_abs_err=comp_err)
 
 
@@ -3380,6 +3485,12 @@ def main():
                       f"{EXR_SRC} links {extra['linked']}")
             phase(label, source=source, built=fresh, seconds=seconds,
                   **extra, card=card)
+        ptxas = {lib: build.ptxas_report(lib, kernel)
+                 for lib, kernel in (("raymarch", "march_train_kernel"),
+                                     ("composite", "composite_train_bw"))}
+        check(all(ptxas.values()), f"ptxas named no kernel: {ptxas}")
+        phase("ptxas", march_train=ptxas["raymarch"],
+              composite_train_bw=ptxas["composite"], card=card)
 
     # ---- 3. kernel against its plain version, at the serving shapes
     cfg = NGPConfig(lr_k_max=256, lr_fused=True)   # the bench model
@@ -3623,7 +3734,8 @@ def main():
         frame_window_sets(system, test_rays, test_rcfg),
         window_edges=window_edge_sets(system.model, system.occ, test_rcfg,
                                       test_rays, SEED + 82),
-        time_rounds=True)
+        time_rounds=True,
+        train_edges=march_train_edge_sets(system, SEED + 84))
 
     # ---- 37a. the composite kernels against their plain versions: a step
     # of the trained field, the edge blocks, every round of a trained frame
@@ -4082,6 +4194,7 @@ def main():
         "max_abs_err": march_err, **{key: bench_march["train"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
         "shape": "bench.py's step: 8192 rays, the two-level strata",
+        "registers": ptxas["raymarch"],
         "mf": {key: mf_march["train"][key] for key in (
             "rays", "ms", "plain_ms", "bound_ms", "bound_by")},
         "cascades": {label: m["train"] for label, m in
@@ -4139,8 +4252,15 @@ def main():
         "library_ms": None,
         "shape": "the same step, the loss's incoming gradients (opacity, "
                  "rgb), d_sigmas and d_rgbs",
+        "redesigned": "rows of up to four passes in registers, loaded "
+                      "once; passes with no included sample skip their "
+                      "scans",
+        "passes": bench_comp["train"]["bwd_passes"],
+        "two_walk_ms": bench_comp["train"]["bwd_two_walk_ms"],
+        "registers": ptxas["composite"],
         "mf": {key: mf_comp["train"]["bwd_" + key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by")},
+            "ms", "plain_ms", "bound_ms", "bound_by", "two_walk_ms",
+            "passes")},
         "cascades": {label: c["bwd"] for label, c in
                      cascade_comp.items()}}, {
         "name": "composite_test_step", "route": "cuda", "source": comp_src,

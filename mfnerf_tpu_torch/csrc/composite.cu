@@ -44,11 +44,16 @@
 // every one of its rows has fallen to T <= T_threshold (nothing later is
 // included: the products of factors in [0, 1] never rise); the training
 // forward then writes 0 to the rest of ws. The backward walks each row
-// twice: front to back for the transmittance at the start of each pass
-// (kept in shared memory), then back to front, recomputing each pass's
-// weights from that transmittance (the same operations as the forward, so
-// the same included samples), R within the pass by a shuffle scan of the
-// affine maps and across passes by carrying R from the pass behind.
+// twice: front to back for the transmittance at the start of each pass,
+// then back to front, recomputing each pass's weights from that
+// transmittance (the same operations as the forward, so the same included
+// samples), R within the pass by a shuffle scan of the affine maps and
+// across passes by carrying R from the pass behind. Rows of up to four
+// passes (a training step's 64 and 128 slots) keep their operands, e and T
+// in registers between the walks and skip the passes that include nothing
+// (composite_train_bw_regs_kernel); longer rows keep each pass's starting
+// transmittance in shared memory and reload their operands
+// (composite_train_bw_kernel). Both give the same bits.
 //
 // Rounding: every product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn, __fsub_rn), so nvcc's FMA contraction cannot move
@@ -126,18 +131,23 @@ __device__ __forceinline__ bool warp_past_end(long long n, int width) {
 // alpha and 1 - alpha of a slot, as the plain version computes them:
 // where(mask, 1 - exp(-sigma * delta), 0), then 1 - alpha; and e, the
 // exp itself (1 where masked).
-__device__ __forceinline__ void alpha_of(const float* sigmas,
-                                         const float* deltas, long long at,
-                                         bool m, float& a, float& om,
-                                         float& e) {
+__device__ __forceinline__ void alpha_from(bool m, float sigma, float delta,
+                                           float& a, float& om, float& e) {
   a = 0.0f;
   om = 1.0f;
   e = 1.0f;
   if (m) {
-    e = expf(-__fmul_rn(sigmas[at], deltas[at]));
+    e = expf(-__fmul_rn(sigma, delta));
     a = __fsub_rn(1.0f, e);
     om = __fsub_rn(1.0f, a);
   }
+}
+
+__device__ __forceinline__ void alpha_of(const float* sigmas,
+                                         const float* deltas, long long at,
+                                         bool m, float& a, float& om,
+                                         float& e) {
+  alpha_from(m, m ? sigmas[at] : 0.0f, m ? deltas[at] : 0.0f, a, om, e);
 }
 
 // The product of v over the segment's lanes before this one (1 on its first
@@ -272,6 +282,25 @@ __global__ void __launch_bounds__(kThreads) composite_train_fw_kernel(
   }
 }
 
+// The backward's gradients of a row's slots from, from + stride, .. below
+// s: 0 in every output asked for.
+__device__ __forceinline__ void zero_slots(long long row, int from, int s,
+                                           int stride, float* d_sigmas,
+                                           float* d_rgbs, float* d_deltas,
+                                           float* d_ts) {
+  for (int i = from; i < s; i += stride) {
+    const long long at = row + i;
+    if (d_sigmas != nullptr) d_sigmas[at] = 0.0f;
+    if (d_deltas != nullptr) d_deltas[at] = 0.0f;
+    if (d_rgbs != nullptr) {
+      d_rgbs[3 * at] = 0.0f;
+      d_rgbs[3 * at + 1] = 0.0f;
+      d_rgbs[3 * at + 2] = 0.0f;
+    }
+    if (d_ts != nullptr) d_ts[at] = 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) composite_train_bw_kernel(
     long long n, int s, int width, float thr,
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
@@ -366,17 +395,167 @@ __global__ void __launch_bounds__(kThreads) composite_train_bw_kernel(
   }
   // the passes past the warp's stop hold no included sample
   if (l.live) {
-    for (int i = walked * width + l.sl; i < s; i += width) {
-      const long long at = row + i;
-      if (d_sigmas != nullptr) d_sigmas[at] = 0.0f;
-      if (d_deltas != nullptr) d_deltas[at] = 0.0f;
-      if (d_rgbs != nullptr) {
-        d_rgbs[3 * at] = 0.0f;
-        d_rgbs[3 * at + 1] = 0.0f;
-        d_rgbs[3 * at + 2] = 0.0f;
-      }
-      if (d_ts != nullptr) d_ts[at] = 0.0f;
+    zero_slots(row, walked * width + l.sl, s, width, d_sigmas, d_rgbs,
+               d_deltas, d_ts);
+  }
+}
+
+// The backward of rows of at most P passes (a template parameter: 1, 2 or
+// 4): the same walks and the same operations in the same order as
+// composite_train_bw_kernel, so the same bits, with every operand of a
+// lane's slots loaded once, before the front walk (the mask, then sigma,
+// delta, t, rgb and g_ws of the valid slots), and kept in registers with
+// each slot's e and T for the back walk; no shared memory. The front walk
+// records, per pass, whether a slot of the warp's pass is included; the
+// back walk skips the scan of a pass with none, writing its gradients
+// (0, and w g = 0 g for d_rgbs and d_ts, as the two-walk kernel rounds them)
+// and carrying R as 0 + R. That is exact: with the row on the whole warp
+// (S > 16), a pass the front walk reached starts above the threshold, and
+// the first valid slot's T is that start (the scan multiplies it by ones),
+// so a pass with no included slot is wholly masked, where every lane's map
+// is x -> 0 + 1 x and the two-walk kernel's R is 0 + 1 R; with narrower
+// rows a row has one pass, and nothing reads R after it. A pass masked on
+// the whole warp skips its front scan too (T is unchanged by it). On a
+// trained bench step (8,192 rows of 64 slots, most with fewer than 32
+// samples) this took the kernel from 9.9 to 6.4 us (NVIDIA H100 80GB
+// HBM3, 700 W, tools/composite_check.py --bwd-ab); 16 B stores of d_rgbs
+// (each lane's four floats shuffled from their slots' lanes) and of the
+// zero tail cost more instructions than they saved, and went.
+template <int P>
+__global__ void __launch_bounds__(kThreads) composite_train_bw_regs_kernel(
+    long long n, int s, int width, float thr,
+    const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+    const float* __restrict__ deltas, const float* __restrict__ ts,
+    const bool* __restrict__ mask, const float* __restrict__ g_opacity,
+    const float* __restrict__ g_depth, const float* __restrict__ g_rgb,
+    const float* __restrict__ g_ws, float* __restrict__ d_sigmas,
+    float* __restrict__ d_rgbs, float* __restrict__ d_deltas,
+    float* __restrict__ d_ts) {
+  if (warp_past_end(n, width)) return;
+  const Lane l = lane_of(n, width);
+  const long long row = l.ray * s;
+
+  // every slot's mask, then every valid slot's operands
+  bool mk[P];
+  float sg[P], dl[P], tv[P], cr[P], cg[P], cb[P], gw[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int i = p * width + l.sl;
+    mk[p] = l.live && i < s && mask[row + i];
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long at = row + p * width + l.sl;
+    sg[p] = dl[p] = tv[p] = cr[p] = cg[p] = cb[p] = gw[p] = 0.0f;
+    if (mk[p]) {
+      sg[p] = sigmas[at];
+      dl[p] = deltas[at];
+      tv[p] = ts[at];
+      cr[p] = rgbs[3 * at];
+      cg[p] = rgbs[3 * at + 1];
+      cb[p] = rgbs[3 * at + 2];
+      if (g_ws != nullptr) gw[p] = g_ws[at];
     }
+  }
+
+  // front to back: each slot's e and T before it, up to the pass at which
+  // every row of the warp has fallen to thr
+  float t = 1.0f;
+  int walked = 0;
+  bool stopped = false;
+  unsigned included = 0;             // bit p: the warp's pass p includes
+  float e[P], ti[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    e[p] = 1.0f;
+    ti[p] = 0.0f;
+    if (stopped) continue;           // the same on the whole warp
+    if (p * width >= s || __all_sync(kFull, !(l.live && t > thr))) {
+      stopped = true;
+      continue;
+    }
+    walked = p + 1;
+    // a pass masked on the whole warp: T before each slot is t, and t * 1
+    // is t, so its scan is skipped too
+    if (!__any_sync(kFull, mk[p])) continue;
+    float a, om, total;
+    alpha_from(mk[p], sg[p], dl[p], a, om, e[p]);
+    ti[p] = __fmul_rn(t, excl_product(om, l.sl, width, total));
+    if (__any_sync(kFull, mk[p] && ti[p] > thr)) included |= 1u << p;
+    t = __fmul_rn(t, total);
+  }
+
+  float go = 0.0f, gd = 0.0f, gr = 0.0f, gg = 0.0f, gb = 0.0f;
+  if (l.live) {
+    if (g_opacity != nullptr) go = g_opacity[l.ray];
+    if (g_depth != nullptr) gd = g_depth[l.ray];
+    if (g_rgb != nullptr) {
+      gr = g_rgb[3 * l.ray];
+      gg = g_rgb[3 * l.ray + 1];
+      gb = g_rgb[3 * l.ray + 2];
+    }
+  }
+  // back to front, as composite_train_bw_kernel
+  float behind = 0.0f;
+#pragma unroll
+  for (int p = P - 1; p >= 0; --p) {
+    if (p >= walked) continue;
+    const int i = p * width + l.sl;
+    const long long at = row + i;
+    bool inc = false;
+    float w = 0.0f, big_b = 0.0f;
+    if ((included >> p) & 1u) {
+      float a = 0.0f, om = 1.0f;
+      if (mk[p]) {
+        a = __fsub_rn(1.0f, e[p]);
+        om = __fsub_rn(1.0f, a);
+      }
+      inc = mk[p] && ti[p] > thr;
+      if (inc) w = __fmul_rn(a, ti[p]);
+      float big_g = 0.0f;
+      if (inc) {
+        big_g = __fadd_rn(gw[p], go);
+        big_g = __fadd_rn(big_g, __fmul_rn(gd, tv[p]));
+        big_g = __fadd_rn(big_g, __fmul_rn(gr, cr[p]));
+        big_g = __fadd_rn(big_g, __fmul_rn(gg, cg[p]));
+        big_g = __fadd_rn(big_g, __fmul_rn(gb, cb[p]));
+      }
+      float c = inc ? __fmul_rn(big_g, a) : 0.0f;
+      float m = om;
+      affine_suffix(c, m, l.sl, width);
+      const float c_next = __shfl_down_sync(kFull, c, 1, width);
+      const float m_next = __shfl_down_sync(kFull, m, 1, width);
+      const float c_pass = __shfl_sync(kFull, c, 0, width);
+      const float m_pass = __shfl_sync(kFull, m, 0, width);
+      const float r = l.sl + 1 < width
+                          ? __fadd_rn(c_next, __fmul_rn(m_next, behind))
+                          : behind;
+      if (inc) {
+        big_b = __fmul_rn(__fmul_rn(ti[p], e[p]), __fsub_rn(big_g, r));
+      }
+      behind = __fadd_rn(c_pass, __fmul_rn(m_pass, behind));
+    } else {
+      behind = __fadd_rn(0.0f, behind);
+    }
+    if (l.live && i < s) {
+      if (d_sigmas != nullptr) {
+        d_sigmas[at] = inc ? __fmul_rn(dl[p], big_b) : 0.0f;
+      }
+      if (d_deltas != nullptr) {
+        d_deltas[at] = inc ? __fmul_rn(sg[p], big_b) : 0.0f;
+      }
+      if (d_rgbs != nullptr) {
+        d_rgbs[3 * at] = __fmul_rn(w, gr);
+        d_rgbs[3 * at + 1] = __fmul_rn(w, gg);
+        d_rgbs[3 * at + 2] = __fmul_rn(w, gb);
+      }
+      if (d_ts != nullptr) d_ts[at] = __fmul_rn(w, gd);
+    }
+  }
+  // the passes past the warp's stop hold no included sample
+  if (l.live) {
+    zero_slots(row, walked * width + l.sl, s, width, d_sigmas, d_rgbs,
+               d_deltas, d_ts);
   }
 }
 
@@ -446,9 +625,11 @@ extern "C" int composite_train_fw(long long n, int s, float thr,
 // The analytic backward on `stream`: the forward's inputs, then the
 // incoming gradients g_opacity, g_depth (n,), g_rgb (n, 3), g_ws (n, s),
 // each fp32 or null (0); the outputs d_sigmas, d_deltas, d_ts (n, s) and
-// d_rgbs (n, s, 3) fp32, each written unless null. s is at most 49,152
-// (the shared memory holds a float a pass for each row of a block).
-extern "C" int composite_train_bw(long long n, int s, float thr,
+// d_rgbs (n, s, 3) fp32, each written unless null. `passes` 1, 2 or 4
+// takes composite_train_bw_regs_kernel<passes> (rows of at most `passes`
+// passes of row_width(s) slots); 0 the two-walk kernel, for s up to 49,152
+// (its shared memory holds a float a pass for each row of a block).
+extern "C" int composite_train_bw(long long n, int s, int passes, float thr,
                                   const void* sigmas, const void* rgbs,
                                   const void* deltas, const void* ts,
                                   const void* mask, const void* g_opacity,
@@ -460,19 +641,43 @@ extern "C" int composite_train_bw(long long n, int s, float thr,
   if (bad) return bad;
   const int width = row_width(s);
   const long long smem = bw_shared_bytes(s, width);
-  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = passes == 0
+      ? smem <= kMaxSharedBytes
+      : (passes == 1 || passes == 2 || passes == 4) &&
+        (s + width - 1) / width <= passes;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
-  composite_train_bw_kernel<<<blocks_for(n, width), kThreads,
-                              static_cast<size_t>(smem),
-                              static_cast<cudaStream_t>(stream)>>>(
-      n, s, width, thr, static_cast<const float*>(sigmas),
-      static_cast<const float*>(rgbs), static_cast<const float*>(deltas),
-      static_cast<const float*>(ts), static_cast<const bool*>(mask),
-      static_cast<const float*>(g_opacity),
-      static_cast<const float*>(g_depth), static_cast<const float*>(g_rgb),
-      static_cast<const float*>(g_ws), static_cast<float*>(d_sigmas),
-      static_cast<float*>(d_rgbs), static_cast<float*>(d_deltas),
-      static_cast<float*>(d_ts));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for(n, width);
+#define COMPOSITE_BW_ARGS                                                     \
+  n, s, width, thr, static_cast<const float*>(sigmas),                       \
+      static_cast<const float*>(rgbs), static_cast<const float*>(deltas),    \
+      static_cast<const float*>(ts), static_cast<const bool*>(mask),         \
+      static_cast<const float*>(g_opacity),                                  \
+      static_cast<const float*>(g_depth), static_cast<const float*>(g_rgb),  \
+      static_cast<const float*>(g_ws), static_cast<float*>(d_sigmas),        \
+      static_cast<float*>(d_rgbs), static_cast<float*>(d_deltas),            \
+      static_cast<float*>(d_ts)
+  switch (passes) {
+    case 1:
+      composite_train_bw_regs_kernel<1><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_BW_ARGS);
+      break;
+    case 2:
+      composite_train_bw_regs_kernel<2><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_BW_ARGS);
+      break;
+    case 4:
+      composite_train_bw_regs_kernel<4><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_BW_ARGS);
+      break;
+    default:
+      composite_train_bw_kernel<<<blocks, kThreads,
+                                  static_cast<size_t>(smem), st>>>(
+          COMPOSITE_BW_ARGS);
+      break;
+  }
+#undef COMPOSITE_BW_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,8 @@ it exceeds ``T_threshold``.
 
 On CUDA tensors the three functions launch the hand-written kernels of
 ``csrc/composite.cu`` (a row on up to a warp's lanes, a shuffle scan of
-``1 - alpha``); on CPU tensors they run their plain versions
+``1 - alpha``; the backward keeps a row of up to four passes in registers,
+:func:`bwd_passes`); on CPU tensors they run their plain versions
 (:func:`composite_train_plain` and :func:`composite_train_fwd_plain`,
 :func:`composite_train_bwd_plain`, :func:`composite_test_step_plain`). The kernels round every operation on
 its own but scan and sum in another order than torch, so they agree with
@@ -34,8 +35,8 @@ import torch
 
 from .. import build
 
-# the backward kernel's shared memory holds a float a pass of 32 slots for
-# each of a block's 8 rows: 48 KB
+# the two-walk backward kernel's shared memory holds a float a pass of 32
+# slots for each of a block's 8 rows: 48 KB
 MAX_BWD_SLOTS = 49152
 _FLOATS = (torch.float32, torch.bfloat16)    # --bf16 may hand either
 
@@ -136,6 +137,140 @@ def composite_train_bwd_plain(sigmas, rgbs, deltas, ts, mask, g_opacity,
         else w * g_depth.to(f32)[:, None])
 
 
+def _lane_excl_product(v):
+    """csrc/composite.cu's ``excl_product`` over the last axis (a pass's
+    lanes): the shuffle scan's products in its order, then the product
+    before each lane (1 on the first) and the pass's."""
+    width = v.shape[-1]
+    lane = torch.arange(width, device=v.device)
+    d = 1
+    while d < width:
+        y = torch.cat([v[..., :d], v[..., :-d]], dim=-1)     # lane - d
+        v = torch.where(lane >= d, y * v, v)
+        d <<= 1
+    before = torch.cat([torch.ones_like(v[..., :1]), v[..., :-1]], dim=-1)
+    return before, v[..., -1]
+
+
+def _lane_affine_suffix(c, m):
+    """csrc/composite.cu's ``affine_suffix`` over the last axis."""
+    width = c.shape[-1]
+    lane = torch.arange(width, device=c.device)
+    d = 1
+    while d < width:
+        c2 = torch.cat([c[..., d:], c[..., -d:]], dim=-1)    # lane + d
+        m2 = torch.cat([m[..., d:], m[..., -d:]], dim=-1)
+        keep = lane + d < width
+        c, m = torch.where(keep, c + m * c2, c), torch.where(keep, m * m2, m)
+        d <<= 1
+    return c, m
+
+
+def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
+                                    g_opacity, g_depth, g_rgb, g_ws,
+                                    T_threshold=1e-4, skip=True):
+    """:func:`composite_train_bwd_plain` in the order of csrc/composite.cu's
+    backward kernels, operation by operation (float32, each product and sum
+    rounded on its own): a row on ``row_width(s)`` lanes, 32 / width rows a
+    warp, walked in passes of width slots; the exclusive product of
+    1 - alpha by the kernels' shuffle scan, the transmittance carried
+    across passes; the front walk stops at the pass at which every row of
+    the warp has fallen to the threshold (the rest of the row gets +0); R
+    by the suffix scan of the affine maps within a pass and carried across
+    passes. With ``skip`` (the register kernel) a pass in which no slot of
+    the warp is included skips its scan and carries R as 0 + R; without it
+    (the two-walk kernel) every pass is scanned. Both give the same bits,
+    and on CUDA tensors the kernels' (torch's exp is expf there); on the
+    CPU torch's exp may round otherwise by an ulp. Returns (d_sigmas,
+    d_rgbs, d_deltas, d_ts) in float32, as the kernels write them."""
+    f32 = torch.float32
+    n, s = sigmas.shape
+    dev = sigmas.device
+    width = row_width(s)
+    per_warp = 32 // width
+    passes = -(-s // width)
+    rows = -(-n // per_warp) * per_warp                # whole warps
+    slots = passes * width
+
+    def lay(x, fill=0.0):
+        """(n, s, ...) -> (rows, passes, width, ...), padded with fill."""
+        pad = torch.full((rows, slots) + tuple(x.shape[2:]), fill,
+                         dtype=x.dtype, device=dev)
+        pad[:n, :s] = x
+        return pad.view((rows, passes, width) + tuple(x.shape[2:]))
+
+    m = lay(mask, False)
+    sg, dl, tv = (lay(x.to(f32)) for x in (sigmas, deltas, ts))
+    col = lay(rgbs.to(f32))
+    gw = lay(g_ws.to(f32)) if g_ws is not None \
+        else torch.zeros_like(sg)
+    live = torch.arange(rows, device=dev) < n
+
+    def row_grad(g, k=None):
+        out = torch.zeros(rows, dtype=f32, device=dev)
+        if g is not None:
+            out[:n] = g.to(f32) if k is None else g.to(f32)[:, k]
+        return out[:, None, None]
+
+    go, gd = row_grad(g_opacity), row_grad(g_depth)
+    gr, gg, gb = (row_grad(g_rgb, k) for k in range(3))
+    e = torch.where(m, torch.exp(-(sg * dl)), 1.0)
+    a = torch.where(m, 1.0 - e, 0.0)
+    om = torch.where(m, 1.0 - a, 1.0)
+    before, total = _lane_excl_product(om)
+    # front to back: each pass's start, and the warp's stop
+    t = torch.ones(rows, dtype=f32, device=dev)
+    walked = torch.full((rows,), passes, dtype=torch.int64, device=dev)
+    stopped = torch.zeros(rows, dtype=torch.bool, device=dev)
+    ti = torch.zeros_like(sg)
+    for p in range(passes):
+        over = ~(live & (t > T_threshold))
+        now = over.view(-1, per_warp).all(1).repeat_interleave(per_warp) \
+            & ~stopped
+        walked = torch.where(now, p, walked)
+        stopped |= now
+        ti[:, p] = t[:, None] * before[:, p]
+        t = t * total[:, p]
+    inc = m & (ti > T_threshold)
+    w = torch.where(inc, a * ti, 0.0)
+    big_g = gw + go
+    big_g = big_g + gd * tv
+    big_g = big_g + gr * col[..., 0]
+    big_g = big_g + gg * col[..., 1]
+    big_g = big_g + gb * col[..., 2]
+    big_g = torch.where(inc, big_g, 0.0)
+    c, mm = _lane_affine_suffix(torch.where(inc, big_g * a, 0.0), om)
+    lane = torch.arange(width, device=dev)
+    # back to front
+    included = inc.view(-1, per_warp, passes, width).any(3).any(1) \
+        .repeat_interleave(per_warp, 0)
+    behind = torch.zeros(rows, dtype=f32, device=dev)
+    big_b = torch.zeros_like(sg)
+    for p in range(passes - 1, -1, -1):
+        c_next = torch.cat([c[:, p, 1:], c[:, p, -1:]], dim=1)
+        m_next = torch.cat([mm[:, p, 1:], mm[:, p, -1:]], dim=1)
+        r = torch.where(lane + 1 < width, c_next + m_next * behind[:, None],
+                        behind[:, None])
+        big_b[:, p] = torch.where(
+            inc[:, p], (ti[:, p] * e[:, p]) * (big_g[:, p] - r), 0.0)
+        scanned = c[:, p, 0] + mm[:, p, 0] * behind
+        if skip:
+            scanned = torch.where(included[:, p], scanned, 0.0 + behind)
+        behind = torch.where(p < walked, scanned, behind)
+    reached = (torch.arange(passes, device=dev)[None, :]
+               < walked[:, None])[..., None]                 # (rows, P, 1)
+    d_sigmas = torch.where(reached & inc, dl * big_b, 0.0)
+    d_deltas = torch.where(reached & inc, sg * big_b, 0.0)
+    d_ts = torch.where(reached, w * gd, 0.0)
+    d_rgbs = torch.where(reached[..., None], torch.stack(
+        [w * gr, w * gg, w * gb], dim=-1), 0.0)
+
+    def unlay(x):
+        return x.reshape((rows, slots) + tuple(x.shape[3:]))[:n, :s]
+
+    return unlay(d_sigmas), unlay(d_rgbs), unlay(d_deltas), unlay(d_ts)
+
+
 def composite_test_step_plain(sigmas, rgbs, deltas, ts, mask, opacity, depth,
                               rgb, alive, T_threshold):
     """The plain version of :func:`composite_test_step`."""
@@ -159,7 +294,8 @@ def _kernels():
                     lib.composite_test)
     head = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
     fw.argtypes = head + [ctypes.c_void_p] * 11
-    bw.argtypes = head + [ctypes.c_void_p] * 14
+    bw.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float] + [ctypes.c_void_p] * 14
     test.argtypes = head + [ctypes.c_void_p] * 15
     fw.restype = bw.restype = test.restype = ctypes.c_int
     return fw, bw, test
@@ -235,12 +371,33 @@ def _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold):
     return opacity, depth, rgb, ws, counts
 
 
+def row_width(s):
+    """Lanes a row of ``s`` slots takes in csrc/composite.cu: the power of
+    two at or above s, at most 32."""
+    return min(32, 1 << max(s - 1, 0).bit_length())
+
+
+def bwd_passes(s):
+    """The backward kernel for rows of ``s`` slots: the passes of
+    ``row_width(s)`` slots it keeps in registers (the template P of
+    ``composite_train_bw_regs_kernel``: 1, 2 or 4, the fewest that cover
+    the row), or 0, the two-walk kernel, for rows of more than four
+    passes."""
+    passes = -(-s // row_width(s))
+    return next((p for p in (1, 2, 4) if passes <= p), 0)
+
+
 def _launch_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
-                      g_rgb, g_ws, T_threshold, needs):
+                      g_rgb, g_ws, T_threshold, needs, passes=None):
+    """composite_train_bw on fp32 operands: the kernel of
+    :func:`bwd_passes`, or of ``passes`` (0: the two-walk kernel, which
+    takes every row :func:`bwd_passes` takes, up to MAX_BWD_SLOTS)."""
     n, s = sigmas.shape
     if s > MAX_BWD_SLOTS:
         raise ValueError(f"{s} slots a row: the backward kernel takes at "
                          f"most {MAX_BWD_SLOTS}")
+    if passes is None:
+        passes = bwd_passes(s)
     dev, f32 = sigmas.device, torch.float32
     sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth, g_rgb, g_ws = \
         _contiguous(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
@@ -250,7 +407,7 @@ def _launch_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
                                            (n, s)))]
     if n and any(needs):
         rc = _kernels()[1](
-            n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
+            n, s, passes, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
             deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(),
             _ptr(g_opacity), _ptr(g_depth), _ptr(g_rgb), _ptr(g_ws),
             *(_ptr(t) for t in outs), _stream(dev))

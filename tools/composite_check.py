@@ -1,7 +1,8 @@
 """Check and time the composite kernels alone on the card.
 
     python3 tools/composite_check.py [--views 4] [--ptxas] \
-        [--train-ab STEPS] [--frame-ab STEPS]
+        [--train-ab STEPS] [--frame-ab STEPS] \
+        [--bwd-ab STEPS --parent-tree DIR]
 
 Builds ``mfnerf_tpu_torch/csrc/composite.cu``, then runs ``chip_smoke.py``'s
 composite checks (each kernel against its plain version on the card: the
@@ -28,10 +29,23 @@ and through the plain composite (kernel, plain, plain, kernel, three
 frames each after a warm-up): each frame's synced ms and, with CUDA events
 around every compositing round (host gaps included), the rounds' share.
 
-``--ptxas`` first prints what ``nvcc -Xptxas -v`` says of each kernel
-(registers, shared memory, spills). Prints one JSON line a set (the
-frame's rounds in one) and the card's name and power limit; exits non-zero
-on a mismatch or without a CUDA device.
+``--bwd-ab STEPS --parent-tree DIR`` trains the bench and the
+MixedFeature configurations STEPS steps and takes one step's composite
+operands and incoming gradients of each (the loss's), beside the edge
+blocks (``chip_smoke.composite_edge_sets``, seeded incoming gradients of
+all four outputs); then runs composite_train_bwd on every set with the
+tree at ``--parent-tree`` (an earlier commit unpacked under a gitignored
+directory such as ``_parent/``) and with this tree in turns (parent,
+this, this, parent), each in a process of its own: its four gradients,
+held bit for bit to the first run's (the parent's), and its device time
+by CUDA-graph replay asking for d_sigmas and d_rgbs (a training step's);
+``--trees A,B`` times more trees in the same turns, as
+``march_check.py --trees``.
+
+``--ptxas`` first prints what ptxas said of each kernel in the build
+(``build.ptxas_report``: registers, spills, shared memory). Prints one JSON
+line a set (the frame's rounds in one) and the card's name and power limit;
+exits non-zero on a mismatch or without a CUDA device.
 """
 import argparse
 import contextlib
@@ -174,16 +188,126 @@ def frame_ab(steps, dev, card):
             "card": card}), flush=True)
 
 
+def bwd_sets(steps, dev):
+    """The backward's operands: one step of the bench and the MixedFeature
+    configurations after ``steps`` steps (the loss's incoming gradients)
+    and the edge blocks (seeded incoming gradients of all four outputs), as
+    [(label, (sigmas, rgbs, deltas, ts, mask), T_threshold, (g_opacity,
+    g_depth, g_rgb, g_ws))]."""
+    import chip_smoke
+    datasets = bench_datasets(chip_smoke.N_TRAIN_VIEWS)
+    sets = []
+    for label, hp, seed in (("bench", chip_smoke.BENCH_HP,
+                             chip_smoke.SEED + 90),
+                            ("mf", chip_smoke.MF_HP, chip_smoke.SEED + 93)):
+        system = chip_smoke.start_system(hp, datasets, dev)
+        system.fit(steps)
+        args, thr, grads = chip_smoke.step_composite_operands(system, seed)
+        sets.append((f"{label}_step", args, thr, tuple(grads.get(k) for k in (
+            "opacity", "depth", "rgb", "ws"))))
+        del system
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(chip_smoke.SEED + 94)
+    for label, args, thr in chip_smoke.composite_edge_sets(
+            dev, chip_smoke.SEED + 91):
+        n, s_ = args[0].shape
+        sets.append((label, args, thr, tuple(
+            torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(dev)
+            for shape in ((n,), (n,), (n, 3), (n, s_)))))
+    return sets
+
+
+def bwd_ab(steps, parent_tree, dev, card, trees=()):
+    """--bwd-ab: composite_train_bwd on the same operands with the parent's
+    tree, this tree and ``trees`` in turns, each in a process of its
+    own."""
+    import tempfile
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from march_check import ab_trees
+    sets = bwd_sets(steps, dev)
+    trees, order = ab_trees(parent_tree, trees)
+    runs, firsts, equal = [], {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "bwd.pt")
+        torch.save([(label, tuple(a.cpu() for a in args), thr,
+                     tuple(None if g is None else g.cpu() for g in ups))
+                    for label, args, thr, ups in sets], state)
+        for i, label in enumerate(order):
+            out = os.path.join(tmp, f"bwd_{i}.pt")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--time-bwd",
+                 state, "--tree", trees[label], "--out", out],
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return proc.returncode
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            for name, got in torch.load(out).items():
+                first = firsts.setdefault(name, got)
+                res[name]["bit_equal_to_first"] = all(
+                    torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, first))
+                equal &= res[name]["bit_equal_to_first"]
+            res["tree"] = label
+            runs.append(res)
+            print(json.dumps({"bwd_ab": label, "run": i, "trained_steps":
+                              steps, **res, "card": card}), flush=True)
+    print(json.dumps({"bwd_ab": "summary", "bit_equal": equal, **{
+        label: {name: [r[name]["ms"] for r in runs if r["tree"] == label]
+                for name, _, _, _ in sets}
+        for label in trees}, "card": card}), flush=True)
+    return 0 if equal else 1
+
+
+def time_bwd(state_path, tree, out, device="cuda"):
+    """--time-bwd: one run of --bwd-ab in the package of ``tree``: each
+    set's four gradients (saved) and its device time by CUDA-graph replay
+    asking for d_sigmas and d_rgbs. Prints one JSON line."""
+    sys.path.insert(0, tree)
+    import mfnerf_tpu_torch
+    from mfnerf_tpu_torch.benchmarking import graph_ms
+    from mfnerf_tpu_torch.device import no_tf32
+    from mfnerf_tpu_torch.ops import composite
+    no_tf32()
+    assert os.path.dirname(os.path.dirname(os.path.abspath(
+        mfnerf_tpu_torch.__file__))) == tree
+    result, saved = {"tree": "this" if tree == ROOT else "parent"}, {}
+    for label, args, thr, ups in torch.load(state_path):
+        args = tuple(a.to(device) for a in args)
+        ups = tuple(None if g is None else g.to(device) for g in ups)
+        saved[label] = [g.cpu() for g in composite.composite_train_bwd(
+            *args, *ups, thr)]
+        needs = (True, True, False, False)
+        result[label] = dict(
+            rays=int(args[0].shape[0]), s=int(args[0].shape[1]),
+            ms=graph_ms(lambda: composite.composite_train_bwd(
+                *args, *ups, thr, needs=needs), 20))
+    torch.save(saved, out)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--views", type=int, default=4)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--train-ab", type=int, default=0)
     ap.add_argument("--frame-ab", type=int, default=0)
+    ap.add_argument("--bwd-ab", type=int, default=0)
+    ap.add_argument("--parent-tree", default=None)
+    ap.add_argument("--trees", default="")
+    ap.add_argument("--time-bwd", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tree", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("composite_check: no CUDA device", file=sys.stderr)
         return 1
+    if args.time_bwd:
+        return time_bwd(args.time_bwd, os.path.abspath(args.tree), args.out)
+    if args.bwd_ab and not args.parent_tree:
+        ap.error("--bwd-ab needs --parent-tree")
     import chip_smoke
     from mfnerf_tpu_torch import build
     from mfnerf_tpu_torch.device import no_tf32
@@ -193,20 +317,13 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    if args.ptxas:
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run(
-            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(build.BUILD_DIR / "composite-ptxas.so"),
-             str(build.CSRC / "composite.cu")], capture_output=True,
-            text=True)
-        print(proc.stdout + proc.stderr, flush=True)
-        if proc.returncode != 0:
-            return proc.returncode
     t0 = time.perf_counter()
     build.load_library("composite")
     print(json.dumps({"build_seconds": time.perf_counter() - t0}),
           flush=True)
+    if args.ptxas:
+        print(json.dumps({"ptxas": build.ptxas_report("composite")}),
+              flush=True)
     dev = torch.device("cuda", 0)
     system = chip_smoke.start_system(chip_smoke.BENCH_HP,
                                      bench_datasets(args.views), dev)
@@ -229,6 +346,9 @@ def main():
         train_ab(args.train_ab, dev, card)
     if args.frame_ab:
         frame_ab(args.frame_ab, dev, card)
+    if args.bwd_ab:
+        return bwd_ab(args.bwd_ab, args.parent_tree, dev, card,
+                      [t for t in args.trees.split(",") if t])
     return 0
 
 

@@ -67,15 +67,6 @@ def load_parent(src):
     return fn
 
 
-def ptxas_report():
-    """Registers, shared memory and spills of this tree's kernels."""
-    proc = subprocess.run(
-        [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull,
-         str(build.CSRC / "linetable.cu")], capture_output=True, text=True)
-    return [line.strip() for line in proc.stderr.splitlines()
-            if "registers" in line or "spill" in line or "Compiling" in line]
-
-
 def launcher(fn, u, g):
     """(launch, dW) of one version on (u, g), its scratch preallocated."""
     n, r = g.shape
@@ -141,8 +132,8 @@ def main():
         return 1
     card = card_name()
     print(f"card: {card}", flush=True)
-    for line in ptxas_report():
-        print(f"ptxas: {line}", flush=True)
+    print(json.dumps({"ptxas": build.ptxas_report("linetable")}),
+          flush=True)
     parent = load_parent(args.parent_src)
     rows, failed = [], []
     for kind, n in SETS:

@@ -84,15 +84,6 @@ def warp_grid(n, _levels, bwd_grid=hashgrid.bwd_grid):
 GRIDS = {"pr5": pr5_grid, "warp": warp_grid}
 
 
-def ptxas_report():
-    """Registers, shared memory and spills of this tree's kernels."""
-    proc = subprocess.run(
-        [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull,
-         str(build.CSRC / "hashgrid.cu")], capture_output=True, text=True)
-    return [line.strip() for line in proc.stderr.splitlines()
-            if "registers" in line or "spill" in line or "Compiling" in line]
-
-
 def launchers(cfg, params, x, g, noise, kernels, grid):
     """{kernel: fn} of one version on the operands, and the outputs they
     write: the forward, the exact backward and the sampled one (m = 1),
@@ -238,8 +229,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
     print(f"card: {card}", flush=True)
-    for line in ptxas_report():
-        print(f"ptxas: {line}", flush=True)
+    print(json.dumps({"ptxas": build.ptxas_report("hashgrid")}),
+          flush=True)
     parent = load_parent(args.parent_src)
     parent_grid = GRIDS[args.parent_geometry]
     rows = []

@@ -11,9 +11,9 @@ the kernels' device times by CUDA-graph replay beside their bounds) on its
 operand sets at N points (the CLI's default Hash grid and the MixedFeature
 benchmark grid at uniform points; the MixedFeature grid along rays and at
 the degenerate set), then the generic path (F 4, L 12) at 2^16 points.
-``--ptxas`` first prints what ``nvcc -Xptxas -v`` says of each kernel
-(registers, shared memory, spills). Prints one JSON line a check; exits
-non-zero on a failed check or without a CUDA device.
+``--ptxas`` first prints what ptxas said of each kernel in the build
+(``build.ptxas_report``: registers, spills, shared memory). Prints one JSON
+line a check; exits non-zero on a failed check or without a CUDA device.
 """
 import argparse
 import json
@@ -43,20 +43,13 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    if args.ptxas:
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run(
-            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(build.BUILD_DIR / "hashgrid-ptxas.so"),
-             str(build.CSRC / "hashgrid.cu")], capture_output=True,
-            text=True)
-        print(proc.stdout + proc.stderr, flush=True)
-        if proc.returncode != 0:
-            return proc.returncode
     t0 = time.perf_counter()
     build.load_library("hashgrid")
     print(json.dumps({"build_seconds": time.perf_counter() - t0}),
           flush=True)
+    if args.ptxas:
+        print(json.dumps({"ptxas": build.ptxas_report("hashgrid")}),
+              flush=True)
     chip_smoke.N_HASH = args.n
     for label, cfg, operands, seed in chip_smoke.hash_operand_sets():
         fields = chip_smoke.check_hashgrid(label, cfg, *operands(cfg, seed),

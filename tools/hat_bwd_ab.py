@@ -56,15 +56,6 @@ def load_parent(src):
     return fn
 
 
-def ptxas_report():
-    """Registers, shared memory and spills of this tree's kernels."""
-    proc = subprocess.run(
-        [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull,
-         str(build.CSRC / "hatmul.cu")], capture_output=True, text=True)
-    return [line.strip() for line in proc.stderr.splitlines()
-            if "registers" in line or "spill" in line or "Compiling" in line]
-
-
 def launchers(u3, w3, k, g, parent):
     """{(version, need_du): fn} on the same operands."""
     n, r = g.shape
@@ -183,8 +174,8 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    for line in ptxas_report():
-        print(f"ptxas: {line}", flush=True)
+    print(json.dumps({"ptxas": build.ptxas_report("hatmul")}),
+          flush=True)
     parent = load_parent(args.parent_src)
     dev = torch.device("cuda", 0)
 

@@ -1,7 +1,8 @@
 """Check and time the march kernels alone on the card.
 
     python3 tools/march_check.py [--views 4] [--ptxas] [--train-ab STEPS] \
-        [--frame-ab STEPS --parent-tree DIR] [--lanes-sweep]
+        [--frame-ab STEPS] [--march-ab STEPS] [--parent-tree DIR] \
+        [--lanes-sweep] [--share-sweep S1,S2,..]
 
 Builds ``mfnerf_tpu_torch/csrc/raymarch.cu``, then runs ``chip_smoke.py``'s
 march checks (each kernel against its plain version on the card, bit for
@@ -9,7 +10,9 @@ bit; the window march in place, as the serving loop runs it) on the
 untrained bench.py LowRank field of the procedural scene (culled, one
 dense refresh): one training step's march (the two-level strata), the
 degenerate rays, an empty and a full bitfield, the dense oracle's rank
-windows, every window march of one render_test frame (the stage-A skip)
+windows, the training kernel's edge sets with gradients
+(``chip_smoke.march_train_edge_sets``), every window march of one
+render_test frame (the stage-A skip)
 and the window edge sets, each window set also against the skip model;
 then on a synthetic five-cascade scene (scale 8, exponential steps) with
 the cascade march's union grid (the window walks every rung there). Times
@@ -50,12 +53,29 @@ round in place with the loop's stage-A skip and with every rung walked:
 the occupied share of the stage-A grid against the two sums, from which
 ``ray_march.SKIP_MAX_SHARE`` is set.
 
-``--lanes-sweep`` times a few rounds of each frame at each lane count (4
-to 32, ``ray_march.window_lanes`` replaced) with and without the skip,
-beside the wrapper's choice. ``--ptxas`` first prints what ``nvcc -Xptxas
--v`` says of each kernel (registers, shared memory, spills). Prints one
-JSON line a set (the frame's windows in one); exits non-zero on a mismatch
-or without a CUDA device.
+``--march-ab STEPS`` trains the bench and the MixedFeature
+configurations STEPS steps, takes one step's training march of each and
+of the synthetic five-cascade scene at 1,024 rays, and prints each set's
+per-ray pass distribution (march_passes: a warp's stage-A passes, the
+chosen strata, the rung passes of 32 rungs up to the cap or the exit;
+mean, p99, max); with
+``--parent-tree``, it then times march_train on the same sets with the
+parent's tree and this tree in turns (parent, this, this, parent), each
+in a process of its own, by CUDA-graph replay, every run's outputs held
+bit for bit to the first; ``--trees A,B`` times more trees (variants of
+this one unpacked beside it) in the same turns (parent, this, A, B, B, A,
+this, parent), labelled by their directories' names.
+With ``--parent-tree``, ``--train-ab`` also trains the bench configuration
+through the kernels with the parent's tree (a process of its own) and
+holds its parameters and bitfield to this tree's, bit for bit, beside its
+held-out view's PSNR.
+
+``--lanes-sweep`` times a few rounds of each frame at each lane count (4 to
+32, ``ray_march.window_lanes`` replaced) with and without the skip, beside
+the wrapper's choice. ``--ptxas`` first prints what ptxas said of each
+kernel in the build (``build.ptxas_report``: registers, spills, shared
+memory). Prints one JSON line a set (the frame's windows in one); exits
+non-zero on a mismatch or without a CUDA device.
 """
 import argparse
 import json
@@ -74,10 +94,11 @@ AB_FRAMES = 20          # synced frames a --frame-ab run, after a warm-up
 FIVE_RAYS = 999         # the five-cascade frame's rays (as phase 20's)
 
 
-def cascade_sets(dev, seed, n_rays=8192):
+def cascade_sets(dev, seed, n_rays=8192, s_strata=(8, 4)):
     """A synthetic --scale 8 scene: a sparse random bitfield at five
     cascades, its union grid, camera rays from a ring at 1.5 x scale, the
-    cascade strata of RenderConfig(exp_step_factor=1/256); and two window
+    cascade strata of RenderConfig(exp_step_factor=1/256) at each budget
+    of ``s_strata``, and the exact march; and two window
     sets in place (march_rays_window_into's args: the rays that hit the box
     alive, mid-ladder cursors; no skip at five cascades)."""
     from mfnerf_tpu_torch.models.rendering import RenderConfig, _clamp_near
@@ -98,7 +119,7 @@ def cascade_sets(dev, seed, n_rays=8192):
     args = (ro, rd, hits, bits, cascades, scale, e, g, rcfg.max_samples,
             noise, rcfg.n_rungs(scale, g), rcfg.s_max_train)
     sets = [(f"cascades_s{s}", args, dict(strata=Strata(
-        union, stratum, s, 1.0, union=True))) for s in (8, 4)]
+        union, stratum, s, 1.0, union=True))) for s in s_strata]
     sets.append(("cascades_exact", args, {}))
     dt_scale = rcfg._dt_scale(scale, True)
     cursor = torch.from_numpy(rng.integers(0, 400, n_rays)).to(dev)
@@ -157,6 +178,234 @@ def five_cascade_field(dev, seed):
     return model, occ, rays, rcfg
 
 
+def march_passes(args, kw):
+    """Each ray's passes in the training march of march_rays_train's
+    ``args`` and ``kw``, from the plain version's own tensors: stage-A
+    passes of a warp (a lane a stratum: ceil(n_strata / 32)), the chosen
+    strata (``_take_budget``), and the rung passes of 32 list positions
+    walked up to the cap, the exit or the list's end. Returns {name: (N,)
+    tensor} over the rays that hit the box."""
+    from mfnerf_tpu_torch.ops.ray_march import (
+        _jittered_start, _live_twolevel, _live_union, _occupancy_at,
+        _take_budget)
+    from mfnerf_tpu_torch.ops.stepping import calc_dt, t_ladder
+    ro, rd, hits, bits, cascades, scale, e, grid, max_samples, noise, \
+        n_rungs, s_max = args
+    strata = kw.get("strata")
+    rank_start = kw.get("rank_start", 0)
+    dt_scale = kw.get("dt_scale", scale)
+    ladder = (e, max_samples, grid, dt_scale)
+    dev, n = ro.device, ro.shape[0]
+    t2 = hits[:, 1]
+    valid = hits[:, 0] >= 0
+    t0 = _jittered_start(hits, noise, *ladder)
+    ks = torch.arange(n_rungs, device=dev)
+    ts = t_ladder(t0, ks, *ladder)
+    past = ~(ts < t2[:, None])
+    xyz = ro[:, None, :] + ts[..., None] * rd[:, None, :]
+    occ = _occupancy_at(xyz, calc_dt(ts, *ladder), bits, cascades, scale,
+                        grid) & ~past
+    out = {}
+    if strata is None:
+        rung = ks.expand(n, n_rungs)
+        list_len = torch.where(valid, n_rungs, 0)
+        out["stage_a_passes"] = torch.zeros_like(list_len)
+    else:
+        if strata.union:
+            live = _live_union(ro, rd, t0, t2, strata, scale, e,
+                               max_samples, grid, n_rungs, dt_scale)
+        else:
+            live = _live_twolevel(ro, rd, t0, t2, strata, scale,
+                                  max_samples, grid, n_rungs)
+        chosen = _take_budget(live & valid[:, None], strata.s_strata)
+        n_strata, st = chosen.shape[1], strata.stratum
+        order = torch.sort(torch.where(
+            chosen, torch.arange(n_strata, device=dev), n_strata),
+            dim=1).values[:, :min(n_strata, strata.s_strata)]
+        pos = torch.arange(order.shape[1] * st, device=dev)
+        rung = order[:, pos // st] * st + pos % st
+        out["chosen_strata"] = chosen.sum(1)
+        list_len = out["chosen_strata"] * st
+        out["stage_a_passes"] = torch.where(
+            valid, -(-n_strata // 32), 0)
+    width = rung.shape[1]
+    n_sub = -(-width // 32)
+    pad = n_sub * 32 - width
+    pos = torch.arange(n_sub * 32, device=dev)
+    rung = torch.nn.functional.pad(rung, (0, pad), value=n_rungs)
+    exists = (pos[None, :] < list_len[:, None]) & (rung < n_rungs)
+    r = rung.clamp_max(n_rungs - 1)
+    occ_l = occ.gather(1, r) & exists
+    past_l = past.gather(1, r) & exists
+    per = occ_l.view(n, n_sub, 32).sum(2)
+    before = torch.cumsum(per, 1) - per
+    past_before = torch.cumsum(past_l.view(n, n_sub, 32).any(2).int(), 1) \
+        - past_l.view(n, n_sub, 32).any(2).int()
+    cap = min(max_samples, rank_start + s_max)
+    b = torch.arange(n_sub, device=dev)
+    stop = (b[None, :] * 32 >= list_len[:, None]) | (before >= cap) \
+        | (past_before > 0)
+    walked = torch.where(stop.any(1), stop.int().argmax(1), n_sub)
+    out["rung_passes"] = walked
+    return {k: v[valid] for k, v in out.items()}
+
+
+def pass_stats(passes):
+    """Mean, p99 and max of each of march_passes' per-ray counts."""
+    return {k: dict(mean=float(v.float().mean()) if v.numel() else 0.0,
+                    p99=float(torch.quantile(v.float(), 0.99))
+                    if v.numel() else 0.0,
+                    max=int(v.max()) if v.numel() else 0)
+            for k, v in passes.items()}
+
+
+def trained_march_sets(steps, dev, card):
+    """One training step's march of the bench and the MixedFeature
+    configurations after ``steps`` steps, and of the synthetic five-cascade
+    scene at 1,024 rays: [(label, args, kwargs)]."""
+    import chip_smoke
+    from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+    from mfnerf_tpu_torch.utils.procedural import make_scene
+    scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS, n_test=1,
+                       wh=chip_smoke.WH, seed=chip_smoke.SEED)
+    datasets = (MemoryDataset.from_scene(scene, "train"),
+                MemoryDataset.from_scene(scene, "test"))
+    sets = []
+    for label, hp, seed in (("bench", chip_smoke.BENCH_HP,
+                             chip_smoke.SEED + 80),
+                            ("mf", chip_smoke.MF_HP, chip_smoke.SEED + 82)):
+        system = chip_smoke.start_system(hp, datasets, dev)
+        system.fit(steps)
+        args, kw = chip_smoke.step_march_operands(system, seed)
+        sets.append((f"{label}_step", args, kw))
+        del system
+        torch.cuda.empty_cache()
+    cascades, _ = cascade_sets(dev, chip_smoke.SEED + 81, n_rays=1024,
+                               s_strata=(32,))
+    sets.append(("cascades_step_1024", *cascades[0][1:]))
+    return sets
+
+
+def ab_trees(parent_tree, trees):
+    """{label: tree} and the order of an A/B: the parent, this tree, each
+    of ``trees`` (labelled by their directories' names), then the same
+    back."""
+    named = {"parent": os.path.abspath(parent_tree), "this": ROOT}
+    named.update({os.path.basename(os.path.normpath(t)): os.path.abspath(t)
+                  for t in trees})
+    order = list(named)
+    return named, order + order[::-1]
+
+
+def march_ab(steps, parent_tree, dev, card, trees=()):
+    """--march-ab: the pass distribution of each trained step's march,
+    then, with ``parent_tree``, march_train on those steps with the
+    parent's tree, this tree and ``trees`` in turns, each in a process of
+    its own."""
+    import tempfile
+    sets = trained_march_sets(steps, dev, card)
+    for label, args, kw in sets:
+        passes = march_passes(args, kw)
+        print(json.dumps({"march_passes": label, "trained_steps": steps,
+                          "rays": int(args[0].shape[0]),
+                          "rays_hitting": int(next(iter(
+                              passes.values())).numel()),
+                          **pass_stats(passes), "card": card}), flush=True)
+    if parent_tree is None:
+        return 0
+    trees, order = ab_trees(parent_tree, trees)
+    runs, firsts, equal = [], {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "marches.pt")
+        torch.save(sets, state)
+        for i, label in enumerate(order):
+            out = os.path.join(tmp, f"marches_{i}.pt")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--time-marches",
+                 state, "--tree", trees[label], "--out", out],
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return proc.returncode
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            for name, got in torch.load(out).items():
+                first = firsts.setdefault(name, got)
+                res[name]["bit_equal_to_first"] = all(
+                    torch.equal(a.view(torch.int32) if a.dtype ==
+                                torch.float32 else a,
+                                b.view(torch.int32) if b.dtype ==
+                                torch.float32 else b)
+                    for a, b in zip(got, first))
+                equal &= res[name]["bit_equal_to_first"]
+            res["tree"] = label
+            runs.append(res)
+            print(json.dumps({"march_ab": label, "run": i, **res,
+                              "card": card}), flush=True)
+    print(json.dumps({"march_ab": "summary", "bit_equal": equal, **{
+        label: {name: [r[name]["ms"] for r in runs if r["tree"] == label]
+                for name, _, _ in sets}
+        for label in trees}, "card": card}), flush=True)
+    return 0 if equal else 1
+
+
+def time_marches(state_path, tree, out, device="cuda"):
+    """--time-marches: one run of --march-ab in the package of ``tree``:
+    each set's march_train once (its outputs saved: ts, deltas, xyzs,
+    mask, n_samples, t_start and k_idx on the valid slots) and by
+    CUDA-graph replay. Prints one JSON line."""
+    sys.path.insert(0, tree)
+    import mfnerf_tpu_torch
+    from mfnerf_tpu_torch.benchmarking import graph_ms
+    from mfnerf_tpu_torch.device import no_tf32
+    from mfnerf_tpu_torch.ops import ray_march
+    no_tf32()
+    assert os.path.dirname(os.path.dirname(os.path.abspath(
+        mfnerf_tpu_torch.__file__))) == tree
+    result, saved = {"tree": "this" if tree == ROOT else "parent"}, {}
+    for label, args, kw in torch.load(state_path, weights_only=False):
+        args = tuple(a.to(device) if torch.is_tensor(a) else a for a in args)
+        mr = ray_march.march_rays_train(*args, **kw)
+        saved[label] = [x.cpu() for x in (
+            mr.ts, mr.deltas, mr.xyzs, mr.mask, mr.n_samples, mr.t_start,
+            torch.where(mr.mask, mr.k_idx, -1))]
+        result[label] = dict(ms=graph_ms(
+            lambda: ray_march.march_rays_train(*args, **kw), 20),
+            samples=int(mr.rm_samples))
+    torch.save(saved, out)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def parent_training(steps, tree, out, device="cuda"):
+    """--parent-train: the bench configuration trained ``steps`` steps
+    through the kernels in the package of ``tree``: its parameters and
+    bitfield saved, its held-out view's PSNR printed."""
+    sys.path.insert(0, tree)
+    import chip_smoke
+    import mfnerf_tpu_torch
+    from mfnerf_tpu_torch.datasets.memory import MemoryDataset
+    from mfnerf_tpu_torch.device import no_tf32
+    from mfnerf_tpu_torch.utils.metrics import psnr
+    from mfnerf_tpu_torch.utils.procedural import make_scene
+    no_tf32()
+    assert os.path.dirname(os.path.dirname(os.path.abspath(
+        mfnerf_tpu_torch.__file__))) == tree
+    scene = make_scene(n_train=chip_smoke.N_TRAIN_VIEWS, n_test=1,
+                       wh=chip_smoke.WH, seed=chip_smoke.SEED)
+    datasets = (MemoryDataset.from_scene(scene, "train"),
+                MemoryDataset.from_scene(scene, "test"))
+    system = chip_smoke.start_system(chip_smoke.BENCH_HP, datasets,
+                                     torch.device(device))
+    system.fit(steps)
+    rays, rgb, rcfg = chip_smoke.held_out_view(system)
+    view, _ = chip_smoke.render_view(system, rays, rcfg)
+    torch.save(dict(state={k: v.cpu() for k, v in
+                           system.model.state_dict().items()},
+                    bits=system.occ.density_bitfield.cpu()), out)
+    print(json.dumps({"psnr": float(psnr(view["rgb"], rgb))}), flush=True)
+    return 0
+
+
 def plain_window_into(rays_o, rays_d, t_start, t2, cursor, alive, *rest,
                       skip=None):
     """march_rays_window_into through the plain version on any device."""
@@ -168,9 +417,11 @@ def plain_window_into(rays_o, rays_d, t_start, t2, cursor, alive, *rest,
     return mr
 
 
-def train_ab(steps, dev, card):
+def train_ab(steps, dev, card, parent_tree=None):
     """--train-ab: the bench configuration trained through the kernels,
-    the plain marches and the kernels again, from the same seed."""
+    the plain marches and the kernels again, from the same seed; with
+    ``parent_tree``, through the parent's kernels too (a process of its
+    own). Returns 1 where a run's parameters differ from the first's."""
     import chip_smoke
     from mfnerf_tpu_torch.datasets.memory import MemoryDataset
     from mfnerf_tpu_torch.models import rendering
@@ -204,19 +455,45 @@ def train_ab(steps, dev, card):
         del system, out
     rendering.march_rays_train, rendering.march_rays_window_into = kernels
     first = runs["kernel"]
+    status = 0
     for label in ("plain", "kernel_again"):
         run = runs[label]
         differ = torch.nonzero(run["loss"] != first["loss"])
+        equal = all(torch.equal(v, first["state"][k])
+                    for k, v in run["state"].items())
+        status |= int(not equal)
         print(json.dumps({
             "train_ab": label, "against": "kernel", "steps": steps,
             "first_loss_step_differing": int(differ[0]) if len(differ)
             else None,
-            "params_bit_equal": all(torch.equal(v, first["state"][k])
-                                    for k, v in run["state"].items()),
+            "params_bit_equal": equal,
             "bitfield_equal": torch.equal(run["bits"], first["bits"]),
             "test_psnr": run["psnr"], "kernel_test_psnr": first["psnr"],
             "seconds": run["seconds"], "kernel_seconds": first["seconds"],
             "card": card}), flush=True)
+    if parent_tree is None:
+        return status
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "parent.pt")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--parent-train",
+             str(steps), "--tree", os.path.abspath(parent_tree), "--out",
+             out], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        parent = torch.load(out)
+    equal = all(torch.equal(v.to(dev), first["state"][k])
+                for k, v in parent["state"].items())
+    print(json.dumps({
+        "train_ab": "parent_tree", "against": "kernel", "steps": steps,
+        "params_bit_equal": equal,
+        "bitfield_equal": torch.equal(parent["bits"].to(dev), first["bits"]),
+        "test_psnr": json.loads(proc.stdout.strip().splitlines()[-1])[
+            "psnr"], "kernel_test_psnr": first["psnr"], "card": card}),
+        flush=True)
+    return status | int(not equal)
 
 
 def captured_frame(model, occ, rays, rcfg):
@@ -493,7 +770,12 @@ def main():
     ap.add_argument("--parent-tree", default=None)
     ap.add_argument("--lanes-sweep", action="store_true")
     ap.add_argument("--share-sweep", default=None)
+    ap.add_argument("--march-ab", type=int, default=0)
+    ap.add_argument("--trees", default="")
     ap.add_argument("--serve-frames", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--time-marches", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parent-train", type=int, default=0,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -503,6 +785,12 @@ def main():
     if args.serve_frames:
         return serve_frames(args.serve_frames, os.path.abspath(args.tree),
                             args.out)
+    if args.time_marches:
+        return time_marches(args.time_marches, os.path.abspath(args.tree),
+                            args.out)
+    if args.parent_train:
+        return parent_training(args.parent_train,
+                               os.path.abspath(args.tree), args.out)
     if args.frame_ab and not args.parent_tree:
         ap.error("--frame-ab needs --parent-tree")
     import chip_smoke
@@ -516,20 +804,13 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    if args.ptxas:
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run(
-            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(build.BUILD_DIR / "raymarch-ptxas.so"),
-             str(build.CSRC / "raymarch.cu")], capture_output=True,
-            text=True)
-        print(proc.stdout + proc.stderr, flush=True)
-        if proc.returncode != 0:
-            return proc.returncode
     t0 = time.perf_counter()
     build.load_library("raymarch")
     print(json.dumps({"build_seconds": time.perf_counter() - t0}),
           flush=True)
+    if args.ptxas:
+        print(json.dumps({"ptxas": build.ptxas_report("raymarch")}),
+              flush=True)
     dev = torch.device("cuda", 0)
     scene = make_scene(n_train=args.views, n_test=1, wh=chip_smoke.WH,
                        seed=chip_smoke.SEED)
@@ -545,7 +826,9 @@ def main():
         "bench_untrained", train_sets, windows,
         window_edges=chip_smoke.window_edge_sets(
             system.model, system.occ, test_rcfg, rays,
-            chip_smoke.SEED + 82), time_rounds=True)
+            chip_smoke.SEED + 82), time_rounds=True,
+        train_edges=chip_smoke.march_train_edge_sets(system,
+                                                     chip_smoke.SEED + 84))
     skip_walk(windows, card, "bench_untrained")
     if args.lanes_sweep:
         lanes_sweep(windows, card, "bench_untrained")
@@ -556,12 +839,16 @@ def main():
     if args.share_sweep:
         share_sweep([int(x) for x in args.share_sweep.split(",")], dev,
                     card)
+    status = 0
+    if args.march_ab:
+        status = march_ab(args.march_ab, args.parent_tree, dev, card,
+                          [t for t in args.trees.split(",") if t])
     if args.train_ab:
-        train_ab(args.train_ab, dev, card)
+        status |= train_ab(args.train_ab, dev, card, args.parent_tree)
     if args.frame_ab:
-        return frame_ab(args.frame_ab, args.parent_tree, dev, card,
-                        args.lanes_sweep)
-    return 0
+        status |= frame_ab(args.frame_ab, args.parent_tree, dev, card,
+                           args.lanes_sweep)
+    return status
 
 
 if __name__ == "__main__":
