@@ -17,7 +17,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    mfnerf_tpu_torch/csrc/, one nvcc each, started together; then (ptxas)
    what ptxas said in those builds (build.ptxas_report) of the registers,
    spills and shared memory of march_train_kernel and of each
-   instantiation of the composite backward's kernels;
+   instantiation of the composite training forward's and backward's
+   kernels;
 3. kernel: hat_prod's kernel against its plain torch version at the serving
    shapes (N = 2^20 samples, K = 257 knots, R = 128 columns), with both times;
 4. state: a seeded bench-width LowRank field and one dense occupancy refresh
@@ -127,7 +128,12 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    and its in-place form) against its plain version on the card: the
    forward's ws, opacity, depth and rgb within COMPOSITE_FWD_TOL x max and
    each row's included samples equal, on the rows clear of T_threshold
-   (rows within COMPOSITE_TIE_ULPS of it are counted apart); the backward
+   (rows within COMPOSITE_TIE_ULPS of it are counted apart), and on every
+   row bit for bit this tree's pass-by-pass forward kernel (kept for rows
+   of more than four passes; an earlier tree's kernel is built only by
+   tools/composite_check.py --fwd-ab), the kernels' order model
+   composite_train_fwd_order_plain, and, in ws, the backward kernel's
+   weights (d_rgbs given g_rgb = 1); the backward
    within COMPOSITE_BWD_TOL relative L2 of composite_train_bwd_plain and
    of autograd through composite_train_plain, for seeded incoming
    gradients of all four outputs, of all but ws and the loss's own, and
@@ -1821,15 +1827,22 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
     twice, bit for bit. With ``timed``, device times by CUDA-graph replay
     beside the plain versions' and the bounds. Returns the fields."""
     from mfnerf_tpu_torch.ops.composite import (
-        _launch_train_bwd, bwd_passes, composite_train_bwd,
-        composite_train_bwd_order_plain, composite_train_bwd_plain,
-        composite_train_fwd,
-        composite_train_fwd_plain, composite_train_plain)
+        _launch_train_bwd, _launch_train_fwd, bwd_passes,
+        composite_train_bwd, composite_train_bwd_order_plain,
+        composite_train_bwd_plain, composite_train_fwd,
+        composite_train_fwd_order_plain, composite_train_fwd_plain,
+        composite_train_plain)
     sig, rgbs, dl, ts, mask = args
     n, s = sig.shape
+    f32 = tuple(x.float() for x in args[:4])
     got = composite_train_fwd(*args, thr)
     again = composite_train_fwd(*args, thr)
     want = composite_train_fwd_plain(*args, thr)
+    walk = _launch_train_fwd(*f32, mask, thr, passes=0)
+    model = composite_train_fwd_order_plain(*args, thr)
+    weights = composite_train_bwd(
+        *args, None, None, torch.ones((n, 3), device=sig.device), None, thr,
+        needs=(False, True, False, False))[1][..., 0].contiguous()
     torch.cuda.synchronize()
     ties = composite_tie_rows(sig, dl, mask, thr)
     keep = ~ties
@@ -1850,6 +1863,10 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
             (counts_differ & ties).sum()), tie_max_abs_err=tie_err,
         fwd_rel_err=fwd_err, fwd_tol=COMPOSITE_FWD_TOL,
         fwd_bit_equal=_bits_equal(got, again),
+        fwd_passes=bwd_passes(s),
+        fwd_walk_bit_equal=_bits_equal(got, walk),
+        fwd_model_bit_equal=_bits_equal(got, model),
+        ws_bwd_weights_bit_equal=_bits_equal(got[3:4], (weights,)),
         max_abs_err=max(_rows_err(g, w, keep)[0]
                         for g, w in zip(got[:4], want)))
     check(not bool((counts_differ & keep).any()),
@@ -1861,6 +1878,12 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
           f"composite_train {label}: tie rows differ by {tie_err}")
     check(fields["fwd_bit_equal"], f"composite_train {label}: two launches "
           f"differ")
+    check(fields["fwd_walk_bit_equal"], f"composite_train {label}: differs "
+          f"from the pass-by-pass kernel")
+    check(fields["fwd_model_bit_equal"], f"composite_train {label}: differs "
+          f"from composite_train_fwd_order_plain")
+    check(fields["ws_bwd_weights_bit_equal"], f"composite_train {label}: ws "
+          f"differ from the backward kernel's weights")
     rng = np.random.default_rng(n + s)
     rand = tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                   ).to(sig.device)
@@ -1900,8 +1923,8 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
         check(bwd[ups_label]["bit_equal"], f"composite_train_bwd {label}: "
               f"two launches differ")
         # the two-walk kernel on the same operands
-        two = _launch_train_bwd(*(x.float() for x in args[:4]), mask,
-                                *ups, thr, (True,) * 4, passes=0)
+        two = _launch_train_bwd(*f32, mask, *ups, thr, (True,) * 4,
+                                passes=0)
         bwd[ups_label]["two_walk_bit_equal"] = _bits_equal(g1, two)
         check(bwd[ups_label]["two_walk_bit_equal"], f"composite_train_bwd "
               f"{label} ({ups_label}): differs from the two-walk kernel")
@@ -1925,6 +1948,9 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
     if timed:
         fields["ms"] = graph_ms(lambda: composite_train_fwd(*args, thr),
                                 COMPOSITE_GRAPH_ITERS)
+        fields["fwd_walk_ms"] = graph_ms(
+            lambda: _launch_train_fwd(*f32, mask, thr, passes=0),
+            COMPOSITE_GRAPH_ITERS)
         fields["plain_ms"] = cuda_ms(
             lambda: composite_train_fwd_plain(*args, thr), 5)
         fields["bound_ms"], fields["bound_by"] = composite_fwd_bound(
@@ -1942,8 +1968,8 @@ def check_composite_train(label, args, thr, loss_grads=None, timed=False):
         fields["bwd_share_of_bound"] = fields["bwd_bound_ms"] \
             / fields["bwd_ms"]
         fields["bwd_two_walk_ms"] = graph_ms(
-            lambda: _launch_train_bwd(*(x.float() for x in args[:4]), mask,
-                                      *ups, thr, needs, passes=0),
+            lambda: _launch_train_bwd(*f32, mask, *ups, thr, needs,
+                                      passes=0),
             COMPOSITE_GRAPH_ITERS)
         fields["bwd_incoming"] = ups_sets[-1][0]
     return fields
@@ -3170,6 +3196,8 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                 composite={kind: {key: f[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "rays")}
                     for kind, f in comp_timed.items()},
+                composite_fwd={key: comp_timed["train"][key] for key in (
+                    "fwd_walk_ms", "fwd_passes")},
                 composite_bwd={key: comp_timed["train"][key] for key in (
                     "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
                     "bwd_bound_by", "bwd_two_walk_ms", "bwd_passes")},
@@ -3485,12 +3513,14 @@ def main():
                       f"{EXR_SRC} links {extra['linked']}")
             phase(label, source=source, built=fresh, seconds=seconds,
                   **extra, card=card)
-        ptxas = {lib: build.ptxas_report(lib, kernel)
-                 for lib, kernel in (("raymarch", "march_train_kernel"),
-                                     ("composite", "composite_train_bw"))}
+        ptxas = {name: build.ptxas_report(lib, name)
+                 for lib, name in (("raymarch", "march_train_kernel"),
+                                   ("composite", "composite_train_fw"),
+                                   ("composite", "composite_train_bw"))}
         check(all(ptxas.values()), f"ptxas named no kernel: {ptxas}")
-        phase("ptxas", march_train=ptxas["raymarch"],
-              composite_train_bw=ptxas["composite"], card=card)
+        phase("ptxas", march_train=ptxas["march_train_kernel"],
+              composite_train_fw=ptxas["composite_train_fw"],
+              composite_train_bw=ptxas["composite_train_bw"], card=card)
 
     # ---- 3. kernel against its plain version, at the serving shapes
     cfg = NGPConfig(lr_k_max=256, lr_fused=True)   # the bench model
@@ -3973,6 +4003,7 @@ def main():
                 cascade_march[label] = fields["march"]
                 march_err = max(march_err, fields["march_max_abs_err"])
                 cascade_comp[label] = dict(fields["composite"],
+                                           fwd=fields["composite_fwd"],
                                            bwd=fields["composite_bwd"])
                 comp_err = {k: max(v, fields["composite_max_abs_err"][k])
                             for k, v in comp_err.items()}
@@ -4194,7 +4225,7 @@ def main():
         "max_abs_err": march_err, **{key: bench_march["train"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
         "shape": "bench.py's step: 8192 rays, the two-level strata",
-        "registers": ptxas["raymarch"],
+        "registers": ptxas["march_train_kernel"],
         "mf": {key: mf_march["train"][key] for key in (
             "rays", "ms", "plain_ms", "bound_ms", "bound_by")},
         "cascades": {label: m["train"] for label, m in
@@ -4234,8 +4265,16 @@ def main():
         "library_ms": None,
         "shape": "bench.py's step on the trained field: 8192 rays, 64 "
                  "slots a row",
+        "redesigned": "rows of up to four passes in registers, each "
+                      "operand loaded once; passes masked on the whole warp "
+                      "skip their scans; a warp's sums traded between its "
+                      "lanes (warp_sums)",
+        "passes": bench_comp["train"]["fwd_passes"],
+        "fwd_walk_ms": bench_comp["train"]["fwd_walk_ms"],
+        "registers": ptxas["composite_train_fw"],
         "mf": {key: mf_comp["train"][key] for key in (
-            "rays", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "rays", "ms", "plain_ms", "bound_ms", "bound_by", "fwd_walk_ms",
+            "fwd_passes")},
         "cascades": {label: c["train"] for label, c in
                      cascade_comp.items()}}, {
         "name": "composite_train_bwd", "route": "cuda", "source": comp_src,
@@ -4257,7 +4296,7 @@ def main():
                       "scans",
         "passes": bench_comp["train"]["bwd_passes"],
         "two_walk_ms": bench_comp["train"]["bwd_two_walk_ms"],
-        "registers": ptxas["composite"],
+        "registers": ptxas["composite_train_bw"],
         "mf": {key: mf_comp["train"]["bwd_" + key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "two_walk_ms",
             "passes")},

@@ -43,9 +43,14 @@
 // shuffle tree sums the lanes' partial sums at the end. A warp stops when
 // every one of its rows has fallen to T <= T_threshold (nothing later is
 // included: the products of factors in [0, 1] never rise); the training
-// forward then writes 0 to the rest of ws. The backward walks each row
-// twice: front to back for the transmittance at the start of each pass,
-// then back to front, recomputing each pass's weights from that
+// forward then writes 0 to the rest of ws. Rows of up to four passes (a
+// training step's 64 and 128 slots) load a lane's operands once for all
+// its passes into registers, skip the scans of passes masked on the whole
+// warp and store ws after the walk (composite_train_fw_regs_kernel);
+// longer rows load each pass's operands as they walk
+// (composite_train_fw_kernel). Both give the same bits. The backward walks
+// each row twice: front to back for the transmittance at the start of each
+// pass, then back to front, recomputing each pass's weights from that
 // transmittance (the same operations as the forward, so the same included
 // samples), R within the pass by a shuffle scan of the affine maps and
 // across passes by carrying R from the pass behind. Rows of up to four
@@ -64,14 +69,18 @@
 // bit for bit; the order is fixed, so every launch gives the same bits. No
 // atomics.
 //
-// What bounds it on Hopper: bytes. A training step's forward reads the
-// mask and, up to the stop, sigma, delta, t and rgb (~25 B a slot) and
-// writes ws, 4 B a slot; the backward reads the same and writes up to 24 B
-// a slot; the arithmetic is a few tens of fp32 operations a sample. At a
-// step's 8,192 rows of 64 slots each kernel is a few microseconds, near
-// its launch's own cost: on the main path it replaces some twenty small
-// torch launches (the plain forward, autograd's backward through cumprod,
-// a serving round's gathers and scatters).
+// What bounds it on Hopper: not bytes or operations but each warp's frame
+// of dependent loads, votes, shuffles and stores. A training step's forward
+// reads the mask and, up to the stop, sigma, delta, t and rgb (~25 B a
+// slot) and writes ws, 4 B a slot; at 8,192 rows of 64 slots that is ~1 us
+// of HBM time, yet an empty launch of the grid takes ~2 us by graph replay
+// and a copy of the register forward cut to its loads and stores ~5 us of
+// its ~6 (NVIDIA H100 80GB HBM3, 700 W; tools/composite_check.py --fwd-ab
+// with cut trees). The backward reads the same and writes up to 24 B a
+// slot; the arithmetic is a few tens of fp32 operations a sample. On the
+// main path each kernel replaces some twenty small torch launches (the
+// plain forward, autograd's backward through cumprod, a serving round's
+// gathers and scatters).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -271,6 +280,172 @@ __global__ void __launch_bounds__(kThreads) composite_train_fw_kernel(
   Sums acc;
   walk_forward(l, s, thr, 1.0f, l.live, sigmas, rgbs, deltas, ts, mask, ws,
                acc);
+  reduce(acc, width);
+  if (l.live && l.sl == 0) {
+    opacity[l.ray] = acc.op;
+    depth[l.ray] = acc.de;
+    rgb[3 * l.ray] = acc.r;
+    rgb[3 * l.ray + 1] = acc.g;
+    rgb[3 * l.ray + 2] = acc.b;
+    counts[l.ray] = acc.count;
+  }
+}
+
+// The sums of a row on a whole warp (width 32): seg_sum's xor tree over the
+// five partial sums, with the values split between the lanes as the tree
+// goes, so that a shuffle carries a value the partner needs each way: at the
+// level of 16 lanes each half of the warp keeps four of eight slots (the
+// sums and three zeros; a pair of zeros is not traded) and receives its
+// partner's four, at 8 two, at 4 one, then the last two levels as seg_sum.
+// Each lane's value at each level is seg_sum's at that lane, so the result
+// has its bits; slot j ends on lanes 4j to 4j + 3: opacity on lane 0,
+// depth 4, r 8, g 16, b 20. Eight shuffles where seg_sum takes 25.
+__device__ __forceinline__ float warp_sums(const Sums& acc, int lane) {
+  const float v[8] = {acc.op, acc.de, acc.r, 0.0f,
+                      acc.g, acc.b, 0.0f, 0.0f};
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float k4[4];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float theirs = __shfl_xor_sync(kFull, h16 ? v[j] : v[4 + j], 16);
+    k4[j] = __fadd_rn(h16 ? v[4 + j] : v[j], theirs);
+  }
+  k4[3] = 0.0f;                          // v[3] + v[7]
+  float k2[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float theirs = __shfl_xor_sync(kFull, h8 ? k4[j] : k4[2 + j], 8);
+    k2[j] = __fadd_rn(h8 ? k4[2 + j] : k4[j], theirs);
+  }
+  const float theirs = __shfl_xor_sync(kFull, h4 ? k2[0] : k2[1], 4);
+  float k = __fadd_rn(h4 ? k2[1] : k2[0], theirs);
+  k = __fadd_rn(k, __shfl_xor_sync(kFull, k, 2));
+  return __fadd_rn(k, __shfl_xor_sync(kFull, k, 1));
+}
+
+// The training forward of rows of at most P passes (a template parameter:
+// 1, 2 or 4): walk_forward's walk, with the same operations in the same
+// order, so the same bits as composite_train_fw_kernel (and the same
+// included samples as the backward's walks recompute), with a lane's
+// operands loaded once for all its passes: the mask bytes of its P slots,
+// then sigma and delta of its valid ones, and after the walk t and rgb of
+// its included ones (three dependent round trips to memory a row, where
+// walk_forward makes three a pass). A pass masked on the whole warp loads
+// nothing and skips its scan: T before each slot is t, and t * 1 is t. Each
+// lane keeps its partial sums across passes in pass order; ws is stored
+// after the walk, a slot once (0 past the warp's stop and where excluded).
+// A row on a whole warp sums them by warp_sums (seg_sum's bits) and counts
+// its included samples by ballots, and a warp that includes nothing skips
+// the sums (each +0); narrower rows sum by reduce() and write from their
+// first lane. Loading t and rgb with sigma and delta for every valid slot
+// (two round trips, more bytes) measured the same on trained bench and
+// MixedFeature steps and 0.2-0.6 us slower on the edge blocks (NVIDIA H100
+// 80GB HBM3, 700 W, tools/composite_check.py --fwd-ab), and went.
+template <int P>
+__global__ void __launch_bounds__(kThreads) composite_train_fw_regs_kernel(
+    long long n, int s, int width, float thr,
+    const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+    const float* __restrict__ deltas, const float* __restrict__ ts,
+    const bool* __restrict__ mask, float* __restrict__ opacity,
+    float* __restrict__ depth, float* __restrict__ rgb,
+    float* __restrict__ ws, int* __restrict__ counts) {
+  if (warp_past_end(n, width)) return;
+  const Lane l = lane_of(n, width);
+  const long long row = l.ray * s;
+
+  // every slot's mask, then every valid slot's operands
+  bool mk[P];
+  unsigned valid = 0;                // bit p: the warp's pass p has a sample
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int i = p * width + l.sl;
+    mk[p] = l.live && i < s && mask[row + i];
+    if (__any_sync(kFull, mk[p])) valid |= 1u << p;
+  }
+  float sg[P], dl[P], tv[P], cr[P], cg[P], cb[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long at = row + p * width + l.sl;
+    sg[p] = dl[p] = tv[p] = cr[p] = cg[p] = cb[p] = 0.0f;
+    if (((valid >> p) & 1u) && mk[p]) {
+      sg[p] = sigmas[at];
+      dl[p] = deltas[at];
+    }
+  }
+
+  // front to back, up to the pass at which every row of the warp has
+  // fallen to thr
+  float t = 1.0f;
+  bool stopped = false;
+  bool inc[P];
+  float w[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    inc[p] = false;
+    w[p] = 0.0f;
+    if (stopped) continue;           // the same on the whole warp
+    if (p * width >= s || __all_sync(kFull, !(l.live && t > thr))) {
+      stopped = true;
+      continue;
+    }
+    if (!((valid >> p) & 1u)) continue;
+    float a, om, e, total;
+    alpha_from(mk[p], sg[p], dl[p], a, om, e);
+    const float t_i = __fmul_rn(t, excl_product(om, l.sl, width, total));
+    inc[p] = mk[p] && t_i > thr;
+    if (inc[p]) w[p] = __fmul_rn(a, t_i);
+    t = __fmul_rn(t, total);
+  }
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int i = p * width + l.sl;
+    if (l.live && i < s) ws[row + i] = w[p];
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (inc[p]) {
+      const long long at = row + p * width + l.sl;
+      tv[p] = ts[at];
+      cr[p] = rgbs[3 * at];
+      cg[p] = rgbs[3 * at + 1];
+      cb[p] = rgbs[3 * at + 2];
+    }
+  }
+  Sums acc;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (inc[p]) {
+      acc.op = __fadd_rn(acc.op, w[p]);
+      acc.de = __fadd_rn(acc.de, __fmul_rn(w[p], tv[p]));
+      acc.r = __fadd_rn(acc.r, __fmul_rn(w[p], cr[p]));
+      acc.g = __fadd_rn(acc.g, __fmul_rn(w[p], cg[p]));
+      acc.b = __fadd_rn(acc.b, __fmul_rn(w[p], cb[p]));
+      ++acc.count;
+    }
+  }
+  if (width == 32) {                 // a warp a row, and it is live
+    int count = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) count += __popc(__ballot_sync(kFull, inc[p]));
+    const float sum = count > 0 ? warp_sums(acc, l.sl) : 0.0f;
+    float* out = nullptr;
+    float value = sum;
+    switch (l.sl) {
+      case 0: out = opacity + l.ray; break;
+      case 4: out = depth + l.ray; break;
+      case 8: out = rgb + 3 * l.ray; break;
+      case 16: out = rgb + 3 * l.ray + 1; break;
+      case 20: out = rgb + 3 * l.ray + 2; break;
+      case 12:
+        out = reinterpret_cast<float*>(counts + l.ray);
+        value = __int_as_float(count);
+        break;
+      default: break;
+    }
+    if (out != nullptr) *out = value;
+    return;
+  }
   reduce(acc, width);
   if (l.live && l.sl == 0) {
     opacity[l.ray] = acc.op;
@@ -600,8 +775,10 @@ int check_sizes(long long n, int s) {
 // The training forward on `stream`. sigmas, deltas, ts (n, s), rgbs
 // (n, s, 3) fp32 and mask (n, s) bool, contiguous. Outputs: opacity,
 // depth (n,), rgb (n, 3), ws (n, s) fp32 and counts (n,) int32, each row's
-// included samples.
-extern "C" int composite_train_fw(long long n, int s, float thr,
+// included samples. `passes` 1, 2 or 4 takes
+// composite_train_fw_regs_kernel<passes> (rows of at most `passes` passes of
+// row_width(s) slots); 0 composite_train_fw_kernel, for any s.
+extern "C" int composite_train_fw(long long n, int s, int passes, float thr,
                                   const void* sigmas, const void* rgbs,
                                   const void* deltas, const void* ts,
                                   const void* mask, void* opacity,
@@ -609,16 +786,40 @@ extern "C" int composite_train_fw(long long n, int s, float thr,
                                   void* counts, void* stream) {
   const int bad = check_sizes(n, s);
   if (bad) return bad;
-  if (n == 0) return static_cast<int>(cudaSuccess);
   const int width = row_width(s);
-  composite_train_fw_kernel<<<blocks_for(n, width), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      n, s, width, thr, static_cast<const float*>(sigmas),
-      static_cast<const float*>(rgbs), static_cast<const float*>(deltas),
-      static_cast<const float*>(ts), static_cast<const bool*>(mask),
-      static_cast<float*>(opacity), static_cast<float*>(depth),
-      static_cast<float*>(rgb), static_cast<float*>(ws),
-      static_cast<int*>(counts));
+  const bool ok = passes == 0 ||
+      ((passes == 1 || passes == 2 || passes == 4) &&
+       (s + width - 1) / width <= passes);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for(n, width);
+#define COMPOSITE_FW_ARGS                                                     \
+  n, s, width, thr, static_cast<const float*>(sigmas),                       \
+      static_cast<const float*>(rgbs), static_cast<const float*>(deltas),    \
+      static_cast<const float*>(ts), static_cast<const bool*>(mask),         \
+      static_cast<float*>(opacity), static_cast<float*>(depth),              \
+      static_cast<float*>(rgb), static_cast<float*>(ws),                     \
+      static_cast<int*>(counts)
+  switch (passes) {
+    case 1:
+      composite_train_fw_regs_kernel<1><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_FW_ARGS);
+      break;
+    case 2:
+      composite_train_fw_regs_kernel<2><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_FW_ARGS);
+      break;
+    case 4:
+      composite_train_fw_regs_kernel<4><<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_FW_ARGS);
+      break;
+    default:
+      composite_train_fw_kernel<<<blocks, kThreads, 0, st>>>(
+          COMPOSITE_FW_ARGS);
+      break;
+  }
+#undef COMPOSITE_FW_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,10 +18,13 @@ it exceeds ``T_threshold``.
 
 On CUDA tensors the three functions launch the hand-written kernels of
 ``csrc/composite.cu`` (a row on up to a warp's lanes, a shuffle scan of
-``1 - alpha``; the backward keeps a row of up to four passes in registers,
-:func:`bwd_passes`); on CPU tensors they run their plain versions
-(:func:`composite_train_plain` and :func:`composite_train_fwd_plain`,
-:func:`composite_train_bwd_plain`, :func:`composite_test_step_plain`). The kernels round every operation on
+``1 - alpha``; the training forward and backward keep a row of up to four
+passes in registers, :func:`bwd_passes`, modelled operation by operation
+by :func:`composite_train_fwd_order_plain` and
+:func:`composite_train_bwd_order_plain`); on CPU tensors they run their
+plain versions (:func:`composite_train_plain` and
+:func:`composite_train_fwd_plain`, :func:`composite_train_bwd_plain`,
+:func:`composite_test_step_plain`). The kernels round every operation on
 its own but scan and sum in another order than torch, so they agree with
 the plain versions to rounding, and with themselves bit for bit from launch
 to launch. ``composite_train.launches``, ``composite_train_bwd.launches``
@@ -166,45 +169,150 @@ def _lane_affine_suffix(c, m):
     return c, m
 
 
+class _Lanes:
+    """A block of n rows of s slots as csrc/composite.cu's training kernels
+    lay it on a warp's lanes: a row on ``row_width(s)`` lanes, 32 / width
+    rows a warp (padded to whole warps, the padding rows dead), walked in
+    passes of width slots; ``lay`` takes (n, s, ...) to (rows, passes,
+    width, ...), ``unlay`` back."""
+
+    def __init__(self, n, s, device):
+        self.n, self.s, self.device = n, s, device
+        self.width = row_width(s)
+        self.per_warp = 32 // self.width
+        self.passes = -(-s // self.width)
+        self.rows = -(-n // self.per_warp) * self.per_warp
+        self.live = torch.arange(self.rows, device=device) < n
+
+    def lay(self, x, fill=0.0):
+        pad = torch.full((self.rows, self.passes * self.width)
+                         + tuple(x.shape[2:]), fill, dtype=x.dtype,
+                         device=self.device)
+        pad[:self.n, :self.s] = x
+        return pad.view((self.rows, self.passes, self.width)
+                        + tuple(x.shape[2:]))
+
+    def unlay(self, x):
+        return x.reshape((self.rows, self.passes * self.width)
+                         + tuple(x.shape[3:]))[:self.n, :self.s]
+
+    def warp_all(self, x):
+        """Whether x (rows,) holds on every row of each row's warp."""
+        return x.view(-1, self.per_warp).all(1) \
+            .repeat_interleave(self.per_warp)
+
+
+class _FrontWalk(NamedTuple):
+    e: torch.Tensor        # exp(-sigma delta), 1 where masked
+    a: torch.Tensor        # alpha
+    om: torch.Tensor       # 1 - alpha
+    ti: torch.Tensor       # T before each slot
+    walked: torch.Tensor   # (rows,) passes before the warp's stop
+    reached: torch.Tensor  # (rows, passes, 1): pass before the stop
+    inc: torch.Tensor      # included: valid, reached and T before > thr
+    w: torch.Tensor        # alpha T where included, else +0
+
+
+def _front_walk(lanes, m, sg, dl, T_threshold, skip=True):
+    """The training kernels' front walk on laid-out operands (float32,
+    each product rounded on its own): alpha and 1 - alpha as the plain
+    version computes them, the exclusive product of 1 - alpha by the
+    kernels' shuffle scan, the transmittance carried across passes, and
+    the stop at the pass at which every row of the warp has fallen to the
+    threshold. With ``skip`` (the register kernels) a pass masked on the
+    whole warp skips its scan: T before each slot is t, and t is kept."""
+    e = torch.where(m, torch.exp(-(sg * dl)), 1.0)
+    a = torch.where(m, 1.0 - e, 0.0)
+    om = torch.where(m, 1.0 - a, 1.0)
+    before, total = _lane_excl_product(om)
+    rows, passes = lanes.rows, lanes.passes
+    t = torch.ones(rows, dtype=torch.float32, device=lanes.device)
+    walked = torch.full((rows,), passes, dtype=torch.int64,
+                        device=lanes.device)
+    stopped = torch.zeros(rows, dtype=torch.bool, device=lanes.device)
+    ti = torch.zeros_like(sg)
+    for p in range(passes):
+        now = lanes.warp_all(~(lanes.live & (t > T_threshold))) & ~stopped
+        walked = torch.where(now, p, walked)
+        stopped |= now
+        scanned = ~lanes.warp_all(~m[:, p].any(1)) if skip \
+            else torch.ones_like(stopped)
+        ti[:, p] = torch.where(scanned[:, None], t[:, None] * before[:, p],
+                               t[:, None])
+        t = torch.where(scanned, t * total[:, p], t)
+    reached = (torch.arange(passes, device=lanes.device)[None, :]
+               < walked[:, None])[..., None]
+    inc = m & reached & (ti > T_threshold)
+    w = torch.where(inc, a * ti, 0.0)
+    return _FrontWalk(e, a, om, ti, walked, reached, inc, w)
+
+
+def composite_train_fwd_order_plain(sigmas, rgbs, deltas, ts, mask,
+                                    T_threshold=1e-4, skip=True):
+    """:func:`composite_train_fwd_plain` in the order of csrc/composite.cu's
+    training forward kernels, operation by operation (float32, each product
+    and sum rounded on its own): the front walk of :func:`_front_walk` (its
+    ``skip`` the register kernel's; both give the same bits); each lane's
+    partial sums of its included slots in pass order (opacity w, depth
+    w t, rgb w rgb, the count); then the sum over a row's lanes by the
+    kernels' xor tree (``seg_sum``; ``warp_sums`` splits the values between
+    a warp's lanes as it goes and gives the same bits). On CUDA tensors the
+    kernels' bits (torch's exp is expf there); on the CPU torch's exp may
+    round otherwise by an ulp.
+    Returns (opacity, depth, rgb, ws, counts) as the kernels write them."""
+    f32 = torch.float32
+    n, s = sigmas.shape
+    lanes = _Lanes(n, s, sigmas.device)
+    m = lanes.lay(mask, False)
+    sg, dl, tv = (lanes.lay(x.to(f32)) for x in (sigmas, deltas, ts))
+    col = lanes.lay(rgbs.to(f32))
+    walk = _front_walk(lanes, m, sg, dl, T_threshold, skip)
+    sums = [torch.zeros_like(sg[:, 0]) for _ in range(5)]
+    count = torch.zeros(sums[0].shape, dtype=torch.int32,
+                        device=sigmas.device)
+    for p in range(lanes.passes):
+        inc, w = walk.inc[:, p], walk.w[:, p]
+        terms = (w, w * tv[:, p], w * col[:, p, :, 0], w * col[:, p, :, 1],
+                 w * col[:, p, :, 2])
+        sums = [torch.where(inc, acc + x, acc) for acc, x in zip(sums,
+                                                                 terms)]
+        count = count + inc.to(torch.int32)
+    lane = torch.arange(lanes.width, device=sigmas.device)
+    d = lanes.width >> 1
+    while d:
+        sums = [v + v[:, lane ^ d] for v in sums]
+        count = count + count[:, lane ^ d]
+        d >>= 1
+    op, de, r, g, b = (v[:n, 0] for v in sums)
+    return (op, de, torch.stack([r, g, b], dim=1), lanes.unlay(walk.w),
+            count[:n, 0])
+
+
 def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
                                     g_opacity, g_depth, g_rgb, g_ws,
                                     T_threshold=1e-4, skip=True):
     """:func:`composite_train_bwd_plain` in the order of csrc/composite.cu's
     backward kernels, operation by operation (float32, each product and sum
-    rounded on its own): a row on ``row_width(s)`` lanes, 32 / width rows a
-    warp, walked in passes of width slots; the exclusive product of
-    1 - alpha by the kernels' shuffle scan, the transmittance carried
-    across passes; the front walk stops at the pass at which every row of
-    the warp has fallen to the threshold (the rest of the row gets +0); R
-    by the suffix scan of the affine maps within a pass and carried across
-    passes. With ``skip`` (the register kernel) a pass in which no slot of
-    the warp is included skips its scan and carries R as 0 + R; without it
-    (the two-walk kernel) every pass is scanned. Both give the same bits,
-    and on CUDA tensors the kernels' (torch's exp is expf there); on the
-    CPU torch's exp may round otherwise by an ulp. Returns (d_sigmas,
-    d_rgbs, d_deltas, d_ts) in float32, as the kernels write them."""
+    rounded on its own): the front walk of :func:`_front_walk` (the rest of
+    a row past the warp's stop gets +0); R by the suffix scan of the affine
+    maps within a pass and carried across passes. With ``skip`` (the
+    register kernel) a pass masked on the whole warp skips its front scan,
+    and a pass in which no slot of the warp is included skips its back scan
+    and carries R as 0 + R; without it (the two-walk kernel) every pass is
+    scanned. Both give the same bits, and on CUDA tensors the kernels'
+    (torch's exp is expf there); on the CPU torch's exp may round otherwise
+    by an ulp. Returns (d_sigmas, d_rgbs, d_deltas, d_ts) in float32, as
+    the kernels write them."""
     f32 = torch.float32
     n, s = sigmas.shape
     dev = sigmas.device
-    width = row_width(s)
-    per_warp = 32 // width
-    passes = -(-s // width)
-    rows = -(-n // per_warp) * per_warp                # whole warps
-    slots = passes * width
-
-    def lay(x, fill=0.0):
-        """(n, s, ...) -> (rows, passes, width, ...), padded with fill."""
-        pad = torch.full((rows, slots) + tuple(x.shape[2:]), fill,
-                         dtype=x.dtype, device=dev)
-        pad[:n, :s] = x
-        return pad.view((rows, passes, width) + tuple(x.shape[2:]))
-
-    m = lay(mask, False)
-    sg, dl, tv = (lay(x.to(f32)) for x in (sigmas, deltas, ts))
-    col = lay(rgbs.to(f32))
-    gw = lay(g_ws.to(f32)) if g_ws is not None \
+    lanes = _Lanes(n, s, dev)
+    rows, passes, width = lanes.rows, lanes.passes, lanes.width
+    m = lanes.lay(mask, False)
+    sg, dl, tv = (lanes.lay(x.to(f32)) for x in (sigmas, deltas, ts))
+    col = lanes.lay(rgbs.to(f32))
+    gw = lanes.lay(g_ws.to(f32)) if g_ws is not None \
         else torch.zeros_like(sg)
-    live = torch.arange(rows, device=dev) < n
 
     def row_grad(g, k=None):
         out = torch.zeros(rows, dtype=f32, device=dev)
@@ -214,25 +322,8 @@ def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
 
     go, gd = row_grad(g_opacity), row_grad(g_depth)
     gr, gg, gb = (row_grad(g_rgb, k) for k in range(3))
-    e = torch.where(m, torch.exp(-(sg * dl)), 1.0)
-    a = torch.where(m, 1.0 - e, 0.0)
-    om = torch.where(m, 1.0 - a, 1.0)
-    before, total = _lane_excl_product(om)
-    # front to back: each pass's start, and the warp's stop
-    t = torch.ones(rows, dtype=f32, device=dev)
-    walked = torch.full((rows,), passes, dtype=torch.int64, device=dev)
-    stopped = torch.zeros(rows, dtype=torch.bool, device=dev)
-    ti = torch.zeros_like(sg)
-    for p in range(passes):
-        over = ~(live & (t > T_threshold))
-        now = over.view(-1, per_warp).all(1).repeat_interleave(per_warp) \
-            & ~stopped
-        walked = torch.where(now, p, walked)
-        stopped |= now
-        ti[:, p] = t[:, None] * before[:, p]
-        t = t * total[:, p]
-    inc = m & (ti > T_threshold)
-    w = torch.where(inc, a * ti, 0.0)
+    walk = _front_walk(lanes, m, sg, dl, T_threshold, skip)
+    e, a, om, ti, inc, w = walk.e, walk.a, walk.om, walk.ti, walk.inc, walk.w
     big_g = gw + go
     big_g = big_g + gd * tv
     big_g = big_g + gr * col[..., 0]
@@ -242,8 +333,8 @@ def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
     c, mm = _lane_affine_suffix(torch.where(inc, big_g * a, 0.0), om)
     lane = torch.arange(width, device=dev)
     # back to front
-    included = inc.view(-1, per_warp, passes, width).any(3).any(1) \
-        .repeat_interleave(per_warp, 0)
+    included = inc.view(-1, lanes.per_warp, passes, width).any(3).any(1) \
+        .repeat_interleave(lanes.per_warp, 0)
     behind = torch.zeros(rows, dtype=f32, device=dev)
     big_b = torch.zeros_like(sg)
     for p in range(passes - 1, -1, -1):
@@ -256,19 +347,15 @@ def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
         scanned = c[:, p, 0] + mm[:, p, 0] * behind
         if skip:
             scanned = torch.where(included[:, p], scanned, 0.0 + behind)
-        behind = torch.where(p < walked, scanned, behind)
-    reached = (torch.arange(passes, device=dev)[None, :]
-               < walked[:, None])[..., None]                 # (rows, P, 1)
-    d_sigmas = torch.where(reached & inc, dl * big_b, 0.0)
-    d_deltas = torch.where(reached & inc, sg * big_b, 0.0)
+        behind = torch.where(p < walk.walked, scanned, behind)
+    reached = walk.reached
+    d_sigmas = torch.where(inc, dl * big_b, 0.0)
+    d_deltas = torch.where(inc, sg * big_b, 0.0)
     d_ts = torch.where(reached, w * gd, 0.0)
     d_rgbs = torch.where(reached[..., None], torch.stack(
         [w * gr, w * gg, w * gb], dim=-1), 0.0)
-
-    def unlay(x):
-        return x.reshape((rows, slots) + tuple(x.shape[3:]))[:n, :s]
-
-    return unlay(d_sigmas), unlay(d_rgbs), unlay(d_deltas), unlay(d_ts)
+    return (lanes.unlay(d_sigmas), lanes.unlay(d_rgbs), lanes.unlay(d_deltas),
+            lanes.unlay(d_ts))
 
 
 def composite_test_step_plain(sigmas, rgbs, deltas, ts, mask, opacity, depth,
@@ -293,9 +380,10 @@ def _kernels():
     fw, bw, test = (lib.composite_train_fw, lib.composite_train_bw,
                     lib.composite_test)
     head = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-    fw.argtypes = head + [ctypes.c_void_p] * 11
-    bw.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float] + [ctypes.c_void_p] * 14
+    with_passes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float]
+    fw.argtypes = with_passes + [ctypes.c_void_p] * 11
+    bw.argtypes = with_passes + [ctypes.c_void_p] * 14
     test.argtypes = head + [ctypes.c_void_p] * 15
     fw.restype = bw.restype = test.restype = ctypes.c_int
     return fw, bw, test
@@ -346,10 +434,15 @@ def _contiguous(*tensors):
     return [None if t is None else t.contiguous() for t in tensors]
 
 
-def _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold):
-    """composite_train_fw on fp32 operands: (opacity, depth, rgb, ws,
+def _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold,
+                      passes=None):
+    """composite_train_fw on fp32 operands: the kernel of
+    :func:`bwd_passes` (a row's P passes in registers), or of ``passes``
+    (0: the pass-by-pass kernel, for any s), as (opacity, depth, rgb, ws,
     counts)."""
     n, s = sigmas.shape
+    if passes is None:
+        passes = bwd_passes(s)
     dev, f32 = sigmas.device, torch.float32
     sigmas, rgbs, deltas, ts, mask = _contiguous(sigmas, rgbs, deltas, ts,
                                                  mask)
@@ -360,7 +453,7 @@ def _launch_train_fwd(sigmas, rgbs, deltas, ts, mask, T_threshold):
     counts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         rc = _kernels()[0](
-            n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
+            n, s, passes, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
             deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(),
             opacity.data_ptr(), depth.data_ptr(), rgb.data_ptr(),
             ws.data_ptr(), counts.data_ptr(), _stream(dev))
@@ -378,11 +471,12 @@ def row_width(s):
 
 
 def bwd_passes(s):
-    """The backward kernel for rows of ``s`` slots: the passes of
-    ``row_width(s)`` slots it keeps in registers (the template P of
+    """The training kernels for rows of ``s`` slots, forward and backward
+    alike: the passes of ``row_width(s)`` slots they keep in registers (the
+    template P of ``composite_train_fw_regs_kernel`` and
     ``composite_train_bw_regs_kernel``: 1, 2 or 4, the fewest that cover
-    the row), or 0, the two-walk kernel, for rows of more than four
-    passes."""
+    the row), or 0, the pass-by-pass forward and the two-walk backward, for
+    rows of more than four passes."""
     passes = -(-s // row_width(s))
     return next((p for p in (1, 2, 4) if passes <= p), 0)
 

@@ -3,8 +3,8 @@
 ``ops/ray_march.py::march_params`` gives the training march kernel its
 strata (stage A, a lane a stratum) for the bench, MixedFeature and
 five-cascade recipes, and ``ops/composite.py::bwd_passes`` picks the
-backward's template (P passes of a row in registers, or 0: the two-walk
-kernel). The kernels run only on the card (``chip_smoke.py`` holds every
+training forward's and backward's template (P passes of a row in
+registers, or 0: the pass-by-pass forward and the two-walk backward). The kernels run only on the card (``chip_smoke.py`` holds every
 variant bit for bit to the plain versions there); here the parameters and
 choices are held to what the kernels take, for those recipes and at their
 limits, and the wrappers are held to hand the kernels what they chose (the
@@ -183,3 +183,30 @@ def test_bwd_wrapper_hands_the_kernel_its_passes(monkeypatch):
             None, 1e-4, needs)
     assert len(calls) == n_calls
     tcomposite.composite_train_bwd.launches = launches
+
+
+def test_fwd_wrapper_hands_the_kernel_its_passes(monkeypatch):
+    """_launch_train_fwd passes bwd_passes(s), the backward's P, and so 0
+    (the pass-by-pass kernel) for rows of more than 128 slots, or the
+    passes it is given; one launch a call."""
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(tcomposite, "_kernels",
+                        lambda: (record, None, None))
+    monkeypatch.setattr(tcomposite, "_stream", lambda device: 0)
+    launches = tcomposite.composite_train.launches
+    sizes = (1, 8, 40, 64, 128, 129, 200, tcomposite.MAX_BWD_SLOTS + 1)
+    for s in sizes:
+        outs = tcomposite._launch_train_fwd(*_cpu_block(2, s), 1e-4)
+        assert calls[-1][:4] == (2, s, tcomposite.bwd_passes(s), 1e-4)
+        assert (calls[-1][2] == 0) == (s > 128)
+        assert [tuple(o.shape) for o in outs] == [(2,), (2,), (2, 3),
+                                                  (2, s), (2,)]
+    tcomposite._launch_train_fwd(*_cpu_block(2, 64), 1e-4, passes=0)
+    assert calls[-1][:3] == (2, 64, 0)
+    assert tcomposite.composite_train.launches == launches + len(sizes) + 1
+    tcomposite.composite_train.launches = launches

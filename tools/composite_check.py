@@ -2,7 +2,7 @@
 
     python3 tools/composite_check.py [--views 4] [--ptxas] \
         [--train-ab STEPS] [--frame-ab STEPS] \
-        [--bwd-ab STEPS --parent-tree DIR]
+        [--fwd-ab STEPS --parent-tree DIR] [--bwd-ab STEPS --parent-tree DIR]
 
 Builds ``mfnerf_tpu_torch/csrc/composite.cu``, then runs ``chip_smoke.py``'s
 composite checks (each kernel against its plain version on the card: the
@@ -29,18 +29,23 @@ and through the plain composite (kernel, plain, plain, kernel, three
 frames each after a warm-up): each frame's synced ms and, with CUDA events
 around every compositing round (host gaps included), the rounds' share.
 
-``--bwd-ab STEPS --parent-tree DIR`` trains the bench and the
+``--fwd-ab STEPS --parent-tree DIR`` trains the bench and the
 MixedFeature configurations STEPS steps and takes one step's composite
-operands and incoming gradients of each (the loss's), beside the edge
-blocks (``chip_smoke.composite_edge_sets``, seeded incoming gradients of
-all four outputs); then runs composite_train_bwd on every set with the
-tree at ``--parent-tree`` (an earlier commit unpacked under a gitignored
-directory such as ``_parent/``) and with this tree in turns (parent,
-this, this, parent), each in a process of its own: its four gradients,
-held bit for bit to the first run's (the parent's), and its device time
-by CUDA-graph replay asking for d_sigmas and d_rgbs (a training step's);
-``--trees A,B`` times more trees in the same turns, as
-``march_check.py --trees``.
+operands of each, beside the edge blocks
+(``chip_smoke.composite_edge_sets``); then runs composite_train_fwd on
+every set with the tree at ``--parent-tree`` (an earlier commit unpacked
+under a gitignored directory such as ``_parent/``) and with this tree in
+turns (parent, this, this, parent), each in a process of its own: its
+five outputs, held bit for bit to the first run's (the parent's), its
+device time by CUDA-graph replay, and its kernels' registers and spills
+(``build.ptxas_report``). ``--bwd-ab STEPS --parent-tree DIR``
+does the same for composite_train_bwd, with the loss's incoming
+gradients on the steps and seeded ones of all four outputs on the edge
+blocks: its four gradients, and its time asking for d_sigmas and d_rgbs
+(a training step's). With either, ``--trees A,B`` times more trees in the
+same turns, as ``march_check.py --trees`` (variants cut to find where the
+time goes: their outputs are reported against the parent's, and the exit
+code holds only this tree to it).
 
 ``--ptxas`` first prints what ptxas said of each kernel in the build
 (``build.ptxas_report``: registers, spills, shared memory). Prints one JSON
@@ -188,8 +193,8 @@ def frame_ab(steps, dev, card):
             "card": card}), flush=True)
 
 
-def bwd_sets(steps, dev):
-    """The backward's operands: one step of the bench and the MixedFeature
+def ab_sets(steps, dev):
+    """The A/B's operands: one step of the bench and the MixedFeature
     configurations after ``steps`` steps (the loss's incoming gradients)
     and the edge blocks (seeded incoming gradients of all four outputs), as
     [(label, (sigmas, rgbs, deltas, ts, mask), T_threshold, (g_opacity,
@@ -218,26 +223,26 @@ def bwd_sets(steps, dev):
     return sets
 
 
-def bwd_ab(steps, parent_tree, dev, card, trees=()):
-    """--bwd-ab: composite_train_bwd on the same operands with the parent's
-    tree, this tree and ``trees`` in turns, each in a process of its
-    own."""
+def kernel_ab(kind, steps, parent_tree, dev, card, trees=()):
+    """--fwd-ab / --bwd-ab: composite_train_fwd or composite_train_bwd
+    (``kind`` "fwd" or "bwd") on the same operands with the parent's tree,
+    this tree and ``trees`` in turns, each in a process of its own."""
     import tempfile
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from march_check import ab_trees
-    sets = bwd_sets(steps, dev)
+    sets = ab_sets(steps, dev)
     trees, order = ab_trees(parent_tree, trees)
     runs, firsts, equal = [], {}, True
     with tempfile.TemporaryDirectory() as tmp:
-        state = os.path.join(tmp, "bwd.pt")
+        state = os.path.join(tmp, "sets.pt")
         torch.save([(label, tuple(a.cpu() for a in args), thr,
                      tuple(None if g is None else g.cpu() for g in ups))
                     for label, args, thr, ups in sets], state)
         for i, label in enumerate(order):
-            out = os.path.join(tmp, f"bwd_{i}.pt")
+            out = os.path.join(tmp, f"{kind}_{i}.pt")
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--time-bwd",
-                 state, "--tree", trees[label], "--out", out],
+                [sys.executable, os.path.abspath(__file__), "--time", kind,
+                 "--sets", state, "--tree", trees[label], "--out", out],
                 capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -248,22 +253,23 @@ def bwd_ab(steps, parent_tree, dev, card, trees=()):
                 res[name]["bit_equal_to_first"] = all(
                     torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(got, first))
-                equal &= res[name]["bit_equal_to_first"]
+                if label in ("parent", "this"):
+                    equal &= res[name]["bit_equal_to_first"]
             res["tree"] = label
             runs.append(res)
-            print(json.dumps({"bwd_ab": label, "run": i, "trained_steps":
+            print(json.dumps({f"{kind}_ab": label, "run": i, "trained_steps":
                               steps, **res, "card": card}), flush=True)
-    print(json.dumps({"bwd_ab": "summary", "bit_equal": equal, **{
+    print(json.dumps({f"{kind}_ab": "summary", "bit_equal": equal, **{
         label: {name: [r[name]["ms"] for r in runs if r["tree"] == label]
                 for name, _, _, _ in sets}
         for label in trees}, "card": card}), flush=True)
     return 0 if equal else 1
 
 
-def time_bwd(state_path, tree, out, device="cuda"):
-    """--time-bwd: one run of --bwd-ab in the package of ``tree``: each
-    set's four gradients (saved) and its device time by CUDA-graph replay
-    asking for d_sigmas and d_rgbs. Prints one JSON line."""
+def time_kernel(kind, state_path, tree, out, device="cuda"):
+    """--time: one run of --fwd-ab / --bwd-ab in the package of ``tree``:
+    each set's outputs (saved) and its device time by CUDA-graph replay
+    (the backward asking for d_sigmas and d_rgbs). Prints one JSON line."""
     sys.path.insert(0, tree)
     import mfnerf_tpu_torch
     from mfnerf_tpu_torch.benchmarking import graph_ms
@@ -276,13 +282,22 @@ def time_bwd(state_path, tree, out, device="cuda"):
     for label, args, thr, ups in torch.load(state_path):
         args = tuple(a.to(device) for a in args)
         ups = tuple(None if g is None else g.to(device) for g in ups)
-        saved[label] = [g.cpu() for g in composite.composite_train_bwd(
-            *args, *ups, thr)]
-        needs = (True, True, False, False)
-        result[label] = dict(
-            rays=int(args[0].shape[0]), s=int(args[0].shape[1]),
-            ms=graph_ms(lambda: composite.composite_train_bwd(
-                *args, *ups, thr, needs=needs), 20))
+        if kind == "fwd":
+            def call(args=args, thr=thr):
+                return composite.composite_train_fwd(*args, thr)
+            saved[label] = [x.cpu() for x in call()]
+        else:
+            saved[label] = [g.cpu() for g in composite.composite_train_bwd(
+                *args, *ups, thr)]
+
+            def call(args=args, ups=ups, thr=thr):
+                return composite.composite_train_bwd(
+                    *args, *ups, thr, needs=(True, True, False, False))
+        result[label] = dict(rays=int(args[0].shape[0]),
+                             s=int(args[0].shape[1]), ms=graph_ms(call, 20))
+    from mfnerf_tpu_torch import build
+    result["registers"] = build.ptxas_report(
+        "composite", f"composite_train_{kind[:2]}_")
     torch.save(saved, out)
     print(json.dumps(result), flush=True)
     return 0
@@ -294,20 +309,24 @@ def main():
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--train-ab", type=int, default=0)
     ap.add_argument("--frame-ab", type=int, default=0)
+    ap.add_argument("--fwd-ab", type=int, default=0)
     ap.add_argument("--bwd-ab", type=int, default=0)
     ap.add_argument("--parent-tree", default=None)
     ap.add_argument("--trees", default="")
-    ap.add_argument("--time-bwd", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--time", choices=("fwd", "bwd"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sets", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("composite_check: no CUDA device", file=sys.stderr)
         return 1
-    if args.time_bwd:
-        return time_bwd(args.time_bwd, os.path.abspath(args.tree), args.out)
-    if args.bwd_ab and not args.parent_tree:
-        ap.error("--bwd-ab needs --parent-tree")
+    if args.time:
+        return time_kernel(args.time, args.sets, os.path.abspath(args.tree),
+                           args.out)
+    if (args.fwd_ab or args.bwd_ab) and not args.parent_tree:
+        ap.error("--fwd-ab and --bwd-ab need --parent-tree")
     import chip_smoke
     from mfnerf_tpu_torch import build
     from mfnerf_tpu_torch.device import no_tf32
@@ -346,10 +365,13 @@ def main():
         train_ab(args.train_ab, dev, card)
     if args.frame_ab:
         frame_ab(args.frame_ab, dev, card)
-    if args.bwd_ab:
-        return bwd_ab(args.bwd_ab, args.parent_tree, dev, card,
-                      [t for t in args.trees.split(",") if t])
-    return 0
+    trees = [t for t in args.trees.split(",") if t]
+    rc = 0
+    for kind, steps in (("fwd", args.fwd_ab), ("bwd", args.bwd_ab)):
+        if steps:
+            rc = kernel_ab(kind, steps, args.parent_tree, dev, card,
+                           trees) or rc
+    return rc
 
 
 if __name__ == "__main__":
