@@ -45,10 +45,13 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    against CPU (LOSS_TOL and GRAD_TOL; under --bf16 BF16_LOSS_TOL and
    BF16_GRAD_TOL), every gradient, dR and dT included;
 9. train: the JAX bench's training configuration (bench.py: 8192-ray
-   batches, lr 1e-2, half-dense refresh every 16 steps) on 16 procedural
-   800x800 views for 900 steps through NeRFSystem.fit; both kernels' launch
+   batches, lr 1e-2, half-dense refresh every 16 steps, --s_flat 16,
+   --pool_a 4) on 16 procedural 800x800 views for 900 steps through
+   NeRFSystem.fit (from FLAT_AFTER = 512 the fused runner's graphs: the
+   timed chunks wholly past it reported apart); both kernels' launch
    counts and the training march's are reset just before and read just
-   after (at least one march a step);
+   after (at least one march a step; the graphs' replays count the
+   launches their capture recorded);
 10. test_view: the held-out 800x800 view through render_test (T_threshold
    1e-4) before and after training;
 9b. train_bf16: phase 9 under --bf16, its ms/step and held-out view beside
@@ -82,8 +85,20 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 13b, 13c. train_step_oracle_ext (the hash backward with d_x) and
    train_step_oracle_bf16 for the MixedFeature configuration;
 14. train_mf: 900 steps of it on the 16 procedural views through
-   NeRFSystem.fit; the hash-grid kernels' launch counts are reset just
-   before and read just after;
+   NeRFSystem.fit, as phase 9; the hash-grid kernels' launch counts are
+   reset just before and read just after;
+38, 39. fused (bench after 37a, mf after 37b): the fused runner
+   (NeRFSystem.fit's CUDA graphs of the static step and of each refresh
+   parity) on the trained field of phase 9 or 14: FUSED_STEPS steps run
+   eagerly and the same steps replayed from the same parameters, Adam
+   state, occupancy and generator state, equal bit for bit (parameters,
+   Adam state, occupancy, every step's metrics); a refresh and a static
+   step under torch.cuda.set_sync_debug_mode("error"); ms/step eager (P)
+   and graphed (T) in the turns PTTPPT, FUSED_CHUNK synced steps a turn,
+   the medians; FUSED_PROFILE steps of each under torch.profiler (device
+   busy and idle share, device activities a step); the launches the step's
+   capture recorded; the encoder kernels' valid count on a step's
+   operands (check_count_kernels);
 15. test_view_mf: the held-out view through render_test before and after
    training, with the forward kernel's launch count (a gain of 8 dB over
    the untrained field, and at least MF_PSNR_MIN);
@@ -316,20 +331,27 @@ N_ORACLE_RAYS = 1024
 # hat weights by one step; sums run in other orders
 LOSS_TOL = 1e-4             # relative
 GRAD_TOL = 1e-2             # relative L2 error of each parameter's gradient
-BENCH_HP = dict(            # bench.py:115-130 (TPU-only knobs dropped)
+# bench.py:115-130 (TPU-only knobs dropped), with bench.py's --s_flat 16
+# and --pool_a 4 (bench.py:63,69), the command line's defaults too
+# (mfnerf_tpu_torch/opt.py:172,176): the flat budget from FLAT_AFTER, which
+# the fused runner's static step needs, and the stage-A grid pooled 4 to a
+# side
+BENCH_HP = dict(
     dataset_name="nsvf", scale=0.5, use_exposure=False, distortion_loss_w=0.0,
     batch_size=8192, num_epochs=1, lr=1e-2, optimize_ext=False,
     random_bg=False, grid="LowRank", L=16, F=2, rgb_channels=64,
     rgb_layers=2, seed=1337, s_max_train=64, s_max_test=256,
     test_chunk=65536, steps_per_epoch=1000, grid_size=128, max_samples=1024,
     lr_levels=8, lr_rank=16, lr_frames=2, lr_k_max=256, bf16=False,
-    refresh_half=True, lr_fused=True)
+    refresh_half=True, lr_fused=True, s_flat=16, pool_a=4)
 N_TRAIN_VIEWS = 16
 WARM_STEPS, CHUNK, N_CHUNKS = 300, 100, 6   # bench.py: 300 + 600 steps
 TEST_T = 1e-4
 PSNR_MIN, PSNR_GAIN = 20.0, 8.0   # tests/test_e2e_train.py:69-70
 # the reference's MixedFeature benchmark (benchmarking/
-# benchmark_synthetic_nerf_mf.sh:15-17), the rest as BENCH_HP
+# benchmark_synthetic_nerf_mf.sh:15-17), the rest as BENCH_HP (its
+# --s_flat 16 and --pool_a 4 are the command line's defaults, which the
+# script keeps)
 MF_HP = dict(BENCH_HP, grid="MixedFeature", L=16, F=2, T=20, N_min=16,
              N_max=2048, N_tables=8, rgb_channels=128, rgb_layers=2,
              batch_size=16384, lr=2e-2)
@@ -517,6 +539,14 @@ COMPOSITE_BWD_TOL = 1e-5          # relative L2 of each gradient
 # it) may include a sample on one side and not on the other
 COMPOSITE_TIE_ULPS = 4
 COMPOSITE_GRAPH_ITERS = 20
+# phases 38-39, the fused runner: steps run eagerly and then replayed from
+# one state, held bit for bit; timed chunks of synced steps in turns (P
+# eager, T graphed); steps under the profiler of each kind
+FUSED_STEPS = 48
+FUSED_CHUNK, FUSED_TURNS = 100, "PTTPPT"
+FUSED_PROFILE = 16
+OCC_TENSORS = ("density_grid", "density_bitfield", "count_grid", "stage_a",
+               "union_bits")
 # fp32 operations of a sample in the forward (exp, alpha, the scan's
 # product, w, the five sums)
 COMPOSITE_OPS_PER_SAMPLE = 12
@@ -2156,11 +2186,26 @@ def foreground_colour(system):
             "true_spread": float(rgb[fg].std(0).mean())}
 
 
+def clone_occ(occ):
+    """A copy of the occupancy state with tensors of its own, its derived
+    grids as fresh as the original's."""
+    copy = dataclasses.replace(occ, **{
+        name: getattr(occ, name).clone() for name in OCC_TENSORS
+        if getattr(occ, name) is not None})
+    copy.derived_from = (copy.density_bitfield if occ.derived_from
+                         is occ.density_bitfield else None)
+    return copy
+
+
 def train_steps(system, read_launches):
     """WARM_STEPS steps of ``system.fit``, then N_CHUNKS chunks of CHUNK
-    steps timed on the host clock; ``read_launches()`` (the kernels' launch
-    counts) just after them; then four half refreshes of the trained field,
-    timed. Returns the train phase's fields."""
+    steps timed on the host clock (those wholly past FLAT_AFTER, which the
+    fused runner replays, reported apart); ``read_launches()`` (the kernels'
+    launch counts) just after them; then four half refreshes of the trained
+    field, timed, after which the state from before them is set back as a
+    copy (``system.occ`` replaced: the fused runner copies it into the
+    tensors its graphs read). Returns the train phase's fields."""
+    from mfnerf_tpu_torch.train import FLAT_AFTER
     hp = system.hparams
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2180,7 +2225,7 @@ def train_steps(system, read_launches):
     m = {key: torch.cat([c[key] for c in metrics]) for key in metrics[0]}
     check(bool(torch.isfinite(m["loss"]).all()), "a training loss is not "
           "finite")
-    occ_after = system.occ
+    occ_after = clone_occ(system.occ)  # the refreshes write in place
     refresh_ms = []
     for _ in range(4):                 # the trained field's half refreshes
         torch.cuda.synchronize()
@@ -2190,9 +2235,19 @@ def train_steps(system, read_launches):
         refresh_ms.append((time.perf_counter() - t0) * 1e3)
     system.occ = occ_after
     ms_step = float(np.median(chunk_ms))
+    flat = [ms for i, ms in enumerate(chunk_ms)
+            if WARM_STEPS + i * CHUNK >= FLAT_AFTER]
+    early = chunk_ms[:len(chunk_ms) - len(flat)]
+    runner = system.fused
     return dict(
         grid=hp.grid, steps=system.global_step, batch=hp.batch_size,
+        s_flat=system.rcfg.s_flat, pool_a=system.model_cfg.pool_a,
         ms_per_step=ms_step, chunk_ms_per_step=chunk_ms,
+        flat_chunk_ms_per_step=flat,
+        flat_ms_per_step=float(np.median(flat)) if flat else None,
+        early_chunk_ms_per_step=early,
+        fused_step_graph=runner is not None
+        and runner.step_graph is not None,
         warm_seconds=warm_s, rays_per_s=hp.batch_size / ms_step * 1e3,
         rm_s=float(m["rm_s"][-CHUNK:].mean()),
         vr_s=float(m["vr_s"][-CHUNK:].mean()),
@@ -2201,6 +2256,199 @@ def train_steps(system, read_launches):
         train_psnr_last_step=float(m["psnr"][-1]),
         loss_last=float(m["loss"][-1]), refresh_ms=refresh_ms,
         **launches, max_memory_gb=peak_gb)
+
+
+def state_tensors(system):
+    """What a training step changes, by name: the system's own parameter,
+    Adam state and occupancy tensors (those the fused runner's graphs
+    read)."""
+    out = {}
+    for name, p in system.model.named_parameters():
+        out[f"param/{name}"] = p
+        out.update({f"adam/{name}/{k}": v
+                    for k, v in system.optimizer.state[p].items()})
+    out.update({f"occ/{name}": getattr(system.occ, name)
+                for name in OCC_TENSORS
+                if getattr(system.occ, name) is not None})
+    return out
+
+
+def train_state(system):
+    """Copies of :func:`state_tensors`, the generator's state and the step
+    and refresh counters."""
+    return dict(tensors={k: v.detach().clone()
+                         for k, v in state_tensors(system).items()},
+                gen=system.generator.get_state(), step=system.global_step,
+                n_refresh=system.n_refresh)
+
+
+def load_train_state(system, state):
+    """:func:`train_state`'s copies written back into the system's own
+    tensors."""
+    live = state_tensors(system)
+    with torch.no_grad():
+        for name, t in state["tensors"].items():
+            live[name].copy_(t)
+    system.occ.stage_a_share = None
+    system.generator.set_state(state["gen"])
+    system.n_refresh = state["n_refresh"]
+    system.set_step(state["step"])
+
+
+def eager_fit(system, n):
+    """``system.fit(n)`` with every step run eagerly (the rule of the fused
+    runner answering no)."""
+    system.fused_ok = lambda: False
+    try:
+        return system.fit(n)
+    finally:
+        del system.fused_ok
+
+
+def device_profile(fn, steps):
+    """``fn()`` (``steps`` training steps) under torch.profiler: ms a step
+    on the host clock (synced), the device's busy ms a step (the kernels'
+    and copies' summed durations), its idle share of the window, and the
+    device activities a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return dict(ms_per_step=span_ms / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1 - busy_ms / span_ms if events else None,
+                device_activities_per_step=len(events) / steps)
+
+
+def check_count_kernels(label, system, module, seed):
+    """The encoder kernels' valid count on one real step's operands of the
+    trained ``system`` (``module``: hatmul or hashgrid): with a count inside
+    the buffer, the forward's rows before it bit for bit the kernel's
+    without a count and the rest zero; the backward's dW or d_params bit
+    for bit the kernel's without a count on the cotangent with the rows
+    past the count zeroed, du or d_x likewise before it and zero after."""
+    captured = capture_bwd_operands(system, seed, module)
+    dev = system.device
+    if module.__name__.endswith("hatmul"):
+        u3, w3, k, g, _ = captured[0]
+        n = u3.shape[0]
+        count = torch.tensor([n // 2 + 13], device=dev)
+        c = int(count)
+        fwd = [module._launch(u3, w3, k, count=cnt) for cnt in (count, None)]
+        g0 = g.clone()
+        g0[c:] = 0.0
+        bwd = [module._launch_bwd(u3, w3, k, gg, True, count=cnt)
+               for gg, cnt in ((g, count), (g0, None))]
+        (du_c, dw_c), (du_0, dw_0) = bwd
+        grads_equal = torch.equal(dw_c, dw_0)
+    else:
+        params, x, cfg, g, window, noise, _ = captured[0]
+        n = x.shape[0]
+        count = torch.tensor([n // 2 + 13], device=dev)
+        c = int(count)
+        fwd = [module._launch_fwd(params, x, cfg, window, count=cnt)
+               for cnt in (count, None)]
+        g0 = g.clone()
+        g0[c:] = 0.0
+        bwd = [module._launch_bwd(params, x, cfg, gg, window, noise, True,
+                                  count=cnt)
+               for gg, cnt in ((g, count), (g0, None))]
+        (dw_c, du_c, _), (dw_0, du_0, _) = bwd
+        grads_equal = torch.equal(dw_c, dw_0)
+    torch.cuda.synchronize()
+    fields = dict(
+        encoder=label, rows=n, count=c,
+        fwd_rows_equal=torch.equal(fwd[0][:c], fwd[1][:c]),
+        fwd_rest_zero=not fwd[0][c:].any().item(),
+        table_grad_equal=grads_equal,
+        point_grad_rows_equal=torch.equal(du_c[:c], du_0[:c]),
+        point_grad_rest_zero=not du_c[c:].any().item())
+    check(all(v for key, v in fields.items()
+              if key not in ("encoder", "rows", "count")),
+          f"{label}: the valid count: {fields}")
+    return fields
+
+
+def fused_phase(label, system, module, seed):
+    """Phases 38-39: the fused runner on ``system``, trained past
+    FLAT_AFTER through ``fit`` (so with its graphs captured).
+
+    From one state FUSED_STEPS steps run eagerly, then the state is set
+    back and the same steps run through the graphs: parameters, Adam
+    state, occupancy and every step's metrics must be equal bit for bit.
+    Then a refresh and a static step run under
+    ``torch.cuda.set_sync_debug_mode("error")``; chunks of FUSED_CHUNK
+    synced steps are timed eager (P) and graphed (T) in the turns
+    FUSED_TURNS, each kind's median reported; FUSED_PROFILE steps of each
+    kind run under the profiler (device busy, idle share, device
+    activities a step); and the encoder kernels' valid count is checked on
+    a step's operands (:func:`check_count_kernels`)."""
+    from mfnerf_tpu_torch.train import FLAT_AFTER, UPDATE_INTERVAL
+    runner = system.fused
+    check(system.global_step >= FLAT_AFTER and runner is not None
+          and runner.step_graph is not None,
+          f"{label}: fit did not capture the step past FLAT_AFTER")
+    step_launches = {f.__name__: n for f, n
+                     in runner.launches[runner.step_graph].items()}
+    start = train_state(system)
+    runs = {}
+    for kind, fit in (("eager", eager_fit), ("graphed",
+                                             lambda s, n: s.fit(n))):
+        load_train_state(system, start)
+        metrics = fit(system, FUSED_STEPS)
+        runs[kind] = dict(train_state(system)["tensors"], **{
+            f"metric/{k}": v for k, v in metrics.items()})
+    differ = [name for name, t in runs["eager"].items()
+              if not _bits_equal([t], [runs["graphed"][name]])]
+
+    # a refresh and a static step with host syncs made errors
+    system.fit((-system.global_step) % UPDATE_INTERVAL)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        system.update_grid()
+        system._device_step()
+        sync_free = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    system._next_lr()
+    system.global_step += 1
+
+    times = {"P": [], "T": []}
+    for kind in FUSED_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (eager_fit if kind == "P" else lambda s, n: s.fit(n))(
+            system, FUSED_CHUNK)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / FUSED_CHUNK)
+    graphed = device_profile(lambda: system.fit(FUSED_PROFILE),
+                             FUSED_PROFILE)
+    eager = device_profile(lambda: eager_fit(system, FUSED_PROFILE),
+                           FUSED_PROFILE)
+    count = check_count_kernels(label, system, module, seed)
+    fields = dict(
+        config=label, steps_compared=FUSED_STEPS,
+        from_step=start["step"], bitwise_equal=not differ,
+        differing=differ[:12], sync_debug_error_mode_ok=sync_free,
+        warmup_steps=runner.warm,
+        refresh_graphs=sorted(str(k) for k in runner.refresh_graphs),
+        step_graph_launches=step_launches,
+        eager_ms_per_step=times["P"], graphed_ms_per_step=times["T"],
+        eager_ms_median=float(np.median(times["P"])),
+        graphed_ms_median=float(np.median(times["T"])),
+        speedup=float(np.median(times["P"]) / np.median(times["T"])),
+        graphed_profile=graphed, eager_profile=eager, count=count)
+    check(not differ, f"{label}: replayed steps differ from eager ones in "
+          f"{differ[:12]}")
+    return fields
 
 
 def val_ms(log):
@@ -3779,6 +4027,11 @@ def main():
         fields = check_composite_round(label, args, thr)
         phase("composite", config="edges", **fields)
         comp_err["round"] = max(comp_err["round"], fields["max_abs_err"])
+
+    # ---- 38. the fused runner on the trained bench field: replayed steps
+    # bit for bit eager ones, no host sync, ms/step in turns, the profile
+    phase("fused", **fused_phase("bench", system, hatmul, SEED + 100),
+          card=card)
     del system, out
     torch.cuda.empty_cache()
 
@@ -3905,6 +4158,8 @@ def main():
     mf_comp, err = composite_phase(
         "mf", [("step", *step_composite_operands(mf, SEED + 93))])
     comp_err = {k: max(v, err[k]) for k, v in comp_err.items()}
+    # ---- 39. the fused runner on the trained MixedFeature field
+    phase("fused", **fused_phase("mf", mf, hashgrid, SEED + 101), card=card)
     del mf
     torch.cuda.empty_cache()
 

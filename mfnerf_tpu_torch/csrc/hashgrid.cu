@@ -34,6 +34,12 @@
 // x, of the output and of the distinct table rows the launch reads
 // (PERF.md); the fine levels' 8 row loads a sample are random.
 //
+// Both kernels take an optional valid count in device memory (the
+// trainer's capacity layout, a static buffer of N samples whose first
+// count are real): the forward writes zeros past it, and the backward adds
+// nothing from those samples (a warp wholly past it skips its levels) and
+// writes their d_x as 0. A null count leaves the kernels as they were.
+//
 // Backward, three passes, with d_params bitwise equal from launch to launch:
 //
 // * Float atomics add in another order on every launch. The table gradient
@@ -168,12 +174,25 @@ hashgrid_fwd_kernel(const float* __restrict__ params,
                     const float* __restrict__ x,
                     const float* __restrict__ window,
                     float* __restrict__ out, int64_t n, int levels,
-                    int f_dim, Levels lvs) {
+                    int f_dim, Levels lvs,
+                    const long long* __restrict__ n_valid) {
   extern __shared__ float tile[];    // (32, levels * F), row stride ld
   const int F = FC > 0 ? FC : f_dim;
   const int width = levels * F, ld = tile_ld(width);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * 32;
+  // rows at or past the valid count are written as zeros
+  int64_t nv = n;
+  if (n_valid != nullptr && *n_valid < nv) nv = *n_valid;
+  if (first >= nv) {
+    const int64_t end = first + 32 < n ? first + 32 : n;
+    for (int64_t i = first * width + threadIdx.x; i < end * width;
+         i += kThreads) {
+      out[i] = 0.0f;
+    }
+    return;
+  }
+  const bool live = first + lane < nv;
   // lanes past N redo sample n - 1; their rows are never stored
   const int64_t smp = first + lane < n ? first + lane : n - 1;
   for (int l = warp; l < levels; l += kWarps) {
@@ -219,8 +238,8 @@ hashgrid_fwd_kernel(const float* __restrict__ params,
         acc.x = __fmul_rn(acc.x, wl);
         acc.y = __fmul_rn(acc.y, wl);
       }
-      dst[0] = acc.x;
-      dst[1] = acc.y;
+      dst[0] = live ? acc.x : 0.0f;
+      dst[1] = live ? acc.y : 0.0f;
     } else {
       uint32_t rows[8];
 #pragma unroll
@@ -233,7 +252,7 @@ hashgrid_fwd_kernel(const float* __restrict__ params,
               static_cast<int64_t>(rows[c]) * f_dim + f)));
         }
         if (window != nullptr) acc = __fmul_rn(acc, __ldg(window + l));
-        dst[f] = acc;
+        dst[f] = live ? acc : 0.0f;
       }
     }
   }
@@ -269,12 +288,17 @@ hashgrid_bwd_prep_kernel(const float* __restrict__ g,
                          const float* __restrict__ window, int64_t n_g,
                          int levels, int f_dim,
                          unsigned long long* __restrict__ acc, int64_t n_acc,
-                         double* __restrict__ sums) {
+                         double* __restrict__ sums,
+                         const long long* __restrict__ n_valid) {
   __shared__ double scratch[kThreads / 32];
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
   for (int64_t i = t0; i < n_acc; i += stride) acc[i] = 0ull;
+  // only the samples before the valid count add to S
+  if (n_valid != nullptr && *n_valid * levels * f_dim < n_g) {
+    n_g = *n_valid * levels * f_dim;
+  }
   double v = 0.0;
   for (int64_t i = t0; i < n_g; i += stride) {
     float gv = __ldg(g + i);
@@ -396,7 +420,8 @@ hashgrid_bwd_scatter_kernel(
     const float* __restrict__ noise, int m,
     unsigned long long* __restrict__ acc, double* __restrict__ sums,
     int prep_blocks, float* __restrict__ d_x, double* __restrict__ win_part,
-    int64_t n, int levels, int f_dim, int spb, Levels lvs) {
+    int64_t n, int levels, int f_dim, int spb, Levels lvs,
+    const long long* __restrict__ n_valid) {
   __shared__ double s_scale;
   __shared__ double s_win[kWarps][kMaxLevels];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -416,12 +441,22 @@ hashgrid_bwd_scatter_kernel(
   const int F = FC > 0 ? FC : f_dim;
   const int warps = spb >> 5;
   const int64_t tiles = (n + spb - 1) / spb;
+  // samples at or past the valid count add nothing and get d_x 0
+  int64_t nv = n;
+  if (n_valid != nullptr && *n_valid < nv) nv = *n_valid;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int64_t first = tile * spb + warp * 32;
     if (first >= n) continue;        // the whole warp past N
     const int64_t smp = first + lane;
-    const bool valid = smp < n;
-    const int64_t sr = valid ? smp : n - 1;   // a lane past N: any sample
+    if (first >= nv) {               // the whole warp past the valid count
+      if (FEATS && d_x != nullptr && smp < n) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) d_x[smp * 3 + d] = 0.0f;
+      }
+      continue;
+    }
+    const bool valid = smp < nv;
+    const int64_t sr = smp < n ? smp : n - 1;   // a lane past N: any sample
     const float* xs = x + sr * 3;
     float dx[3] = {0.0f, 0.0f, 0.0f};
     for (int l = 0; l < levels; ++l) {
@@ -482,9 +517,9 @@ hashgrid_bwd_scatter_kernel(
         if (lane == 0) s_win[warp][l] += total;
       }
     }
-    if (FEATS && d_x != nullptr && valid) {
+    if (FEATS && d_x != nullptr && smp < n) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) d_x[smp * 3 + d] = dx[d];
+      for (int d = 0; d < 3; ++d) d_x[smp * 3 + d] = valid ? dx[d] : 0.0f;
     }
   }
   if (FEATS && window != nullptr) {  // this block's d_window, warp order
@@ -554,7 +589,7 @@ size_t fwd_smem(int levels, int f) {
 template <int FC>
 int launch_fwd(const float* p, const float* xs, const float* win, float* o,
                long long n, int levels, int f, const Levels& lvs,
-               cudaStream_t st) {
+               const long long* n_valid, cudaStream_t st) {
   const size_t smem = fwd_smem(levels, f);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -564,7 +599,8 @@ int launch_fwd(const float* p, const float* xs, const float* win, float* o,
   }
   const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
   hashgrid_fwd_kernel<FC><<<blocks, kThreads, smem, st>>>(p, xs, win, o, n,
-                                                         levels, f, lvs);
+                                                         levels, f, lvs,
+                                                         n_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,6 +619,7 @@ struct ScatterArgs {
   int64_t n;
   int levels, f_dim, spb;
   Levels lvs;
+  const long long* n_valid;
 };
 
 template <int FC, bool FEATS>
@@ -591,7 +628,7 @@ cudaError_t launch_scatter(const ScatterArgs& a, int blocks,
   hashgrid_bwd_scatter_kernel<FC, FEATS><<<blocks, a.spb, 0, st>>>(
       a.params, a.x, a.g, a.window, a.noise, a.m, a.acc, a.sums,
       a.prep_blocks, a.d_x, a.win_part, a.n, a.levels, a.f_dim, a.spb,
-      a.lvs);
+      a.lvs, a.n_valid);
   return cudaGetLastError();
 }
 
@@ -601,12 +638,13 @@ cudaError_t launch_scatter(const ScatterArgs& a, int blocks,
 // null; out: (n, levels * f) fp32; all contiguous on the current device,
 // params 8-byte aligned. table: host (levels, 6) uint32 rows {scale's fp32
 // bits, res, offset, size - 1, salt, dense}, levels <= 32, and a 32-sample
-// output tile, 32 * (levels * f | 1) fp32, of at most 227 KB. Launches on
-// `stream` and returns cudaGetLastError().
+// output tile, 32 * (levels * f | 1) fp32, of at most 227 KB. n_valid:
+// null, or one int64 on the device, the valid count: rows at or past it are
+// written as zeros. Launches on `stream` and returns cudaGetLastError().
 extern "C" int hashgrid_fwd(const void* params, const void* x,
                             const void* window, void* out, long long n,
                             int levels, int f, const void* table,
-                            void* stream) {
+                            const void* n_valid, void* stream) {
   if (levels < 1 || levels > kMaxLevels || f < 1 ||
       fwd_smem(levels, f) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -618,8 +656,9 @@ extern "C" int hashgrid_fwd(const void* params, const void* x,
   const float* xs = static_cast<const float*>(x);
   const float* win = static_cast<const float*>(window);
   float* o = static_cast<float*>(out);
-  return f == 2 ? launch_fwd<2>(p, xs, win, o, n, levels, f, lvs, st)
-                : launch_fwd<0>(p, xs, win, o, n, levels, f, lvs, st);
+  const long long* nv = static_cast<const long long*>(n_valid);
+  return f == 2 ? launch_fwd<2>(p, xs, win, o, n, levels, f, lvs, nv, st)
+                : launch_fwd<0>(p, xs, win, o, n, levels, f, lvs, nv, st);
 }
 
 // The backward's three passes on `stream`. params, x, window as for the
@@ -630,14 +669,17 @@ extern "C" int hashgrid_fwd(const void* params, const void* x,
 // (n_params, f) int64 (zeroed here), sums (prep_blocks + 1) fp64, win_part
 // (blocks, levels) fp64 when window is given. spb samples a block (a
 // multiple of 32, at most 256: a warp a 32 samples), f <= 16; blocks walk
-// the sample tiles in a fixed stride. Returns a cudaError_t.
+// the sample tiles in a fixed stride. n_valid: null, or one int64 on the
+// device, the valid count: samples at or past it add nothing to d_params or
+// d_window and get d_x 0. Returns a cudaError_t.
 extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
                             const void* window, const void* noise, int m,
                             void* d_params, void* acc, void* sums,
                             void* win_part, void* d_x, void* d_window,
                             long long n, long long n_params, int levels,
                             int f, int spb, int blocks, int prep_blocks,
-                            const void* table, void* stream) {
+                            const void* table, const void* n_valid,
+                            void* stream) {
   if (levels < 1 || levels > kMaxLevels || f < 1 || f > kMaxF ||
       spb < 32 || spb % 32 != 0 || spb > kThreads || blocks < 1 ||
       prep_blocks < 1 || m < 0 || m >= 8 || (m > 0 && noise == nullptr)) {
@@ -649,9 +691,10 @@ extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
   const float* win = static_cast<const float*>(window);
   unsigned long long* fixed = static_cast<unsigned long long*>(acc);
   double* s = static_cast<double*>(sums);
+  const long long* nv = static_cast<const long long*>(n_valid);
   hashgrid_bwd_prep_kernel<<<prep_blocks, kThreads, 0, st>>>(
       static_cast<const float*>(g), win, static_cast<int64_t>(n) * levels * f,
-      levels, f, fixed, n_acc, s);
+      levels, f, fixed, n_acc, s, nv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* p = static_cast<const float*>(params);
@@ -661,7 +704,7 @@ extern "C" int hashgrid_bwd(const void* params, const void* x, const void* g,
   float* dx = static_cast<float*>(d_x);
   double* part = static_cast<double*>(win_part);
   const ScatterArgs a = {p, xs, gs, win, u, m, fixed, s, prep_blocks, dx,
-                         part, n, levels, f, spb, lvs};
+                         part, n, levels, f, spb, lvs, nv};
   const bool feats = dx != nullptr || win != nullptr;
   if (f == 2) {
     err = feats ? launch_scatter<2, true>(a, blocks, st)

@@ -33,6 +33,13 @@
 // 8 columns of a row are two 16-byte loads, and the hat weights are not
 // rounded. Products then round in fp32, so the result equals the dense
 // fp32 form up to that rounding and the order of the sums.
+//
+// Both directions take an optional valid count in device memory (the
+// trainer's capacity layout: a static buffer of N samples, of which the
+// first count are real, so that a CUDA graph can capture the step). Rows at
+// or past it write zeros and add nothing; the backward's chunks stay those
+// of N, so dW's order of sums does not depend on the count. A null count
+// leaves the kernels as they were.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,13 +119,19 @@ struct Hat<float> {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 hat_prod_fwd_kernel(const float* __restrict__ u3, const T* __restrict__ w,
-                    float* __restrict__ out, int n, int k, int r) {
+                    float* __restrict__ out, int n, int k, int r,
+                    const long long* __restrict__ n_valid) {
   const int lanes = r / kVec;  // threads per sample
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t s = tid / lanes;
   if (s >= n) return;
   const int c0 = static_cast<int>(tid - s * lanes) * kVec;
+  if (n_valid != nullptr && s >= *n_valid) {   // past the valid count: zeros
+    float4* dst = reinterpret_cast<float4*>(out + s * r + c0);
+    dst[0] = dst[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
   const float scale = static_cast<float>(k - 1);
 
   float acc[kVec];
@@ -267,7 +280,8 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
                          const T* __restrict__ w,
                          const float* __restrict__ g, int64_t ldg,
                          float* __restrict__ slabs, float* __restrict__ part,
-                         int n, int k, int r, int chunk) {
+                         int n, int k, int r, int chunk,
+                         const long long* __restrict__ n_valid) {
   using H = Hat<T>;
   using Pair = typename H::Pair;
   constexpr int kBwdSlots = H::kSlots;   // steps the producers may run ahead
@@ -282,8 +296,11 @@ hat_prod_bwd_slab_kernel(const float* __restrict__ u3,
   const int col0 = tile * kBwdCols;
   const int col = col0 + lane;
   const bool live = col < r;
+  // samples at or past the valid count add nothing: a chunk ends there
+  int64_t nv = n;
+  if (n_valid != nullptr && *n_valid < nv) nv = *n_valid;
   const int64_t begin = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int64_t end = begin + chunk < n ? begin + chunk : n;
+  const int64_t end = begin + chunk < nv ? begin + chunk : nv;
   const int steps = end > begin
       ? static_cast<int>((end - begin + kBwdStage - 1) / kBwdStage) : 0;
   const float scale = static_cast<float>(k - 1);
@@ -512,7 +529,8 @@ hat_prod_bwd_reduce_kernel(const float* __restrict__ slabs, int chunks,
                            float* __restrict__ dw, int64_t dw_size,
                            const float* __restrict__ u3,
                            const float* __restrict__ part, int tiles,
-                           float* __restrict__ du, int n, int k) {
+                           float* __restrict__ du, int n, int k,
+                           const long long* __restrict__ n_valid) {
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (j < dw_size) {
@@ -522,6 +540,10 @@ hat_prod_bwd_reduce_kernel(const float* __restrict__ slabs, int chunks,
     dw[j] = s;
   }
   if (du != nullptr && j < 3 * static_cast<int64_t>(n)) {
+    if (n_valid != nullptr && j / 3 >= *n_valid) {   // stage 1 skipped it
+      du[j] = 0.0f;
+      return;
+    }
     const float scale = static_cast<float>(k - 1);
     const float pos = u3[j] * scale;
     float s = 0.0f;
@@ -536,50 +558,73 @@ hat_prod_bwd_reduce_kernel(const float* __restrict__ slabs, int chunks,
 
 template <typename T>
 int launch_fwd(const void* u3, const void* w, void* out, int n, int k, int r,
-               void* stream) {
+               const void* n_valid, void* stream) {
   const int64_t threads = static_cast<int64_t>(n) * (r / kVec);
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0) {
     hat_prod_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(u3), static_cast<const T*>(w),
-        static_cast<float*>(out), n, k, r);
+        static_cast<float*>(out), n, k, r,
+        static_cast<const long long*>(n_valid));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMaxDevices = 64;
+
+// Stage 1's function attributes, set once a device: the dynamic shared
+// memory up to the block's opt-in limit, and all of the SM's shared memory
+// (two blocks). Later launches, those captured into a CUDA graph among
+// them, only read the limit. Returns a cudaError_t.
+template <typename T>
+cudaError_t bwd_optin(size_t* limit) {
+  static int optin[kMaxDevices] = {};    // 0: not yet set on that device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (optin[dev] == 0) {
+    int bytes = 0;
+    err = cudaDeviceGetAttribute(
+        &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          hat_prod_bwd_slab_kernel<T>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return err;
+    optin[dev] = bytes;
+  }
+  *limit = static_cast<size_t>(optin[dev]);
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch_bwd(const void* u3, const void* w, const void* g, long long ldg,
                void* du, void* dw, void* slabs, void* part, int n, int k,
-               int r, int chunk, int chunks, void* stream) {
+               int r, int chunk, int chunks, const void* n_valid,
+               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_smem_bytes<T>(k);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
+  size_t limit = 0;
+  cudaError_t err = bwd_optin<T>(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess) {    // all of the SM's shared memory: two blocks
-    err = cudaFuncSetAttribute(hat_prod_bwd_slab_kernel<T>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const int tiles = (r + kBwdCols - 1) / kBwdCols;
   float* part_f = du == nullptr ? nullptr : static_cast<float*>(part);
+  const long long* nv = static_cast<const long long*>(n_valid);
   hat_prod_bwd_slab_kernel<T><<<dim3(tiles, chunks), kBwdThreads, smem, st>>>(
       static_cast<const float*>(u3), static_cast<const T*>(w),
       static_cast<const float*>(g), static_cast<int64_t>(ldg),
-      static_cast<float*>(slabs), part_f, n, k, r, chunk);
+      static_cast<float*>(slabs), part_f, n, k, r, chunk, nv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t dw_size = static_cast<int64_t>(3) * k * r;
@@ -590,7 +635,7 @@ int launch_bwd(const void* u3, const void* w, const void* g, long long ldg,
                                0, st>>>(
       static_cast<const float*>(slabs), chunks, static_cast<float*>(dw),
       dw_size, static_cast<const float*>(u3), part_f, tiles,
-      static_cast<float*>(du), n, k);
+      static_cast<float*>(du), n, k, nv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,16 +654,19 @@ int blocks_per_sm(int k) {
 
 // u3: (n, 3) fp32; w: (3, k, r) bf16 (hat_prod_fwd) or fp32
 // (hat_prod_fwd_f32); out: (n, r) fp32, all contiguous on the current
-// device; r a multiple of 8, k >= 2, pointers 16-byte aligned. Launches on
-// `stream` and returns cudaGetLastError().
+// device; r a multiple of 8, k >= 2, pointers 16-byte aligned. n_valid: null,
+// or one int64 on the device, the valid count: rows at or past it are
+// written as zeros. Launches on `stream` and returns cudaGetLastError().
 extern "C" int hat_prod_fwd(const void* u3, const void* w, void* out, int n,
-                            int k, int r, void* stream) {
-  return launch_fwd<__nv_bfloat16>(u3, w, out, n, k, r, stream);
+                            int k, int r, const void* n_valid,
+                            void* stream) {
+  return launch_fwd<__nv_bfloat16>(u3, w, out, n, k, r, n_valid, stream);
 }
 
 extern "C" int hat_prod_fwd_f32(const void* u3, const void* w, void* out,
-                                int n, int k, int r, void* stream) {
-  return launch_fwd<float>(u3, w, out, n, k, r, stream);
+                                int n, int k, int r, const void* n_valid,
+                                void* stream) {
+  return launch_fwd<float>(u3, w, out, n, k, r, n_valid, stream);
 }
 
 // The backward, both stages, on `stream`. u3: (n, 3) fp32 and w: (3, k, r)
@@ -628,23 +676,27 @@ extern "C" int hat_prod_fwd_f32(const void* u3, const void* w, void* out,
 // scratch, all fp32: slabs (chunks, 3, k, r), and with du part
 // (ceil(r / 32), n, 3). Samples [c * chunk, (c + 1) * chunk) form chunk c;
 // chunks * chunk >= n. r a multiple of 8, k >= 2, bwd_smem_bytes(k) within
-// the block's opt-in limit (k <= 565 bf16, 569 fp32 on H100). Nothing needs
-// zeroing: stage 2 writes every element of dw and du. Returns a cudaError_t:
-// a refused launch, or cudaErrorInvalidValue for a slab too large.
+// the block's opt-in limit (k <= 565 bf16, 569 fp32 on H100). n_valid: null,
+// or one int64 on the device: samples at or past it add nothing to dw and
+// get du 0 (the chunks stay those of n, so dw's order does not depend on
+// it). Nothing needs zeroing: stage 2 writes every element of dw and du.
+// Returns a cudaError_t: a refused launch, or cudaErrorInvalidValue for a
+// slab too large.
 extern "C" int hat_prod_bwd(const void* u3, const void* w, const void* g,
                             long long ldg, void* du, void* dw, void* slabs,
                             void* part, int n, int k, int r, int chunk,
-                            int chunks, void* stream) {
+                            int chunks, const void* n_valid, void* stream) {
   return launch_bwd<__nv_bfloat16>(u3, w, g, ldg, du, dw, slabs, part, n, k,
-                                   r, chunk, chunks, stream);
+                                   r, chunk, chunks, n_valid, stream);
 }
 
 extern "C" int hat_prod_bwd_f32(const void* u3, const void* w, const void* g,
                                 long long ldg, void* du, void* dw,
                                 void* slabs, void* part, int n, int k, int r,
-                                int chunk, int chunks, void* stream) {
+                                int chunk, int chunks, const void* n_valid,
+                                void* stream) {
   return launch_bwd<float>(u3, w, g, ldg, du, dw, slabs, part, n, k, r,
-                           chunk, chunks, stream);
+                           chunk, chunks, n_valid, stream);
 }
 
 // Stage 1's resident blocks an SM at K knots on the current device (after

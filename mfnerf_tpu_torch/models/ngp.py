@@ -154,9 +154,13 @@ class OccupancyState:
             count_grid=torch.zeros((c, n), dtype=torch.float32,
                                    device=device)).refresh_coarse(cfg)
 
-    def refresh_coarse(self, cfg: NGPConfig) -> "OccupancyState":
+    def refresh_coarse(self, cfg: NGPConfig,
+                       in_place=False) -> "OccupancyState":
         """Derive the stage-A grids from ``density_bitfield`` (after a
-        refresh, a checkpoint load or a direct edit of the bitfield)."""
+        refresh, a checkpoint load or a direct edit of the bitfield): a new
+        state, or ``in_place`` written into this state's grids (which must
+        have been derived before), so that a captured CUDA graph that reads
+        them reads the new ones."""
         bits, stage_a, union = self.density_bitfield, None, None
         if cfg.cascades == 1:
             stage_a = stage_a_grid(bits, cfg.grid_size, cfg.pool_a or 2)
@@ -166,8 +170,18 @@ class OccupancyState:
             if stratum:
                 union = union_bitfield(bits, cfg.grid_size, cfg.cascades,
                                        dilate)
-        return dataclasses.replace(self, stage_a=stage_a, union_bits=union,
-                                   derived_from=bits, stage_a_share=None)
+        if not in_place:
+            return dataclasses.replace(self, stage_a=stage_a,
+                                       union_bits=union, derived_from=bits,
+                                       stage_a_share=None)
+        for name, new in (("stage_a", stage_a), ("union_bits", union)):
+            old = getattr(self, name)
+            if (old is None) != (new is None):
+                raise ValueError(f"{name}: nothing to refresh in place")
+            if new is not None:
+                old.copy_(new)
+        self.derived_from, self.stage_a_share = bits, None
+        return self
 
     def to(self, device) -> "OccupancyState":
         """A copy on ``device``, its derived grids with it."""
@@ -284,25 +298,29 @@ class NGP(nn.Module):
         return torch.clamp((x + s) / (2 * s), 0.0, 1.0)
 
     def density(self, x, return_feat=False, window_alpha=None,
-                grad_noise=None):
+                grad_noise=None, count=None):
         """sigma (N,) at world positions x (N, 3) [and the (N, 16) sigma-MLP
         output whose channel 0 is log-sigma].
 
         ``window_alpha``: the Window grid's level window (none when None).
         ``grad_noise``: optional (N, hash_grad_samples) uniforms for the hash
         grids' sampled-corner table gradient (training only).
+        ``count``: the valid count of a static buffer of N samples (one
+        int64 on x's device, the trainer's capacity layout): the encoder
+        kernels evaluate and differentiate the rows before it only (the
+        rows past it encode to zeros).
         """
         xn = self._normalize(x)
         if self.is_lowrank:
             enc = lowrank_encode(
                 {"lines": self.lowrank.lines, "proj": self.lowrank.proj},
-                xn, self.lowrank_cfg, dtype=self.dtype)
+                xn, self.lowrank_cfg, dtype=self.dtype, count=count)
         else:
             win = None
             if self.cfg.grid == "Window" and window_alpha is not None:
                 win = window_weights(self.hash_cfg, window_alpha, xn.device)
             enc = hashgrid_encode(self.hash_table, xn, self.hash_cfg, win,
-                                  grad_noise)
+                                  grad_noise, count)
         h = _mlp_apply(self.sigma_mlp, enc, dtype=self.dtype)
         sigmas = trunc_exp(h[:, 0])
         if return_feat:
@@ -321,15 +339,15 @@ class NGP(nn.Module):
                           for c, tm in enumerate(self.tonemappers)], dim=1)
 
     def forward(self, x, d, exposure=None, output_radiance=False,
-                window_alpha=None, grad_noise=None):
+                window_alpha=None, grad_noise=None, count=None):
         """(sigma (N,), rgb (N, 3)) at positions x with view directions d.
         With ``rgb_act="None"`` the rgb head's log radiance is tonemapped at
         ``exposure`` (per sample (N, 1) or (1, 1)), or with
         ``output_radiance`` returned as radiance; a Sigmoid head ignores
-        both."""
+        both. ``count``: :meth:`density`'s."""
         sigmas, h = self.density(x, return_feat=True,
                                  window_alpha=window_alpha,
-                                 grad_noise=grad_noise)
+                                 grad_noise=grad_noise, count=count)
         d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         sh = sh_encode((d + 1.0) / 2.0, self.cfg.sh_degree)
         inp = torch.cat([sh, h], dim=1)
@@ -416,7 +434,7 @@ class NGP(nn.Module):
     @torch.no_grad()
     def update_density_grid(self, occ: OccupancyState, density_threshold,
                             noise, decay=0.95, half=None, erode=False,
-                            sparse=None) -> OccupancyState:
+                            sparse=None, in_place=False) -> OccupancyState:
         """Refresh: evaluate sigma at a jittered point of every cell (dense),
         of half of them, or of sampled cells; EMA-merge into the grid,
         repack the bitfield.
@@ -435,6 +453,10 @@ class NGP(nn.Module):
                 u (C, G^3/4) uniforms in [0, 1)) draw G^3/4 uniform cells and
                 as many occupied ones (:meth:`_sampled_cells`) a cascade;
                 each cell keeps the largest of its draws' densities.
+            in_place: write the new grid, bitfield and stage-A grids into
+                ``occ``'s tensors (the trainer's refresh, which CUDA graphs
+                capture) and return ``occ``; the values are bit for bit the
+                new state's.
         """
         grid = occ.density_grid
         tmp = torch.zeros_like(grid)
@@ -463,6 +485,10 @@ class NGP(nn.Module):
         mean_density = torch.where(pos, new_grid, 0.0).sum() / \
             torch.clamp_min(pos.sum(), 1)
         threshold = torch.clamp_max(mean_density, density_threshold)
+        if in_place:
+            occ.density_grid.copy_(new_grid)
+            occ.density_bitfield.copy_(packbits(new_grid, threshold))
+            return occ.refresh_coarse(self.cfg, in_place=True)
         return dataclasses.replace(
             occ, density_grid=new_grid,
             density_bitfield=packbits(new_grid, threshold)

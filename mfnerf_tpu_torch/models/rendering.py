@@ -11,8 +11,11 @@ Port of ``mfnerf_tpu/models/rendering.py``.
   strata a ray, taken evenly along it when it crosses more), the field on
   the valid samples only, ``composite_train`` and the background. With
   ``s_flat`` the batch keeps its first ``N * s_flat`` samples in ray
-  order, as the JAX flat layout's budget does. The JAX neighbourhood-row tables and flat
-  gathers are TPU devices; the samples are the same.
+  order, as the JAX flat layout's budget does, and the field runs on a
+  static buffer of that many slots (:func:`_eval_capacity`, the capacity
+  layout): no host read, so a CUDA graph can capture the step. The JAX
+  neighbourhood-row tables, flat gathers and flat composite are TPU
+  devices; the samples are the same.
 * :func:`render_test_dense` is the plain oracle: every ray marches the whole
   ladder in rank windows of ``s_max_test`` samples, each window is field-
   evaluated and composited with resumed transmittance. Every renderer is
@@ -36,6 +39,7 @@ Port of ``mfnerf_tpu/models/rendering.py``.
 """
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -93,9 +97,11 @@ def _clamp_near(hits_t):
 
 
 def _scene_hits(model, rays_o, rays_d):
-    s = model.cfg.scale
+    # the box made on the rays' device: no copy from the host (CUDA graphs)
+    s, dev = model.cfg.scale, rays_o.device
     return _clamp_near(ray_aabb_intersect_single(
-        rays_o, rays_d, torch.zeros(3), torch.full((3,), s)))
+        rays_o, rays_d, torch.zeros(3, device=dev),
+        torch.full((3,), s, device=dev)))
 
 
 def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
@@ -115,6 +121,93 @@ def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
     sigmas = sig.new_zeros(n * s).index_put((flat,), sig)
     rgbs = col.new_zeros((n * s, 3)).index_put((flat,), col)
     return sigmas.reshape(n, s), rgbs.reshape(n, s, 3)
+
+
+def _eval_capacity(model, xyzs, rays_d, mask, cap, grad_noise=None,
+                   exposure=None, noise_start=None):
+    """Field on the valid samples of a (N, S) block through a static buffer
+    of ``cap`` slots (the capacity layout of the JAX flat branch,
+    ``mfnerf_tpu/models/rendering.py:247-299``), with no host read: the
+    valid samples are compacted in row-major order on the device (slot k
+    takes the entry where the inclusive cumsum of ``mask`` reaches k + 1,
+    by ``searchsorted``), the slots past their count hold the scene's
+    centre and a unit direction, the field runs on all ``cap`` slots with
+    the count (the encoder kernels skip the rows past it), and the outputs
+    are written back into the (N, S) rows, the padded slots' into a drop
+    entry past them, so a padded slot gets exactly zero gradient. The
+    write-back's gradient is a gather (no atomics: a scatter-add from the
+    (N, S) rows into the slots would add every masked entry onto one
+    slot). ``mask`` holds at most ``cap`` valid samples.
+
+    ``grad_noise``: the hash grids' uniforms, rows of the JAX draw
+    (n_global * s_flat, m): valid sample j of this block takes row j, or
+    under a shard row ``noise_start + j`` (``noise_start``, a 0-d tensor:
+    the valid samples of the ranks before this one). ``exposure``: (N, 1) a
+    ray, or (1, 1) for all. Returns (sigmas (N, S), rgbs (N, S, 3))."""
+    n, s = mask.shape
+    dev = mask.device
+    csum = torch.cumsum(mask.reshape(-1), 0)         # inclusive: int64
+    count = torch.clamp_max(csum[-1], cap).reshape(1)
+    # slot -> its entry of the (N, S) rows; n * s (the drop entry) past
+    # the count
+    src = torch.searchsorted(csum, torch.arange(1, cap + 1, device=dev))
+    live = src < n * s
+    entry = torch.where(live, src, 0)
+    ray = entry // s
+    # made on the device, no copy from the host: (0, 0, 0) and (0, 0, 1)
+    axis = torch.arange(3, device=dev)
+    xyz_c = torch.where(live[:, None], xyzs.reshape(-1, 3)[entry], 0.0)
+    dir_c = torch.where(live[:, None], rays_d[ray],
+                        (axis == 2).to(rays_d.dtype))
+    if exposure is not None and exposure.shape[0] > 1:
+        exposure = torch.where(live[:, None], exposure[ray], 1.0)
+    if grad_noise is not None:
+        if noise_start is None:
+            grad_noise = grad_noise[:cap]
+        else:
+            grad_noise = grad_noise[torch.clamp_max(
+                noise_start + torch.arange(cap, device=dev),
+                grad_noise.shape[0] - 1)]
+    sig, col = model(xyz_c, dir_c, exposure=exposure, grad_noise=grad_noise,
+                     count=count)
+    sig = sig.new_zeros(n * s + 1).index_put((src,), sig)[:n * s]
+    col = col.new_zeros((n * s + 1, 3)).index_put((src,), col)[:n * s]
+    return sig.reshape(n, s), col.reshape(n, s, 3)
+
+
+class FlatBudget(NamedTuple):
+    """:func:`flat_budget`'s cut of a march."""
+    mask: torch.Tensor          # (N, S) the kept samples
+    ts: torch.Tensor            # (N, S), 0 off the mask
+    deltas: torch.Tensor        # (N, S), 0 off the mask
+    budget: int                 # n_global * s_flat
+    cap: int                    # the capacity buffer's slots
+    noise_start: torch.Tensor   # under a shard: kept samples before it
+
+
+def flat_budget(mr, rcfg, shard=None):
+    """The flat layout's budget on a training march ``mr``: the batch's
+    samples in ray order, the first ``n_global * s_flat`` of them (N and
+    the order the global batch's, the samples of the ranks before this one
+    from ``shard.prefix``), and the capacity buffer's ``min(N S, budget)``
+    slots that hold them."""
+    mask = mr.mask
+    n, s = mask.shape
+    first = torch.cumsum(mr.n_samples, 0) - mr.n_samples
+    n_glob, before = n, None
+    if shard is not None:
+        before = shard.prefix(mr.n_samples.sum())[0]
+        first = first + before
+        n_glob = shard.n_global
+    budget = n_glob * rcfg.s_flat
+    rank = torch.arange(s, device=mask.device)
+    mask = mask & (first[:, None] + rank < budget)
+    return FlatBudget(
+        mask=mask, ts=torch.where(mask, mr.ts, 0.0),
+        deltas=torch.where(mask, mr.deltas, 0.0), budget=budget,
+        cap=min(n * s, budget),
+        noise_start=None if before is None
+        else torch.clamp_max(before, budget))
 
 
 def _check_fresh(occ):
@@ -179,9 +272,13 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         bg_rgb: (3,) background for ``rcfg.random_bg`` on real scenes
             (synthetic scenes composite onto white, real ones onto black).
         grad_noise: the hash grids' sampled-corner uniforms (the JAX
-            ``hash_grad_noise``): (N_valid, hash_grad_samples) rows for the
-            valid samples in row-major order of ``mask``, or a function of
-            N_valid that draws them; None for the exact table gradient.
+            ``hash_grad_noise``), or a function of their number of rows
+            that draws them; None for the exact table gradient. Without
+            ``s_flat``: (N_valid, hash_grad_samples) rows for the valid
+            samples in row-major order of ``mask``. With ``s_flat``: the
+            JAX flat branch's draw, (n_global * s_flat, hash_grad_samples),
+            whose row j the batch's valid sample j takes (under a shard,
+            counted over the global batch).
         exposure: (N, 1) each ray's exposure, for an HDR head
             (``rgb_act="None"``); a Sigmoid head ignores it.
         shard: under data parallelism, this rank's
@@ -204,18 +301,15 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         strata=train_strata(cfg, occ, rcfg))
     mask, ts, deltas = mr.mask, mr.ts, mr.deltas
     if rcfg.s_flat:
-        # the flat layout's budget: the batch's samples in ray order, the
-        # first N * s_flat of them (N and the order the global batch's)
-        n, s = mask.shape
-        first = torch.cumsum(mr.n_samples, 0) - mr.n_samples
-        if shard is not None:
-            first = first + shard.prefix(mr.n_samples.sum())[0]
-            n = shard.n_global
-        rank = torch.arange(s, device=mask.device)
-        mask = mask & (first[:, None] + rank < n * rcfg.s_flat)
-        ts, deltas = torch.where(mask, ts, 0.0), torch.where(mask, deltas, 0.0)
-    sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise,
-                               exposure)
+        flat = flat_budget(mr, rcfg, shard)
+        mask, ts, deltas = flat.mask, flat.ts, flat.deltas
+        if callable(grad_noise):
+            grad_noise = grad_noise(flat.budget)
+        sigmas, rgbs = _eval_capacity(model, mr.xyzs, rays_d, mask, flat.cap,
+                                      grad_noise, exposure, flat.noise_start)
+    else:
+        sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise,
+                                   exposure)
     comp = composite_train(sigmas, rgbs, deltas, ts, mask, rcfg.T_threshold)
     if rcfg.exp_step_factor == 0:       # synthetic scenes: white background
         bg = 1.0

@@ -192,8 +192,15 @@ def _corner(c, base, frac, arrays):
     return _corner_index(base + bits, *arrays[1:]), w, wb, bits
 
 
-def hashgrid_encode_plain(params, x, cfg: HashGridConfig, window=None):
-    """(N, 3) in [0, 1] -> (N, L*F) fp32, level-major: ``_fwd_impl``."""
+def _before(count, n, device):
+    """(N,) bool: row < count (:func:`hashgrid_encode`'s ``count``)."""
+    return torch.arange(n, device=device) < count.reshape(())
+
+
+def hashgrid_encode_plain(params, x, cfg: HashGridConfig, window=None,
+                          count=None):
+    """(N, 3) in [0, 1] -> (N, L*F) fp32, level-major: ``_fwd_impl``; with
+    ``count`` the rows at or past it are zero."""
     arrays, base, frac = _cells(x, cfg)
     n = x.shape[0]
     out = torch.zeros((cfg.L, n, cfg.F), dtype=torch.float32,
@@ -203,11 +210,14 @@ def hashgrid_encode_plain(params, x, cfg: HashGridConfig, window=None):
         out = out + w[..., None] * params[idx].to(torch.float32)
     if window is not None:
         out = out * window[:, None, None]
-    return out.transpose(0, 1).reshape(n, cfg.L * cfg.F)
+    out = out.transpose(0, 1).reshape(n, cfg.L * cfg.F)
+    if count is not None:
+        out = torch.where(_before(count, n, x.device)[:, None], out, 0.0)
+    return out
 
 
 def hashgrid_bwd_plain(params, x, cfg: HashGridConfig, g, window=None,
-                       grad_noise=None, need_dx=True):
+                       grad_noise=None, need_dx=True, count=None):
     """The VJP of :func:`hashgrid_encode_plain`: ``_encode_bwd``.
 
     Args:
@@ -217,10 +227,15 @@ def hashgrid_bwd_plain(params, x, cfg: HashGridConfig, g, window=None,
             ``grad_corners < 8`` the table gradient scatters the unweighted
             ``g / m`` to m corners drawn by weight (inverse CDF); else exact.
         need_dx: compute d_x (else None).
+        count: the valid count (:func:`hashgrid_encode`), or None: the
+            rows at or past it add nothing and get d_x 0.
     Returns:
         (d_params like params, d_x (N, 3) in x's dtype or None, d_window
         (L,) or None when window is None).
     """
+    if count is not None:
+        g = torch.where(_before(count, x.shape[0], x.device)[:, None], g,
+                        0.0)
     arrays, base, frac = _cells(x, cfg)
     scale = arrays[0]
     n, nl, nf = x.shape[0], cfg.L, cfg.F
@@ -262,6 +277,8 @@ def hashgrid_bwd_plain(params, x, cfg: HashGridConfig, g, window=None,
     if window is not None:
         out_l = hashgrid_encode_plain(params, x, cfg).reshape(n, nl, nf)
         d_window = (out_l.transpose(0, 1) * gl).sum(dim=(1, 2))
+    if count is not None:
+        d_x = torch.where(_before(count, n, x.device)[:, None], d_x, 0.0)
     return (d_params.to(params.dtype),
             d_x.to(x.dtype) if need_dx else None, d_window)
 
@@ -342,10 +359,10 @@ def _kernels():
     lib = build.load_library("hashgrid")
     fwd, bwd = lib.hashgrid_fwd, lib.hashgrid_bwd
     fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] \
         + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -409,15 +426,29 @@ def _f32(t):
     return None if t is None else t.detach().to(torch.float32).contiguous()
 
 
-def _launch_fwd(params, x, cfg, window):
+def _count_ptr(count, device):
+    """The valid count's device pointer (None for no count), after checking
+    it is one int64 on ``device``."""
+    if count is None:
+        return None
+    if count.dtype != torch.int64 or count.numel() != 1 \
+            or count.device != device:
+        raise ValueError(f"count must be one int64 on {device}, got "
+                         f"{tuple(count.shape)} {count.dtype} on "
+                         f"{count.device}")
+    return count.contiguous().data_ptr()
+
+
+def _launch_fwd(params, x, cfg, window, count=None):
     _check(params, x, cfg, window)
+    n_valid = _count_ptr(count, x.device)
     params, x, window = _rows(params), x.contiguous(), _f32(window)
     n = x.shape[0]
     out = torch.empty((n, cfg.out_dim), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
     rc = _kernels()[0](_ptr(params), _ptr(x), _ptr(window), _ptr(out), n,
-                       cfg.L, cfg.F, level_table(cfg).ctypes.data,
+                       cfg.L, cfg.F, level_table(cfg).ctypes.data, n_valid,
                        _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"hashgrid_fwd launch failed: cudaError {rc}")
@@ -425,8 +456,9 @@ def _launch_fwd(params, x, cfg, window):
     return out
 
 
-def _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx):
+def _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx, count=None):
     n, nl = x.shape[0], cfg.L
+    n_valid = _count_ptr(count, x.device)
     if g.shape != (n, cfg.out_dim):
         raise ValueError(f"g must be ({n}, {cfg.out_dim}), got "
                          f"{tuple(g.shape)}")
@@ -458,7 +490,7 @@ def _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx):
         _ptr(params), _ptr(x), _ptr(g), _ptr(window), _ptr(noise), m,
         _ptr(d_params), _ptr(acc), _ptr(sums), _ptr(win_part), _ptr(d_x),
         _ptr(d_window), n, cfg.n_params, nl, cfg.F, spb, blocks,
-        PREP_BLOCKS, level_table(cfg).ctypes.data, _stream(dev))
+        PREP_BLOCKS, level_table(cfg).ctypes.data, n_valid, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"hashgrid_bwd launch failed: cudaError {rc}")
     hashgrid_bwd.launches += 1
@@ -470,20 +502,21 @@ class HashGridEncode(torch.autograd.Function):
     backward recomputes the cells and weights from them."""
 
     @staticmethod
-    def forward(ctx, params, x, cfg, window, grad_noise):
-        ctx.save_for_backward(params, x, window, grad_noise)
+    def forward(ctx, params, x, cfg, window, grad_noise, count=None):
+        ctx.save_for_backward(params, x, window, grad_noise, count)
         ctx.cfg = cfg
         if x.device.type == "cpu":
-            return hashgrid_encode_plain(params, x, cfg, window)
-        return _launch_fwd(params, x, cfg, window)
+            return hashgrid_encode_plain(params, x, cfg, window, count)
+        return _launch_fwd(params, x, cfg, window, count)
 
     @staticmethod
     def backward(ctx, g):
-        params, x, window, grad_noise = ctx.saved_tensors
+        params, x, window, grad_noise, count = ctx.saved_tensors
+        counted = {} if count is None else {"count": count}
         d_params, d_x, d_window = hashgrid_bwd(
             params, x, ctx.cfg, g, window, grad_noise,
-            need_dx=ctx.needs_input_grad[1])
-        return d_params, d_x, None, d_window, None
+            need_dx=ctx.needs_input_grad[1], **counted)
+        return d_params, d_x, None, d_window, None, None
 
 
 def _check_device(x):
@@ -492,7 +525,7 @@ def _check_device(x):
 
 
 def hashgrid_encode(params, x, cfg: HashGridConfig, window=None,
-                    grad_noise=None):
+                    grad_noise=None, count=None):
     """Encode positions x (N, 3) in [0, 1] with the table ``params``
     (n_params, F): (N, L*F) fp32, level-major, differentiable in ``params``,
     ``x`` and ``window``.
@@ -500,15 +533,19 @@ def hashgrid_encode(params, x, cfg: HashGridConfig, window=None,
     ``window``: optional (L,) level weights (:func:`window_weights`).
     ``grad_noise``: optional (N, cfg.grad_corners) uniforms in [0, 1) for
     the sampled-corner table gradient; the forward is always exact.
+    ``count``: one int64 on x's device, the valid count of a static buffer
+    of N rows (the trainer's capacity layout): rows at or past it are zero,
+    add nothing to d_params or d_window and get d_x 0; the rows before it
+    are computed as without it, bit for bit.
     CUDA tensors run the kernels (``csrc/hashgrid.cu``), CPU tensors the
     plain versions. ``hashgrid_encode.launches`` counts forward launches.
     """
     _check_device(x)
-    return HashGridEncode.apply(params, x, cfg, window, grad_noise)
+    return HashGridEncode.apply(params, x, cfg, window, grad_noise, count)
 
 
 def hashgrid_bwd(params, x, cfg: HashGridConfig, g, window=None,
-                 grad_noise=None, need_dx=True):
+                 grad_noise=None, need_dx=True, count=None):
     """(d_params, d_x, d_window) of :func:`hashgrid_encode` for the output
     cotangent g (N, L*F), as :func:`hashgrid_bwd_plain` returns them.
 
@@ -519,8 +556,9 @@ def hashgrid_bwd(params, x, cfg: HashGridConfig, g, window=None,
     _check_device(x)
     if x.device.type == "cpu":
         return hashgrid_bwd_plain(params, x, cfg, g, window, grad_noise,
-                                  need_dx)
-    return _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx)
+                                  need_dx, count)
+    return _launch_bwd(params, x, cfg, g, window, grad_noise, need_dx,
+                       count=count)
 
 
 hashgrid_encode.launches = 0

@@ -25,6 +25,12 @@ all of them round the hat weights, ``W`` and ``g_d`` to bf16 and
 accumulate in fp32; with "float32" they compute in fp32 end to end (the
 kernels' fp32 instantiation), as the JAX ``_hat_cp_prod`` with ``mm_dtype``
 float32 does.
+
+Every function takes an optional ``count``, a one-element int64 tensor on
+the operands' device: the valid count of a static buffer of N rows (the
+trainer's capacity layout, ``models/rendering.py``). Rows at or past it
+get a zero output, add nothing to dW and get du 0; the rows before it are
+computed as without it, bit for bit, and dW's order stays a function of N.
 """
 import ctypes
 import functools
@@ -62,7 +68,13 @@ def _pos_basis(u, k_res, ks, dtype="bfloat16"):
     return diff, _operand(torch.clamp_min(1.0 - diff.abs(), 0.0), dtype)
 
 
-def hat_prod_plain(u3, w3, k_res, dtype="bfloat16"):
+def _rows_before(count, n, device):
+    """(N, 1) bool: row < count (all rows when ``count`` is None)."""
+    rows = torch.arange(n, device=device)[:, None]
+    return rows < (n if count is None else count.reshape(()))
+
+
+def hat_prod_plain(u3, w3, k_res, dtype="bfloat16", count=None):
     """Dense-basis form: basis @ W_d on ``dtype`` operands (bf16 or fp32),
     fp32 accumulation.
 
@@ -71,6 +83,7 @@ def hat_prod_plain(u3, w3, k_res, dtype="bfloat16"):
         w3: (3, K, R) float32 or bfloat16.
         k_res: number of knots K.
         dtype: the operand type, "bfloat16" or "float32".
+        count: the valid count (module docstring), or None.
     Returns:
         (N, R) float32.
     """
@@ -81,16 +94,21 @@ def hat_prod_plain(u3, w3, k_res, dtype="bfloat16"):
         a = _pos_basis(u3[:, d], k_res, ks, dtype)[1] \
             @ _operand(w3[d], dtype)
         prod = a if prod is None else prod * a
+    if count is not None:
+        prod = torch.where(_rows_before(count, u3.shape[0], u3.device),
+                           prod, 0.0)
     return prod
 
 
-def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
+def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True, dtype="bfloat16",
+                       count=None):
     """Dense-basis VJP of :func:`hat_prod_plain` — ``_hat_cp_prod_bwd``.
 
     Args:
         u3, w3, k_res, dtype: the forward's operands and operand type.
         g: (N, R) cotangent of the output.
         need_du: compute du (else None).
+        count: the valid count (module docstring), or None.
     Returns:
         (du (N, 3) in u3's dtype or None, dW (3, K, R) in w3's dtype).
     """
@@ -100,6 +118,10 @@ def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
     a = [_pos_basis(u3[:, d], k_res, ks, dtype)[1] @ w_op[d]
          for d in range(3)]
     g = g.to(torch.float32)
+    before = None
+    if count is not None:
+        before = _rows_before(count, u3.shape[0], u3.device)
+        g = torch.where(before, g, 0.0)
     scale = float(k_res - 1)
     dw, du = [], []
     for d in range(3):
@@ -113,6 +135,8 @@ def hat_prod_bwd_plain(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
                                0.0)
             du.append((db * dhat).sum(dim=1))
     du = torch.stack(du, dim=1).to(u3.dtype) if need_du else None
+    if du is not None and before is not None:
+        du = torch.where(before, du, 0.0)
     return du, torch.stack(dw).to(w3.dtype)
 
 
@@ -125,9 +149,9 @@ def _kernels(dtype="bfloat16"):
     fwd = getattr(lib, "hat_prod_fwd" + suffix)
     bwd = getattr(lib, "hat_prod_bwd" + suffix)
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -185,6 +209,19 @@ def _check_operands(u3, w3, k_res):
     return n, r
 
 
+def _count_ptr(count, device):
+    """The valid count's device pointer (None for no count), after checking
+    it is one int64 on ``device``."""
+    if count is None:
+        return None
+    if count.dtype != torch.int64 or count.numel() != 1 \
+            or count.device != device:
+        raise ValueError(f"count must be one int64 on {device}, got "
+                         f"{tuple(count.shape)} {count.dtype} on "
+                         f"{count.device}")
+    return count.contiguous().data_ptr()
+
+
 def _check_aligned(*tensors):
     for t in tensors:                # 16-byte row loads and stores
         if t.data_ptr() % 16:
@@ -201,8 +238,9 @@ def _w_operand(w3, dtype):
     return w3.detach().to(getattr(torch, dtype)).contiguous()
 
 
-def _launch(u3, w3, k_res, dtype="bfloat16"):
+def _launch(u3, w3, k_res, dtype="bfloat16", count=None):
     n, r = _check_operands(u3, w3, k_res)
+    n_valid = _count_ptr(count, u3.device)
     u3 = u3.contiguous()
     w_op = _w_operand(w3, dtype)
     out = torch.empty((n, r), dtype=torch.float32, device=u3.device)
@@ -210,15 +248,16 @@ def _launch(u3, w3, k_res, dtype="bfloat16"):
         return out
     _check_aligned(w_op, out)
     rc = _kernels(dtype)[0](u3.data_ptr(), w_op.data_ptr(), out.data_ptr(),
-                            n, k_res, r, _stream(u3.device))
+                            n, k_res, r, n_valid, _stream(u3.device))
     if rc != 0:
         raise RuntimeError(f"hat_prod_fwd launch failed: cudaError {rc}")
     hat_prod.launches += 1
     return out
 
 
-def _launch_bwd(u3, w3, k_res, g, need_du, dtype="bfloat16"):
+def _launch_bwd(u3, w3, k_res, g, need_du, dtype="bfloat16", count=None):
     n, r = _check_operands(u3, w3, k_res)
+    n_valid = _count_ptr(count, u3.device)
     if g.shape != (n, r) or g.device != u3.device:
         raise ValueError(f"g must be ({n}, {r}) on {u3.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
@@ -246,7 +285,7 @@ def _launch_bwd(u3, w3, k_res, g, need_du, dtype="bfloat16"):
                        None if du is None else du.data_ptr(), dw.data_ptr(),
                        slabs.data_ptr(),
                        None if part is None else part.data_ptr(),
-                       n, k_res, r, chunk, chunks, _stream(dev))
+                       n, k_res, r, chunk, chunks, n_valid, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"hat_prod_bwd launch failed: cudaError {rc}")
     hat_prod_bwd.launches += 1
@@ -258,25 +297,28 @@ class HatProd(torch.autograd.Function):
     backward recomputes ``a_d`` from them, as the Pallas backward does."""
 
     @staticmethod
-    def forward(ctx, u3, w3, k_res, dtype="bfloat16"):
-        ctx.save_for_backward(u3, w3)
+    def forward(ctx, u3, w3, k_res, dtype="bfloat16", count=None):
+        ctx.save_for_backward(u3, w3, count)
         ctx.k_res, ctx.dtype = k_res, dtype
         if u3.device.type == "cpu":
-            return hat_prod_plain(u3, w3, k_res, dtype)
-        return _launch(u3, w3, k_res, dtype=dtype)
+            return hat_prod_plain(u3, w3, k_res, dtype, count)
+        return _launch(u3, w3, k_res, dtype=dtype, count=count)
 
     @staticmethod
     def backward(ctx, g):
-        u3, w3 = ctx.saved_tensors
+        u3, w3, count = ctx.saved_tensors
+        counted = {} if count is None else {"count": count}
         du, dw = hat_prod_bwd(u3, w3, ctx.k_res, g,
                               need_du=ctx.needs_input_grad[0],
-                              dtype=ctx.dtype)
-        return du, dw, None, None
+                              dtype=ctx.dtype, **counted)
+        return du, dw, None, None, None
 
 
-def hat_prod(u3, w3, k_res, dtype="bfloat16"):
+def hat_prod(u3, w3, k_res, dtype="bfloat16", count=None):
     """prod_d B_K(u3[:, d]) @ w3[d] -> (N, R) float32, differentiable in
-    ``u3`` and ``w3``, on ``dtype`` operands ("bfloat16" or "float32").
+    ``u3`` and ``w3``, on ``dtype`` operands ("bfloat16" or "float32");
+    with ``count`` (module docstring) rows at or past it are zero and get
+    no gradient.
 
     CUDA tensors run the kernels (``csrc/hatmul.cu``, the instantiation for
     ``dtype``); CPU tensors run the plain versions. ``hat_prod.launches``
@@ -284,10 +326,11 @@ def hat_prod(u3, w3, k_res, dtype="bfloat16"):
     """
     _check_device(u3)
     _check_dtype(dtype)
-    return HatProd.apply(u3, w3, k_res, dtype)
+    return HatProd.apply(u3, w3, k_res, dtype, count)
 
 
-def hat_prod_bwd(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
+def hat_prod_bwd(u3, w3, k_res, g, need_du=True, dtype="bfloat16",
+                 count=None):
     """(du, dW) of :func:`hat_prod` for the output cotangent ``g`` (N, R).
 
     CUDA tensors run the backward kernel, whose dW is bitwise the same on
@@ -295,13 +338,14 @@ def hat_prod_bwd(u3, w3, k_res, g, need_du=True, dtype="bfloat16"):
     slice of a wider feature gradient, is read in place through its row
     stride. CPU tensors run :func:`hat_prod_bwd_plain`.
     ``hat_prod_bwd.launches`` counts kernel launches (both stages are one).
-    du is None unless ``need_du``. ``dtype``: the forward's operand type.
+    du is None unless ``need_du``. ``dtype``: the forward's operand type;
+    ``count``: the valid count (module docstring), or None.
     """
     _check_device(u3)
     _check_dtype(dtype)
     if u3.device.type == "cpu":
-        return hat_prod_bwd_plain(u3, w3, k_res, g, need_du, dtype)
-    return _launch_bwd(u3, w3, k_res, g, need_du, dtype=dtype)
+        return hat_prod_bwd_plain(u3, w3, k_res, g, need_du, dtype, count)
+    return _launch_bwd(u3, w3, k_res, g, need_du, dtype=dtype, count=count)
 
 
 hat_prod.launches = 0

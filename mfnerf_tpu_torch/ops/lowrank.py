@@ -164,7 +164,7 @@ def matmul_f32(a, b, dtype):
 
 
 def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
-                   dtype=torch.float32) -> torch.Tensor:
+                   dtype=torch.float32, count=None) -> torch.Tensor:
     """Encode positions x (N, 3) in [0, 1] -> (N, out_dim) float32.
 
     Fused: one :func:`hat_prod` per frame (the CUDA kernel on the card) on
@@ -172,7 +172,9 @@ def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
     dense hat-basis
     matmuls. ``dtype`` (``NGPConfig.compute_dtype``) is the operand type of
     the unfused matmuls and of the output projection, which sum in fp32, as
-    the JAX ``lowrank_encode(dtype=)``.
+    the JAX ``lowrank_encode(dtype=)``. ``count``: the valid count of a
+    static buffer (``hatmul``'s module docstring), which the fused encoder's
+    kernels take; the unfused matmuls evaluate every row.
     """
     rots = _rotations_on(cfg.n_frames, x.device)
     xf = x.to(torch.float32)
@@ -181,7 +183,7 @@ def lowrank_encode(params: dict, x: torch.Tensor, cfg: LowRankConfig,
         u3 = _frame_coords(xf, rots, m)
         if cfg.fused:
             feats.append(hat_prod(u3, fold_frame(params, cfg, m),
-                                  cfg.levels[-1], cfg.matmul_dtype))
+                                  cfg.levels[-1], cfg.matmul_dtype, count))
             continue
         for li, k_res in enumerate(cfg.levels):
             prod = None

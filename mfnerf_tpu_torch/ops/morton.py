@@ -54,8 +54,11 @@ def morton3d_invert(indices):
 
 def _pack(bits):
     """(8n,) bool -> (n,) uint8: bit i of byte n is ``bits[8n + i]``."""
-    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
-                           device=bits.device)
+    # 1 << i made on the device: no copy from the host, so that a CUDA
+    # graph can capture the refresh
+    weights = torch.bitwise_left_shift(
+        torch.ones(8, dtype=torch.uint8, device=bits.device),
+        torch.arange(8, dtype=torch.uint8, device=bits.device))
     return (bits.reshape(-1, 8).to(torch.uint8) * weights).sum(
         dim=-1).to(torch.uint8)
 

@@ -12,7 +12,8 @@ value.
 import argparse
 
 # [tpu] formulation flags: name -> default. The port has no counterpart
-# (ROADMAP, Queue 1 #8); a non-default value is reported and ignored.
+# (ROADMAP, Queue 1, "Do not port"); a non-default value is reported and
+# ignored.
 TPU_ONLY = {"wavefront": "auto", "multihost": False}
 
 
@@ -167,11 +168,15 @@ def get_opts(argv=None):
                         help='steps per epoch (reference fixes 1000; lower '
                              'for smoke tests)')
     parser.add_argument('--s_flat', type=int, default=16,
-                        help='[tpu] flat sample budget of the JAX package; '
-                             'parsed and ignored by the port')
+                        help='[tpu] flat sample budget: from step 512 a '
+                             'batch keeps its first N*s_flat samples, '
+                             'evaluated on a static buffer of that many '
+                             'slots (0: every sample; forced to 0 at '
+                             'several cascades)')
     parser.add_argument('--pool_a', type=int, default=4,
-                        help='[tpu] pooled stage-A march table of the JAX '
-                             'package; parsed and ignored by the port')
+                        help='[tpu] the training march\'s stage-A grid is '
+                             'the occupancy grid pooled pool_a cells to a '
+                             'side (0: 2)')
     parser.add_argument('--wavefront', type=str, default='auto',
                         help='[tpu] wavefront test renderer of the JAX '
                              'package; parsed and ignored by the port')

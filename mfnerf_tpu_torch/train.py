@@ -30,9 +30,18 @@ The march keeps the JAX package's strata budget on synthetic scenes
 (``models/rendering.py``): ``setup`` sizes the strata from the cameras'
 largest ``|d|`` (``dir_norm``) and ``--s_max_train``, their coarse grid
 pools ``--pool_a`` cells to a side, and from step ``FLAT_AFTER`` a batch
-keeps ``--s_flat`` samples a ray on average. The JAX package's fused
-multi-step runner exists to spare TPU dispatch round trips and is not
-ported; the port runs one step per call.
+keeps ``--s_flat`` samples a ray on average, evaluated on a static buffer
+of as many slots (the capacity layout): the step has no host read.
+
+The fused runner (the JAX ``make_fused_train_fn``): from ``FLAT_AFTER``,
+on the card, ``fit`` replays CUDA graphs of that static step and of the
+occupancy refresh (one a refresh parity) instead of launching each step's
+~200-400 kernels from the host (:class:`FusedRunner`). A replayed step is
+bit for bit the same step run eagerly. :meth:`NeRFSystem.fused_ok` is the
+rule for which steps it serves: on a CUDA device, outside a process group,
+with ``s_flat`` > 0, from ``FLAT_AFTER``, without ``--optimize_ext`` and
+``--use_exposure``; every other step runs one at a time
+(:meth:`NeRFSystem.train_step`).
 
 ``--use_exposure`` (HDR-NeRF) trains the log-radiance head with its
 tonemappers at each ray's exposure (the rays' 4th column), adds the
@@ -68,6 +77,7 @@ import dataclasses
 import math
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -97,6 +107,11 @@ from .utils.metrics import ssim as ssim_fn
 WARMUP_STEPS = 256
 UPDATE_INTERVAL = 16      # steps between occupancy refreshes
 FLAT_AFTER = 512          # the first step with the --s_flat budget
+# the fused runner's eager steps on its side stream before it captures the
+# step (PyTorch's whole-network recipe): real training steps, which also
+# load the kernels and set their attributes
+FUSED_WARMUP = 3
+METRICS = ("loss", "psnr", "rm_s", "vr_s")   # a step's device metrics
 STEPS_PER_EPOCH = 1000
 PROFILE_STEPS = 48        # --profile's traced epoch (mfnerf_tpu/train.py:683)
 GRIDS = ("LowRank", "Hash", "Window", "MixedFeature")
@@ -234,6 +249,7 @@ class NeRFSystem:
         self.refresh_half = getattr(hp, "refresh_half", False)
         self.erode = getattr(hp, "dataset_name", "") == "colmap"
         self.use_exposure = hp.use_exposure
+        self._fused_logged = False
 
     def setup(self, train_dataset=None, test_dataset=None):
         """The datasets: in-memory ones (``datasets.memory.MemoryDataset``),
@@ -273,7 +289,9 @@ class NeRFSystem:
         With ``--optimize_ext`` the poses' corrections ``dR`` and ``dT``
         ((N_img, 3) each, zero) are a second parameter group whose Adam
         runs at ``--pose_lr`` with optax's defaults and no schedule
-        (``mfnerf_tpu/train.py:219-240``)."""
+        (``mfnerf_tpu/train.py:219-240``). Adam is PyTorch's default until
+        ``FLAT_AFTER``, where on the card it becomes capturable
+        (:meth:`_capturable_adam`)."""
         hp, dev = self.hparams, self.device
         self.init_model(seed)
         ds = self.train_dataset
@@ -304,10 +322,12 @@ class NeRFSystem:
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, [lambda step: self.schedule(step) / hp.lr]
             + [lambda step: 1.0] * (len(groups) - 1))
+        self.lr = hp.lr   # the network's learning rate, as the host knows it
         self.generator = torch.Generator(device=dev).manual_seed(hp.seed)
         self.global_step = 0
         self.n_refresh = 0
         self.culled = False
+        self.fused = None           # the FusedRunner, once fit needs it
 
     def init_model(self, seed=0):
         """The field drawn from ``seed`` and an empty occupancy state, with
@@ -324,15 +344,21 @@ class NeRFSystem:
 
     def update_grid(self):
         """One occupancy refresh: every cell, or with ``refresh_half`` the
-        even or odd Morton half, alternating from refresh to refresh."""
+        even or odd Morton half, alternating from refresh to refresh over
+        the whole run. The grid, bitfield and stage-A grids are written in
+        place (the fused runner's graphs read those tensors)."""
+        self._refresh(self.n_refresh % 2 if self.refresh_half else None)
+        self.n_refresh += 1
+
+    def _refresh(self, half):
+        """The refresh of ``half`` (None: every cell) in place: what the
+        fused runner's refresh graphs capture."""
         cfg = self.model_cfg
-        half = self.n_refresh % 2 if self.refresh_half else None
         n = cfg.n_cells if half is None else cfg.n_cells // 2
-        self.occ = self.model.update_density_grid(
+        self.model.update_density_grid(
             self.occ, self.density_threshold,
             self._rand(cfg.cascades, n, 3) * 2 - 1, half=half,
-            erode=self.erode)
-        self.n_refresh += 1
+            erode=self.erode, in_place=True)
 
     def sample_batch(self):
         """(image, pixel) indices of a ray batch, drawn on the device: an
@@ -404,23 +430,48 @@ class NeRFSystem:
         return loss, results, target
 
     def train_step(self):
-        """One optimiser step on a fresh ray batch; its metrics as 0-d
-        tensors on the device (the learning rate as a float). Under data
-        parallelism every rank draws the global batch, its jitter, the
-        background and the gradient noise of every valid sample, and takes
-        its own part of each; the metrics are the global batch's."""
+        """One optimiser step on a fresh ray batch, eagerly; its metrics as
+        0-d tensors on the device (the learning rate as a float); the
+        schedule advances a step. Under data parallelism every rank draws
+        the global batch, its jitter, the background and the gradient noise
+        of every valid sample, and takes its own part of each; the metrics
+        are the global batch's."""
+        out = dict(zip(METRICS, self._device_step().unbind()))
+        out["lr"] = self.lr
+        self._next_lr()
+        return out
+
+    def _next_lr(self):
+        """Advance the schedule a step (LambdaLR: on the card it fills the
+        network's rate tensor in place) and keep the new rate on the host,
+        as LambdaLR computes it."""
+        sch = self.scheduler
+        sch.step()
+        self.lr = sch.base_lrs[0] * sch.lr_lambdas[0](sch.last_epoch)
+
+    def _device_step(self):
+        """:meth:`train_step`'s work on the device, which the fused runner
+        captures from ``FLAT_AFTER``: batch, rays, march, field, composite,
+        loss, backward and Adam. Returns the metrics METRICS as one (4,)
+        float32 tensor."""
         b, sh = self.hparams.batch_size, self.shard
+        if self.global_step >= FLAT_AFTER:
+            self._capturable_adam()
         img, pix = self.sample_batch()
         bg = self._rand(3) if self.rcfg.random_bg else None
         noise = self._rand(b)
         m = self.model_cfg.hash_grad_samples
         grad_noise = None       # the exact table gradient (and LowRank)
         if self.model_cfg.grid != "LowRank" and m < 8:
-            def grad_noise(n_valid):
-                if sh is None:
-                    return self._rand(n_valid, m)
-                before, total = (int(v) for v in sh.prefix(n_valid))
-                return self._rand(total, m)[before:before + n_valid]
+            if self.rcfg.s_flat and self.global_step >= FLAT_AFTER:
+                # the JAX flat branch's draw, a row a slot of the budget
+                grad_noise = self._rand(b * self.rcfg.s_flat, m)
+            else:
+                def grad_noise(n_valid):
+                    if sh is None:
+                        return self._rand(n_valid, m)
+                    before, total = (int(v) for v in sh.prefix(n_valid))
+                    return self._rand(total, m)[before:before + n_valid]
         if sh is not None:
             img, pix, noise = sh.take(img), sh.take(pix), sh.take(noise)
         loss, results, target = self.step_loss(img, pix, noise, bg,
@@ -430,14 +481,11 @@ class NeRFSystem:
         if sh is not None:
             self.average_gradients()
         self.optimizer.step()
-        lr = self.optimizer.param_groups[0]["lr"]
-        self.scheduler.step()
         with torch.no_grad():
             if sh is None:
-                return {"loss": loss.detach(),
-                        "psnr": psnr_fn(results["rgb"], target["rgb"]),
-                        "rm_s": results["rm_samples"] / b,
-                        "vr_s": results["vr_samples"] / b, "lr": lr}
+                return torch.stack([
+                    loss.detach(), psnr_fn(results["rgb"], target["rgb"]),
+                    results["rm_samples"] / b, results["vr_samples"] / b])
             # the ranks' means of loss and squared error (equal shards),
             # and their sample totals
             stats = pdist.all_sum(torch.stack([
@@ -445,10 +493,10 @@ class NeRFSystem:
                 torch.mean((results["rgb"] - target["rgb"]) ** 2).double(),
                 results["rm_samples"].double(),
                 results["vr_samples"].double()]))
-            return {"loss": (stats[0] / sh.world).float(),
-                    "psnr": -10.0 * torch.log10((stats[1] / sh.world).float()),
-                    "rm_s": stats[2].long() / b, "vr_s": stats[3].long() / b,
-                    "lr": lr}
+            return torch.stack([
+                (stats[0] / sh.world).float(),
+                -10.0 * torch.log10((stats[1] / sh.world).float()),
+                stats[2].long() / b, stats[3].long() / b])
 
     def average_gradients(self):
         """Average every gradient the optimiser holds (the field's, and
@@ -456,11 +504,66 @@ class NeRFSystem:
         pdist.average_gradients([p for group in self.optimizer.param_groups
                                  for p in group["params"]])
 
+    def fused_ok(self):
+        """Whether the fused runner serves the next step (the rule, logged
+        once when it first applies): the device is CUDA, there is no
+        process group, ``s_flat`` > 0 (single-cascade scenes), the step is
+        at or past ``FLAT_AFTER``, and neither ``--optimize_ext`` nor
+        ``--use_exposure`` is set. Every other step runs one at a time."""
+        if self.global_step < FLAT_AFTER:
+            return False
+        why = ("not on a CUDA device" if self.device.type != "cuda"
+               else "inside a process group" if pdist.in_group()
+               else "s_flat 0" if not self.rcfg.s_flat
+               else "--optimize_ext" if self.hparams.optimize_ext
+               else "--use_exposure" if self.use_exposure else None)
+        if not self._fused_logged and self.rank == 0:
+            how = ("CUDA graphs of the step and the refresh" if why is None
+                   else f"off ({why}), one step at a time")
+            print(f"fused runner from step {FLAT_AFTER}: {how}", flush=True)
+        self._fused_logged = True
+        return why is None
+
+    def make_fused_train_fn(self):
+        """The fused runner of this system (:class:`FusedRunner`), made once
+        and kept: its graphs persist across :meth:`fit` calls."""
+        if self.fused is None:
+            self._capturable_adam()
+            self.fused = FusedRunner(self)
+        return self.fused
+
+    def _capturable_adam(self):
+        """On the card, from ``FLAT_AFTER`` (the first step the fused runner
+        may serve; :meth:`_device_step` calls it), Adam's state for CUDA
+        graphs: every group capturable, each step count a float32 on the
+        parameter's device, the network's learning rate a device tensor that
+        the schedule fills in place (its base rate stays a float, so the
+        scheduler reads nothing from the device). Every step from there,
+        eager or replayed, with or without the runner, runs the same update.
+        Before it Adam is PyTorch's default (the counts on the host), whose
+        update rounds otherwise: the warm-up steps keep the numbers they
+        had. Done once; on the CPU Adam stays the default."""
+        if self.device.type != "cuda" or self.optimizer.param_groups[0].get(
+                "capturable"):
+            return
+        dev = self.device
+        for group in self.optimizer.param_groups:
+            group["capturable"] = True
+            for p in group["params"]:
+                state = self.optimizer.state.get(p, {})
+                if "step" in state:
+                    state["step"] = state["step"].to(dev, torch.float32)
+        group = self.optimizer.param_groups[0]
+        group["lr"] = torch.tensor(group["lr"], device=dev)
+
     def fit(self, n_steps=None):
         """Train ``n_steps`` more steps (default: up to num_epochs *
         steps_per_epoch). The first call culls the grid to the training
-        cameras. Returns each step's loss, psnr, rm_s, vr_s and lr as CPU
-        tensors of length n_steps."""
+        cameras. A block of UPDATE_INTERVAL steps starts with an occupancy
+        refresh; from ``FLAT_AFTER`` the fused runner replays both where
+        :meth:`fused_ok` allows (``n_steps`` may start and end mid-block).
+        Returns each step's loss, psnr, rm_s, vr_s and lr as CPU tensors of
+        length n_steps."""
         total = self.hparams.num_epochs * self.steps_per_epoch
         end = total if n_steps is None else self.global_step + n_steps
         if not self.culled:
@@ -468,17 +571,28 @@ class NeRFSystem:
             self.occ = self.model.mark_invisible_cells(
                 self.occ, ds.K, self.poses, ds.img_wh)
             self.culled = True
-        steps = []
-        while self.global_step < end:
-            if self.global_step % UPDATE_INTERVAL == 0:
-                self.update_grid()
-            steps.append(self.train_step())
-            self.global_step += 1
-        if not steps:
+        n = end - self.global_step
+        if n <= 0:
             return {}
-        out = {k: torch.stack([m[k] for m in steps]).cpu()
-               for k in ("loss", "psnr", "rm_s", "vr_s")}
-        out["lr"] = torch.tensor([m["lr"] for m in steps])
+        vecs = torch.empty((n, len(METRICS)), device=self.device)
+        lrs = []
+        runner = None
+        for i in range(n):
+            if runner is None and self.fused_ok():
+                runner = self.make_fused_train_fn()
+                runner.bind()
+            if self.global_step % UPDATE_INTERVAL == 0:
+                if runner is None:
+                    self.update_grid()
+                else:
+                    runner.refresh()
+            vecs[i] = self._device_step() if runner is None \
+                else runner.step()
+            lrs.append(self.lr)
+            self._next_lr()
+            self.global_step += 1
+        out = dict(zip(METRICS, vecs.cpu().unbind(1)))
+        out["lr"] = torch.tensor(lrs)
         return out
 
     def synchronize(self):
@@ -489,10 +603,15 @@ class NeRFSystem:
     def set_step(self, step):
         """Continue from ``step``: the global step, and the learning rate an
         uninterrupted run would use at it (the poses' group keeps
-        ``--pose_lr``)."""
+        ``--pose_lr``); a rate tensor is filled in place."""
         self.global_step = step
         self.scheduler.last_epoch = step
-        self.optimizer.param_groups[0]["lr"] = self.schedule(step)
+        self.lr = self.schedule(step)
+        group = self.optimizer.param_groups[0]
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(self.lr)
+        else:
+            group["lr"] = self.lr
 
     def save(self, ckpt_dir):
         """Write ``epoch=<E>.ckpt.npz`` (parameters with ``dR``/``dT``,
@@ -603,6 +722,154 @@ class NeRFSystem:
         if lpipss:
             out["test/lpips_vgg"] = float(np.mean(lpipss))
         return out
+
+
+def launch_counters():
+    """The hand kernels' wrappers, each with its ``launches`` count."""
+    from .ops import composite, hashgrid, hatmul, linetable, ray_march
+    return (hatmul.hat_prod, hatmul.hat_prod_bwd, hashgrid.hashgrid_encode,
+            hashgrid.hashgrid_bwd, ray_march.march_rays_train,
+            ray_march.march_rays_window, composite.composite_train,
+            composite.composite_train_bwd, composite.composite_test_step,
+            linetable.table_lerp, linetable.hat_basis_dw)
+
+
+class FusedRunner:
+    """The JAX ``make_fused_train_fn`` (``mfnerf_tpu/train.py:321-457``) on
+    the card: a training step from ``FLAT_AFTER`` (:meth:`NeRFSystem.
+    _device_step` on the capacity layout: no host read, static shapes) and
+    the occupancy refresh of each parity (in place), each captured once as
+    a CUDA graph and replayed by :meth:`NeRFSystem.fit`, one host call a
+    step instead of a few hundred launches.
+
+    Capture follows PyTorch's whole-network recipe: FUSED_WARMUP eager
+    steps on a side stream first (real training steps), the gradients set
+    to None inside the capture, the trainer's generator registered with
+    each graph, so that every replay draws fresh batches, jitter and
+    refresh points as the eager steps would, bit for bit. A refresh parity's
+    first refresh runs eagerly on the side stream and its graph is captured
+    after it. The refresh halves alternate with ``n_refresh`` over the whole
+    run, as the eager trainer does (the JAX runner restarts the parity at
+    each dispatch). Each graph has a memory pool of its own.
+
+    :meth:`bind` (``fit`` calls it) checks that the parameters, the Adam
+    state, the staged rays and the learning rate are still the tensors
+    captured, and captures anew if not; an occupancy that replaced the
+    captured one (a checkpoint, a caller) is copied into the captured
+    tensors. Each replay adds the kernel launches that its capture recorded
+    to the wrappers' ``launches``, so that they read as an eager run's.
+    A capture that fails, or meets a host sync, raises."""
+
+    def __init__(self, system):
+        # a proxy: the system owns the runner, and a deleted system frees
+        # the graphs' memory pools with it (no reference cycle to wait for)
+        self.system = weakref.proxy(system)
+        self.stream = torch.cuda.Stream(system.device)
+        self._reset()
+
+    def _reset(self):
+        self.step_graph = None
+        self.refresh_graphs = {}        # parity (None: every cell) -> graph
+        self.launches = {}              # graph -> {wrapper: launches}
+        self.metrics = None             # the step graph's (4,) output
+        self.warm = 0
+        self.occ = self.system.occ
+        self.tensors = self._tensors()
+
+    def _tensors(self):
+        """The data pointers of every tensor the graphs read but the
+        occupancy: parameters, Adam state, staged rays, learning rate."""
+        s = self.system
+        state = [t for p in s.model.parameters()
+                 for t in s.optimizer.state.get(p, {}).values()
+                 if torch.is_tensor(t)]
+        lr = s.optimizer.param_groups[0]["lr"]
+        return tuple(t.data_ptr() for t in (
+            *s.model.parameters(), *state, s.rays, s.directions, s.poses,
+            lr) if torch.is_tensor(t))
+
+    def bind(self):
+        """Before replays: capture anew if a tensor the graphs read was
+        replaced; copy a replaced occupancy into the captured one."""
+        s = self.system
+        if self._tensors() != self.tensors:
+            self._reset()
+            return
+        if s.occ is self.occ:
+            return
+        new = s.occ
+        if new.derived_from is not new.density_bitfield:
+            new = new.refresh_coarse(s.model_cfg)
+        names = ("density_grid", "density_bitfield", "count_grid",
+                 "stage_a", "union_bits")
+        pairs = [(getattr(self.occ, k), getattr(new, k)) for k in names]
+        if any((a is None) != (b is None)
+               or (a is not None and a.shape != b.shape) for a, b in pairs):
+            self._reset()
+            return
+        for a, b in pairs:
+            if a is not None:
+                a.copy_(b)
+        self.occ.derived_from, self.occ.stage_a_share = \
+            self.occ.density_bitfield, None
+        s.occ = self.occ
+
+    def _side(self, fn):
+        """``fn()`` eagerly on the side stream."""
+        cur = torch.cuda.current_stream(self.system.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        return out
+
+    def _capture(self, fn):
+        """(graph, fn's output inside it) of ``fn`` captured on the side
+        stream; the launch counts its capture recorded are kept for the
+        replays and taken off the wrappers' counts."""
+        counters = launch_counters()
+        before = [f.launches for f in counters]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.system.generator)
+        with torch.cuda.graph(graph, stream=self.stream):
+            out = fn()
+        self.launches[graph] = {f: f.launches - n
+                                for f, n in zip(counters, before)
+                                if f.launches != n}
+        for f, n in zip(counters, before):
+            f.launches = n
+        return graph, out
+
+    def _replay(self, graph):
+        graph.replay()
+        for f, n in self.launches[graph].items():
+            f.launches += n
+
+    def refresh(self):
+        """The occupancy refresh of the system's next parity."""
+        s = self.system
+        half = s.n_refresh % 2 if s.refresh_half else None
+        graph = self.refresh_graphs.get(half)
+        if graph is None:
+            self._side(lambda: s._refresh(half))
+            self.refresh_graphs[half] = self._capture(
+                lambda: s._refresh(half))[0]
+        else:
+            self._replay(graph)
+        s.occ.stage_a_share = None
+        s.n_refresh += 1
+
+    def step(self):
+        """One training step; its metrics METRICS as a (4,) tensor (the
+        step graph's output, overwritten by the next replay)."""
+        s = self.system
+        if self.step_graph is None and self.warm < FUSED_WARMUP:
+            self.warm += 1
+            return self._side(s._device_step)
+        if self.step_graph is None:
+            self.step_graph, self.metrics = self._capture(s._device_step)
+        self._replay(self.step_graph)
+        return self.metrics
 
 
 def profile(system, trace_dir):

@@ -206,11 +206,20 @@ def adam_state_to_numpy(optimizer, model, extra=None):
 
 def adam_state_from_numpy(optimizer, model, section, extra=None):
     """Restore the Adam state that :func:`adam_state_to_numpy` saved; a
-    parameter whose state the section lacks keeps its own."""
+    parameter whose state the section lacks keeps its own. ``step`` goes to
+    the CPU, or for a capturable group (the trainer's on the card) onto the
+    parameter's device as float32, where capturable Adam keeps it."""
+    capturable = {p: group.get("capturable", False)
+                  for group in optimizer.param_groups for p in group["params"]}
     for name, p in _named_parameters(model, extra):
         path = name.replace(".", "/")
         if not all(f"{key}/{path}" in section for key in ADAM_KEYS):
             continue
-        optimizer.state[p] = {
-            key: torch.from_numpy(np.array(section[f"{key}/{path}"])).to(
-                p.device if key != "step" else "cpu") for key in ADAM_KEYS}
+        state = {key: torch.from_numpy(np.array(section[f"{key}/{path}"]))
+                 for key in ADAM_KEYS}
+        for key, value in state.items():
+            if key != "step":
+                state[key] = value.to(p.device)
+            elif capturable.get(p, False):
+                state[key] = value.to(p.device, torch.float32)
+        optimizer.state[p] = state

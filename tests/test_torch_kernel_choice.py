@@ -9,13 +9,17 @@ variant bit for bit to the plain versions there); here the parameters and
 choices are held to what the kernels take, for those recipes and at their
 limits, and the wrappers are held to hand the kernels what they chose (the
 C entry points replaced by recorders) and to refuse what the kernels do
-not take.
+not take; so are the encoder wrappers' valid count (the capacity
+layout's, which the four encoder kernels read on the device).
 """
 import pytest
 import torch
 
+from mfnerf_tpu_torch.models.ngp import NGPConfig
 from mfnerf_tpu_torch.models.rendering import RenderConfig
 from mfnerf_tpu_torch.ops import composite as tcomposite
+from mfnerf_tpu_torch.ops import hashgrid as thash
+from mfnerf_tpu_torch.ops import hatmul as thatmul
 from mfnerf_tpu_torch.ops import ray_march as tmarch
 
 
@@ -210,3 +214,55 @@ def test_fwd_wrapper_hands_the_kernel_its_passes(monkeypatch):
     assert calls[-1][:3] == (2, 64, 0)
     assert tcomposite.composite_train.launches == launches + len(sizes) + 1
     tcomposite.composite_train.launches = launches
+
+
+def _encoder_launch(encoder, count):
+    """One call of ``encoder``'s wrapper on small CPU operands."""
+    gen = torch.Generator().manual_seed(0)
+    if encoder.startswith("hat"):
+        u3 = torch.rand((64, 3), generator=gen)
+        w3 = torch.rand((3, 9, 8), generator=gen)
+        if encoder == "hat_fwd":
+            return thatmul._launch(u3, w3, 9, count=count)
+        return thatmul._launch_bwd(u3, w3, 9, torch.rand((64, 8)), True,
+                                   count=count)
+    cfg = NGPConfig(grid="Hash", L=4, log2_T=10, N_max=64).hash_cfg
+    params = torch.rand((cfg.n_params, cfg.F), generator=gen)
+    x = torch.rand((64, 3), generator=gen)
+    if encoder == "hash_fwd":
+        return thash._launch_fwd(params, x, cfg, None, count=count)
+    return thash._launch_bwd(params, x, cfg, torch.rand((64, cfg.out_dim)),
+                             None, None, True, count=count)
+
+
+@pytest.mark.parametrize("encoder", ["hat_fwd", "hat_bwd", "hash_fwd",
+                                     "hash_bwd"])
+def test_encoder_wrappers_hand_the_kernels_the_count(encoder, monkeypatch):
+    """Each encoder wrapper hands its kernel the valid count's device
+    pointer just before the stream (None without a count), one launch a
+    call, and refuses a count that is not one int64 on the operands'
+    device before any launch."""
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 0
+
+    module = thatmul if encoder.startswith("hat") else thash
+    monkeypatch.setattr(module, "_kernels", lambda *dtype: (record, record))
+    monkeypatch.setattr(module, "_stream", lambda device: 0)
+    counter = {"hat_fwd": thatmul.hat_prod, "hat_bwd": thatmul.hat_prod_bwd,
+               "hash_fwd": thash.hashgrid_encode,
+               "hash_bwd": thash.hashgrid_bwd}[encoder]
+    launches = counter.launches
+    count = torch.tensor([37])
+    _encoder_launch(encoder, count)
+    assert calls[-1][-2:] == (count.data_ptr(), 0)
+    _encoder_launch(encoder, None)
+    assert calls[-1][-2:] == (None, 0)
+    for bad in (torch.tensor([37], dtype=torch.int32),
+                torch.tensor([37, 1])):
+        with pytest.raises(ValueError, match="count must be one int64"):
+            _encoder_launch(encoder, bad)
+    assert len(calls) == 2 and counter.launches == launches + 2
+    counter.launches = launches

@@ -64,8 +64,12 @@ def load_parent(src):
     lib = ctypes.CDLL(str(out))
     fwd, bwd = hashgrid._kernels()    # this tree's, for the argument types
     pf, pb = lib.hashgrid_fwd, lib.hashgrid_bwd
-    pf.argtypes, pb.argtypes = fwd.argtypes, bwd.argtypes
+    counted = b"n_valid" in code      # a source with the valid count
+    pf.argtypes, pb.argtypes = (
+        (t.argtypes if counted else t.argtypes[:-2] + t.argtypes[-1:])
+        for t in (fwd, bwd))
     pf.restype = pb.restype = ctypes.c_int
+    pf.counted = pb.counted = counted
     return pf, pb
 
 
@@ -99,12 +103,15 @@ def launchers(cfg, params, x, g, noise, kernels, grid):
                        device=dev)
     spb, blocks = grid(n, cfg.L)
 
+    # this tree's entries and a counted parent's take the valid count (none)
+    count = [None] if getattr(fwd, "counted", True) else []
+
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
     def run_fwd():
         rc = fwd(params.data_ptr(), x.data_ptr(), None, out.data_ptr(), n,
-                 cfg.L, cfg.F, table, stream())
+                 cfg.L, cfg.F, table, *count, stream())
         assert rc == 0, rc
 
     def run_bwd(m):
@@ -112,7 +119,7 @@ def launchers(cfg, params, x, g, noise, kernels, grid):
                  noise.data_ptr() if m else None, m, d_params[m].data_ptr(),
                  acc.data_ptr(), sums.data_ptr(), None, None, None, n,
                  cfg.n_params, cfg.L, cfg.F, spb, blocks,
-                 hashgrid.PREP_BLOCKS, table, stream())
+                 hashgrid.PREP_BLOCKS, table, *count, stream())
         assert rc == 0, rc
 
     return ({"fwd": run_fwd, "bwd": lambda: run_bwd(0),

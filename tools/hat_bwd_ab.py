@@ -83,7 +83,7 @@ def launchers(u3, w3, k, g, parent):
         rc = new(u3.data_ptr(), w_bf.data_ptr(), g_rows.data_ptr(), ldg,
                  du.data_ptr() if need_du else None, dw.data_ptr(),
                  slabs.data_ptr(), part.data_ptr() if need_du else None, n,
-                 k, r, chunk, chunks, stream)
+                 k, r, chunk, chunks, None, stream)
         assert rc == 0, rc
 
     fns = {}
@@ -146,7 +146,7 @@ def forward(label, u3, w3, k, iters, card):
 
     def run_kernel():
         rc = fwd(u3.data_ptr(), w_bf.data_ptr(), out.data_ptr(), n, k, r,
-                 stream)
+                 None, stream)
         assert rc == 0, rc
 
     kernel_ms = chip_smoke.cuda_ms(run_kernel, iters)

@@ -61,8 +61,7 @@ def load_variant(name, edits):
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                     str(cu)], check=True)
     fn = ctypes.CDLL(str(lib)).hat_prod_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = hatmul._kernels()[1].argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,7 +111,7 @@ def main():
                             du.data_ptr() if need_du else None,
                             dw.data_ptr(), slabs.data_ptr(),
                             part.data_ptr() if need_du else None, n, k, r,
-                            chunk, chunks, stream)
+                            chunk, chunks, None, stream)
                     assert rc == 0, rc
                 key = f"{name}_ms" + ("" if need_du else "_no_du")
                 row[key] = chip_smoke.cuda_ms(launch, 10)

@@ -1,10 +1,11 @@
 """Where a training step's time goes, stage by stage, on the card.
 
     python3 tools/step_split.py [--config mf|bench|mf360|mf360_black|lr360] \
-        [--warm 300] [--steps 64] [--bf16]
+        [--warm 600] [--steps 64] [--bf16] [--fused]
 
 Trains ``chip_smoke.py``'s configuration (``mf``: MF_HP, the MixedFeature
-benchmark grid; ``bench``: BENCH_HP, the LowRank bench model; on their 16
+benchmark grid; ``bench``: BENCH_HP, the LowRank bench model, both with
+bench.py's ``--s_flat 16 --pool_a 4``; on their 16
 procedural 800x800 views) or one of its multi-cascade recipes (``mf360``:
 MF360_ARGS, the MixedFeature mip-NeRF 360 recipe at --scale 8;
 ``mf360_black``: the same without --random_bg; ``lr360``: LR360_ARGS, the
@@ -14,20 +15,26 @@ written to a temporary directory), with ``--bf16`` under that flag
 steps through
 ``NeRFSystem.fit``, then runs ``--steps`` more steps of
 ``NeRFSystem.train_step``'s body (the march with ``render_train``'s strata
-budget, the scene's background) with ``torch.cuda.synchronize()`` between
-the stages and times each on the host clock:
+budget, the scene's background; from FLAT_AFTER with ``--s_flat`` the flat
+budget's cut and the capacity layout) with ``torch.cuda.synchronize()``
+between the stages and times each on the host clock:
 
-  ray sampling + get_rays, the march, the field forward (``_eval_valid``),
-  composite + loss forward, composite + loss backward (to the field's
-  outputs), the field backward, Adam + LambdaLR, and the occupancy refresh
-  every 16 steps (amortised);
+  ray sampling + get_rays, the march (and the flat cut), the field forward
+  (``_eval_capacity``, or ``_eval_valid`` before FLAT_AFTER and without
+  ``--s_flat``), composite + loss forward, composite + loss backward (to
+  the field's outputs), the field backward, Adam + LambdaLR, and the
+  occupancy refresh every 16 steps (amortised);
 
 and, inside the field stages, the encoder kernels' wrappers with CUDA
 events (host gaps included), and so the composite kernels' launches
-inside the composite stages. Then ``torch.profiler`` over 16 unsynced steps
-gives the kernels launched a step and the device's busy time. Prints one
-JSON line per part and the card's name and power limit; exits non-zero
-without a CUDA device.
+inside the composite stages. Then ``--steps`` eager steps of ``fit``
+unsynced and ``torch.profiler`` over 16 more give the kernels launched a
+step and the device's busy time; with ``--fused`` then ``--steps`` steps of
+``fit`` through the fused runner's CUDA graphs (synced around the run) and
+16 more under the profiler, where ``NeRFSystem.fused_ok`` serves them
+(else the line says why not: ``mf360_black`` has no flat budget and runs
+eager only). Prints one JSON line per part and the card's name and power
+limit; exits non-zero without a CUDA device.
 """
 import argparse
 import json
@@ -79,9 +86,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="mf", choices=(
         "mf", "bench", "mf360", "mf360_black", "lr360"))
-    ap.add_argument("--warm", type=int, default=300)
+    ap.add_argument("--warm", type=int, default=600)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_split: no CUDA device", file=sys.stderr)
@@ -94,7 +102,7 @@ def main():
     from mfnerf_tpu_torch.models import rendering
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.ops import composite, hashgrid, hatmul
-    from mfnerf_tpu_torch.train import UPDATE_INTERVAL
+    from mfnerf_tpu_torch.train import FLAT_AFTER, UPDATE_INTERVAL
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
     card = subprocess.run(
@@ -166,15 +174,25 @@ def main():
                 noise, rcfg.n_rungs(cfg.scale, cfg.grid_size),
                 rcfg.s_max_train,
                 strata=rendering.train_strata(cfg, system.occ, rcfg))
+            flat = rcfg.s_flat and system.global_step >= FLAT_AFTER
+            if flat:
+                cut = rendering.flat_budget(mr, rcfg)
+                mask, ts, deltas = cut.mask, cut.ts, cut.deltas
+            else:
+                mask, ts, deltas = mr.mask, mr.ts, mr.deltas
             mark()
-            sigmas, rgbs = rendering._eval_valid(system.model, mr.xyzs,
-                                                 rays_d, mr.mask)
+            if flat:
+                sigmas, rgbs = rendering._eval_capacity(
+                    system.model, mr.xyzs, rays_d, mask, cut.cap)
+            else:
+                sigmas, rgbs = rendering._eval_valid(system.model, mr.xyzs,
+                                                     rays_d, mask)
             mark()
-            comp = rendering.composite_train(sigmas, rgbs, mr.deltas, mr.ts,
-                                             mr.mask, rcfg.T_threshold)
+            comp = rendering.composite_train(sigmas, rgbs, deltas, ts,
+                                             mask, rcfg.T_threshold)
             results = {"rgb": comp.rgb + bg * (1.0 - comp.opacity)[:, None],
                        "opacity": comp.opacity, "ws": comp.ws,
-                       "deltas": mr.deltas, "ts": mr.ts, "mask": mr.mask}
+                       "deltas": deltas, "ts": ts, "mask": mask}
             loss = sum(v.mean() for v in system.loss(
                 results, {"rgb": system.rays[img, pix]}).values())
             mark()
@@ -184,10 +202,10 @@ def main():
             torch.autograd.backward([sigmas, rgbs], [d_sig, d_rgb])
             mark()
             system.optimizer.step()
-            system.scheduler.step()
+            system._next_lr()
             system.global_step += 1
             mark()
-            samples += int(mr.mask.sum())
+            samples += int(mask.sum())
             order = ("refresh", "sampling", "march", "field_fwd",
                      "composite_loss_fwd", "composite_loss_bwd",
                      "field_bwd", "adam")
@@ -217,36 +235,54 @@ def main():
         / args.steps,
         "card": card}), flush=True)
 
-    # unsynced steps, then the same under the profiler
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    system.fit(args.steps)
-    torch.cuda.synchronize()
-    unsynced = (time.perf_counter() - t0) * 1e3 / args.steps
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 16
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.fit(n_prof)
+    # eager steps unsynced, then the same under the profiler; with --fused
+    # the fused runner's graphed steps likewise
+    kinds = [("eager", chip_smoke.eager_fit)]
+    if args.fused:
+        kinds.append(("graphed", lambda s, n: s.fit(n)))
+    for kind, fit in kinds:
+        if kind == "graphed" and not system.fused_ok():
+            print(json.dumps({
+                "part": "profile", "config": args.config, "kind": kind,
+                "served": False, "why": "NeRFSystem.fused_ok: no (the flat "
+                "budget, s_flat, is 0 at several cascades)" if not
+                system.rcfg.s_flat else "NeRFSystem.fused_ok: no",
+                "card": card}), flush=True)
+            continue
+        fit(system, UPDATE_INTERVAL)       # a graphed run's captures
         torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    top = sorted(prof.key_averages(),
-                 key=lambda e: -getattr(e, "device_time_total", 0.0))
-    print(json.dumps({
-        "part": "profile", "config": args.config, "bf16": args.bf16,
-        "unsynced_ms_per_step": unsynced, "profiled_steps": n_prof,
-        "profiled_ms_per_step": span_ms / n_prof,
-        "device_kernels_per_step": len(events) / n_prof,
-        "device_busy_ms_per_step": busy_ms / n_prof,
-        "device_idle_share": (1 - busy_ms / span_ms) if events else None,
-        "top_kernels_ms_per_step": [
-            (e.key[:80], getattr(e, "device_time_total", 0.0) / 1e3 / n_prof)
-            for e in top[:12]],
-        "card": card}), flush=True)
+        t0 = time.perf_counter()
+        fit(system, args.steps)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        from torch.profiler import ProfilerActivity, profile
+        n_prof = 16
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fit(system, n_prof)
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        top = sorted(prof.key_averages(),
+                     key=lambda e: -getattr(e, "device_time_total", 0.0))
+        print(json.dumps({
+            "part": "profile", "config": args.config, "kind": kind,
+            "bf16": args.bf16, "served": True, "from_step":
+            system.global_step - args.steps - n_prof,
+            "unsynced_ms_per_step": run_ms, "profiled_steps": n_prof,
+            "profiled_ms_per_step": span_ms / n_prof,
+            "device_kernels_per_step": len(events) / n_prof,
+            "device_busy_ms_per_step": busy_ms / n_prof,
+            "device_idle_share": (1 - busy_ms / span_ms) if events
+            else None,
+            "top_kernels_ms_per_step": [
+                (e.key[:80],
+                 getattr(e, "device_time_total", 0.0) / 1e3 / n_prof)
+                for e in top[:12]],
+            "card": card}), flush=True)
     return 0
 
 
