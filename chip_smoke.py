@@ -47,8 +47,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 9. train: the JAX bench's training configuration (bench.py: 8192-ray
    batches, lr 1e-2, half-dense refresh every 16 steps, --s_flat 16,
    --pool_a 4) on 16 procedural 800x800 views for 900 steps through
-   NeRFSystem.fit (from FLAT_AFTER = 512 the fused runner's graphs: the
-   timed chunks wholly past it reported apart); both kernels' launch
+   NeRFSystem.fit (the fused runner's graphs: the padded step's from step
+   0, the flat step's from FLAT_AFTER = 512; the timed chunks wholly past
+   it reported apart); both kernels' launch
    counts and the training march's are reset just before and read just
    after (at least one march a step; the graphs' replays count the
    launches their capture recorded);
@@ -61,7 +62,10 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    and g as HatProd.backward receives them: g a column slice of the (N, 2R)
    feature gradient, read in place), and hat_prod's time on the same u
    (through its wrapper, so at this size mostly the host's;
-   tools/hat_bwd_ab.py times the kernel alone);
+   tools/hat_bwd_ab.py times the kernel alone); then the forward kernel as
+   the step runs it, on the capacity buffer with the step's valid count,
+   by graph replay beside its bound (u of the valid rows, W, the whole
+   output);
 12. kernel_hashgrid: the hash-grid kernels against their plain torch
    versions for the CLI's default Hash grid (L 16, F 2, T 19) and the
    reference's MixedFeature benchmark grid (T 20, 8 tables), both 5,710,032
@@ -87,9 +91,12 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 14. train_mf: 900 steps of it on the 16 procedural views through
    NeRFSystem.fit, as phase 9; the hash-grid kernels' launch counts are
    reset just before and read just after;
-38, 39. fused (bench after 37a, mf after 37b): the fused runner
-   (NeRFSystem.fit's CUDA graphs of the static step and of each refresh
-   parity) on the trained field of phase 9 or 14: FUSED_STEPS steps run
+38, 39, 40. fused (bench after 37a, mf after 37b, mf360_black and lr360
+   in phase 21): the fused runner (NeRFSystem.fit's CUDA graphs of the
+   static step and of each refresh parity) on the trained field of phase
+   9 or 14 (the flat step's graph), or of phase 21's MF360_BLACK_ARGS and
+   LR360_ARGS runs at --scale 8 (the padded step's, s_flat 0, past
+   FLAT_AFTER): FUSED_STEPS steps run
    eagerly and the same steps replayed from the same parameters, Adam
    state, occupancy and generator state, equal bit for bit (parameters,
    Adam state, occupancy, every step's metrics); a refresh and a static
@@ -99,6 +106,11 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    busy and idle share, device activities a step); the launches the step's
    capture recorded; the encoder kernels' valid count on a step's
    operands (check_count_kernels);
+41. fused_from_zero (bench after 38, mf360_black in phase 20): two
+   systems drawn alike from SEED, FUSED_STEPS steps from step 0 each,
+   eagerly and through the fused runner (the padded step's warm-up,
+   capture and replays, both refresh parities): parameters, Adam state,
+   occupancy and every step's metrics equal bit for bit;
 15. test_view_mf: the held-out view through render_test before and after
    training, with the forward kernel's launch count (a gain of 8 dB over
    the untrained field, and at least MF_PSNR_MIN);
@@ -187,7 +199,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    on one such step's operands, du on, beside its bound;
 23. cli_hdr: main --use_exposure (HDR_ARGS) on a 400x400 scene written in
    HDR-NeRF's synthetic layout (write_hdr_scene): load seconds, ms/step,
-   test PSNR at each test exposure and the unit-exposure rgb;
+   test PSNR at each test exposure and the unit-exposure rgb; the fused
+   runner serves its steps (the padded step's graph, its log line);
 24. jpeg (after 2b. build_jpeg, which compiles csrc/jpeg.cpp with the host
    compiler beside the kernels' nvcc and lists what it links: no libjpeg):
    the committed fixtures (tests/data/jpeg: progressive 4:2:0 with
@@ -218,8 +231,10 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 21. cli_colmap: main on that scene, 600 steps, for the MixedFeature recipe,
    the same without --random_bg and the LowRank model: ms/step, the last
    step's rm_s and vr_s, test PSNR and SSIM (reported: see MF360_ARGS),
-   and the kernels' launch counts over the run (the hash-grid pair for
-   MixedFeature, the hat pair for LowRank);
+   the kernels' launch counts over the run (the hash-grid pair for
+   MixedFeature, the hat pair for LowRank) and fit's fused-runner line,
+   which must say that CUDA graphs serve the steps (phase 40 follows on
+   two of the trained fields);
 25. cli_jpeg: the same scene with its views written as JPEG (quality 95,
    4:2:0, utils/procedural.py's encoder), loaded through csrc/jpeg.cpp
    (the rays on average within JPEG_LOAD_TOL of the images), and the
@@ -656,22 +671,25 @@ def recording(module, tensors=True):
         module._launch_bwd = launch
 
 
-def capture_bwd_operands(system, seed, module):
+def capture_bwd_operands(system, seed, module, with_count=False):
     """One forward and backward of a training step of ``system``
     (``NeRFSystem.step_loss``: with ``--optimize_ext`` the refined poses)
     on a ray batch drawn from ``seed``, weights and optimiser untouched:
-    the arguments of each call of ``module._launch_bwd`` (:func:`recording`).
-    """
+    the arguments of each call of ``module._launch_bwd`` (:func:`recording`)
+    and, ``with_count``, the step's valid count (the samples its capacity
+    buffer holds: the count the encoder kernels were given)."""
     dev, b = system.device, system.hparams.batch_size
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_img, hw = system.rays.shape[:2]
     img = torch.randint(n_img, (b,), generator=gen, device=dev)
     pix = torch.randint(hw, (b,), generator=gen, device=dev)
-    loss = system.step_loss(img, pix, torch.rand((b,), generator=gen,
-                                                 device=dev))[0]
+    loss, res, _ = system.step_loss(img, pix, torch.rand(
+        (b,), generator=gen, device=dev))
     with recording(module) as captured:
         loss.backward()
     system.optimizer.zero_grad(set_to_none=True)
+    if with_count:
+        return captured, int(res["mask"].sum())
     return captured
 
 
@@ -679,16 +697,15 @@ def step_oracle(model, cpu_model, occ, rcfg, loss_mod, batch, rows=None):
     """One training step's loss and parameter gradients on the card and on
     the CPU, same weights, rays, march jitter, background (``batch["bg"]``
     where the scene draws one) and, with ``rows``, the same sampled-corner
-    uniforms (the first rows, one a valid sample). Checks the sample
-    counts, LOSS_TOL and GRAD_TOL; returns the phase's fields and the
-    card's gradients."""
+    uniforms (N * s_max_train rows, the JAX padded draw: a row an entry of
+    the (N, S) samples). Checks the sample counts, LOSS_TOL and GRAD_TOL;
+    returns the phase's fields and the card's gradients."""
     from mfnerf_tpu_torch.models.rendering import render_train
     steps = {}
     for where, model_, occ_ in (("card", model, occ),
                                 ("cpu", cpu_model, occ.to("cpu"))):
         on = {key: v.to(model_.device) for key, v in batch.items()}
-        grad_noise = None if rows is None else (
-            lambda k, d=model_.device: rows[:k].to(d))
+        grad_noise = None if rows is None else rows.to(model_.device)
         res = render_train(model_, occ_, on["rays_o"], on["rays_d"],
                            on["noise"], rcfg, bg_rgb=on.get("bg"),
                            grad_noise=grad_noise)
@@ -2246,8 +2263,8 @@ def train_steps(system, read_launches):
         flat_chunk_ms_per_step=flat,
         flat_ms_per_step=float(np.median(flat)) if flat else None,
         early_chunk_ms_per_step=early,
-        fused_step_graph=runner is not None
-        and runner.step_graph is not None,
+        fused_step_graph=None if runner is None or runner.step_graph is None
+        else runner.kind,
         warm_seconds=warm_s, rays_per_s=hp.batch_size / ms_step * 1e3,
         rm_s=float(m["rm_s"][-CHUNK:].mean()),
         vr_s=float(m["vr_s"][-CHUNK:].mean()),
@@ -2377,8 +2394,10 @@ def check_count_kernels(label, system, module, seed):
 
 
 def fused_phase(label, system, module, seed):
-    """Phases 38-39: the fused runner on ``system``, trained past
-    FLAT_AFTER through ``fit`` (so with its graphs captured).
+    """Phases 38-40: the fused runner on ``system``, trained past
+    FLAT_AFTER through ``fit`` (so with its graphs captured: the flat
+    step's on a single-cascade scene, the padded step's on a multi-cascade
+    one).
 
     From one state FUSED_STEPS steps run eagerly, then the state is set
     back and the same steps run through the graphs: parameters, Adam
@@ -2435,7 +2454,7 @@ def fused_phase(label, system, module, seed):
                            FUSED_PROFILE)
     count = check_count_kernels(label, system, module, seed)
     fields = dict(
-        config=label, steps_compared=FUSED_STEPS,
+        config=label, step_kind=runner.kind, steps_compared=FUSED_STEPS,
         from_step=start["step"], bitwise_equal=not differ,
         differing=differ[:12], sync_debug_error_mode_ok=sync_free,
         warmup_steps=runner.warm,
@@ -2449,6 +2468,43 @@ def fused_phase(label, system, module, seed):
     check(not differ, f"{label}: replayed steps differ from eager ones in "
           f"{differ[:12]}")
     return fields
+
+
+def fused_log(log):
+    """The fused runner's line that ``fit`` printed in ``log`` (its rule's
+    decision), checked to serve the steps with CUDA graphs."""
+    line = re.findall(r"^fused runner: .*$", log, re.M)
+    check(len(line) == 1 and "CUDA graphs" in line[0],
+          f"the fused runner's log: {line}")
+    return line[0]
+
+
+def fused_from_zero(label, hp, datasets, dev):
+    """Phase 41: two systems of ``hp`` drawn alike from SEED, each trained
+    FUSED_STEPS steps from step 0, one eagerly and one through the fused
+    runner (the padded step's warm-up, capture and replays, the refresh
+    graphs of both parities): parameters, Adam state, occupancy and every
+    step's metrics equal bit for bit. Returns the fields."""
+    runs, kinds = {}, {}
+    for kind, fit in (("eager", eager_fit), ("graphed",
+                                             lambda s, n: s.fit(n))):
+        system = start_system(hp, datasets, dev)
+        metrics = fit(system, FUSED_STEPS)
+        runs[kind] = dict(train_state(system)["tensors"], **{
+            f"metric/{k}": v for k, v in metrics.items()})
+        runner = system.fused
+        kinds[kind] = None if runner is None or runner.step_graph is None \
+            else runner.kind
+        del system
+    differ = [name for name, t in runs["eager"].items()
+              if not _bits_equal([t], [runs["graphed"][name]])]
+    check(kinds == {"eager": None, "graphed": "padded"},
+          f"{label}: the step graphs from step 0: {kinds}")
+    check(not differ, f"{label}: replayed steps from step 0 differ from "
+          f"eager ones in {differ[:12]}")
+    return dict(config=label, steps_compared=FUSED_STEPS, from_step=0,
+                step_kind=kinds["graphed"], bitwise_equal=not differ,
+                tensors_compared=len(runs["eager"]))
 
 
 def val_ms(log):
@@ -3454,16 +3510,16 @@ def cascade_step_oracle(argv, datasets, dev, seed):
 
 def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
     """Phase 21 for one recipe: ``main`` on the COLMAP scene at ``root`` in
-    the working directory, its launches over the run. Returns the fields:
-    ms/step, the last step's rm_s and vr_s, test PSNR and SSIM, the val
-    frames' ms."""
+    the working directory, its launches over the run. Returns the fields
+    (ms/step, the last step's rm_s and vr_s, test PSNR and SSIM, the val
+    frames' ms, the fused runner's log line) and the trained system."""
+    from mfnerf_tpu_torch import train as train_mod
     from mfnerf_tpu_torch.opt import get_opts
-    from mfnerf_tpu_torch.train import main as train_main
     log = io.StringIO()
     hp = get_opts(["--root_dir", root, *argv])
     read_launches(reset=True)
-    with contextlib.redirect_stdout(log):
-        metrics = train_main(hp, device=dev)
+    with fitted_system(train_mod) as seen, contextlib.redirect_stdout(log):
+        metrics = train_mod.main(hp, device=dev)
     launches = read_launches()
     print(log.getvalue(), end="", flush=True)
     last = re.findall(r"^step .* psnr ([0-9.]+) rm_s ([0-9.]+) vr_s "
@@ -3475,7 +3531,9 @@ def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
                 vr_s=float(last[2]), test_psnr=metrics["test/psnr"],
                 test_ssim=metrics["test/ssim"],
                 val_ms_per_frame=val_ms(log.getvalue()),
-                steps=hp.num_epochs * hp.steps_per_epoch, **launches)
+                fused_runner=fused_log(log.getvalue()),
+                steps=hp.num_epochs * hp.steps_per_epoch,
+                **launches), seen["system"]
 
 
 def trainer_step_oracle(hp, datasets, dev, seed, module, loss_tol,
@@ -3616,6 +3674,10 @@ def cli_hdr(dev, read_launches):
         unit = system.model.log_radiance_to_rgb(
             torch.zeros((1, 3), device=dev), torch.ones((1, 1), device=dev))
     check(system.model.cfg.rgb_act == "None", "the HDR head is not on")
+    runner = system.fused
+    check(runner is not None and runner.step_graph is not None
+          and runner.kind == "padded",
+          "the fused runner did not serve --use_exposure's padded step")
     return dict(argv=list(HDR_ARGS), cuts=HDR_CUTS, wh=HDR_WH, views=[54, 34],
                 write_seconds=write_s, load_seconds=load_s,
                 ms_per_step=metrics["train/ms_per_step"],
@@ -3623,8 +3685,9 @@ def cli_hdr(dev, read_launches):
                 test_ssim=metrics["test/ssim"],
                 psnr_by_exposure=by_exposure,
                 unit_exposure_rgb=unit[0].tolist(),
-                unit_exposure_target=system.unit_exposure_rgb,
-                val_ms_per_frame=val_ms(log), **launches)
+                unit_exposure_target=system.unit_exposure_rgb.tolist(),
+                val_ms_per_frame=val_ms(log), fused_runner=fused_log(log),
+                **launches)
 
 
 def cli_ext(dev, read_launches):
@@ -3695,6 +3758,7 @@ def main():
     from mfnerf_tpu_torch.ops.lowrank import fold_frame
     from mfnerf_tpu_torch.ops.ray_march import (march_rays_train,
                                                 march_rays_window)
+    from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.utils.metrics import psnr
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
@@ -3988,7 +4052,8 @@ def main():
           f"test PSNR {psnr_before} -> {psnr_after}")
 
     # ---- 7b. backward kernel on one real step's operands (trained field)
-    captured = capture_bwd_operands(system, SEED + 4, hatmul)
+    captured, valid = capture_bwd_operands(system, SEED + 4, hatmul,
+                                           with_count=True)
     check(len(captured) == lr.n_frames, f"{len(captured)} hat backward calls")
     # both frames' g are column slices of the (N, 2R) feature gradient
     u3, w3_t, k_t, g, _ = captured[0]
@@ -3998,9 +4063,23 @@ def main():
     # hat_prod on the same frame's u (the wrapper: host time included)
     fwd_train_ms = cuda_ms(lambda: hat_prod(u3, w3_t, k_t), 20)
     fwd_train_bound = fwd_bound(u3.shape[0], k_t, w3_t.shape[2])[0]
+    # the forward kernel as the step runs it: the capacity buffer with its
+    # valid count, by graph replay; bound: u of the valid rows, W, out
+    count_t = torch.tensor([valid], device=dev)
+    fwd_count_ms = graph_ms(lambda: hatmul._launch(u3, w3_t, k_t,
+                                                   count=count_t),
+                            MARCH_GRAPH_ITERS)
+    n_slots, r_t = u3.shape[0], w3_t.shape[2]
+    fwd_count_bound, fwd_count_by = bound(
+        12 * valid + 3 * 2 * k_t * r_t + 4 * n_slots * r_t,
+        11 * valid * r_t)
     phase("kernel_bwd", name="hat_prod_bwd", **bwd_train,
           fwd_ms=fwd_train_ms, fwd_bound_ms=fwd_train_bound,
-          fwd_share_of_bound=fwd_train_bound / fwd_train_ms, card=card)
+          fwd_share_of_bound=fwd_train_bound / fwd_train_ms,
+          fwd_count=dict(slots=n_slots, count=valid, ms=fwd_count_ms,
+                         bound_ms=fwd_count_bound, bound_by=fwd_count_by,
+                         share_of_bound=fwd_count_bound / fwd_count_ms),
+          card=card)
     del captured, u3, g
 
     # ---- 36a. the march kernels against their plain versions on the
@@ -4033,6 +4112,10 @@ def main():
     phase("fused", **fused_phase("bench", system, hatmul, SEED + 100),
           card=card)
     del system, out
+    torch.cuda.empty_cache()
+    # ---- 41. the fused runner from step 0 (the padded step) on bench
+    phase("fused_from_zero", **fused_from_zero("bench", BENCH_HP, datasets,
+                                               dev), card=card)
     torch.cuda.empty_cache()
 
     # ---- 9b. the train phase's configuration under --bf16: ms/step and the
@@ -4263,21 +4346,36 @@ def main():
                 comp_err = {k: max(v, fields["composite_max_abs_err"][k])
                             for k, v in comp_err.items()}
                 torch.cuda.empty_cache()
+            # ---- 41. the fused runner from step 0 on mf360_black
+            phase("fused_from_zero", **fused_from_zero(
+                "mf360_black", vars(get_opts(["--root_dir", "",
+                                              *MF360_BLACK_ARGS])),
+                (train_v, test_v), dev), card=card)
             del train_v, test_v
+            torch.cuda.empty_cache()
             runs = {}
-            for label, argv, launches in (
-                    ("MixedFeature", MF360_ARGS, hash_launches),
-                    ("MixedFeature_black", MF360_BLACK_ARGS, hash_launches),
-                    ("LowRank", LR360_ARGS, hat_launches)):
-                runs[label] = colmap_cli(argv, dev, launches)
+            for label, argv, launches, fused in (
+                    ("MixedFeature", MF360_ARGS, hash_launches, None),
+                    ("MixedFeature_black", MF360_BLACK_ARGS, hash_launches,
+                     ("mf360_black", hashgrid)),
+                    ("LowRank", LR360_ARGS, hat_launches,
+                     ("lr360", hatmul))):
+                runs[label], trained = colmap_cli(argv, dev, launches)
                 phase("cli_colmap", recipe=label, **runs[label],
                       load_seconds=load_s, card=card)
+                if fused is not None:
+                    # ---- 40. the fused runner on the trained multi-cascade
+                    # field: the padded step's graph past FLAT_AFTER
+                    phase("fused", **fused_phase(*fused[:1], trained,
+                                                 fused[1], SEED + 102),
+                          card=card)
+                del trained
                 torch.cuda.empty_cache()
             # ---- 25. cli_jpeg: the same scene in JPEG, the LowRank run
             _, _, jpg_write_s, jpg_load_s, jpg_mean, jpg_max = colmap_views(
                 COLMAP_JPEG_ROOT, "jpg")
             jpeg_run = colmap_cli(LR360_JPEG_ARGS, dev, hat_launches,
-                                  COLMAP_JPEG_ROOT)
+                                  COLMAP_JPEG_ROOT)[0]
             png_run = runs["LowRank"]
             phase("cli_jpeg", root=COLMAP_JPEG_ROOT, **jpeg_run,
                   write_seconds=jpg_write_s, load_seconds=jpg_load_s,

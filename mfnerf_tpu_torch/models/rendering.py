@@ -9,11 +9,13 @@ Port of ``mfnerf_tpu/models/rendering.py``.
   single-cascade synthetic scenes, the cascade march's on multi-cascade
   ones, the exact march elsewhere (``ops/ray_march.py``; ``rcfg.s_strata``
   strata a ray, taken evenly along it when it crosses more), the field on
-  the valid samples only, ``composite_train`` and the background. With
-  ``s_flat`` the batch keeps its first ``N * s_flat`` samples in ray
-  order, as the JAX flat layout's budget does, and the field runs on a
-  static buffer of that many slots (:func:`_eval_capacity`, the capacity
-  layout): no host read, so a CUDA graph can capture the step. The JAX
+  the valid samples only, ``composite_train`` and the background. The
+  field runs on a static buffer of slots (:func:`_eval_capacity`, the
+  capacity layout): no host read, so a CUDA graph can capture the step.
+  Without ``s_flat`` (the JAX padded branch) the buffer has a slot for
+  each of the N * S padded entries; with ``s_flat`` the batch keeps its
+  first ``N * s_flat`` samples in ray order, as the JAX flat layout's
+  budget does, and the buffer has that many slots. The JAX
   neighbourhood-row tables, flat gathers and flat composite are TPU
   devices; the samples are the same.
 * :func:`render_test_dense` is the plain oracle: every ray marches the whole
@@ -105,15 +107,13 @@ def _scene_hits(model, rays_o, rays_d):
 
 
 def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
-    """Field on the valid samples of a (N, S) block; zeros elsewhere. The
-    scatter is out of place, so autograd reaches the field in training.
-    ``grad_noise``: the hash grids' per-sample uniforms for the valid
-    samples in row-major order, or a function of their count that draws
-    them. ``exposure``: (N, 1) a ray, or (1, 1) for all (HDR heads)."""
+    """Field on the valid samples of a (N, S) block; zeros elsewhere (the
+    serving loop's and the oracle's; a host read). The scatter is out of
+    place, so autograd reaches the field. ``grad_noise``: the hash grids'
+    per-sample uniforms for the valid samples in row-major order.
+    ``exposure``: (N, 1) a ray, or (1, 1) for all (HDR heads)."""
     n, s = mask.shape
     flat = torch.nonzero(mask.reshape(-1)).squeeze(1)
-    if callable(grad_noise):
-        grad_noise = grad_noise(flat.numel())
     if exposure is not None and exposure.shape[0] > 1:
         exposure = exposure[flat // s]
     sig, col = model(xyzs.reshape(-1, 3)[flat], rays_d[flat // s],
@@ -124,10 +124,11 @@ def _eval_valid(model, xyzs, rays_d, mask, grad_noise=None, exposure=None):
 
 
 def _eval_capacity(model, xyzs, rays_d, mask, cap, grad_noise=None,
-                   exposure=None, noise_start=None):
+                   exposure=None, noise_start=None, by_entry=False):
     """Field on the valid samples of a (N, S) block through a static buffer
     of ``cap`` slots (the capacity layout of the JAX flat branch,
-    ``mfnerf_tpu/models/rendering.py:247-299``), with no host read: the
+    ``mfnerf_tpu/models/rendering.py:247-299``, and with ``cap = N S`` of
+    its padded branch, ``:310-325``), with no host read: the
     valid samples are compacted in row-major order on the device (slot k
     takes the entry where the inclusive cumsum of ``mask`` reaches k + 1,
     by ``searchsorted``), the slots past their count hold the scene's
@@ -139,20 +140,26 @@ def _eval_capacity(model, xyzs, rays_d, mask, cap, grad_noise=None,
     (N, S) rows into the slots would add every masked entry onto one
     slot). ``mask`` holds at most ``cap`` valid samples.
 
-    ``grad_noise``: the hash grids' uniforms, rows of the JAX draw
+    ``grad_noise``: the hash grids' uniforms. Rows of the JAX flat draw
     (n_global * s_flat, m): valid sample j of this block takes row j, or
     under a shard row ``noise_start + j`` (``noise_start``, a 0-d tensor:
-    the valid samples of the ranks before this one). ``exposure``: (N, 1) a
-    ray, or (1, 1) for all. Returns (sigmas (N, S), rgbs (N, S, 3))."""
+    the valid samples of the ranks before this one). With ``by_entry``, the
+    JAX padded draw (N S, m): the sample at entry e of the (N, S) rows takes
+    row e. ``exposure``: (N, 1) a ray, or (1, 1) for all. Returns (sigmas
+    (N, S), rgbs (N, S, 3))."""
     n, s = mask.shape
     dev = mask.device
     csum = torch.cumsum(mask.reshape(-1), 0)         # inclusive: int64
     count = torch.clamp_max(csum[-1], cap).reshape(1)
     # slot -> its entry of the (N, S) rows; n * s (the drop entry) past
     # the count
-    src = torch.searchsorted(csum, torch.arange(1, cap + 1, device=dev))
+    slot = torch.arange(cap, device=dev)
+    src = torch.searchsorted(csum, slot + 1)
     live = src < n * s
-    entry = torch.where(live, src, 0)
+    # a padded slot reads entry `slot` (cap <= N S), masked below: distinct
+    # rows, so the gathers' backward (pose refinement's) adds its zeros
+    # without piling every padded slot onto one row
+    entry = torch.where(live, src, slot)
     ray = entry // s
     # made on the device, no copy from the host: (0, 0, 0) and (0, 0, 1)
     axis = torch.arange(3, device=dev)
@@ -162,7 +169,9 @@ def _eval_capacity(model, xyzs, rays_d, mask, cap, grad_noise=None,
     if exposure is not None and exposure.shape[0] > 1:
         exposure = torch.where(live[:, None], exposure[ray], 1.0)
     if grad_noise is not None:
-        if noise_start is None:
+        if by_entry:
+            grad_noise = grad_noise[entry]
+        elif noise_start is None:
             grad_noise = grad_noise[:cap]
         else:
             grad_noise = grad_noise[torch.clamp_max(
@@ -180,7 +189,6 @@ class FlatBudget(NamedTuple):
     mask: torch.Tensor          # (N, S) the kept samples
     ts: torch.Tensor            # (N, S), 0 off the mask
     deltas: torch.Tensor        # (N, S), 0 off the mask
-    budget: int                 # n_global * s_flat
     cap: int                    # the capacity buffer's slots
     noise_start: torch.Tensor   # under a shard: kept samples before it
 
@@ -204,8 +212,7 @@ def flat_budget(mr, rcfg, shard=None):
     mask = mask & (first[:, None] + rank < budget)
     return FlatBudget(
         mask=mask, ts=torch.where(mask, mr.ts, 0.0),
-        deltas=torch.where(mask, mr.deltas, 0.0), budget=budget,
-        cap=min(n * s, budget),
+        deltas=torch.where(mask, mr.deltas, 0.0), cap=min(n * s, budget),
         noise_start=None if before is None
         else torch.clamp_max(before, budget))
 
@@ -272,13 +279,14 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
         bg_rgb: (3,) background for ``rcfg.random_bg`` on real scenes
             (synthetic scenes composite onto white, real ones onto black).
         grad_noise: the hash grids' sampled-corner uniforms (the JAX
-            ``hash_grad_noise``), or a function of their number of rows
-            that draws them; None for the exact table gradient. Without
-            ``s_flat``: (N_valid, hash_grad_samples) rows for the valid
-            samples in row-major order of ``mask``. With ``s_flat``: the
-            JAX flat branch's draw, (n_global * s_flat, hash_grad_samples),
-            whose row j the batch's valid sample j takes (under a shard,
-            counted over the global batch).
+            ``hash_grad_noise``); None for the exact table gradient.
+            Without ``s_flat``: the JAX padded branch's draw, (N * S,
+            hash_grad_samples), whose row e the sample at entry e of the
+            (N, S) rows takes (under a shard, this rank's rows of the
+            global draw). With ``s_flat``: the JAX flat branch's draw,
+            (n_global * s_flat, hash_grad_samples), whose row j the
+            batch's valid sample j takes (under a shard, counted over the
+            global batch).
         exposure: (N, 1) each ray's exposure, for an HDR head
             (``rgb_act="None"``); a Sigmoid head ignores it.
         shard: under data parallelism, this rank's
@@ -303,13 +311,12 @@ def render_train(model, occ, rays_o, rays_d, noise, rcfg: RenderConfig,
     if rcfg.s_flat:
         flat = flat_budget(mr, rcfg, shard)
         mask, ts, deltas = flat.mask, flat.ts, flat.deltas
-        if callable(grad_noise):
-            grad_noise = grad_noise(flat.budget)
         sigmas, rgbs = _eval_capacity(model, mr.xyzs, rays_d, mask, flat.cap,
                                       grad_noise, exposure, flat.noise_start)
     else:
-        sigmas, rgbs = _eval_valid(model, mr.xyzs, rays_d, mask, grad_noise,
-                                   exposure)
+        sigmas, rgbs = _eval_capacity(model, mr.xyzs, rays_d, mask,
+                                      mask.numel(), grad_noise, exposure,
+                                      by_entry=True)
     comp = composite_train(sigmas, rgbs, deltas, ts, mask, rcfg.T_threshold)
     if rcfg.exp_step_factor == 0:       # synthetic scenes: white background
         bg = 1.0

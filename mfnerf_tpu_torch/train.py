@@ -29,19 +29,23 @@ checkpoints are the JAX package's format (``utils/ckpt.py``).
 The march keeps the JAX package's strata budget on synthetic scenes
 (``models/rendering.py``): ``setup`` sizes the strata from the cameras'
 largest ``|d|`` (``dir_norm``) and ``--s_max_train``, their coarse grid
-pools ``--pool_a`` cells to a side, and from step ``FLAT_AFTER`` a batch
-keeps ``--s_flat`` samples a ray on average, evaluated on a static buffer
-of as many slots (the capacity layout): the step has no host read.
+pools ``--pool_a`` cells to a side. The field runs on a static buffer of
+slots (the capacity layout), so the step has no host read: the padded
+step's N * s_max_train slots (the JAX padded branch) from step 0, and on
+single-cascade scenes from step ``FLAT_AFTER`` the flat step's
+``--s_flat`` samples a ray on average (``NeRFSystem.step_kind``).
+Multi-cascade scenes (``--scale`` above 0.5) have no flat budget and take
+the padded step to the end.
 
-The fused runner (the JAX ``make_fused_train_fn``): from ``FLAT_AFTER``,
-on the card, ``fit`` replays CUDA graphs of that static step and of the
-occupancy refresh (one a refresh parity) instead of launching each step's
-~200-400 kernels from the host (:class:`FusedRunner`). A replayed step is
-bit for bit the same step run eagerly. :meth:`NeRFSystem.fused_ok` is the
-rule for which steps it serves: on a CUDA device, outside a process group,
-with ``s_flat`` > 0, from ``FLAT_AFTER``, without ``--optimize_ext`` and
-``--use_exposure``; every other step runs one at a time
-(:meth:`NeRFSystem.train_step`).
+The fused runner (the JAX ``make_fused_train_fn``): on the card, ``fit``
+replays CUDA graphs of the step and of the occupancy refresh (one a
+refresh parity) instead of launching each step's ~200-400 kernels from the
+host (:class:`FusedRunner`), as the JAX ``fit`` fuses every step
+(``mfnerf_tpu/train.py:492-525``: ``fused_warm`` before ``FLAT_AFTER``). A
+replayed step is bit for bit the same step run eagerly.
+:meth:`NeRFSystem.fused_ok` is the rule: on a CUDA device, outside a
+process group and without ``--optimize_ext`` it serves every step;
+otherwise every step runs one at a time (:meth:`NeRFSystem.train_step`).
 
 ``--use_exposure`` (HDR-NeRF) trains the log-radiance head with its
 tonemappers at each ray's exposure (the rays' 4th column), adds the
@@ -62,8 +66,9 @@ the whole batch of ``batch_size`` rays, its jitter, background and
 refresh points from the same generator state and trains on its contiguous
 slice; the gradients are averaged over the ranks by one all-reduce a
 step, so parameters, optimiser state and occupancy stay the same on every
-rank. The flat budget and the hash grids' gradient noise count the
-samples of the ranks before this one (an exclusive prefix), so the W
+rank. The flat budget and the flat step's hash-grid gradient noise count
+the samples of the ranks before this one (an exclusive prefix); the padded
+step's noise is the rank's rows of the global batch's draw. So the W
 ranks' step is the 1-rank step up to the order of the sums. Rank 0 alone
 writes checkpoints, logs, test images and the profiler trace; validation
 renders the test views round-robin and gathers the metrics. ``--eval_lpips
@@ -289,9 +294,9 @@ class NeRFSystem:
         With ``--optimize_ext`` the poses' corrections ``dR`` and ``dT``
         ((N_img, 3) each, zero) are a second parameter group whose Adam
         runs at ``--pose_lr`` with optax's defaults and no schedule
-        (``mfnerf_tpu/train.py:219-240``). Adam is PyTorch's default until
-        ``FLAT_AFTER``, where on the card it becomes capturable
-        (:meth:`_capturable_adam`)."""
+        (``mfnerf_tpu/train.py:219-240``). On the card Adam becomes
+        capturable at the first step (:meth:`_capturable_adam`); on the CPU
+        it stays PyTorch's default."""
         hp, dev = self.hparams, self.device
         self.init_model(seed)
         ds = self.train_dataset
@@ -310,6 +315,9 @@ class NeRFSystem:
         if self.use_exposure and self.unit_exposure_rgb is None:
             raise ValueError("use_exposure needs the training dataset's "
                              "unit_exposure_rgb")
+        if self.unit_exposure_rgb is not None:   # once: no copy a step
+            self.unit_exposure_rgb = torch.as_tensor(
+                self.unit_exposure_rgb, dtype=torch.float32, device=dev)
         groups = [{"params": list(self.model.parameters()), "lr": hp.lr,
                    "eps": 1e-15}]
         if self.ext:    # optax.adam(pose_lr): eps 1e-8, betas (0.9, 0.999)
@@ -392,7 +400,8 @@ class NeRFSystem:
         """The loss terms of a step: ``NeRFLoss``'s, and with
         ``--use_exposure`` the unit-exposure term, half the squared error
         of zero log radiance's rgb at exposure 1 against the dataset's
-        ``unit_exposure_rgb`` (``mfnerf_tpu/train.py:286-294``). The
+        ``unit_exposure_rgb`` (``mfnerf_tpu/train.py:286-294``; a float32
+        tensor on the device since :meth:`configure`). The
         tonemappers are bias-free, so that rgb is sigmoid(0) = 0.5 whatever
         their weights: the term is a constant, in both packages."""
         terms = self.loss(results, target)
@@ -402,9 +411,7 @@ class NeRFSystem:
                 torch.zeros((1, 3), device=dev),
                 exposure=torch.ones((1, 1), device=dev))
             terms["unit_exposure"] = 0.5 * (
-                unit_rgb - torch.as_tensor(self.unit_exposure_rgb,
-                                           dtype=torch.float32,
-                                           device=dev)) ** 2
+                unit_rgb - self.unit_exposure_rgb) ** 2
         return terms
 
     def step_loss(self, img, pix, noise, bg=None, grad_noise=None):
@@ -412,16 +419,16 @@ class NeRFSystem:
         (the JAX trainer's ``loss_fn``): the rays of the (refined) poses,
         ``render_train`` with the march jitter ``noise``, the background
         ``bg`` and the hash grids' ``grad_noise``, each ray's exposure where
-        the rays carry one, and the loss terms (:meth:`losses`), on the flat
-        budget from step ``FLAT_AFTER``; under data parallelism the rays are
-        this rank's shard (:attr:`shard`). Returns (loss, results,
+        the rays carry one, and the loss terms (:meth:`losses`), on the step
+        kind's buffer (:meth:`step_kind`); under data parallelism the rays
+        are this rank's shard (:attr:`shard`). Returns (loss, results,
         target)."""
         rays_o, rays_d = get_rays(self.directions[pix], self.batch_poses(img))
         picked = self.rays[img, pix]
         target = {"rgb": picked[:, :3]}
         # HDR-NeRF rays carry their exposure; a Sigmoid head ignores it
         exposure = picked[:, 3:4] if picked.shape[1] == 4 else None
-        rcfg = self.rcfg if self.global_step >= FLAT_AFTER \
+        rcfg = self.rcfg if self.step_kind() == "flat" \
             else dataclasses.replace(self.rcfg, s_flat=0)
         results = render_train(self.model, self.occ, rays_o, rays_d, noise,
                                rcfg, bg, grad_noise, exposure,
@@ -449,29 +456,36 @@ class NeRFSystem:
         sch.step()
         self.lr = sch.base_lrs[0] * sch.lr_lambdas[0](sch.last_epoch)
 
+    def step_kind(self):
+        """The kind of the next step, which sets its buffer: "flat" with
+        ``s_flat`` > 0 from ``FLAT_AFTER`` (N * s_flat slots), else
+        "padded" (N * s_max_train slots, the JAX padded branch)."""
+        if self.rcfg.s_flat and self.global_step >= FLAT_AFTER:
+            return "flat"
+        return "padded"
+
     def _device_step(self):
         """:meth:`train_step`'s work on the device, which the fused runner
-        captures from ``FLAT_AFTER``: batch, rays, march, field, composite,
-        loss, backward and Adam. Returns the metrics METRICS as one (4,)
-        float32 tensor."""
+        captures: batch, rays, march, field, composite, loss, backward and
+        Adam. Returns the metrics METRICS as one (4,) float32 tensor."""
         b, sh = self.hparams.batch_size, self.shard
-        if self.global_step >= FLAT_AFTER:
-            self._capturable_adam()
+        self._capturable_adam()
         img, pix = self.sample_batch()
         bg = self._rand(3) if self.rcfg.random_bg else None
         noise = self._rand(b)
         m = self.model_cfg.hash_grad_samples
         grad_noise = None       # the exact table gradient (and LowRank)
         if self.model_cfg.grid != "LowRank" and m < 8:
-            if self.rcfg.s_flat and self.global_step >= FLAT_AFTER:
+            if self.step_kind() == "flat":
                 # the JAX flat branch's draw, a row a slot of the budget
                 grad_noise = self._rand(b * self.rcfg.s_flat, m)
             else:
-                def grad_noise(n_valid):
-                    if sh is None:
-                        return self._rand(n_valid, m)
-                    before, total = (int(v) for v in sh.prefix(n_valid))
-                    return self._rand(total, m)[before:before + n_valid]
+                # the JAX padded branch's draw, a row an entry of the
+                # global batch's (N, S) rows; a shard takes its rays' rows
+                s = self.rcfg.s_max_train
+                grad_noise = self._rand(b * s, m)
+                if sh is not None:
+                    grad_noise = grad_noise[sh.lo * s:sh.hi * s]
         if sh is not None:
             img, pix, noise = sh.take(img), sh.take(pix), sh.take(noise)
         loss, results, target = self.step_loss(img, pix, noise, bg,
@@ -506,21 +520,24 @@ class NeRFSystem:
 
     def fused_ok(self):
         """Whether the fused runner serves the next step (the rule, logged
-        once when it first applies): the device is CUDA, there is no
-        process group, ``s_flat`` > 0 (single-cascade scenes), the step is
-        at or past ``FLAT_AFTER``, and neither ``--optimize_ext`` nor
-        ``--use_exposure`` is set. Every other step runs one at a time."""
-        if self.global_step < FLAT_AFTER:
-            return False
+        once): the device is CUDA, there is no process group and
+        ``--optimize_ext`` is not set. It then serves every step, of both
+        kinds (:meth:`step_kind`): the padded step from step 0, on
+        multi-cascade scenes (``s_flat`` 0) to the end, and from
+        ``FLAT_AFTER`` the flat one where ``s_flat`` > 0; with or without
+        ``--use_exposure`` and ``--random_bg``. Otherwise every step runs
+        one at a time."""
         why = ("not on a CUDA device" if self.device.type != "cuda"
                else "inside a process group" if pdist.in_group()
-               else "s_flat 0" if not self.rcfg.s_flat
-               else "--optimize_ext" if self.hparams.optimize_ext
-               else "--use_exposure" if self.use_exposure else None)
+               else "--optimize_ext" if self.hparams.optimize_ext else None)
         if not self._fused_logged and self.rank == 0:
-            how = ("CUDA graphs of the step and the refresh" if why is None
+            kinds = (f"the padded step from step 0, the flat step from "
+                     f"step {FLAT_AFTER}" if self.rcfg.s_flat
+                     else "the padded step (s_flat 0) from step 0 to the "
+                     "end")
+            how = (f"CUDA graphs of {kinds} and of the refresh" if why is None
                    else f"off ({why}), one step at a time")
-            print(f"fused runner from step {FLAT_AFTER}: {how}", flush=True)
+            print(f"fused runner: {how}", flush=True)
         self._fused_logged = True
         return why is None
 
@@ -533,16 +550,13 @@ class NeRFSystem:
         return self.fused
 
     def _capturable_adam(self):
-        """On the card, from ``FLAT_AFTER`` (the first step the fused runner
-        may serve; :meth:`_device_step` calls it), Adam's state for CUDA
-        graphs: every group capturable, each step count a float32 on the
-        parameter's device, the network's learning rate a device tensor that
-        the schedule fills in place (its base rate stays a float, so the
-        scheduler reads nothing from the device). Every step from there,
-        eager or replayed, with or without the runner, runs the same update.
-        Before it Adam is PyTorch's default (the counts on the host), whose
-        update rounds otherwise: the warm-up steps keep the numbers they
-        had. Done once; on the CPU Adam stays the default."""
+        """On the card, Adam's state for CUDA graphs (:meth:`_device_step`
+        calls it from the first step): every group capturable, each step
+        count a float32 on the parameter's device, the network's learning
+        rate a device tensor that the schedule fills in place (its base rate
+        stays a float, so the scheduler reads nothing from the device).
+        Every step, eager or replayed, with or without the runner, runs the
+        same update. Done once; on the CPU Adam stays the default."""
         if self.device.type != "cuda" or self.optimizer.param_groups[0].get(
                 "capturable"):
             return
@@ -560,8 +574,8 @@ class NeRFSystem:
         """Train ``n_steps`` more steps (default: up to num_epochs *
         steps_per_epoch). The first call culls the grid to the training
         cameras. A block of UPDATE_INTERVAL steps starts with an occupancy
-        refresh; from ``FLAT_AFTER`` the fused runner replays both where
-        :meth:`fused_ok` allows (``n_steps`` may start and end mid-block).
+        refresh; the fused runner replays both where :meth:`fused_ok`
+        allows (``n_steps`` may start and end mid-block).
         Returns each step's loss, psnr, rm_s, vr_s and lr as CPU tensors of
         length n_steps."""
         total = self.hparams.num_epochs * self.steps_per_epoch
@@ -736,21 +750,29 @@ def launch_counters():
 
 class FusedRunner:
     """The JAX ``make_fused_train_fn`` (``mfnerf_tpu/train.py:321-457``) on
-    the card: a training step from ``FLAT_AFTER`` (:meth:`NeRFSystem.
-    _device_step` on the capacity layout: no host read, static shapes) and
-    the occupancy refresh of each parity (in place), each captured once as
-    a CUDA graph and replayed by :meth:`NeRFSystem.fit`, one host call a
-    step instead of a few hundred launches.
+    the card: a training step (:meth:`NeRFSystem._device_step` on the
+    capacity layout: no host read, static shapes) and the occupancy
+    refresh of each parity (in place), each captured once as a CUDA graph
+    and replayed by :meth:`NeRFSystem.fit`, one host call a step instead of
+    a few hundred launches.
+
+    The step graph is of one step kind (:meth:`NeRFSystem.step_kind`): the
+    padded step (the JAX ``fused_warm``, N * s_max_train slots) from step
+    0, and on single-cascade scenes from ``FLAT_AFTER`` the flat one (N *
+    s_flat slots). A step of another kind than the graph's
+    drops the graph, frees its memory pool and captures its own after its
+    own warm-up.
 
     Capture follows PyTorch's whole-network recipe: FUSED_WARMUP eager
-    steps on a side stream first (real training steps), the gradients set
-    to None inside the capture, the trainer's generator registered with
-    each graph, so that every replay draws fresh batches, jitter and
-    refresh points as the eager steps would, bit for bit. A refresh parity's
-    first refresh runs eagerly on the side stream and its graph is captured
-    after it. The refresh halves alternate with ``n_refresh`` over the whole
-    run, as the eager trainer does (the JAX runner restarts the parity at
-    each dispatch). Each graph has a memory pool of its own.
+    steps of the kind on a side stream first (real training steps), the
+    gradients set to None inside the capture, the trainer's generator
+    registered with each graph, so that every replay draws fresh batches,
+    jitter and refresh points as the eager steps would, bit for bit. A
+    refresh parity's first refresh runs eagerly on the side stream and its
+    graph is captured after it. The refresh halves alternate with
+    ``n_refresh`` over the whole run, as the eager trainer does (the JAX
+    runner restarts the parity at each dispatch). Each graph has a memory
+    pool of its own.
 
     :meth:`bind` (``fit`` calls it) checks that the parameters, the Adam
     state, the staged rays and the learning rate are still the tensors
@@ -758,7 +780,9 @@ class FusedRunner:
     captured one (a checkpoint, a caller) is copied into the captured
     tensors. Each replay adds the kernel launches that its capture recorded
     to the wrappers' ``launches``, so that they read as an eager run's.
-    A capture that fails, or meets a host sync, raises."""
+    A capture that fails, or meets a host sync, raises: so does one made
+    while a caller still holds the autograd graph of an eager step on the
+    default stream (its gradient accumulators keep that stream)."""
 
     def __init__(self, system):
         # a proxy: the system owns the runner, and a deleted system frees
@@ -768,13 +792,23 @@ class FusedRunner:
         self._reset()
 
     def _reset(self):
+        self.kind = None                # the step graph's step kind
         self.step_graph = None
         self.refresh_graphs = {}        # parity (None: every cell) -> graph
         self.launches = {}              # graph -> {wrapper: launches}
         self.metrics = None             # the step graph's (4,) output
-        self.warm = 0
+        self.warm = 0                   # eager warm-up steps of the kind
         self.occ = self.system.occ
         self.tensors = self._tensors()
+
+    def _drop_step(self):
+        """Forget the step graph, its memory pool freed, and its warm-up."""
+        if self.step_graph is not None:
+            del self.launches[self.step_graph]
+            self.step_graph.reset()
+            self.step_graph = self.metrics = None
+            torch.cuda.empty_cache()
+        self.warm = 0
 
     def _tensors(self):
         """The data pointers of every tensor the graphs read but the
@@ -863,11 +897,17 @@ class FusedRunner:
         """One training step; its metrics METRICS as a (4,) tensor (the
         step graph's output, overwritten by the next replay)."""
         s = self.system
+        kind = s.step_kind()
+        if kind != self.kind:
+            self._drop_step()
+            self.kind = kind
         if self.step_graph is None and self.warm < FUSED_WARMUP:
             self.warm += 1
             return self._side(s._device_step)
         if self.step_graph is None:
             self.step_graph, self.metrics = self._capture(s._device_step)
+            # what bind checks: with Adam's state, which the first step made
+            self.tensors = self._tensors()
         self._replay(self.step_graph)
         return self.metrics
 

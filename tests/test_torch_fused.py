@@ -19,10 +19,12 @@
 * The occupancy refresh in place, bit for bit the out-of-place one.
 * Adam's restored ``step`` for a capturable group; :meth:`NeRFSystem.
   fused_ok`'s rule; a small ``fit`` across ``FLAT_AFTER``; and the fused
-  runner's control flow (warm-up, capture, replay, refresh parity, launch
-  counts, rebinding) with CUDA graphs replaced by a stand-in that records
-  the captured function and runs it again on each replay, against the
-  eager trainer, bit for bit.
+  runner's control flow (warm-up, capture, replay, the padded step's graph
+  dropped for the flat one's, refresh parity, launch counts, rebinding;
+  also on a five-cascade scene with erode and ``--use_exposure``) with
+  CUDA graphs replaced by a stand-in that records the captured function
+  and runs it again on each replay, against the eager trainer, bit for
+  bit. tests/test_torch_padded.py holds the padded step.
 """
 import contextlib
 import dataclasses
@@ -174,11 +176,13 @@ def test_capacity_matches_jax_flat_render_train(grid, case):
 
 
 def _nonzero(model, xyzs, rays_d, mask, cap, grad_noise=None, exposure=None,
-             noise_start=None):
+             noise_start=None, by_entry=False):
     """The capacity layout's reference: the same samples through the
-    nonzero path (valid sample j takes the uniforms' row j)."""
+    nonzero path (valid sample j takes the uniforms' row j, or with
+    ``by_entry`` the row of its entry)."""
     if grad_noise is not None:
-        grad_noise = grad_noise[:int(mask.sum())]
+        grad_noise = grad_noise[mask.reshape(-1)] if by_entry \
+            else grad_noise[:int(mask.sum())]
     return trendering._eval_valid(model, xyzs, rays_d, mask, grad_noise,
                                   exposure)
 
@@ -331,11 +335,12 @@ def _occupancy(model, seed, erode):
 
 @pytest.mark.parametrize("erode", [False, True])
 @pytest.mark.parametrize("half", [None, 0, 1])
-@pytest.mark.parametrize("scale", [0.5, 2.0])
+@pytest.mark.parametrize("scale", [0.5, 2.0, 8.0])
 def test_refresh_in_place_is_the_refresh(scale, half, erode):
     """update_density_grid(in_place=True) writes bit for bit the state the
     out-of-place refresh returns into the state's own tensors, fresh
-    stage-A grids (one cascade) or union grid (several) included."""
+    stage-A grids (one cascade) or union grid (three cascades, and the
+    five of ``--scale 8``) included."""
     model = tngp.NGP(tngp.NGPConfig(scale=scale, **SMALL),
                      torch.Generator().manual_seed(2), device="cpu")
     cfg = model.cfg
@@ -390,12 +395,20 @@ def test_adam_step_restored_onto_a_capturable_groups_device():
             np.testing.assert_array_equal(back[key], section[key])
 
 
-def _fused_system(**kw):
+def _fused_system(exposures=False, **kw):
+    """A trainer on a 16x16 procedural scene; with ``exposures`` its rays
+    carry each image's exposure (HDR-NeRF data, unit-exposure rgb 0.73)."""
     scene = make_scene(n_train=4, n_test=1, wh=16, seed=0)
     hp = dict(s_flat=4, pool_a=4, steps_per_epoch=600, batch_size=256)
     hp.update(kw)
     system = ttrain.NeRFSystem(_hparams(**hp), device="cpu")
-    system.setup(MemoryDataset.from_scene(scene, "train"))
+    train = MemoryDataset.from_scene(scene, "train")
+    if exposures:
+        train.rays = np.concatenate([train.rays, np.broadcast_to(
+            np.float32([0.5, 1.0, 2.0, 0.25])[:, None, None],
+            (*train.rays.shape[:2], 1))], axis=2)
+        train.unit_exposure_rgb = 0.73
+    system.setup(train)
     system.configure(0)
     return system
 
@@ -403,15 +416,18 @@ def _fused_system(**kw):
 @pytest.mark.parametrize("rule", ["served", "warm-up", "cpu", "group",
                                   "s_flat0", "ext", "exposure"])
 def test_fused_ok_rule(rule, capsys, monkeypatch):
-    """The fused runner serves a step only on CUDA, outside a process group,
-    with s_flat > 0, from FLAT_AFTER, without --optimize_ext and
-    --use_exposure; the decision is printed once."""
+    """The fused runner serves every step on CUDA, outside a process group,
+    without --optimize_ext: the padded step from step 0 ("warm-up") and the
+    flat one from FLAT_AFTER ("served"), multi-cascade
+    scenes' padded step to the end ("s_flat0"), and --use_exposure's
+    steps; not on the CPU, in a process group or with --optimize_ext,
+    each logged with its reason. The decision is printed once."""
     system = _fused_system()
     system.global_step = ttrain.FLAT_AFTER
     if rule != "cpu":      # the rule reads the device type alone
         system.device = torch.device("cuda", 0)
     if rule == "warm-up":
-        system.global_step = ttrain.FLAT_AFTER - 1
+        system.global_step = 0
     elif rule == "group":
         monkeypatch.setattr(pdist, "in_group", lambda group=None: True)
     elif rule == "s_flat0":
@@ -420,13 +436,19 @@ def test_fused_ok_rule(rule, capsys, monkeypatch):
         system.hparams.optimize_ext = True
     elif rule == "exposure":
         system.use_exposure = True
-    assert [system.fused_ok() for _ in range(2)] == [rule == "served"] * 2
+    served = rule in ("served", "warm-up", "s_flat0", "exposure")
+    assert [system.fused_ok() for _ in range(2)] == [served] * 2
     out = capsys.readouterr().out
-    if rule == "warm-up":
-        assert out == ""
-    else:
-        assert out.count("fused runner") == 1
-        assert ("CUDA graphs" in out) == (rule == "served")
+    assert out.count("fused runner") == 1
+    assert ("CUDA graphs" in out) == served
+    why = {"cpu": "not on a CUDA device", "group": "inside a process group",
+           "ext": "--optimize_ext"}
+    assert (f"off ({why[rule]})" in out) if rule in why else "off" not in out
+    if served:
+        assert "padded step from step 0" in out if rule != "s_flat0" \
+            else "padded step (s_flat 0) from step 0 to the end" in out
+        assert (f"flat step from step {ttrain.FLAT_AFTER}" in out) == \
+            (rule != "s_flat0")
 
 
 def test_fit_across_flat_after():
@@ -465,12 +487,33 @@ class _Graph:
         if out is not None:
             self.out.copy_(out)
 
+    def reset(self):
+        self.fn = None
 
-def _stand_in_capture(self, fn):
-    """FusedRunner._capture on the CPU: records ``fn`` and runs nothing."""
-    graph = _Graph(fn, self.system.generator)
-    self.launches[graph] = {}
-    return graph, graph.out
+
+def _stand_in_runner(system, monkeypatch):
+    """The system's fused runner on the CPU: its side stream a no-op, its
+    captures :class:`_Graph` stand-ins that record the function and run
+    nothing, and the rule serving every step. Returns
+    (the runner, the step kinds of its step captures, in order)."""
+    kinds = []
+
+    def capture(self, fn):
+        if getattr(fn, "__func__", None) is ttrain.NeRFSystem._device_step:
+            kinds.append(self.kind)
+        graph = _Graph(fn, self.system.generator)
+        self.launches[graph] = {}
+        return graph, graph.out
+
+    stream = type("Stream", (), {"wait_stream": lambda self, other: None})()
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(ttrain.FusedRunner, "_capture", capture)
+    monkeypatch.setattr(ttrain.NeRFSystem, "fused_ok", lambda self: True)
+    return system.make_fused_train_fn(), kinds
 
 
 def _fit_history(system):
@@ -481,34 +524,37 @@ def _fit_history(system):
     return [system.fit(7), system.fit(17), system.fit(23)]
 
 
-@pytest.mark.parametrize("grid", ["LowRank", "MixedFeature"])
+@pytest.mark.parametrize("grid", ["LowRank", "MixedFeature",
+                                  "cascades-exposure"])
 def test_fused_runner_control_flow_matches_eager(grid, monkeypatch):
     """The runner's control flow on the CPU, its graphs replaced by a
     stand-in that runs the captured function again on each replay: the
     same history through the runner and eagerly gives the same metrics,
     parameters and bitfield bit for bit (warm-up steps, the step's capture
-    and replays, the refresh graphs of both parities, a refresh parity
+    and replays, the padded step's graph dropped for the flat one's at
+    FLAT_AFTER, the refresh graphs of both parities, a refresh parity
     that alternates over the whole run, fit calls that start and end
-    mid-block, graphs kept across fit calls). Then a replaced occupancy is
+    mid-block, graphs kept across fit calls). "cascades-exposure": a
+    five-cascade scene (--scale 8: the padded step to the end, the union
+    grid's refresh) with the colmap refresh's erode, --use_exposure (rays
+    with an exposure column) and --random_bg. Then a replaced occupancy is
     copied into the captured one, and a replaced parameter makes the runner
     capture anew after new warm-up steps."""
     kw = dict(grid=grid) if grid == "LowRank" else dict(
         grid=grid, T=14, N_max=128, N_tables=2, hash_grad_samples=4)
+    if grid == "cascades-exposure":
+        kw = dict(scale=8.0, dataset_name="colmap", use_exposure=True,
+                  random_bg=True, exposures=True, batch_size=128)
     eager = _fused_system(**kw)
+    assert eager.erode == (grid == "cascades-exposure")
     want = _fit_history(eager)
 
-    stream = type("Stream", (), {"wait_stream": lambda self, other: None})()
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: stream)
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(ttrain.FusedRunner, "_capture", _stand_in_capture)
-    monkeypatch.setattr(ttrain.NeRFSystem, "fused_ok",
-                        lambda self: self.global_step >= ttrain.FLAT_AFTER)
     system = _fused_system(**kw)
+    runner, kinds = _stand_in_runner(system, monkeypatch)
     got = _fit_history(system)
-    runner = system.fused
+    assert system.fused is runner
+    assert kinds == (["padded"] if grid == "cascades-exposure"
+                     else ["padded", "flat"])
     assert runner.step_graph is not None and runner.warm == \
         ttrain.FUSED_WARMUP
     assert set(runner.refresh_graphs) == {0, 1}

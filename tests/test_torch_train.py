@@ -482,7 +482,8 @@ def test_train_step_matches_jax(grid, fused, m, flags):
     encoder (unfused fp32 and fused bf16) and the hash grids (MixedFeature
     with N_tables 2: salted shared tables), exact and with the sampled-corner
     table gradient. The JAX padded branch draws the sampled corners'
-    uniforms for all N*S slots; the port is handed the valid samples' rows.
+    uniforms for all N*S slots; the port's (its capacity buffer of N*S
+    slots) is handed the same draw.
     With ``flags`` the step is the trainer's (``NeRFSystem.step_loss``)
     under ``--optimize_ext`` (``dR`` and ``dT`` held too; "ext-flat" past
     ``FLAT_AFTER`` on the flat budget), ``--use_exposure`` or ``--bf16``,
@@ -528,7 +529,7 @@ def test_train_step_matches_jax(grid, fused, m, flags):
                                         grad_noise)
     loss_t, grads_t, res = _torch_step(
         tmodel, bits, rays_o, rays_d, noise, target, rcfg_t, loss_t_mod,
-        None if grad_noise is None else _t(grad_noise[mask_j.reshape(-1)]))
+        None if grad_noise is None else _t(grad_noise))
     np.testing.assert_array_equal(res["mask"].numpy(), mask_j)
     assert 1000 < mask_j.sum() and int(res["rm_samples"]) == mask_j.sum()
     np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)
@@ -636,6 +637,13 @@ def _clear_relu_rays(system, img, pix, noise):
     apart from op by op), which flipped one of ~2,000 x 64 sigma-MLP gates
     (pre-activation 3.2e-7 op by op and in the port, -3.8e-8 compiled) and
     moved the lines, proj and sigma_mlp.0 gradients by up to 1.8e-2."""
+    return _clear_relu_mask(lambda: system.step_loss(
+        _t(img), _t(pix), _t(noise))[1])
+
+
+def _clear_relu_mask(render):
+    """:func:`_clear_relu_rays`' rule on the samples of ``render()``, a
+    call of the port's ``render_train`` (its results)."""
     plain, margins = tngp._mlp_apply, []
 
     def recording(ws, x, sigmoid=False, dtype=torch.float32):
@@ -647,11 +655,14 @@ def _clear_relu_rays(system, img, pix, noise):
         return plain(ws, x, sigmoid, dtype)
 
     with torch.no_grad(), mock.patch.object(tngp, "_mlp_apply", recording):
-        _, res, _ = system.step_loss(_t(img), _t(pix), _t(noise))
+        res = render()
     mask = res["mask"].numpy()
     margin = np.full(mask.shape, np.inf, np.float32)
-    margin[mask] = torch.stack([m for m in margins if len(m) == mask.sum()]
-                               ).amin(dim=0).numpy()   # not the unit exposure
+    # the capacity buffer's N*S rows, the valid samples first in row-major
+    # order (not the unit exposure's one row)
+    margin[mask] = torch.stack([m[:mask.sum()] for m in margins
+                                if len(m) == mask.size]
+                               ).amin(dim=0).numpy()
     return margin.min(axis=1) > RELU_MARGIN
 
 
@@ -837,8 +848,8 @@ def _check_trainer_step(grid, fused, m, flags):
         loss_j, grads_j, mask_j = _jax_pose_step(
             jmodel_g, params, bits, poses, dirs, batch, noise, rcfg_j,
             flags, unit_rgb)
-        if grad_noise is not None:
-            grad_noise = _t(grad_noise[mask_j.reshape(-1)])
+        if grad_noise is not None:     # the same draw, N*S rows
+            grad_noise = _t(grad_noise)
     loss, res, _ = system.step_loss(_t(img), _t(pix), _t(noise),
                                     grad_noise=grad_noise)
     loss.backward()

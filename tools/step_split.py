@@ -15,15 +15,17 @@ written to a temporary directory), with ``--bf16`` under that flag
 steps through
 ``NeRFSystem.fit``, then runs ``--steps`` more steps of
 ``NeRFSystem.train_step``'s body (the march with ``render_train``'s strata
-budget, the scene's background; from FLAT_AFTER with ``--s_flat`` the flat
-budget's cut and the capacity layout) with ``torch.cuda.synchronize()``
-between the stages and times each on the host clock:
+budget, the scene's background; the step kind's buffer,
+``NeRFSystem.step_kind``: from FLAT_AFTER with ``--s_flat`` the flat
+budget's cut and its N * s_flat slots, else the padded step's N * S
+slots) with ``torch.cuda.synchronize()`` between the stages and times each
+on the host clock:
 
   ray sampling + get_rays, the march (and the flat cut), the field forward
-  (``_eval_capacity``, or ``_eval_valid`` before FLAT_AFTER and without
-  ``--s_flat``), composite + loss forward, composite + loss backward (to
-  the field's outputs), the field backward, Adam + LambdaLR, and the
-  occupancy refresh every 16 steps (amortised);
+  (``_eval_capacity`` on the step kind's buffer), composite + loss
+  forward, composite + loss backward (to the field's outputs), the field
+  backward, Adam + LambdaLR, and the occupancy refresh every 16 steps
+  (amortised);
 
 and, inside the field stages, the encoder kernels' wrappers with CUDA
 events (host gaps included), and so the composite kernels' launches
@@ -32,9 +34,10 @@ unsynced and ``torch.profiler`` over 16 more give the kernels launched a
 step and the device's busy time; with ``--fused`` then ``--steps`` steps of
 ``fit`` through the fused runner's CUDA graphs (synced around the run) and
 16 more under the profiler, where ``NeRFSystem.fused_ok`` serves them
-(else the line says why not: ``mf360_black`` has no flat budget and runs
-eager only). Prints one JSON line per part and the card's name and power
-limit; exits non-zero without a CUDA device.
+(else the line says so; the multi-cascade recipes, which have no flat
+budget, are served the padded step's graph). Prints one JSON line per part
+and the card's name and power limit; exits non-zero without a CUDA
+device.
 """
 import argparse
 import json
@@ -102,7 +105,7 @@ def main():
     from mfnerf_tpu_torch.models import rendering
     from mfnerf_tpu_torch.opt import get_opts
     from mfnerf_tpu_torch.ops import composite, hashgrid, hatmul
-    from mfnerf_tpu_torch.train import FLAT_AFTER, UPDATE_INTERVAL
+    from mfnerf_tpu_torch.train import UPDATE_INTERVAL
     from mfnerf_tpu_torch.utils.procedural import make_scene
 
     card = subprocess.run(
@@ -174,7 +177,8 @@ def main():
                 noise, rcfg.n_rungs(cfg.scale, cfg.grid_size),
                 rcfg.s_max_train,
                 strata=rendering.train_strata(cfg, system.occ, rcfg))
-            flat = rcfg.s_flat and system.global_step >= FLAT_AFTER
+            kind = system.step_kind()
+            flat = kind == "flat"
             if flat:
                 cut = rendering.flat_budget(mr, rcfg)
                 mask, ts, deltas = cut.mask, cut.ts, cut.deltas
@@ -184,6 +188,10 @@ def main():
             if flat:
                 sigmas, rgbs = rendering._eval_capacity(
                     system.model, mr.xyzs, rays_d, mask, cut.cap)
+            elif kind == "padded":
+                sigmas, rgbs = rendering._eval_capacity(
+                    system.model, mr.xyzs, rays_d, mask, mask.numel(),
+                    by_entry=True)
             else:
                 sigmas, rgbs = rendering._eval_valid(system.model, mr.xyzs,
                                                      rays_d, mask)
@@ -216,6 +224,10 @@ def main():
                 ms, calls = clock.take_ms()
                 kernel[f"{key}_ms"] += ms
                 kernel[f"{key}_calls"] += calls
+    # the last step's autograd graph, made on the default stream, would
+    # keep its gradient accumulators alive, and a capture below (a step
+    # kind the runner has not captured yet) would wait on that stream
+    del loss, sigmas, rgbs, comp, results
     per_step = {k: v / args.steps for k, v in total.items()}
     print(json.dumps({
         "part": "stages", "config": args.config, "bf16": args.bf16,
@@ -244,9 +256,8 @@ def main():
         if kind == "graphed" and not system.fused_ok():
             print(json.dumps({
                 "part": "profile", "config": args.config, "kind": kind,
-                "served": False, "why": "NeRFSystem.fused_ok: no (the flat "
-                "budget, s_flat, is 0 at several cascades)" if not
-                system.rcfg.s_flat else "NeRFSystem.fused_ok: no",
+                "served": False, "why": "NeRFSystem.fused_ok: no (its log "
+                "line above says why)",
                 "card": card}), flush=True)
             continue
         fit(system, UPDATE_INTERVAL)       # a graphed run's captures
@@ -270,7 +281,8 @@ def main():
                      key=lambda e: -getattr(e, "device_time_total", 0.0))
         print(json.dumps({
             "part": "profile", "config": args.config, "kind": kind,
-            "bf16": args.bf16, "served": True, "from_step":
+            "bf16": args.bf16, "served": True,
+            "step_kind": system.step_kind(), "from_step":
             system.global_step - args.steps - n_prof,
             "unsynced_ms_per_step": run_ms, "profiled_steps": n_prof,
             "profiled_ms_per_step": span_ms / n_prof,
