@@ -111,6 +111,21 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    eagerly and through the fused runner (the padded step's warm-up,
    capture and replays, both refresh parities): parameters, Adam state,
    occupancy and every step's metrics equal bit for bit;
+42. serve_graphed (42a after 10b: the trained bench view at TEST_T and
+   T_THRESHOLD; 42b after 15b: the MixedFeature view; 42c in phase 20:
+   the LowRank recipe's five-cascade view at 400x400): render_test's
+   rounds on capacity buffers replayed as CUDA graphs against the same
+   rounds run eagerly, bit for bit, and across two frames; against the
+   valid-only loop (valid_only_frame) within SERVE_AB_TOL but on
+   threshold ties (frame_gap), PSNR within SERVE_PSNR_TOL; the graphed
+   frame under torch.cuda.set_sync_debug_mode("error") with at most two
+   host reads a round and one a frame, one window march and one
+   compositing round a round; the field's slots at most twice a round's
+   valid samples or the floor; ms a frame eager and graphed in turns;
+   phases 36-37 hold the kernels' alive-count variants to their plain
+   versions (check_window_count, check_round_count: the edge sets with a
+   quarter of the rows cut, and the frame's first round at its tier,
+   timed);
 15. test_view_mf: the held-out view through render_test before and after
    training, with the forward kernel's launch count (a gain of 8 dB over
    the untrained field, and at least MF_PSNR_MIN);
@@ -540,6 +555,14 @@ RTMV_PSNR_TOL = 0.5               # dB, the EXR scene's run against the PNG's
 # the march kernels (csrc/raymarch.cu): each set is marched by the kernel
 # and by its plain version on the card, and the two must agree bit for bit
 MARCH_GRAPH_ITERS = 20            # kernel calls a CUDA graph replays
+# serve_graphed: the tiered rounds against the valid-only loop (another
+# grouping of the same samples into rounds: fp32 sums in another order)
+SERVE_AB_TOL = 1e-5               # max abs, rgb, opacity and depth
+SERVE_PSNR_TOL = 0.01             # dB
+# a threshold tie: the transmittance a frame ends with within this share of
+# T_threshold (its opacity's fp32 sum rounds at ~1e-7 a term)
+SERVE_TIE_SHARE = 0.05
+SERVE_TURN_FRAMES = 3             # frames a turn (eager, graphed x2, eager)
 # fp32 operations of one rung test (the ladder, calc_dt, the position, the
 # cascade and the three cell coordinates)
 MARCH_OPS_PER_RUNG = 30
@@ -1033,19 +1056,21 @@ def march_train_bound(args, kw, res):
     return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.sum()))
 
 
-def march_window_bound(args, res, skip=None):
+def march_window_bound(args, res, skip=None, extra_bytes=0):
     """(least ms, bound_by) of one window march in place (``args`` the
     gathered rows, as march_rays_window takes them), as march_train_bound:
     the rows' index, rays, t_start, t2 and cursor read once, the cursor
-    written back, the bitfield and the stage-A grid whole. The operations
-    term counts only the rungs from each cursor to its ray's last sample,
-    so a ray that finds nothing counts zero, though every march tests some
-    of its rungs (window_rung_work counts a rung-by-rung walk's)."""
+    written back, the bitfield and the stage-A grid whole, and
+    ``extra_bytes`` (the empty rows past an alive count written). The
+    operations term counts only the rungs from each cursor to its ray's
+    last sample, so a ray that finds nothing counts zero, though every
+    march tests some of its rungs (window_rung_work counts a rung-by-rung
+    walk's)."""
     cursor, bits, n_window = args[4], args[5], args[11]
     n, s = res.mask.shape
     grid_bytes = bits.numel() + (0 if skip is None else skip.stage_a.numel())
     n_bytes = n * (8 + 12 + 12 + 4 + 4 + 8) + grid_bytes \
-        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 8 + 1 + 8)
+        + n * s * (12 + 4 + 4 + 1 + 8) + n * (8 + 8 + 1 + 8) + extra_bytes
     last = torch.where(res.n_samples > 0, res.k_idx.gather(
         1, (res.n_samples - 1).clamp_min(0)[:, None])[:, 0] + 1 - cursor, 0)
     return bound(n_bytes, MARCH_OPS_PER_RUNG * float(last.clamp_max(
@@ -1289,14 +1314,81 @@ def check_march_window(label, args, kw=None, timed=False):
     return fields
 
 
+def round_capacity(frame_rays, rows):
+    """The alive tier at which the tiered loop runs a round of ``rows``
+    alive rays in a frame of ``frame_rays``."""
+    from mfnerf_tpu_torch.models import rendering
+    return rendering._tier(rendering._tiers(frame_rays,
+                                            rendering.ALIVE_FLOOR), rows)
+
+
+def _capacity_rows(alive, frame_rows, capacity):
+    """A round's rows as the tiered loop launches them: ``alive`` and, up
+    to ``capacity``, the frame's last row (the sentinel past the count)."""
+    return torch.cat([alive, alive.new_full((capacity - alive.shape[0],),
+                                            frame_rows - 1)])
+
+
+def check_window_count(label, args, kw=None, capacity=None, timed=False):
+    """The window march with an alive count (march_rays_window_into's
+    ``count``) on a window set in place (check_march_window's ``args``):
+    with ``capacity``, the set's rows padded to it as a serving round's
+    tier holds them, the count the set's rows; else the count cutting a
+    quarter of the set's rows. The kernel, on a copy of the frame's
+    cursor, against march_rays_window_plain of the gathered rows with the
+    count, every output bit for bit (the rows past the count an empty ray
+    at cursor 0); the frame's cursor moved at the rows before the count
+    only. With ``timed``, its device time by CUDA-graph replay
+    (window_into_ms) against the bound of the rows before the count
+    (march_window_bound) and the rows past it written."""
+    from mfnerf_tpu_torch.ops.ray_march import (march_rays_window_into,
+                                                march_rays_window_plain)
+    kw = dict(kw or {})
+    cursor, alive = args[4], args[5]
+    if capacity is None:
+        k = alive.shape[0] - alive.shape[0] // 4
+    else:
+        k = alive.shape[0]
+        alive = _capacity_rows(alive, cursor.shape[0], capacity)
+        args = (*args[:5], alive, *args[6:])
+    count = torch.tensor([k], device=cursor.device)
+    frame_cursor = cursor.clone()
+    got = march_rays_window_into(*args[:4], frame_cursor, *args[5:],
+                                 count=count, **kw)
+    want = march_rays_window_plain(*window_rows(args), count=count)
+    expect = cursor.clone()
+    expect[alive[:k]] = want.cursor[:k]
+    names = ("ts", "deltas", "xyzs", "mask", "n_samples", "cursor",
+             "exhausted", "k_idx")
+    bad = march_differs(got, want, names)
+    fields = dict(set=label, kernel="march_window", count=k,
+                  rows=int(alive.shape[0]), bit_equal=not bad, differs=bad,
+                  cursor_in_place_equal=torch.equal(frame_cursor, expect),
+                  max_abs_err=march_max_err(got, want))
+    check(not bad and fields["cursor_in_place_equal"],
+          f"march_window {label} with a count: differs from its plain "
+          f"version in {bad}, cursor {fields['cursor_in_place_equal']}")
+    if timed:
+        fields["ms"], fields["restore_ms"] = window_into_ms(
+            args, dict(kw, count=count))
+        rows = window_rows((*args[:5], alive[:k], *args[6:]))
+        past = (alive.shape[0] - k) * (args[13] * (12 + 4 + 4 + 1 + 8) + 17)
+        fields["bound_ms"], fields["bound_by"] = march_window_bound(
+            rows, march_rays_window_plain(*rows), kw.get("skip"), past)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    return fields
+
+
 @contextlib.contextmanager
 def capturing_marches():
     """Within the context, each call of the rendering module's marches
     appends ("train", args, kwargs) or, for a serving round's in-place
     window march, ("window", args, {"skip": ..}) to the yielded list, with
     march_rays_window_into's positional args: the frame's arrays, copies
-    of its cursor before the round and of the round's rows ``alive``;
-    tensors detached. The marches run as before."""
+    of its cursor before the round and of the round's rows ``alive``
+    before its alive count (the rows it marches); tensors detached. The
+    marches run as before (a frame's rounds run eagerly:
+    render_test(graphs=False))."""
     from mfnerf_tpu_torch.models import rendering
     captured = []
     inner = {name: getattr(rendering, name)
@@ -1308,12 +1400,16 @@ def capturing_marches():
             dict(kwargs)))
         return inner["march_rays_train"](*args, **kwargs)
 
-    def window(rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=None):
+    def window(rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=None,
+               **kw):
+        rows = alive if kw.get("count") is None \
+            else alive[:int(kw["count"])]
         frame = tuple(x.detach() for x in (rays_o, rays_d, t_start, t2)) \
-            + (cursor.clone(), alive.clone())
+            + (cursor.clone(), rows.clone())
         captured.append(("window", frame + tuple(rest), {"skip": skip}))
         return inner["march_rays_window_into"](
-            rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=skip)
+            rays_o, rays_d, t_start, t2, cursor, alive, *rest, skip=skip,
+            **kw)
 
     rendering.march_rays_train = train
     rendering.march_rays_window_into = window
@@ -1472,7 +1568,7 @@ def frame_window_sets(system, rays, rcfg):
     chose them), as (args, kwargs)."""
     from mfnerf_tpu_torch.models.rendering import render_test
     with torch.no_grad(), capturing_marches() as captured:
-        render_test(system.model, system.occ, *rays, rcfg)
+        render_test(system.model, system.occ, *rays, rcfg, graphs=False)
     check(captured and all(c[0] == "window" for c in captured),
           f"render_test marched {[c[0] for c in captured]}")
     return [c[1:] for c in captured]
@@ -1569,8 +1665,19 @@ def march_phase(label, train_sets, window_sets=(), timed_train=0,
         fields = check_march_window(name, args, kw)
         phase("march", config=label, **fields)
         err = max(err, fields["max_abs_err"])
+        fields = check_window_count(name, args, kw)
+        phase("march", config=label, **fields)
+        err = max(err, fields["max_abs_err"])
         torch.cuda.empty_cache()
     if window_sets:
+        # the first round with its alive count, as the tiered loop runs it
+        args, kw = window_sets[0]
+        timed["window_count"] = check_window_count(
+            "round_0", args, kw, round_capacity(args[0].shape[0] - 1,
+                                                args[5].shape[0]),
+            timed=True)
+        phase("march", config=label, **timed["window_count"])
+        err = max(err, timed["window_count"]["max_abs_err"])
         rounds = []
         for i, (args, kw) in enumerate(window_sets):
             rounds.append(check_march_window(f"round_{i}", args, kw,
@@ -1645,7 +1752,9 @@ def capturing_composites():
     the outputs it reaches (opacity, depth, rgb, ws); each call of
     composite_test_step_into appends ("round", (sigmas,
     rgbs, deltas, ts, mask, index, opacity, depth, rgb), T_threshold, None),
-    the accumulators copied as the call found them. Calls run as before."""
+    the block's rows before the call's alive count, the accumulators
+    copied as the call found them. Calls run as before (a frame's rounds
+    run eagerly: render_test(graphs=False))."""
     from mfnerf_tpu_torch.models import rendering
     captured = []
     train, into = rendering.composite_train, rendering.composite_test_step_into
@@ -1664,12 +1773,14 @@ def capturing_composites():
         return comp
 
     def into_rec(sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb,
-                 T_threshold):
-        captured.append(("round", tuple(x.detach().clone() for x in (
-            sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb)),
+                 T_threshold, count=None):
+        k = index.shape[0] if count is None else int(count)
+        captured.append(("round", tuple(x[:k].detach().clone() for x in (
+            sigmas, rgbs, deltas, ts, mask, index)) + tuple(
+            x.detach().clone() for x in (opacity, depth, rgb)),
             T_threshold, None))
         return into(sigmas, rgbs, deltas, ts, mask, index, opacity, depth,
-                    rgb, T_threshold)
+                    rgb, T_threshold, count=count)
 
     rendering.composite_train = train_rec
     rendering.composite_test_step_into = into_rec
@@ -1706,7 +1817,7 @@ def frame_round_sets(system, rays, rcfg, occ=None):
     from mfnerf_tpu_torch.models.rendering import render_test
     with torch.no_grad(), capturing_composites() as captured:
         render_test(system.model, system.occ if occ is None else occ, *rays,
-                    rcfg)
+                    rcfg, graphs=False)
     check(captured and all(c[0] == "round" for c in captured),
           f"render_test composited {[c[0] for c in captured]}")
     return [c[1:3] for c in captured]
@@ -2094,6 +2205,94 @@ def check_composite_round(label, args, thr, timed=False):
     return fields
 
 
+def check_round_count(label, args, thr, capacity=None, timed=False):
+    """The compositing round with an alive count
+    (composite_test_step_into's ``count``) on a serving round's operands
+    (check_composite_round's ``args``): with ``capacity``, the block padded
+    to it with masked rows (entries of row 0) as a serving round's tier
+    holds it, the count the set's rows; else the count cutting a quarter
+    of the rows. The kernel with the count, in place on copies of the
+    accumulators, bit for bit the kernel on the rows before the count
+    alone (the accumulators whole, alive), the rows past it not alive;
+    against composite_test_step_plain with the count within
+    COMPOSITE_FWD_TOL x max on the rows clear of the threshold, the
+    entries that no row before it owns unchanged. With ``timed``, its
+    device time by CUDA-graph replay, each replay first restoring the
+    accumulators (that restore's time taken off), against the bound of
+    the rows before the count."""
+    from mfnerf_tpu_torch.ops.composite import (composite_test_step_into,
+                                                composite_test_step_plain)
+    sig, rgbs, dl, ts, mask, index, op, de, rgb = args
+    n, s = sig.shape
+    if capacity is None:
+        k = n - n // 4
+    else:
+        k, pad = n, capacity - n
+        sig, rgbs, dl, ts = (torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+                             for x in (sig, rgbs, dl, ts))
+        mask = torch.cat([mask, mask.new_zeros((pad, s))])
+        index = torch.cat([index, index[:1].expand(pad)])
+        n = capacity
+    block = (sig, rgbs, dl, ts, mask)
+    count = torch.tensor([k], device=sig.device)
+    frame = [x.clone() for x in (op, de, rgb)]
+    alive = composite_test_step_into(*block, index, *frame, thr, count=count)
+    sliced = [x.clone() for x in (op, de, rgb)]
+    alive_k = composite_test_step_into(*(x[:k] for x in block), index[:k],
+                                       *sliced, thr)
+    acc = (op[index], de[index], rgb[index])
+    want = composite_test_step_plain(
+        *block, *acc, torch.ones((n,), dtype=torch.bool, device=sig.device),
+        thr, count=count)
+    torch.cuda.synchronize()
+    keep = ~composite_tie_rows(sig, dl, mask, thr, 1.0 - acc[0])
+    got = [x[index] for x in frame]
+    others = torch.ones_like(op, dtype=torch.bool)
+    others[index[:k]] = False
+    err = {}
+    for name, g, w in zip(("opacity", "depth", "rgb"), got, want):
+        e, scale = _rows_err(g[:k], w[:k], keep[:k])
+        err[name] = e / scale if scale else e
+    fields = dict(
+        set=label, kernel="composite_test_step", count=k, rows=n, s=s,
+        bit_equal_sliced=_bits_equal(frame, sliced)
+        and torch.equal(alive[:k], alive_k) and not bool(alive[k:].any()),
+        rel_err=err, tol=COMPOSITE_FWD_TOL,
+        alive_differs=int((alive != want[3])[keep].sum()),
+        past_unchanged=all(torch.equal(f[others], x[others])
+                           for f, x in zip(frame, (op, de, rgb))),
+        max_abs_err=max(_rows_err(g[:k], w[:k], keep[:k])[0]
+                        for g, w in zip(got, want)))
+    check(fields["bit_equal_sliced"] and fields["past_unchanged"],
+          f"composite_test_step {label} with a count: differs from the "
+          f"rows before it alone, or wrote the rows past it")
+    check(max(err.values()) <= COMPOSITE_FWD_TOL
+          and not fields["alive_differs"],
+          f"composite_test_step {label} with a count: {err}, alive "
+          f"{fields['alive_differs']}")
+    if timed:
+        saved = [x.clone() for x in (op, de, rgb)]
+
+        def restore():
+            for x, y in zip(frame, saved):
+                x.copy_(y)
+
+        def run():
+            restore()
+            composite_test_step_into(*block, index, *frame, thr, count=count)
+
+        fields["ms"] = graph_ms(run, COMPOSITE_GRAPH_ITERS) \
+            - graph_ms(restore, COMPOSITE_GRAPH_ITERS)
+        t_start = 1.0 - acc[0][:k]
+        included = int(((_plain_transmittance(sig[:k], dl[:k], mask[:k],
+                                              t_start)[:, :-1]
+                         > np.float32(thr)) & mask[:k]).sum())
+        fields["bound_ms"], fields["bound_by"] = composite_round_bound(
+            tuple(x[:k] for x in block), included)
+        fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
+    return fields
+
+
 def composite_phase(label, train_sets, round_sets=(), timed_train=0):
     """The composite checks of a configuration: every training block
     (label, args, T_threshold, loss gradients or None) and every serving
@@ -2115,8 +2314,18 @@ def composite_phase(label, train_sets, round_sets=(), timed_train=0):
         rounds = [check_composite_round(f"round_{i}", args, thr,
                                         timed=i == 0)
                   for i, (args, thr) in enumerate(round_sets)]
+        # the first round with its alive count, as the tiered loop runs it
+        args, thr = round_sets[0]
+        timed["round_count"] = check_round_count(
+            "round_0", args, thr, round_capacity(args[6].shape[0],
+                                                 args[0].shape[0]),
+            timed=True)
+        phase("composite", config=label, **timed["round_count"])
+        err["round"] = max(err["round"],
+                           timed["round_count"]["max_abs_err"])
         timed["round"] = rounds[0]
-        err["round"] = max(r["max_abs_err"] for r in rounds)
+        err["round"] = max([err["round"]]
+                           + [r["max_abs_err"] for r in rounds])
         phase("composite", config=label, set="frame",
               kernel="composite_test_step", rounds=len(rounds),
               rays=[r["rays"] for r in rounds],
@@ -2187,6 +2396,207 @@ def render_view(system, rays, rcfg, occ=None):
                       *rays, rcfg)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def valid_only_frame(model, occ, rays_o, rays_d, rcfg):
+    """The serving loop as it ran before the capacity buffers (the
+    valid-only loop), built from the port's pieces: each round's alive
+    rows found by nonzero, s_cap and the window from the alive count, the
+    field on the valid samples only (rendering._eval_valid), the window
+    march and the compositing round in place without a count. Returns
+    dict(rgb, opacity, depth, total_samples, rounds)."""
+    from mfnerf_tpu_torch.models import rendering as r
+    from mfnerf_tpu_torch.ops.composite import composite_test_step_into
+    from mfnerf_tpu_torch.ops.ray_march import march_rays_window_into
+    cfg = model.cfg
+    n, dev = rays_o.shape[0], rays_o.device
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    hits_t = r._scene_hits(model, rays_o, rays_d)
+    t_start, t2 = hits_t[:, 0].contiguous(), hits_t[:, 1].contiguous()
+    k_total = rcfg.n_rungs(cfg.scale, cfg.grid_size, test=True)
+    dt_scale = rcfg._dt_scale(cfg.scale, True)
+    skip = r.serving_skip(cfg, occ, rcfg)
+    opacity = torch.zeros((n,), device=dev)
+    depth = torch.zeros((n,), device=dev)
+    rgb = torch.zeros((n, 3), device=dev)
+    cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+    taken = torch.zeros((n,), dtype=torch.int64, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    alive = torch.nonzero(t_start >= 0).squeeze(1)
+    rounds = 0
+    while alive.numel():
+        n_alive = alive.numel()
+        s_cap = max(min(n // n_alive, 64), 1)
+        window = min(k_total, max(s_cap, r.MARCH_BUDGET // n_alive))
+        mr = march_rays_window_into(
+            rays_o, rays_d, t_start, t2, cursor, alive,
+            occ.density_bitfield, cfg.cascades, cfg.scale,
+            rcfg.exp_step_factor, cfg.grid_size, rcfg.max_samples, window,
+            s_cap, dt_scale, skip=skip)
+        taken_a = taken[alive]
+        room = rcfg.max_samples - taken_a
+        mask = mr.mask & (torch.arange(s_cap, device=dev)[None, :]
+                          < room[:, None])
+        sigmas, rgbs = r._eval_valid(model, mr.xyzs, rays_d[alive], mask)
+        transparent = composite_test_step_into(
+            sigmas, rgbs, mr.deltas, mr.ts, mask, alive, opacity, depth, rgb,
+            rcfg.T_threshold)
+        emitted = mask.sum(dim=1)
+        taken_a = taken_a + emitted
+        taken[alive] = taken_a
+        total += emitted.sum()
+        keep = transparent & ~mr.exhausted & (mr.cursor < k_total) \
+            & (taken_a < rcfg.max_samples)
+        alive = alive[torch.nonzero(keep).squeeze(1)]
+        rounds += 1
+    return {"rgb": r._with_background(rcfg, rgb, opacity),
+            "opacity": opacity, "depth": depth,
+            "total_samples": int(total), "rounds": rounds}
+
+
+def frame_gap(got, ref, thr, far):
+    """``got``'s rgb, opacity and depth against ``ref``'s, two frames of
+    the same samples composited in other rounds (fp32 sums in another
+    order). A ray apart by more than SERVE_AB_TOL must be a threshold tie:
+    a sample whose transmittance lies at T_threshold to rounding, included
+    by one frame and not the other. There the frame that left it out ends
+    with its transmittance (1 - opacity) within SERVE_TIE_SHARE x
+    T_threshold of T_threshold, and the frames differ by that sample's
+    weight (below T_threshold; in depth, times at most ``far``). Returns
+    dict(max_abs off the ties, ties, ties_max_abs, untied: rays over the
+    tolerance that are no such tie)."""
+    keys = ("rgb", "opacity", "depth")
+    per = {k: (got[k] - ref[k]).abs().reshape(got[k].shape[0], -1)
+           .amax(1) for k in keys}
+    over = torch.stack([per[k] > SERVE_AB_TOL for k in keys]).any(0)
+    t_max = torch.maximum(1.0 - got["opacity"], 1.0 - ref["opacity"])
+    tie = over & ((t_max - thr).abs() <= SERVE_TIE_SHARE * thr) \
+        & (per["opacity"] <= thr) & (per["rgb"] <= thr) \
+        & (per["depth"] <= thr * far)
+
+    def worst(rows):
+        return {k: float(per[k][rows].max()) if bool(rows.any()) else 0.0
+                for k in keys}
+
+    return dict(max_abs=worst(~tie), ties=int(tie.sum()),
+                ties_max_abs=worst(tie), untied=int((over & ~tie).sum()))
+
+
+def _frames_bit_equal(a, b):
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               for k in ("rgb", "opacity", "depth")) \
+        and a["total_samples"] == b["total_samples"] \
+        and a["rounds"] == b["rounds"]
+
+
+def serve_graphed(label, model, occ, rays, rcfg, gt=None,
+                  turn_frames=SERVE_TURN_FRAMES):
+    """Phase serve_graphed on a field: render_test's rounds on capacity
+    buffers replayed as CUDA graphs (the main path, after a first frame
+    that captures) against the same rounds run eagerly (graphs=False), bit
+    for bit, and against the valid-only loop (valid_only_frame) within
+    SERVE_AB_TOL max abs on rgb, opacity and depth but on threshold ties
+    (frame_gap) and, with the view's ``gt``, its PSNR within
+    SERVE_PSNR_TOL dB; a tier's replays bit for
+    bit across two frames; the graphed frame served under
+    torch.cuda.set_sync_debug_mode("error"), its host reads (render_test's
+    count) at most two a round and one a frame and its launches one
+    window march and one compositing round a round; in the eager frame
+    the field's slots at most twice a round's valid samples or the floor;
+    synced ms a frame, eager and graphed, in the turns eager, graphed,
+    graphed, eager (``turn_frames`` frames a turn). Returns the
+    fields."""
+    from mfnerf_tpu_torch.models import rendering
+    from mfnerf_tpu_torch.ops.composite import composite_test_step
+    from mfnerf_tpu_torch.ops.ray_march import march_rays_window
+    from mfnerf_tpu_torch.utils.metrics import psnr
+    ro, rd = rays
+    ref = valid_only_frame(model, occ, ro, rd, rcfg)
+    field_tiers = []
+    field = rendering._Rounds.field
+
+    def recorded(self, slots):
+        field_tiers.append((slots, int(self.f.valid)))
+        return field(self, slots)
+
+    rendering._Rounds.field = recorded
+    try:
+        eager = rendering.render_test(model, occ, ro, rd, rcfg, graphs=False)
+    finally:
+        rendering._Rounds.field = field
+    floor = rendering._tiers(ro.shape[0], rendering.FIELD_FLOOR)[-1]
+    over = [(f, v) for f, v in field_tiers if f > max(2 * v, floor)]
+    rendering.render_test(model, occ, ro, rd, rcfg)       # captures
+    march_rays_window.launches = composite_test_step.launches = 0
+    reads = rendering.render_test.host_reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphed = rendering.render_test(model, occ, ro, rd, rcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reads = rendering.render_test.host_reads - reads
+    launches = dict(window=march_rays_window.launches,
+                    round=composite_test_step.launches)
+    again = rendering.render_test(model, occ, ro, rd, rcfg)
+    gap = frame_gap(graphed, ref, rcfg.T_threshold,
+                    2 * math.sqrt(3) * model.cfg.scale + 1.0)
+
+    def frame_ms(graphs):
+        out = []
+        for _ in range(turn_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rendering.render_test(model, occ, ro, rd, rcfg, graphs=graphs)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    turns = [("eager", frame_ms(False)), ("graphed", frame_ms(True)),
+             ("graphed", frame_ms(True)), ("eager", frame_ms(False))]
+    ms = {kind: [m for k, t in turns if k == kind for m in t]
+          for kind in ("eager", "graphed")}
+    runner = rendering.serving_runner(model, ro.device)
+    fields = dict(
+        config=label, wh=int(math.isqrt(ro.shape[0])), rays=ro.shape[0],
+        T_threshold=rcfg.T_threshold, rounds=graphed["rounds"],
+        samples=graphed["total_samples"], valid_only_rounds=ref["rounds"],
+        valid_only_samples=ref["total_samples"],
+        graphed_bit_equal_eager=_frames_bit_equal(graphed, eager),
+        replays_bit_equal=_frames_bit_equal(graphed, again),
+        vs_valid_only=gap, tol=SERVE_AB_TOL, tie_share=SERVE_TIE_SHARE,
+        bit_equal_valid_only={k: torch.equal(graphed[k], ref[k])
+                              for k in ("rgb", "opacity", "depth")},
+        host_reads=reads, host_reads_max=2 * graphed["rounds"] + 1,
+        launches=launches, field_tiers=sorted({f for f, _ in field_tiers}),
+        field_slots_per_valid=sum(f for f, _ in field_tiers)
+        / max(sum(v for _, v in field_tiers), 1),
+        field_over_twice_valid=over,
+        graphs=len(runner.frames[ro.shape[0]].graphs),
+        turns=[(k, float(np.median(t))) for k, t in turns],
+        ms_eager=float(np.median(ms["eager"])),
+        ms_graphed=float(np.median(ms["graphed"])))
+    if gt is not None:
+        fields["psnr"] = float(psnr(graphed["rgb"], gt))
+        fields["psnr_valid_only"] = float(psnr(ref["rgb"], gt))
+    check(fields["graphed_bit_equal_eager"] and fields["replays_bit_equal"],
+          f"serve_graphed {label}: graphed frames differ from the eager "
+          f"rounds or from each other")
+    check(max(gap["max_abs"].values()) <= SERVE_AB_TOL
+          and not gap["untied"], f"serve_graphed {label}: against the "
+          f"valid-only loop {gap}")
+    check(gt is None or abs(fields["psnr"] - fields["psnr_valid_only"])
+          <= SERVE_PSNR_TOL, f"serve_graphed {label}: PSNR "
+          f"{fields.get('psnr')} against {fields.get('psnr_valid_only')}")
+    check(reads <= 2 * graphed["rounds"] + 1, f"serve_graphed {label}: "
+          f"{reads} host reads in {graphed['rounds']} rounds")
+    check(launches["window"] == launches["round"] == graphed["rounds"],
+          f"serve_graphed {label}: launches {launches} in "
+          f"{graphed['rounds']} rounds")
+    check(not over, f"serve_graphed {label}: field tiers above twice the "
+          f"valid samples {over}")
+    return fields
 
 
 @torch.no_grad()
@@ -3464,7 +3874,7 @@ def cascade_step_oracle(argv, datasets, dev, seed):
     test_rcfg = dataclasses.replace(rcfg, T_threshold=TEST_T)
     with capturing_marches() as windows, capturing_composites() as rounds:
         loop = render_test(system.model, occ0, ro.to(dev), rd.to(dev),
-                           test_rcfg)
+                           test_rcfg, graphs=False)
     ref = render_test_dense(cpu_model, occ0.to("cpu"), ro, rd,
                             dataclasses.replace(test_rcfg, test_chunk=2048))
     errs = {key: float((loop[key].cpu() - ref[key]).abs().max())
@@ -3484,6 +3894,21 @@ def cascade_step_oracle(argv, datasets, dev, seed):
     comp_timed, comp_err = composite_phase(
         f"cascades_{cfg.grid}", [("step", *step_comp[0][1:])],
         [c[1:3] for c in rounds])
+    # 42c. serve_graphed on the first test view at five cascades, every
+    # second row and column of it (the LowRank recipe's field; a frame of
+    # ~450 rounds, one a turn)
+    del windows, rounds
+    torch.cuda.empty_cache()
+    serve = None
+    if cfg.grid == "LowRank":
+        w, h = ds.img_wh
+        view = np.arange(h * w).reshape(h, w)[::2, ::2].reshape(-1)
+        rays = get_rays(torch.from_numpy(ds.directions[view]).to(dev),
+                        torch.from_numpy(ds.poses[0]).to(dev))
+        serve = serve_graphed(
+            f"cascades_{cfg.grid}", system.model, occ0, rays, test_rcfg,
+            torch.from_numpy(ds[0]["rgb"][view]).to(dev), turn_frames=1)
+        phase("serve_graphed", **serve)
     return dict(grid=cfg.grid, random_bg=rcfg.random_bg, scale=cfg.scale,
                 cascades=cfg.cascades,
                 stratum=strata.stratum, s_strata=strata.s_strata,
@@ -3495,17 +3920,21 @@ def cascade_step_oracle(argv, datasets, dev, seed):
                 **{f"oracle_max_abs_{k_}": v for k_, v in errs.items()},
                 march={kind: {key: f[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "rays",
-                    "samples")} for kind, f in timed.items()},
+                    "samples")} for kind, f in timed.items()
+                    if kind in ("train", "window")},
                 march_max_abs_err=march_err,
                 composite={kind: {key: f[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "rays")}
-                    for kind, f in comp_timed.items()},
+                    for kind, f in comp_timed.items()
+                    if kind in ("train", "round")},
                 composite_fwd={key: comp_timed["train"][key] for key in (
                     "fwd_walk_ms", "fwd_passes")},
                 composite_bwd={key: comp_timed["train"][key] for key in (
                     "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
                     "bwd_bound_by", "bwd_two_walk_ms", "bwd_passes")},
-                composite_max_abs_err=comp_err)
+                composite_max_abs_err=comp_err,
+                serve_graphed=serve and {key: serve[key] for key in (
+                    "rounds", "ms_eager", "ms_graphed", "host_reads")})
 
 
 def colmap_cli(argv, dev, read_launches, root=COLMAP_ROOT):
@@ -4050,6 +4479,15 @@ def main():
     check(bool(torch.isfinite(out["rgb"]).all()), "test view not finite")
     check(psnr_after >= PSNR_MIN and psnr_after >= psnr_before + PSNR_GAIN,
           f"test PSNR {psnr_before} -> {psnr_after}")
+    # ---- 42a. serve_graphed: the held-out view's rounds as CUDA graphs
+    # against the same rounds eagerly and against the valid-only loop
+    serve_bench = {}
+    for thr in (TEST_T, T_THRESHOLD):
+        serve_bench[thr] = serve_graphed(
+            "bench", system.model, system.occ, test_rays,
+            dataclasses.replace(test_rcfg, T_threshold=thr), test_rgb)
+        phase("serve_graphed", **serve_bench[thr], card=card)
+    torch.cuda.empty_cache()
 
     # ---- 7b. backward kernel on one real step's operands (trained field)
     captured, valid = capture_bwd_operands(system, SEED + 4, hatmul,
@@ -4104,6 +4542,9 @@ def main():
         frame_round_sets(system, test_rays, test_rcfg))
     for label, args, thr in composite_round_edge_sets(dev, SEED + 92):
         fields = check_composite_round(label, args, thr)
+        phase("composite", config="edges", **fields)
+        comp_err["round"] = max(comp_err["round"], fields["max_abs_err"])
+        fields = check_round_count(label, args, thr)
         phase("composite", config="edges", **fields)
         comp_err["round"] = max(comp_err["round"], fields["max_abs_err"])
 
@@ -4220,6 +4661,11 @@ def main():
           and psnr_after >= psnr_before + PSNR_GAIN,
           f"MixedFeature test PSNR {psnr_before} -> {psnr_after}")
     del out
+    # ---- 42b. serve_graphed on the trained MixedFeature view
+    serve_mf = serve_graphed("mf", mf.model, mf.occ, test_rays, test_rcfg,
+                             test_rgb)
+    phase("serve_graphed", **serve_mf, card=card)
+    torch.cuda.empty_cache()
 
     # ---- 12b. the hash-grid kernels on one real step's operands
     captured = capture_bwd_operands(mf, SEED + 9, hashgrid)
@@ -4601,6 +5047,9 @@ def main():
         "shape": "the first round of the trained bench field's held-out "
                  "800x800 view",
         "frame_rounds": bench_march["window_rounds"],
+        "count": {key: bench_march["window_count"][key] for key in (
+            "rows", "count", "ms", "bound_ms", "bound_by", "share_of_bound",
+            "max_abs_err")},
         "cascades": {label: m["window"] for label, m in
                      cascade_march.items()}}, {
         "name": "composite_train", "route": "cuda", "source": comp_src,
@@ -4668,6 +5117,9 @@ def main():
         "library_ms": None,
         "shape": "the first round of the trained bench field's held-out "
                  "800x800 view at T 1e-4",
+        "count": {key: bench_comp["round_count"][key] for key in (
+            "rows", "count", "ms", "bound_ms", "bound_by", "share_of_bound",
+            "max_abs_err")},
         "cascades": {label: c["round"] for label, c in
                      cascade_comp.items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

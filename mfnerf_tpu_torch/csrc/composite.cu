@@ -17,7 +17,10 @@
 // Sample i is included iff mask_i and T_i > T_threshold; its weight is
 // w_i = alpha_i T_i, and 0 for every other slot. opacity, depth and rgb sum
 // w_i, w_i t_i and w_i rgb_i. The serving round starts each row from
-// T = 1 - opacity and adds to the accumulators it is given.
+// T = 1 - opacity and adds to the accumulators it is given; with an alive
+// count in device memory (the serving rounds' static capacity buffers), a
+// row at or past it reads and writes no accumulator and comes back not
+// alive. A null count leaves the round as it was.
 //
 // The backward is analytic and division-free, with true suffix sums (no
 // total-minus-prefix, which cancels): for an included sample k, G_k =
@@ -739,30 +742,33 @@ __global__ void __launch_bounds__(kThreads) composite_test_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ deltas, const float* __restrict__ ts,
     const bool* __restrict__ mask, const int64_t* __restrict__ index,
-    const float* op_in, const float* de_in, const float* rgb_in,
+    const long long* __restrict__ count, const float* op_in,
+    const float* de_in, const float* rgb_in,
     const bool* __restrict__ alive_in, float* op_out, float* de_out,
     float* rgb_out, bool* __restrict__ alive_out) {
   if (warp_past_end(n, width)) return;
   const Lane l = lane_of(n, width);
+  // a row before the alive count (every row without one)
+  const bool in = l.live && (count == nullptr || l.ray < __ldg(count));
   // the accumulators' row: the index's entry (the in-place form), else the
   // row itself; op_in may be op_out there (each row owns its entry)
   const long long acc_at =
-      l.live ? (index != nullptr ? index[l.ray] : l.ray) : 0;
+      in ? (index != nullptr ? index[l.ray] : l.ray) : 0;
   const bool alive =
-      l.live && (alive_in == nullptr || alive_in[l.ray]);
-  const float op0 = l.live ? op_in[acc_at] : 0.0f;
+      in && (alive_in == nullptr || alive_in[l.ray]);
+  const float op0 = in ? op_in[acc_at] : 0.0f;
   Sums acc;
   const float t = walk_forward(l, s, thr, __fsub_rn(1.0f, op0), alive,
                                sigmas, rgbs, deltas, ts, mask, nullptr, acc);
   reduce(acc, width);
-  if (l.live && l.sl == 0) {
+  if (in && l.sl == 0) {
     op_out[acc_at] = __fadd_rn(op0, acc.op);
     de_out[acc_at] = __fadd_rn(de_in[acc_at], acc.de);
     rgb_out[3 * acc_at] = __fadd_rn(rgb_in[3 * acc_at], acc.r);
     rgb_out[3 * acc_at + 1] = __fadd_rn(rgb_in[3 * acc_at + 1], acc.g);
     rgb_out[3 * acc_at + 2] = __fadd_rn(rgb_in[3 * acc_at + 2], acc.b);
-    alive_out[l.ray] = alive && t > thr;
   }
+  if (l.live && l.sl == 0) alive_out[l.ray] = alive && t > thr;
 }
 
 int check_sizes(long long n, int s) {
@@ -884,16 +890,18 @@ extern "C" int composite_train_bw(long long n, int s, int passes, float thr,
 
 // One serving round on `stream`: the forward's inputs; the accumulators
 // op_in, de_in (m,), rgb_in (m, 3) fp32 at row r's entry index[r] (int64;
-// null: entry r), alive_in (n,) bool (null: every row alive); writes
-// op_out, de_out, rgb_out at the same entries (they may be the inputs: the
-// in-place form) and alive_out (n,) bool: alive and T after the block >
-// thr.
+// null: entry r), alive_in (n,) bool (null: every row alive); count null,
+// or one int64 on the device, the alive count (rows at or past it touch no
+// accumulator and come back not alive); writes op_out, de_out, rgb_out at
+// the same entries (they may be the inputs: the in-place form) and
+// alive_out (n,) bool: alive and T after the block > thr.
 extern "C" int composite_test(long long n, int s, float thr,
                               const void* sigmas, const void* rgbs,
                               const void* deltas, const void* ts,
                               const void* mask, const void* index,
-                              const void* op_in, const void* de_in,
-                              const void* rgb_in, const void* alive_in,
+                              const void* count, const void* op_in,
+                              const void* de_in, const void* rgb_in,
+                              const void* alive_in,
                               void* op_out, void* de_out, void* rgb_out,
                               void* alive_out, void* stream) {
   const int bad = check_sizes(n, s);
@@ -905,7 +913,8 @@ extern "C" int composite_test(long long n, int s, float thr,
       n, s, width, thr, static_cast<const float*>(sigmas),
       static_cast<const float*>(rgbs), static_cast<const float*>(deltas),
       static_cast<const float*>(ts), static_cast<const bool*>(mask),
-      static_cast<const int64_t*>(index), static_cast<const float*>(op_in),
+      static_cast<const int64_t*>(index),
+      static_cast<const long long*>(count), static_cast<const float*>(op_in),
       static_cast<const float*>(de_in), static_cast<const float*>(rgb_in),
       static_cast<const bool*>(alive_in), static_cast<float*>(op_out),
       static_cast<float*>(de_out), static_cast<float*>(rgb_out),

@@ -66,6 +66,13 @@
 // every rung, as does every ray of the walk-only instantiation (mode 0:
 // several cascades, or no grid).
 //
+// The window march takes an optional alive count in device memory (the
+// serving rounds' static capacity buffers, whose first count rows are
+// alive): a row at or past it marches nothing and reads nothing of the
+// frame, and is written as an empty ray at cursor 0 would be (no samples,
+// k_idx n_window - 1, new cursor n_window, exhausted); the frame's cursor
+// is left alone. A null count leaves the kernel as it was.
+//
 // Bit for bit: every product, sum and quotient is rounded on its own
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), since nvcc would contract
 // rays_o + t * rays_d or the ladder into fused multiply-adds and a different
@@ -613,15 +620,26 @@ __global__ void __launch_bounds__(kThreads) march_window_kernel(
     const MarchParams p, int64_t n, const float* __restrict__ rays_o,
     const float* __restrict__ rays_d, const float* __restrict__ t_start,
     const float* __restrict__ t_exit, int64_t* cursor,
-    const int64_t* __restrict__ index, const uint8_t* __restrict__ bits,
-    const uint8_t* __restrict__ stage_a, WindowOut out,
-    int64_t* __restrict__ n_samples, int64_t* __restrict__ cursor_out,
-    bool* __restrict__ exhausted) {
+    const int64_t* __restrict__ index, const long long* __restrict__ count,
+    const uint8_t* __restrict__ bits, const uint8_t* __restrict__ stage_a,
+    WindowOut out, int64_t* __restrict__ n_samples,
+    int64_t* __restrict__ cursor_out, bool* __restrict__ exhausted) {
   __shared__ int lists[kThreads];
   const Group<L> g;
   const int64_t ray =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / L;
   if (ray >= n) return;                       // the ray's whole group
+  if (count != nullptr && ray >= __ldg(count)) {
+    // past the alive count: an empty ray at cursor 0, the frame untouched
+    clear_slots(ray * p.s_max, 0, p.s_max, g.sl, L, p.n_rungs - 1, out.xyzs,
+                out.deltas, out.ts, out.mask, out.k_idx);
+    if (g.sl == 0) {
+      n_samples[ray] = 0;
+      cursor_out[ray] = p.n_rungs;
+      exhausted[ray] = true;
+    }
+    return;
+  }
   const int64_t src = __ldg(index + ray);
   const Ray r = load_ray(rays_o, rays_d, src);
   const float t0 = __ldg(t_start + src);
@@ -702,8 +720,10 @@ extern "C" int march_train(const MarchParams* params, long long n,
 // frame's arrays: params->n_rungs is n_window and params->s_max is s_cap;
 // a ray takes `lanes` lanes (4, 8, 16 or 32). rays_o, rays_d (m, 3),
 // t_start, t2 (m,) fp32 and cursor (m,) int64 are the frame's, the new
-// cursors written into cursor at index[r]; bits the uint8 bitfield;
-// stage_a, for params->mode 1, the (g, g, g) bool stage-A grid. Outputs:
+// cursors written into cursor at index[r]; count null, or one int64 on the
+// device, the alive count: rows at or past it march nothing (above); bits
+// the uint8 bitfield; stage_a, for params->mode 1, the (g, g, g) bool
+// stage-A grid. Outputs:
 // xyzs (n, s_cap, 3), deltas, ts (n, s_cap) fp32, mask (n, s_cap) bool,
 // n_samples (n,) int64, cursor_out (n,) int64, exhausted (n,) bool, k_idx
 // (n, s_cap) int64.
@@ -711,7 +731,8 @@ extern "C" int march_window(const MarchParams* params, int lanes,
                             long long n, const void* rays_o,
                             const void* rays_d, const void* t_start,
                             const void* t2, void* cursor, const void* index,
-                            const void* bits, const void* stage_a,
+                            const void* count, const void* bits,
+                            const void* stage_a,
                             void* xyzs, void* deltas, void* ts, void* mask,
                             void* n_samples, void* cursor_out,
                             void* exhausted, void* k_idx, void* stream) {
@@ -736,7 +757,9 @@ extern "C" int march_window(const MarchParams* params, int lanes,
       *p, n, static_cast<const float*>(rays_o),                             \
       static_cast<const float*>(rays_d), static_cast<const float*>(t_start), \
       static_cast<const float*>(t2), static_cast<int64_t*>(cursor),         \
-      static_cast<const int64_t*>(index), static_cast<const uint8_t*>(bits), \
+      static_cast<const int64_t*>(index),                                   \
+      static_cast<const long long*>(count),                                 \
+      static_cast<const uint8_t*>(bits),                                    \
       static_cast<const uint8_t*>(stage_a), out,                            \
       static_cast<int64_t*>(n_samples), static_cast<int64_t*>(cursor_out),  \
       static_cast<bool*>(exhausted))

@@ -10,7 +10,10 @@ a checkpoint of either package (:meth:`train.NeRFSystem.restore`), renders
 each test view with ``render_test`` at ``--t_threshold`` (1e-2, the
 reference's offline protocol; training-time validation renders at 1e-4),
 the host clock synchronised around each frame, and prints
-``image i: N ms, psnr X``, then the mean PSNR and the mean FPS. Unless
+``image i: N ms, psnr X``, then the mean PSNR and the mean FPS. On the
+card ``render_test`` replays its CUDA graphs (``ServingRunner``): the
+first frame of a size captures them (its time includes the captures), the
+later frames of that size replay them. Unless
 ``--no_save_test`` it writes ``NNN.png`` and the depth map ``NNN_d.png``
 under ``results/<dataset>/<exp>/eval``. With ``--mesh`` it exports the
 density isosurface (``utils/mesh.py``). The root script's ``--guided`` and

@@ -11,7 +11,8 @@ Port of ``mfnerf_tpu/ops/composite.py``:
 * :func:`composite_test_step` (the reference's ``composite_test_fw``): each
   ray resumes from its accumulated transmittance ``1 - opacity`` and folds a
   new block of samples into its accumulators; :func:`composite_test_step_into`
-  is its in-place form for the serving loop's alive rows.
+  is its in-place form for the serving loop's alive rows (up to an
+  optional alive count in device memory).
 
 A sample contributes iff it is valid (``mask``) and the transmittance before
 it exceeds ``T_threshold``.
@@ -359,8 +360,13 @@ def composite_train_bwd_order_plain(sigmas, rgbs, deltas, ts, mask,
 
 
 def composite_test_step_plain(sigmas, rgbs, deltas, ts, mask, opacity, depth,
-                              rgb, alive, T_threshold):
-    """The plain version of :func:`composite_test_step`."""
+                              rgb, alive, T_threshold, count=None):
+    """The plain version of :func:`composite_test_step`. ``count``: None,
+    or a (1,) int64 alive count: the rows at or past it add nothing to
+    their accumulators and come back not alive."""
+    if count is not None:
+        alive = alive & (torch.arange(alive.shape[0], device=alive.device)
+                         < count)
     mask = mask & alive[:, None]
     _, one_minus, t_excl, _, w = _weights(sigmas, deltas, mask, T_threshold,
                                           1.0 - opacity)
@@ -384,7 +390,7 @@ def _kernels():
                    ctypes.c_float]
     fw.argtypes = with_passes + [ctypes.c_void_p] * 11
     bw.argtypes = with_passes + [ctypes.c_void_p] * 14
-    test.argtypes = head + [ctypes.c_void_p] * 15
+    test.argtypes = head + [ctypes.c_void_p] * 16
     fw.restype = bw.restype = test.restype = ctypes.c_int
     return fw, bw, test
 
@@ -513,10 +519,11 @@ def _launch_train_bwd(sigmas, rgbs, deltas, ts, mask, g_opacity, g_depth,
 
 
 def _launch_test(sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb,
-                 alive, T_threshold, out):
+                 alive, T_threshold, out, count=None):
     """composite_test on fp32 operands: the accumulators ``opacity``,
     ``depth``, ``rgb`` at each row's ``index`` entry (None: the row's own),
-    written to ``out`` (three tensors, which may be the inputs); returns
+    written to ``out`` (three tensors, which may be the inputs); with
+    ``count`` (a (1,) int64 on the device) only the rows before it; returns
     alive after the round (N,)."""
     n, s = sigmas.shape
     dev = sigmas.device
@@ -527,7 +534,7 @@ def _launch_test(sigmas, rgbs, deltas, ts, mask, index, opacity, depth, rgb,
         rc = _kernels()[2](
             n, s, T_threshold, sigmas.data_ptr(), rgbs.data_ptr(),
             deltas.data_ptr(), ts.data_ptr(), mask.data_ptr(), _ptr(index),
-            opacity.data_ptr(), depth.data_ptr(), rgb.data_ptr(),
+            _ptr(count), opacity.data_ptr(), depth.data_ptr(), rgb.data_ptr(),
             _ptr(alive), *(t.data_ptr() for t in out), alive_out.data_ptr(),
             _stream(dev))
         if rc != 0:
@@ -704,27 +711,36 @@ def composite_test_step(sigmas, rgbs, deltas, ts, mask, opacity, depth, rgb,
 
 
 def composite_test_step_into(sigmas, rgbs, deltas, ts, mask, index, opacity,
-                             depth, rgb, T_threshold):
+                             depth, rgb, T_threshold, count=None):
     """:func:`composite_test_step` in place, for the alive rows of a frame:
     row r of the block composites into entry ``index[r]`` of the frame's
     accumulators ``opacity``, ``depth`` (M,) and ``rgb`` (M, 3), which it
     updates; every row is alive. ``index`` (N,) int64 holds distinct
-    entries. Returns alive after the round (N,) bool.
+    entries. ``count``: None, or a (1,) int64 alive count on the block's
+    device (the serving rounds' capacity buffers): the rows at or past it
+    read and write no accumulator (their ``index`` entries may be
+    anything) and come back not alive. Returns alive after the round (N,)
+    bool.
 
     CUDA tensors launch csrc/composite.cu's round kernel (one launch, with
-    ``composite_test_step.launches``); CPU tensors gather, run
+    ``composite_test_step.launches``), which reads the count on the device;
+    CPU tensors gather the rows before the count, run
     :func:`composite_test_step_plain` and scatter back."""
     n, _ = _check_block(sigmas, rgbs, deltas, ts, mask)
     dev = sigmas.device
     _check("index", index, (n,), (torch.int64,), dev)
     _check_accumulators(opacity.shape[0], opacity, depth, rgb, dev)
+    if count is not None:
+        _check("count", count, (1,), (torch.int64,), dev)
     if not sigmas.is_cuda:
+        k = n if count is None else max(0, min(int(count), n))
+        rows = index[:k]
         op, de, co, alive = composite_test_step_plain(
-            sigmas, rgbs, deltas, ts, mask, opacity[index], depth[index],
-            rgb[index], torch.ones((n,), dtype=torch.bool, device=dev),
-            T_threshold)
-        opacity[index], depth[index], rgb[index] = op, de, co
-        return alive
+            sigmas[:k], rgbs[:k], deltas[:k], ts[:k], mask[:k],
+            opacity[rows], depth[rows], rgb[rows],
+            torch.ones((k,), dtype=torch.bool, device=dev), T_threshold)
+        opacity[rows], depth[rows], rgb[rows] = op, de, co
+        return torch.cat([alive, alive.new_zeros(n - k)])
     for name, t in (("opacity", opacity), ("depth", depth), ("rgb", rgb)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous: it is updated in "
@@ -732,7 +748,8 @@ def composite_test_step_into(sigmas, rgbs, deltas, ts, mask, index, opacity,
     f32 = torch.float32
     return _launch_test(sigmas.to(f32), rgbs.to(f32), deltas.to(f32),
                         ts.to(f32), mask, index.contiguous(), opacity, depth,
-                        rgb, None, float(T_threshold), (opacity, depth, rgb))
+                        rgb, None, float(T_threshold), (opacity, depth, rgb),
+                        count)
 
 
 composite_train.launches = 0

@@ -35,8 +35,9 @@ On CUDA tensors :func:`march_rays_train` and :func:`march_rays_window_into`
 (and :func:`march_rays_window`, its form over every row) launch the
 hand-written kernels of ``csrc/raymarch.cu`` (the training march a warp a
 ray, which walks only the chosen strata's rungs; the window march a few
-lanes a ray, in place on the frame's rows, which at one cascade skips the
-strata that the two-level stage-A grid proves empty: :class:`WindowSkip`),
+lanes a ray, in place on the frame's rows, up to an optional alive count
+in device memory, which at one cascade skips the strata that the
+two-level stage-A grid proves empty: :class:`WindowSkip`),
 each stopping at the buffer's end or the ray's exit, bit for bit their
 plain versions :func:`march_rays_train_plain` and
 :func:`march_rays_window_plain`; on CPU tensors they run the plain
@@ -343,7 +344,8 @@ def march_rays_train_plain(rays_o, rays_d, hits_t, density_bitfield,
 def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
                             density_bitfield, cascades, scale,
                             exp_step_factor, grid_size, max_samples, n_window,
-                            s_cap, dt_scale=None) -> WindowMarchResults:
+                            s_cap, dt_scale=None,
+                            count=None) -> WindowMarchResults:
     """March ``n_window`` ladder rungs from each ray's ``cursor``, emitting
     at most ``s_cap`` occupied samples: :func:`march_rays_window`'s plain
     version, the window's rungs as (C, W) tensors.
@@ -352,9 +354,20 @@ def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
     ``hits_t`` update) is the integer ``cursor`` on the ladder: it resumes
     right after the ``s_cap``-th occupied rung when the window holds more,
     else at the window's end.
+
+    ``count``: None, or a (1,) int64 alive count: the rows at or past it
+    march nothing and come back as an empty ray at cursor 0 would
+    (:func:`_empty_rows`).
     """
     if dt_scale is None:
         dt_scale = scale
+    if count is not None:
+        k = _rows_before(count, rays_o.shape[0])
+        mr = march_rays_window_plain(
+            rays_o[:k], rays_d[:k], t_start[:k], t2[:k], cursor[:k],
+            density_bitfield, cascades, scale, exp_step_factor, grid_size,
+            max_samples, n_window, s_cap, dt_scale)
+        return _empty_rows(mr, rays_o.shape[0], n_window)
     ladder = (exp_step_factor, max_samples, grid_size, dt_scale)
     xyz, dt_all, in_box = _window_rungs(rays_o, rays_d, t_start, t2, cursor,
                                         n_window, ladder)
@@ -362,6 +375,29 @@ def march_rays_window_plain(rays_o, rays_d, t_start, t2, cursor,
                         grid_size) & in_box
     return _window_results(rays_o, rays_d, t_start, t2, cursor, occ, s_cap,
                            ladder)
+
+
+def _rows_before(count, n):
+    """The rows before an alive count (a (1,) tensor; a host read), at
+    most n."""
+    return max(0, min(int(count), n))
+
+
+def _empty_rows(mr, n, n_window):
+    """The window march's results of k rows followed by n - k rows past
+    the alive count, each as an empty ray at cursor 0 marches: no samples,
+    k_idx n_window - 1, new cursor n_window, exhausted."""
+    pad = n - mr.mask.shape[0]
+
+    def tail(t, value):
+        return torch.cat([t, t.new_full((pad, *t.shape[1:]), value)])
+
+    return WindowMarchResults(
+        xyzs=tail(mr.xyzs, 0.0), deltas=tail(mr.deltas, 0.0),
+        ts=tail(mr.ts, 0.0), mask=tail(mr.mask, False),
+        n_samples=tail(mr.n_samples, 0), cursor=tail(mr.cursor, n_window),
+        exhausted=tail(mr.exhausted, True),
+        k_idx=tail(mr.k_idx, n_window - 1))
 
 
 def _window_rungs(rays_o, rays_d, t_start, t2, cursor, n_window, ladder):
@@ -685,7 +721,7 @@ def _kernels():
     train.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_longlong] \
         + [ctypes.c_void_p] * 14
     window.argtypes = [ctypes.POINTER(_MarchParams), ctypes.c_int,
-                       ctypes.c_longlong] + [ctypes.c_void_p] * 17
+                       ctypes.c_longlong] + [ctypes.c_void_p] * 18
     train.restype = window.restype = ctypes.c_int
     return train, window
 
@@ -757,9 +793,12 @@ def _launch_train(rays_o, rays_d, hits_t, density_bitfield, cascades, scale,
 
 def _launch_window(rays_o, rays_d, t_start, t2, cursor, alive,
                    density_bitfield, cascades, scale, exp_step_factor,
-                   grid_size, max_samples, n_window, s_cap, dt_scale, skip):
+                   grid_size, max_samples, n_window, s_cap, dt_scale, skip,
+                   count=None, out=None):
     """The window kernel on the rows ``alive`` of the frame's arrays, their
-    new cursors written into ``cursor`` in place."""
+    new cursors written into ``cursor`` in place; with ``count`` (a (1,)
+    int64 on the device) only the rows before it; the results written into
+    ``out`` where given."""
     dev, m, n = rays_o.device, rays_o.shape[0], alive.shape[0]
     p = window_params(scale, exp_step_factor, grid_size, cascades,
                       max_samples, dt_scale, n_window, s_cap, skip)
@@ -775,33 +814,42 @@ def _launch_window(rays_o, rays_d, t_start, t2, cursor, alive,
         raise ValueError("cursor must be contiguous: it is written in place")
     bits = _operand(density_bitfield, "density_bitfield", torch.uint8,
                     tuple(density_bitfield.shape), dev)
+    if count is not None:
+        count = _operand(count, "count", torch.int64, (1,), dev)
     stage_a = None
     if p.mode:
         stage_a = _operand(skip.stage_a, "skip.stage_a", torch.bool,
                            tuple(skip.stage_a.shape), dev)
-    xyzs = torch.empty((n, s_cap, 3), dtype=f32, device=dev)
-    deltas = torch.empty((n, s_cap), dtype=f32, device=dev)
-    ts = torch.empty((n, s_cap), dtype=f32, device=dev)
-    mask = torch.empty((n, s_cap), dtype=torch.bool, device=dev)
-    n_samples = torch.empty((n,), dtype=torch.int64, device=dev)
-    cursor_new = torch.empty((n,), dtype=torch.int64, device=dev)
-    exhausted = torch.empty((n,), dtype=torch.bool, device=dev)
-    k_idx = torch.empty((n, s_cap), dtype=torch.int64, device=dev)
+    i64 = torch.int64
+    shapes = dict(xyzs=((n, s_cap, 3), f32), deltas=((n, s_cap), f32),
+                  ts=((n, s_cap), f32), mask=((n, s_cap), torch.bool),
+                  n_samples=((n,), i64), cursor=((n,), i64),
+                  exhausted=((n,), torch.bool), k_idx=((n, s_cap), i64))
+    if out is None:
+        out = WindowMarchResults(**{
+            name: torch.empty(shape, dtype=dtype, device=dev)
+            for name, (shape, dtype) in shapes.items()})
+    for name, (shape, dtype) in shapes.items():
+        t = getattr(out, name)
+        _operand(t, f"out.{name}", dtype, shape, dev)
+        if not t.is_contiguous():
+            raise ValueError(f"out.{name} must be contiguous: it is written "
+                             f"in place")
+    xyzs, deltas, ts, mask, n_samples, cursor_new, exhausted, k_idx = out
     if n:
         rc = _kernels()[1](
             ctypes.byref(p), window_lanes(n, n_window, p), n,
             rays_o.data_ptr(), rays_d.data_ptr(), t_start.data_ptr(),
             t2.data_ptr(), cursor.data_ptr(), alive.data_ptr(),
-            bits.data_ptr(), None if stage_a is None else stage_a.data_ptr(),
+            None if count is None else count.data_ptr(), bits.data_ptr(),
+            None if stage_a is None else stage_a.data_ptr(),
             xyzs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
             mask.data_ptr(), n_samples.data_ptr(), cursor_new.data_ptr(),
             exhausted.data_ptr(), k_idx.data_ptr(), _stream(dev))
         if rc != 0:
             raise RuntimeError(f"march_window launch failed: cudaError {rc}")
         march_rays_window.launches += 1
-    return WindowMarchResults(xyzs=xyzs, deltas=deltas, ts=ts, mask=mask,
-                              n_samples=n_samples, cursor=cursor_new,
-                              exhausted=exhausted, k_idx=k_idx)
+    return out
 
 
 def _needs_grad(*tensors):
@@ -891,38 +939,56 @@ def march_rays_window(rays_o, rays_d, t_start, t2, cursor, density_bitfield,
 def march_rays_window_into(rays_o, rays_d, t_start, t2, cursor, alive,
                            density_bitfield, cascades, scale,
                            exp_step_factor, grid_size, max_samples, n_window,
-                           s_cap, dt_scale=None, skip=None
-                           ) -> WindowMarchResults:
+                           s_cap, dt_scale=None, skip=None, count=None,
+                           out=None) -> WindowMarchResults:
     """:func:`march_rays_window` of the frame's rows ``alive`` (int64,
     distinct rows), in place: row r marches row ``alive[r]`` of ``rays_o``,
     ``rays_d``, ``t_start``, ``t2`` and ``cursor`` (the frame's arrays), and
     its new cursor is written into ``cursor[alive[r]]``. Returns the
     results of the rows (their new cursors in ``cursor`` too).
 
+    ``count``: None, or a (1,) int64 alive count on the rays' device (the
+    serving rounds' capacity buffers): only the rows before it march; the
+    rows at or past it read nothing of the frame (their ``alive`` entries
+    may be anything), leave its cursor alone and come back as an empty ray
+    at cursor 0 would (:func:`march_rays_window_plain`'s ``count``).
+    ``out``: a :class:`WindowMarchResults` of contiguous tensors of the
+    results' shapes to write them into (static buffers), else new ones.
+
     CUDA tensors run csrc/raymarch.cu's ``march_window`` kernel, which
     reads and writes the frame's arrays through ``alive`` (no gather, no
-    scatter) and, with ``skip`` (a :class:`WindowSkip`), tests only the
-    strata its stage-A grid cannot prove empty; bit for bit
-    :func:`march_rays_window_plain` of the gathered rows with or without
-    it (its samples recomputed differentiably where autograd records a
-    function of the rays or ``t_start``, as in :func:`march_rays_train`).
-    CPU tensors gather the rows, run :func:`march_rays_window_plain` and
-    scatter the cursor.
+    scatter), reads the count on the device and, with ``skip`` (a
+    :class:`WindowSkip`), tests only the strata its stage-A grid cannot
+    prove empty; bit for bit :func:`march_rays_window_plain` of the
+    gathered rows with or without it (its samples recomputed
+    differentiably where autograd records a function of the rays or
+    ``t_start``, as in :func:`march_rays_train`). CPU tensors gather the
+    rows before the count, run :func:`march_rays_window_plain` and scatter
+    the cursor.
     """
     if dt_scale is None:
         dt_scale = scale
     if _device_type(rays_o) == "cpu":
+        rows = alive
+        if count is not None:
+            rows = alive[:_rows_before(count, alive.shape[0])]
         mr = march_rays_window_plain(
-            rays_o[alive], rays_d[alive], t_start[alive], t2[alive],
-            cursor[alive], density_bitfield, cascades, scale,
+            rays_o[rows], rays_d[rows], t_start[rows], t2[rows],
+            cursor[rows], density_bitfield, cascades, scale,
             exp_step_factor, grid_size, max_samples, n_window, s_cap,
             dt_scale)
-        cursor[alive] = mr.cursor
+        cursor[rows] = mr.cursor
+        if count is not None:
+            mr = _empty_rows(mr, alive.shape[0], n_window)
+        if out is not None:
+            for t, v in zip(out, mr):
+                t.copy_(v)
+            mr = out
         return mr
     mr = _launch_window(rays_o, rays_d, t_start, t2, cursor, alive,
                         density_bitfield, cascades, scale, exp_step_factor,
                         grid_size, max_samples, n_window, s_cap, dt_scale,
-                        skip)
+                        skip, count, out)
     if _needs_grad(rays_o, rays_d, t_start):
         ts, deltas, xyzs = _samples_at(
             rays_o[alive], rays_d[alive], t_start[alive], mr.k_idx, mr.mask,

@@ -93,8 +93,9 @@ from .datasets.ray_utils import axisangle_to_R, get_rays
 from .device import no_tf32, resolve_device
 from .losses import NeRFLoss
 from .models.ngp import NGP, NGPConfig, OccupancyState
-from .models.rendering import (MAX_SAMPLES, RenderConfig, render_test,
-                               render_train)
+from .models.rendering import (MAX_SAMPLES, RenderConfig, capture_graph,
+                               render_test, render_train, replay_graph,
+                               side_stream_run)
 from .ops.ray_march import twolevel_stratum
 from .opt import TPU_ONLY, get_opts
 from .parallel import dist as pdist
@@ -738,16 +739,6 @@ class NeRFSystem:
         return out
 
 
-def launch_counters():
-    """The hand kernels' wrappers, each with its ``launches`` count."""
-    from .ops import composite, hashgrid, hatmul, linetable, ray_march
-    return (hatmul.hat_prod, hatmul.hat_prod_bwd, hashgrid.hashgrid_encode,
-            hashgrid.hashgrid_bwd, ray_march.march_rays_train,
-            ray_march.march_rays_window, composite.composite_train,
-            composite.composite_train_bwd, composite.composite_test_step,
-            linetable.table_lerp, linetable.hat_basis_dw)
-
-
 class FusedRunner:
     """The JAX ``make_fused_train_fn`` (``mfnerf_tpu/train.py:321-457``) on
     the card: a training step (:meth:`NeRFSystem._device_step` on the
@@ -850,34 +841,18 @@ class FusedRunner:
 
     def _side(self, fn):
         """``fn()`` eagerly on the side stream."""
-        cur = torch.cuda.current_stream(self.system.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = fn()
-        cur.wait_stream(self.stream)
-        return out
+        return side_stream_run(self.stream, fn, self.system.device)
 
     def _capture(self, fn):
         """(graph, fn's output inside it) of ``fn`` captured on the side
         stream; the launch counts its capture recorded are kept for the
         replays and taken off the wrappers' counts."""
-        counters = launch_counters()
-        before = [f.launches for f in counters]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.system.generator)
-        with torch.cuda.graph(graph, stream=self.stream):
-            out = fn()
-        self.launches[graph] = {f: f.launches - n
-                                for f, n in zip(counters, before)
-                                if f.launches != n}
-        for f, n in zip(counters, before):
-            f.launches = n
+        graph, out, self.launches[graph] = capture_graph(
+            fn, self.stream, self.system.generator)
         return graph, out
 
     def _replay(self, graph):
-        graph.replay()
-        for f, n in self.launches[graph].items():
-            f.launches += n
+        replay_graph(graph, self.launches[graph])
 
     def refresh(self):
         """The occupancy refresh of the system's next parity."""

@@ -503,11 +503,12 @@ def captured_frame(model, occ, rays, rcfg):
     import chip_smoke
     from mfnerf_tpu_torch.models import rendering
     with torch.no_grad(), chip_smoke.capturing_marches() as captured:
-        rendering.render_test(model, occ, *rays, rcfg)
+        rendering.render_test(model, occ, *rays, rcfg, graphs=False)
     args = [c[1] for c in captured]
-    return dict(t_start=args[0][2].cpu(), t2=args[0][3].cpu(), rounds=[
-        dict(alive=a[5].cpu(), cursor=a[4].cpu(), window=a[12],
-             s_cap=a[13]) for a in args])
+    n = rays[0].shape[0]      # the frame's rays (its arrays end in a sentinel)
+    return dict(t_start=args[0][2][:n].cpu(), t2=args[0][3][:n].cpu(),
+                rounds=[dict(alive=a[5].cpu(), cursor=a[4][:n].cpu(),
+                             window=a[12], s_cap=a[13]) for a in args])
 
 
 def field_state(model, occ, rays, rcfg):
