@@ -208,10 +208,16 @@ Phases (one line each; any failure ends the run with a non-zero exit):
    as a subprocess, whose test PSNR must equal the in-process one within
    CLI_PSNR_TOL;
 22. cli_ext: main --optimize_ext --pose_lr 2e-3 (EXT_ARGS) on the cli's
-   scene written with perturbed training poses (perturb_poses): the
-   gauge-corrected camera-centre error before and after, ms/step, the hat
-   backward's launches (each asking for du) and phase 7's checks and times
-   on one such step's operands, du on, beside its bound;
+   scene written with perturbed training poses (perturb_poses), its steps
+   served by the fused runner (fit's line says CUDA graphs): the
+   gauge-corrected camera-centre error before and after (it must fall
+   below EXT_ERR_SHARE of the perturbed error), ms/step, test PSNR, the
+   hat backward's launches (each asking for du) and phase 7's checks and
+   times on one such step's operands, du on, beside its bound; then phase
+   38's checks on the trained system ("fused", config cli_ext: 48 steps
+   eager against graphed bit for bit, dR, dT and their Adam state
+   included; a refresh and a step under sync-debug "error"; eager and
+   graphed chunks in turns, device idle);
 23. cli_hdr: main --use_exposure (HDR_ARGS) on a 400x400 scene written in
    HDR-NeRF's synthetic layout (write_hdr_scene): load seconds, ms/step,
    test PSNR at each test exposure and the unit-exposure rgb; the fused
@@ -272,12 +278,18 @@ Phases (one line each; any failure ends the run with a non-zero exit):
 29. dp_one: bench.py's configuration (DP_HP) through the data-parallel
    path (parallel/dist.py) in a process group of one rank on NCCL, 20
    steps from step 0 and 20 from step 600 (the flat budget), against the
-   same steps without a group: parameters, bitfield and metrics bit for
-   bit, and both ms/step;
+   same steps without a group, both served by the fused runner (the
+   group's line says CUDA graphs in an NCCL group): parameters, bitfield
+   and metrics bit for bit, and both ms/step; then in the group 48 steps
+   eager against graphed bit for bit, the step captured anew with its
+   collectives under sync-debug "error", eager and graphed chunks in
+   turns and device idle. One rank proves the capture, not the traffic
+   between cards;
 30. dp_two: two ranks spawned on the one card (gloo, a test-only device
-   list), for DP_HP and for the MixedFeature recipe with the sampled
-   corner (DP_MF_HP), against one rank in this process: 48 steps from
-   step 0 (the first step's gradients within DP_GRAD_TOL; the ranks
+   list; the ranks' fit says the fused runner is off, gloo's collectives
+   cannot be captured), for DP_HP and for the MixedFeature recipe with the
+   sampled corner (DP_MF_HP), against one rank in this process: 48 steps
+   from step 0 (the first step's gradients within DP_GRAD_TOL; the ranks
    bitwise equal to each other at each checkpoint, the distance to one
    rank reported) and 16 steps from step 600 whose flat cut falls inside
    rank 0 (tests/test_multichip.py's rule), with the count of such steps;
@@ -470,6 +482,9 @@ EXT_CUTS = ("a procedural scene with perturbed training poses (no real "
 EXT_PERTURB = 0.03
 EXT_ARGS = (*CLI_ARGS, "--exp_name", "ext", "--optimize_ext", "--pose_lr",
             "2e-3")
+# the refined centres' error must fall below this share of the perturbed
+# ones' (tests/test_flag_paths.py:216, the JAX package's test)
+EXT_ERR_SHARE = 0.9
 # the host JPEG decoder (built with the kernels by the host compiler) and
 # its fixtures: PIL-written files, each beside PIL's decode as a PNG
 JPEG_SRC = "mfnerf_tpu_torch/csrc/jpeg.cpp"
@@ -517,6 +532,9 @@ DP_CHECKPOINTS = (1, 2, 4, 8, 16, 32, DP_TWO_STEPS)
 DP_GRAD_TOL = 1e-3
 DP_LARGE = ("hash_table",)        # kept at the first and last checkpoint
 DP_DEVICES = ("cuda:0", "cuda:0")  # two ranks share the card (gloo)
+# what the gloo ranks' fit must print: their steps run one at a time
+DP_GLOO_OFF = ("off (inside a gloo process group: gloo collectives cannot "
+               "be captured)")
 DP_TIMEOUT = 300                   # seconds for the two ranks' spawn
 # tests/test_multichip.py:80-95: the loss, then each parameter's elements
 DP_LOSS_TOL, DP_ELEM_ATOL, DP_ELEM_RTOL = 1e-4, 1e-4, 5e-4
@@ -2686,13 +2704,17 @@ def train_steps(system, read_launches):
 
 
 def state_tensors(system):
-    """What a training step changes, by name: the system's own parameter,
-    Adam state and occupancy tensors (those the fused runner's graphs
-    read)."""
+    """What a training step changes, by name: the system's own parameter
+    (with ``--optimize_ext``'s ``dR`` and ``dT``), Adam state and occupancy
+    tensors (those the fused runner's graphs read)."""
     out = {}
-    for name, p in system.model.named_parameters():
-        out[f"param/{name}"] = p
-        out.update({f"adam/{name}/{k}": v
+    named = [(f"param/{name}", f"adam/{name}", p)
+             for name, p in system.model.named_parameters()]
+    named += [(f"ext/{name}", f"adam/ext/{name}", p)
+              for name, p in system.ext.items()]
+    for key, adam, p in named:
+        out[key] = p
+        out.update({f"{adam}/{k}": v
                     for k, v in system.optimizer.state[p].items()})
     out.update({f"occ/{name}": getattr(system.occ, name)
                 for name in OCC_TENSORS
@@ -2880,12 +2902,13 @@ def fused_phase(label, system, module, seed):
     return fields
 
 
-def fused_log(log):
+def fused_log(log, served="CUDA graphs"):
     """The fused runner's line that ``fit`` printed in ``log`` (its rule's
-    decision), checked to serve the steps with CUDA graphs."""
+    decision), checked to hold ``served`` (default: the steps served with
+    CUDA graphs)."""
     line = re.findall(r"^fused runner: .*$", log, re.M)
-    check(len(line) == 1 and "CUDA graphs" in line[0],
-          f"the fused runner's log: {line}")
+    check(len(line) == 1 and served in line[0],
+          f"the fused runner's log: {line}, not {served!r}")
     return line[0]
 
 
@@ -3099,10 +3122,15 @@ def dp_rank(rank, device, recipes):
     out = {}
     for label, hp in recipes:
         cuts = []
-        runs = dp_runs(hp, datasets, device, cuts)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            runs = dp_runs(hp, datasets, device, cuts)
+        print(log.getvalue(), end="", flush=True)
         system = runs["late"][0]
         run = dict(cuts=cuts, shard=(system.shard.lo, system.shard.hi),
-                   s_flat=system.rcfg.s_flat, n_global=system.shard.n_global)
+                   s_flat=system.rcfg.s_flat, n_global=system.shard.n_global,
+                   fused_runner=re.findall(r"^fused runner: .*$",
+                                           log.getvalue(), re.M))
         for when, (sys_, metrics, ms, states, grads) in runs.items():
             run[when] = dict(metrics=metrics, ms_per_step=ms,
                              digests=[digest(st) for _, st in states])
@@ -3137,9 +3165,13 @@ def dp_rank(rank, device, recipes):
 def dp_one(datasets, dev):
     """Phase 29: DP_HP through the distributed path at W = 1 (a process
     group of one rank on NCCL): DP_STEPS from step 0 and DP_STEPS from
-    DP_LATE, against the same steps without a group. Parameters, bitfield
-    and metrics must be equal bit for bit (an all-reduce of one rank,
-    divided by 1). Returns the phase's fields."""
+    DP_LATE, against the same steps without a group, both through the
+    fused runner (each fit's line must say CUDA graphs; the group's, on
+    NCCL). Parameters, bitfield and metrics must be equal bit for bit (an
+    all-reduce of one rank, divided by 1). Then chunks of FUSED_CHUNK
+    graphed steps of the system without a group, timed, and
+    :func:`fused_group` on the group's system. Returns the phase's
+    fields."""
     from mfnerf_tpu_torch.parallel import dist as pdist
     runs = {}
     for label in ("plain", "dp"):
@@ -3147,25 +3179,41 @@ def dp_one(datasets, dev):
             pdist.init(0, 1, dev, "nccl",
                        f"tcp://127.0.0.1:{pdist.free_port()}")
         try:
-            system = start_system(DP_HP, datasets, dev)
-            check((system.shard is not None) == (label == "dp"),
-                  f"{label}: shard {system.shard}")
-            metrics, ms = [], []
-            for start in (0, DP_LATE):
-                if start:
-                    system.set_step(start)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                metrics.append(system.fit(DP_STEPS))
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                system = start_system(DP_HP, datasets, dev)
+                check((system.shard is not None) == (label == "dp"),
+                      f"{label}: shard {system.shard}")
+                metrics, ms = [], []
+                for start in (0, DP_LATE):
+                    if start:
+                        system.set_step(start)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics.append(system.fit(DP_STEPS))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
+            print(log.getvalue(), end="", flush=True)
+            line = fused_log(log.getvalue(), "CUDA graphs" if label == "plain"
+                             else "in an NCCL process group of 1 rank")
             state = state_of(system)
             state.update({f"metric_{k}": torch.cat([m[k] for m in metrics]
                                                    ).numpy()
                           for k in metrics[0]})
-            runs[label] = dict(digest=digest(state), ms=ms,
+            runs[label] = dict(digest=digest(state), ms=ms, fused_runner=line,
                                backend=(torch.distributed.get_backend()
                                         if label == "dp" else None))
+            if label == "dp":
+                runs["group"] = fused_group(system)
+            else:      # the same graphed steps' time without a group
+                runs["plain_graphed"] = []
+                for _ in range(FUSED_TURNS.count("T")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    system.fit(FUSED_CHUNK)
+                    torch.cuda.synchronize()
+                    runs["plain_graphed"].append(
+                        (time.perf_counter() - t0) * 1e3 / FUSED_CHUNK)
             del system
             torch.cuda.empty_cache()
         finally:
@@ -3178,8 +3226,91 @@ def dp_one(datasets, dev):
         world=1, backend=dp["backend"], steps=[DP_STEPS, DP_STEPS],
         starts=[0, DP_LATE], bitwise_equal=equal,
         plain_ms_per_step=plain["ms"], dp_ms_per_step=dp["ms"],
-        ms_ratio_dp_to_plain_late=dp["ms"][1] / plain["ms"][1])
+        ms_ratio_dp_to_plain_late=dp["ms"][1] / plain["ms"][1],
+        fused_runner={"plain": plain["fused_runner"],
+                      "dp": dp["fused_runner"]},
+        plain_graphed_ms_per_step=runs["plain_graphed"],
+        plain_graphed_ms_median=float(np.median(runs["plain_graphed"])),
+        group=runs["group"])
     return fields
+
+
+def fused_group(system):
+    """Phase 29's fused runner inside the one-rank NCCL group, on the
+    group's ``system`` (trained past FLAT_AFTER, the flat step captured
+    with its collectives): FUSED_STEPS run eagerly and then through the
+    graphs from one state, bit for bit (:func:`state_tensors` and every
+    step's metrics); the step captured anew with host syncs made errors
+    (``set_sync_debug_mode("error")`` inside the capture: the flat
+    budget's prefix, the gradients' all-reduce with the set the warm-up
+    steps found, the metrics' sums) and replayed; chunks of FUSED_CHUNK
+    synced steps eager (P) and graphed (T) in the turns FUSED_TURNS, and
+    FUSED_PROFILE steps of each under the profiler. Returns the fields."""
+    from mfnerf_tpu_torch.train import FLAT_AFTER, FUSED_WARMUP
+    runner = system.fused
+    check(system.global_step >= FLAT_AFTER and runner is not None
+          and runner.step_graph is not None,
+          "dp_one: fit did not capture the group's step past FLAT_AFTER")
+    step_launches = {f.__name__: n for f, n
+                     in runner.launches[runner.step_graph].items()}
+    start = train_state(system)
+    runs = {}
+    for kind, fit in (("eager", eager_fit), ("graphed",
+                                             lambda s, n: s.fit(n))):
+        load_train_state(system, start)
+        metrics = fit(system, FUSED_STEPS)
+        runs[kind] = dict(train_state(system)["tensors"], **{
+            f"metric/{k}": v for k, v in metrics.items()})
+    differ = [name for name, t in runs["eager"].items()
+              if not _bits_equal([t], [runs["graphed"][name]])]
+
+    step = system._device_step
+
+    def strict_step():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runner._drop_step()
+    runner.warm = FUSED_WARMUP        # the kind's warm-up steps ran above
+    system._device_step = strict_step
+    try:
+        runner.bind()
+        runner.step()                 # captures the step and replays it
+        torch.cuda.synchronize()
+        sync_free = runner.step_graph is not None
+    finally:
+        del system._device_step
+    system._next_lr()
+    system.global_step += 1
+
+    times = {"P": [], "T": []}
+    for kind in FUSED_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (eager_fit if kind == "P" else lambda s, n: s.fit(n))(
+            system, FUSED_CHUNK)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / FUSED_CHUNK)
+    graphed = device_profile(lambda: system.fit(FUSED_PROFILE),
+                             FUSED_PROFILE)
+    eager = device_profile(lambda: eager_fit(system, FUSED_PROFILE),
+                           FUSED_PROFILE)
+    check(not differ, f"dp_one: the group's replayed steps differ from its "
+          f"eager ones in {differ[:12]}")
+    return dict(
+        step_kind=runner.kind, steps_compared=FUSED_STEPS,
+        from_step=start["step"], bitwise_equal=not differ,
+        differing=differ[:12], tensors_compared=len(runs["eager"]),
+        sync_debug_error_mode_capture_ok=sync_free,
+        step_graph_launches=step_launches,
+        eager_ms_per_step=times["P"], graphed_ms_per_step=times["T"],
+        eager_ms_median=float(np.median(times["P"])),
+        graphed_ms_median=float(np.median(times["T"])),
+        speedup=float(np.median(times["P"]) / np.median(times["T"])),
+        graphed_profile=graphed, eager_profile=eager)
 
 
 def dp_two(datasets, dev):
@@ -3192,8 +3323,10 @@ def dp_two(datasets, dev):
     parameter's elements), the ranks bitwise equal to each other at every
     checkpoint, the late steps on which the flat cut fell inside rank 0;
     reported: the early run's distance to one rank at each checkpoint.
-    Then render_test_sharded against render_test on the early run's
-    field. Returns ({label: fields}, the render's fields, what failed)."""
+    The ranks' fit must print the fused runner's gloo refusal
+    (DP_GLOO_OFF). Then render_test_sharded against render_test on the
+    early run's field. Returns ({label: fields}, the render's fields, what
+    failed)."""
     from mfnerf_tpu_torch.parallel import dist as pdist
     recipes = [("LowRank", DP_HP), ("MixedFeature", DP_MF_HP)]
     t0 = time.perf_counter()
@@ -3210,7 +3343,12 @@ def dp_two(datasets, dev):
                     "DP_MF_HP (benchmark_synthetic_nerf_mf.sh:15-17, "
                     "--hash_grad_samples 1)"),
             world=2, devices=list(DP_DEVICES), backend="gloo",
-            shards=[r0["shard"], r1["shard"]], spawn_seconds=spawn_s)
+            shards=[r0["shard"], r1["shard"]], spawn_seconds=spawn_s,
+            fused_runner=r0["fused_runner"])
+        if not (r0["fused_runner"] and all(
+                DP_GLOO_OFF in line for line in r0["fused_runner"])):
+            failed.append(f"{label}: the gloo ranks' runner lines "
+                          f"{r0['fused_runner']}")
         for when, (system, metrics, ms, states, grads) in runs.items():
             two_run = r0[when]
             rows = []
@@ -4122,12 +4260,15 @@ def cli_hdr(dev, read_launches):
 def cli_ext(dev, read_launches):
     """``main --optimize_ext --pose_lr 2e-3`` on the cli's 800x800 scene
     written in the NSVF layout with its training poses perturbed
-    (``perturb_poses``, EXT_PERTURB) under the working directory: the
+    (``perturb_poses``, EXT_PERTURB) under the working directory, its
+    steps served by the fused runner (fit's line must say CUDA graphs): the
     gauge-corrected camera-centre error before and after (the refined
     centre is the perturbed one plus dT), ms/step, test PSNR, the hat
-    backward's launches and how many asked for du; then phase 7's checks
-    and times on one step's operands of the trained system, du on.
-    Returns the fields."""
+    backward's launches (every call, eager or captured, asked for du);
+    then phase 7's checks and times on one step's operands of the trained
+    system, du on, and :func:`fused_phase` on it (the --optimize_ext step,
+    dR, dT and their Adam state held bit for bit). Returns (the fields, the
+    fused phase's fields)."""
     from mfnerf_tpu_torch.ops import hatmul
     from mfnerf_tpu_torch.utils.procedural import (gauge_center_error,
                                                    make_scene, perturb_poses,
@@ -4141,27 +4282,33 @@ def cli_ext(dev, read_launches):
     with recording(hatmul, tensors=False) as calls:
         metrics, log, system, launches = run_main(
             ["--root_dir", root, *EXT_ARGS], dev, read_launches)
+    runner_line = fused_log(log)
     du_asked = sum(1 for args in calls if args[-1])
     centers = system.poses[:, :, 3].cpu().numpy()
     before = gauge_center_error(centers, true_centers)
     after = gauge_center_error(
         centers + system.ext["dT"].detach().cpu().numpy(), true_centers)
+    # the graphs' replays launch what their captured calls asked for
     check(du_asked == len(calls) > 0,
-          f"{du_asked} of {len(calls)} hat backward launches asked for du")
+          f"{du_asked} of {len(calls)} hat backward calls asked for du")
     captured = capture_bwd_operands(system, SEED + 50, hatmul)
     u3, w3, k, g, need_du = captured[0]
     check(need_du, "an --optimize_ext step's hat backward without du")
     bwd = check_bwd("train_du", u3, w3, k, g)
-    return dict(argv=list(EXT_ARGS), cuts=EXT_CUTS, perturb=EXT_PERTURB,
-                center_err_before=before, center_err_after=after,
-                ms_per_step=metrics["train/ms_per_step"],
-                test_psnr=metrics["test/psnr"], **launches,
-                hat_prod_bwd_du_launches=du_asked,
-                bwd_du={key: bwd[key] for key in (
-                    "n", "k", "r", "ms", "bound_ms", "bound_by",
-                    "share_of_bound", "ms_no_du", "bound_ms_no_du",
-                    "dw_bitwise_equal", "du_share_within_tol",
-                    "du_knot_max_abs")})
+    fields = dict(argv=list(EXT_ARGS), cuts=EXT_CUTS, perturb=EXT_PERTURB,
+                  center_err_before=before, center_err_after=after,
+                  center_err_share_max=EXT_ERR_SHARE,
+                  ms_per_step=metrics["train/ms_per_step"],
+                  test_psnr=metrics["test/psnr"], fused_runner=runner_line,
+                  **launches,
+                  hat_prod_bwd_du_launches=launches["hat_prod_bwd_launches"],
+                  hat_prod_bwd_du_calls=du_asked,
+                  bwd_du={key: bwd[key] for key in (
+                      "n", "k", "r", "ms", "bound_ms", "bound_by",
+                      "share_of_bound", "ms_no_du", "bound_ms_no_du",
+                      "dw_bitwise_equal", "du_share_within_tol",
+                      "du_knot_max_abs")})
+    return fields, fused_phase("cli_ext", system, hatmul, SEED + 102)
 
 
 def main():
@@ -4741,13 +4888,15 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            ext_run = cli_ext(dev, hat_launches)
+            ext_run, ext_fused = cli_ext(dev, hat_launches)
             phase("cli_ext", **ext_run, card=card)
-            check(ext_run["center_err_after"] < ext_run["center_err_before"]
+            check(ext_run["center_err_after"]
+                  < EXT_ERR_SHARE * ext_run["center_err_before"]
                   and ext_run["hat_prod_bwd_launches"] > 0,
                   f"--optimize_ext: centre error "
                   f"{ext_run['center_err_before']} -> "
                   f"{ext_run['center_err_after']}")
+            phase("fused", **ext_fused, card=card)
             torch.cuda.empty_cache()
             hdr_run = cli_hdr(dev, hat_launches)
             phase("cli_hdr", **hdr_run, card=card)

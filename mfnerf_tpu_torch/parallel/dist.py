@@ -12,7 +12,10 @@ process (a rank) with its own device, and the collectives are explicit:
   exclusive prefix of a per-rank count (the samples of the ranks before it,
   for the flat budget and the hash grids' gradient noise);
 * :func:`average_gradients`: one flat all-reduce a step of every gradient
-  the optimiser holds (a bucket per dtype), divided by the world size;
+  the optimiser holds (a bucket per dtype), divided by the world size; given
+  the set of parameters with a gradient that an earlier call returned, with
+  no host read, so that a CUDA graph can capture it (NCCL only: gloo's
+  collectives run on the host);
 * :func:`gather_rows` and :func:`allgather_ragged`: the renderer's rows and
   the validation metrics, each rank's part written into a zero-filled
   buffer and summed (``all_reduce`` alone, which gloo also takes for CUDA
@@ -25,6 +28,7 @@ gloo joins CPU ranks, and ranks that share a card (test device lists only).
 """
 import dataclasses
 import datetime
+import itertools
 import os
 import queue as queue_lib
 import socket
@@ -49,6 +53,11 @@ def world(group=None):
 def in_group():
     """True inside a process group, even of one rank."""
     return dist.is_available() and dist.is_initialized()
+
+
+def backend():
+    """The process group's backend ("nccl" or "gloo"), None outside one."""
+    return dist.get_backend() if in_group() else None
 
 
 def rank_devices(num, device=None, devices=None):
@@ -120,26 +129,57 @@ class Shard:
         return buf[:self.rank].sum(), buf.sum()
 
 
-def average_gradients(params):
+def average_gradients(params, present=None):
     """Replace each parameter's gradient by its mean over the ranks: one
     flat all-reduce a dtype (the parameters' gradients and a flag a
     parameter, so that one with no gradient on any rank keeps none),
     divided by the world size. Every rank passes the same parameters in the
-    same order."""
+    same order.
+
+    Returns ``present``: a tuple of a bool a parameter, whether it carries
+    a gradient, where every rank agrees on each (else None). The flags are
+    read back on the host to decide that. Given ``present`` (what an
+    earlier call returned for parameters whose gradients every rank holds
+    alike, as a training step of one kind does), nothing is read or copied
+    from the host: the flags are written on the device and ``present``
+    decides, so a CUDA graph can capture the call, and its gradients are
+    bit for bit what the call without it gives (the same buffer, reduced
+    alike). A rank whose gradients do not match ``present`` raises."""
+    params = list(params)
     _, size = world()
     by_dtype = {}
     for p in params:
         by_dtype.setdefault(p.dtype, []).append(p)
+    agreed = []
     for ps in by_dtype.values():
-        dev = ps[0].device
-        flags = torch.tensor([p.grad is not None for p in ps],
-                             dtype=ps[0].dtype).to(dev)
+        local = [p.grad is not None for p in ps]
+        if present is not None:
+            want = [present[i] for i, p in enumerate(params)
+                    if p.dtype == ps[0].dtype]
+            if local != want:
+                raise ValueError(
+                    f"this rank's gradients {local} are not the set "
+                    f"{want} that the step was captured with")
+        # the flags made on the device, a fill a run of ones: no copy from
+        # the host
+        flags = torch.zeros(len(ps), dtype=ps[0].dtype, device=ps[0].device)
+        lo = 0
+        for has, run in itertools.groupby(local):
+            hi = lo + len(list(run))
+            if has:
+                flags[lo:hi].fill_(1)
+            lo = hi
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1) for p in ps]
                          + [flags])
         dist.all_reduce(flat)
         flat.div_(size)
-        has_grad = (flat[flat.numel() - len(ps):] > 0).tolist()
+        if present is None:
+            share = flat[flat.numel() - len(ps):].tolist()
+            has_grad = [v > 0 for v in share]
+            agreed.append(all(v in (0.0, 1.0) for v in share))
+        else:
+            has_grad = want
         off = 0
         for i, p in enumerate(ps):
             n = p.numel()
@@ -149,6 +189,10 @@ def average_gradients(params):
                 else:
                     p.grad.copy_(flat[off:off + n].view_as(p))
             off += n
+    if present is not None:
+        return present
+    return tuple(p.grad is not None for p in params) if all(agreed) \
+        else None
 
 
 def all_sum(x, group=None):

@@ -41,11 +41,15 @@ The fused runner (the JAX ``make_fused_train_fn``): on the card, ``fit``
 replays CUDA graphs of the step and of the occupancy refresh (one a
 refresh parity) instead of launching each step's ~200-400 kernels from the
 host (:class:`FusedRunner`), as the JAX ``fit`` fuses every step
-(``mfnerf_tpu/train.py:492-525``: ``fused_warm`` before ``FLAT_AFTER``). A
-replayed step is bit for bit the same step run eagerly.
-:meth:`NeRFSystem.fused_ok` is the rule: on a CUDA device, outside a
-process group and without ``--optimize_ext`` it serves every step;
-otherwise every step runs one at a time (:meth:`NeRFSystem.train_step`).
+(``mfnerf_tpu/train.py:480-525``: ``fused_warm`` before ``FLAT_AFTER``; its
+``mesh`` branch with the gradients' all-reduce inside, its
+``optimize_ext`` branch with the poses refined inside). A replayed step is
+bit for bit the same step run eagerly. :meth:`NeRFSystem.fused_ok` is the
+rule: on a CUDA device, outside a process group or inside an NCCL one
+(one card a rank), with or without ``--optimize_ext``, it serves every
+step; on the CPU and in a gloo group (whose collectives run on the host
+and cannot be captured) every step runs one at a time
+(:meth:`NeRFSystem.train_step`).
 
 ``--use_exposure`` (HDR-NeRF) trains the log-radiance head with its
 tonemappers at each ray's exposure (the rays' 4th column), adds the
@@ -337,6 +341,9 @@ class NeRFSystem:
         self.n_refresh = 0
         self.culled = False
         self.fused = None           # the FusedRunner, once fit needs it
+        # step kind -> the parameters with a gradient on every rank, as an
+        # eager step's all-reduce found them (average_gradients)
+        self.grad_sets = {}
 
     def init_model(self, seed=0):
         """The field drawn from ``seed`` and an empty occupancy state, with
@@ -515,29 +522,56 @@ class NeRFSystem:
 
     def average_gradients(self):
         """Average every gradient the optimiser holds (the field's, and
-        ``dR``/``dT`` under ``--optimize_ext``) over the ranks."""
-        pdist.average_gradients([p for group in self.optimizer.param_groups
-                                 for p in group["params"]])
+        ``dR``/``dT`` under ``--optimize_ext``) over the ranks. An eager
+        call reads on the host which parameters carry a gradient (the
+        flags of ``parallel/dist.py::average_gradients``) and keeps that set
+        for the step's kind (:meth:`step_kind`; within a kind it is fixed:
+        the capacity layout gives every field parameter a gradient, on a
+        rank with no valid sample too), or None where the ranks disagree. A
+        call inside a CUDA graph's capture (the fused runner's, after its
+        eager warm-up steps of the kind) takes the kept set and reads
+        nothing; without one it raises."""
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
+        kind = self.step_kind()
+        if not _capturing(self.device):
+            self.grad_sets[kind] = pdist.average_gradients(params)
+            return
+        present = self.grad_sets.get(kind)
+        if present is None:
+            raise RuntimeError(
+                f"the {kind} step's gradient all-reduce cannot be captured: "
+                f"no eager step of its kind found one set of parameters "
+                f"with a gradient on every rank")
+        pdist.average_gradients(params, present)
 
     def fused_ok(self):
         """Whether the fused runner serves the next step (the rule, logged
-        once): the device is CUDA, there is no process group and
-        ``--optimize_ext`` is not set. It then serves every step, of both
-        kinds (:meth:`step_kind`): the padded step from step 0, on
-        multi-cascade scenes (``s_flat`` 0) to the end, and from
-        ``FLAT_AFTER`` the flat one where ``s_flat`` > 0; with or without
-        ``--use_exposure`` and ``--random_bg``. Otherwise every step runs
-        one at a time."""
+        once): the device is CUDA and there is no process group, or its
+        backend is NCCL (every rank on a card of its own:
+        ``parallel/dist.py::backend_for``), whose collectives a CUDA graph
+        captures. It then serves every step, of both kinds
+        (:meth:`step_kind`): the padded step from step 0, on multi-cascade
+        scenes (``s_flat`` 0) to the end, and from ``FLAT_AFTER`` the flat
+        one where ``s_flat`` > 0; with or without ``--optimize_ext``,
+        ``--use_exposure`` and ``--random_bg``. On the CPU and in a gloo
+        group (CPU ranks, and ranks that share a card) every step runs one
+        at a time."""
+        backend = pdist.backend()
         why = ("not on a CUDA device" if self.device.type != "cuda"
-               else "inside a process group" if pdist.in_group()
-               else "--optimize_ext" if self.hparams.optimize_ext else None)
+               else f"inside a {backend} process group: {backend} "
+               f"collectives cannot be captured"
+               if backend not in (None, "nccl") else None)
         if not self._fused_logged and self.rank == 0:
             kinds = (f"the padded step from step 0, the flat step from "
                      f"step {FLAT_AFTER}" if self.rcfg.s_flat
                      else "the padded step (s_flat 0) from step 0 to the "
                      "end")
-            how = (f"CUDA graphs of {kinds} and of the refresh" if why is None
-                   else f"off ({why}), one step at a time")
+            group = (f", in an NCCL process group of {self.world} rank"
+                     f"{'s' if self.world > 1 else ''}"
+                     if backend == "nccl" else "")
+            how = (f"CUDA graphs of {kinds} and of the refresh{group}"
+                   if why is None else f"off ({why}), one step at a time")
             print(f"fused runner: {how}", flush=True)
         self._fused_logged = True
         return why is None
@@ -773,7 +807,29 @@ class FusedRunner:
     to the wrappers' ``launches``, so that they read as an eager run's.
     A capture that fails, or meets a host sync, raises: so does one made
     while a caller still holds the autograd graph of an eager step on the
-    default stream (its gradient accumulators keep that stream)."""
+    default stream (its gradient accumulators keep that stream).
+
+    Under ``--optimize_ext`` the graphs read and write ``dR``, ``dT`` and
+    their Adam group too (:meth:`bind` checks them): the poses' float64
+    refinement, the march's differentiable recomputation of the samples,
+    the gathers' backward and the encoders' point gradients are captured
+    with the step. Inside an NCCL process group (one card a rank) the
+    step's collectives are captured with it: the flat budget's prefix
+    (``Shard.prefix``), the gradients' all-reduce (with the set of
+    parameters that carry a gradient, which the kind's eager warm-up steps
+    found on every rank: :meth:`NeRFSystem.average_gradients`) and the
+    metrics' sums. What this build (PyTorch 2.11 with CUDA 12.8 and NCCL
+    2.28) needs for it, as ``tools/nccl_capture_probe.py`` found on an
+    H100: the communicator must exist before the first capture (the
+    kind's warm-up steps make it, their collectives run on the side
+    stream where the capture then runs; an all-reduce captured with no
+    communicator yet invalidates the capture); NCCL runs each collective on
+    a stream of its own, which the capture joins to the side stream by
+    events; and nothing else: the process group's watchdog thread, which
+    polls the warm-up steps' collectives, left every capture in the
+    default mode intact. No environment variable is set. A gloo group's
+    collectives run on the host and cannot be captured
+    (:meth:`NeRFSystem.fused_ok`)."""
 
     def __init__(self, system):
         # a proxy: the system owns the runner, and a deleted system frees
@@ -803,15 +859,18 @@ class FusedRunner:
 
     def _tensors(self):
         """The data pointers of every tensor the graphs read but the
-        occupancy: parameters, Adam state, staged rays, learning rate."""
+        occupancy: parameters (with ``--optimize_ext``'s ``dR`` and
+        ``dT``), their Adam state, staged rays, the network's learning
+        rate."""
         s = self.system
-        state = [t for p in s.model.parameters()
+        params = [*s.model.parameters(), *s.ext.values()]
+        state = [t for p in params
                  for t in s.optimizer.state.get(p, {}).values()
                  if torch.is_tensor(t)]
         lr = s.optimizer.param_groups[0]["lr"]
         return tuple(t.data_ptr() for t in (
-            *s.model.parameters(), *state, s.rays, s.directions, s.poses,
-            lr) if torch.is_tensor(t))
+            *params, *state, s.rays, s.directions, s.poses, lr)
+            if torch.is_tensor(t))
 
     def bind(self):
         """Before replays: capture anew if a tensor the graphs read was
@@ -885,6 +944,12 @@ class FusedRunner:
             self.tensors = self._tensors()
         self._replay(self.step_graph)
         return self.metrics
+
+
+def _capturing(device):
+    """Whether a CUDA graph is being captured on ``device``'s current
+    stream."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def profile(system, trace_dir):

@@ -3,6 +3,7 @@
 one a rank, joined in a gloo group on the CPU. This module imports torch,
 numpy and the port only, so that a rank starts without JAX."""
 import argparse
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -118,11 +119,127 @@ def trainer_step(rank, device, hp, state, bits, train, img, pix, noise,
         *(sh.take(torch.from_numpy(a)) for a in (img, pix, noise)))
     system.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    local = [p.grad.clone() for p in system.model.parameters()]
     system.average_gradients()
     mean = pdist.all_sum(loss.detach().double()) / sh.world
     return (float(mean), {k: p.grad.numpy() for k, p
                           in system.model.named_parameters()},
-            int(res["rm_samples"]), int(res["mask"].sum()))
+            int(res["rm_samples"]), int(res["mask"].sum()),
+            capture_safe_average(rank, list(system.model.parameters()),
+                                 local))
+
+
+def capture_safe_average(rank, params, local):
+    """``average_gradients`` given ``present`` (the capture-safe call)
+    against the call that reads the flags, from the same local gradients
+    ``local`` of ``params`` and a parameter with no gradient on any rank:
+    (the set the flags gave, whether the two calls' gradients are equal
+    bit for bit and the gradient-free parameter kept none in both, what a
+    parameter with a gradient on rank 0 alone gave: the flags' set and its
+    gradient on this rank)."""
+    none = torch.nn.Parameter(torch.zeros(3))
+
+    def averaged(present=None):
+        for p, g in zip(params, local):
+            p.grad = g.clone()
+        found = pdist.average_gradients(params + [none], present)
+        return found, [p.grad.clone() for p in params]
+
+    found, eager = averaged()
+    again, safe = averaged(found)
+    equal = again == found and none.grad is None and all(
+        torch.equal(a, b) for a, b in zip(eager, safe))
+    half = torch.nn.Parameter(torch.zeros(2))
+    if rank == 0:
+        half.grad = torch.tensor([2.0, -4.0])
+    half_set = pdist.average_gradients([half])
+    return found, equal, half_set, half.grad.numpy()
+
+
+class StandInGraph:
+    """A CUDA graph's stand-in on the CPU: the capture records the
+    function and runs nothing; each replay runs it as inside a capture
+    (``train._capturing`` answering yes, so the gradients' all-reduce takes
+    the set that the warm-up steps found) and writes its output into the
+    static output the capture returned."""
+
+    def __init__(self, fn, capturing):
+        self.fn, self.capturing = fn, capturing
+        self.out = torch.empty(len(ttrain.METRICS))
+
+    def replay(self):
+        self.capturing[0] = True
+        try:
+            out = self.fn()
+        finally:
+            self.capturing[0] = False
+        if out is not None:
+            self.out.copy_(out)
+
+    def reset(self):
+        self.fn = None
+
+
+def runner_against_eager(rank, device, hp):
+    """The trainer of ``hp`` (``--s_flat`` > 0) from step 0, two steps,
+    then eleven from FLAT_AFTER - 5 (each step kind's warm-up, capture and
+    replays), eagerly and through the fused runner with
+    :class:`StandInGraph` graphs (its rule answering yes, the side stream
+    a no-op), on this rank: (the names of what differs between the two,
+    metrics, parameters, Adam state and bitfield; the all-reduces given a
+    set; the step kinds the runner captured)."""
+    torch.set_num_threads(1)
+
+    def history(system):
+        out = [system.fit(2)]
+        system.set_step(ttrain.FLAT_AFTER - 5)
+        return out + [system.fit(11)]
+
+    eager = multichip_system(hp, device)
+    want = history(eager)
+    capturing, kinds, given = [False], [], []
+    average = pdist.average_gradients
+
+    def counted(params, present=None):
+        given.append(present is not None)
+        return average(params, present)
+
+    def capture(runner, fn):
+        if getattr(fn, "__func__", None) is ttrain.NeRFSystem._device_step:
+            kinds.append(runner.kind)
+        graph = StandInGraph(fn, capturing)
+        runner.launches[graph] = {}
+        return graph, graph.out
+
+    stream = type("Stream", (), {"wait_stream": lambda self, other: None})()
+    patches = [(torch.cuda, "Stream", lambda device=None: stream),
+               (torch.cuda, "current_stream", lambda device=None: stream),
+               (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
+               (ttrain.FusedRunner, "_capture", capture),
+               (ttrain.NeRFSystem, "fused_ok", lambda self: True),
+               (ttrain, "_capturing", lambda device: capturing[0]),
+               (pdist, "average_gradients", counted)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        system = multichip_system(hp, device)
+        got = history(system)
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    differ = [f"metric/{k}" for w, g in zip(want, got) for k in w
+              if not torch.equal(w[k], g[k])]
+    differ += [k for (k, a), b in zip(eager.model.state_dict().items(),
+                                      system.model.state_dict().values())
+               if not torch.equal(a, b)]
+    for pa, pb in zip(eager.model.parameters(), system.model.parameters()):
+        differ += [f"adam/{k}" for k, v in eager.optimizer.state[pa].items()
+                   if not torch.equal(v, system.optimizer.state[pb][k])]
+    if not torch.equal(eager.occ.density_bitfield,
+                       system.occ.density_bitfield):
+        differ.append("density_bitfield")
+    return differ, sum(given), kinds
 
 
 def ragged(rank, device, lists, n_max):

@@ -194,7 +194,10 @@ def test_two_rank_step_matches_jax_step(flat):
     chosen so that the flat budget's cut, the batch's first N * s_flat
     samples in ray order, falls inside rank 0. A rank that cut its own
     shard at (N / 2) * s_flat, or counted from its own first sample, would
-    keep other samples and take other gradients."""
+    keep other samples and take other gradients. On the same gradients the
+    ranks' capture-safe all-reduce (``average_gradients`` given the set the
+    flags found) equals the one that reads the flags bit for bit
+    (``dp_workers.capture_safe_average``)."""
     bits, poses, dirs, images, img, pix, noise = _trainer_batch()
     flags = "flat" if flat else ""
     cfg = dict(SMALL, grid="LowRank", lr_fused=False, max_samples=256)
@@ -251,8 +254,18 @@ def test_two_rank_step_matches_jax_step(flat):
     ranks = _spawn(dp_workers.trainer_step, 2, hp, state, bits, arrays,
                    np.asarray(img), np.asarray(pix),
                    np.asarray(noise, np.float32), step)
-    (loss0, grads0, marched0, kept0), (loss1, grads1, marched1, kept1) = ranks
+    (loss0, grads0, marched0, kept0, safe0), \
+        (loss1, grads1, marched1, kept1, safe1) = ranks
     assert loss0 == loss1
+    # the capture-safe all-reduce: every field parameter carries a gradient
+    # on both ranks (rank 1 with no kept sample too), one with none on any
+    # rank keeps none, bit for bit the call that reads the flags; a
+    # gradient on rank 0 alone is averaged, and no set is agreed
+    n_params = len(grads0)
+    for found, equal, half_set, half_grad in (safe0, safe1):
+        assert found == (True,) * n_params + (False,) and equal
+        assert half_set is None
+        np.testing.assert_array_equal(half_grad, [1.0, -2.0])
     for k in grads0:
         np.testing.assert_array_equal(grads0[k], grads1[k], err_msg=k)
     if flat:   # the cut inside rank 0: rank 1 keeps nothing
@@ -273,6 +286,32 @@ def _jax_rcfg(rcfg_t):
     return jrendering.RenderConfig(**{
         f.name: getattr(rcfg_t, f.name)
         for f in dataclasses.fields(trendering.RenderConfig)})
+
+
+def test_fused_runner_on_two_ranks_matches_eager():
+    """The fused runner's control flow with its collectives on two gloo
+    ranks (its rule monkeypatched to serve: gloo cannot be captured, so
+    CUDA graphs are replaced by stand-ins that run the captured step again
+    on each replay, as inside a capture: the gradients' all-reduce given
+    the set of parameters the warm-up steps found on both ranks), from
+    step 0 and across FLAT_AFTER (the flat budget's prefix across ranks):
+    on each rank bit for bit the same steps run eagerly, in metrics,
+    parameters, Adam state and bitfield; five replays took the set."""
+    hp = dp_workers.multichip_hparams(s_flat=4)
+    for differ, given, kinds in _spawn(dp_workers.runner_against_eager, 2,
+                                       hp):
+        assert differ == []
+        assert given == 5 and kinds == ["padded", "flat"]
+
+
+def test_average_gradients_refuses_another_set():
+    """The capture-safe all-reduce raises where this rank's gradients are
+    not the set it was given (before any collective: no process group
+    here)."""
+    p = torch.nn.Parameter(torch.zeros(2))
+    p.grad = torch.ones(2)
+    with pytest.raises(ValueError, match="not the set"):
+        pdist.average_gradients([p], (False,))
 
 
 def test_allgather_ragged_on_three_ranks():

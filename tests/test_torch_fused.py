@@ -414,36 +414,43 @@ def _fused_system(exposures=False, **kw):
 
 
 @pytest.mark.parametrize("rule", ["served", "warm-up", "cpu", "group",
-                                  "s_flat0", "ext", "exposure"])
+                                  "group-nccl", "s_flat0", "ext",
+                                  "exposure"])
 def test_fused_ok_rule(rule, capsys, monkeypatch):
-    """The fused runner serves every step on CUDA, outside a process group,
-    without --optimize_ext: the padded step from step 0 ("warm-up") and the
-    flat one from FLAT_AFTER ("served"), multi-cascade
-    scenes' padded step to the end ("s_flat0"), and --use_exposure's
-    steps; not on the CPU, in a process group or with --optimize_ext,
-    each logged with its reason. The decision is printed once."""
+    """The fused runner serves every step on CUDA, outside a process group
+    or inside an NCCL one ("group-nccl", one card a rank), with or without
+    --optimize_ext ("ext"): the padded step from step 0 ("warm-up") and
+    the flat one from FLAT_AFTER ("served"), multi-cascade scenes' padded
+    step to the end ("s_flat0"), and --use_exposure's steps; not on the
+    CPU or in a gloo process group ("group"), each logged with its reason.
+    The decision is printed once."""
     system = _fused_system()
     system.global_step = ttrain.FLAT_AFTER
     if rule != "cpu":      # the rule reads the device type alone
         system.device = torch.device("cuda", 0)
     if rule == "warm-up":
         system.global_step = 0
-    elif rule == "group":
+    elif rule in ("group", "group-nccl"):
         monkeypatch.setattr(pdist, "in_group", lambda group=None: True)
+        monkeypatch.setattr(pdist, "backend", lambda: "gloo"
+                            if rule == "group" else "nccl")
     elif rule == "s_flat0":
         system.rcfg = dataclasses.replace(system.rcfg, s_flat=0)
     elif rule == "ext":
         system.hparams.optimize_ext = True
     elif rule == "exposure":
         system.use_exposure = True
-    served = rule in ("served", "warm-up", "s_flat0", "exposure")
+    served = rule not in ("cpu", "group")
     assert [system.fused_ok() for _ in range(2)] == [served] * 2
     out = capsys.readouterr().out
     assert out.count("fused runner") == 1
     assert ("CUDA graphs" in out) == served
-    why = {"cpu": "not on a CUDA device", "group": "inside a process group",
-           "ext": "--optimize_ext"}
+    why = {"cpu": "not on a CUDA device",
+           "group": "inside a gloo process group: gloo collectives cannot "
+                    "be captured"}
     assert (f"off ({why[rule]})" in out) if rule in why else "off" not in out
+    assert ("in an NCCL process group of 1 rank" in out) == \
+        (rule == "group-nccl")
     if served:
         assert "padded step from step 0" in out if rule != "s_flat0" \
             else "padded step (s_flat 0) from step 0 to the end" in out
@@ -524,27 +531,44 @@ def _fit_history(system):
     return [system.fit(7), system.fit(17), system.fit(23)]
 
 
+def _adam_states_equal(a, b):
+    """Whether two trainers' Adam states (every group's, parameter by
+    parameter) are equal bit for bit."""
+    pa = [p for g in a.optimizer.param_groups for p in g["params"]]
+    pb = [p for g in b.optimizer.param_groups for p in g["params"]]
+    return len(pa) == len(pb) and all(
+        a.optimizer.state[x].keys() == b.optimizer.state[y].keys()
+        and all(torch.equal(v, b.optimizer.state[y][k])
+                for k, v in a.optimizer.state[x].items())
+        for x, y in zip(pa, pb))
+
+
 @pytest.mark.parametrize("grid", ["LowRank", "MixedFeature",
-                                  "cascades-exposure"])
+                                  "cascades-exposure", "ext"])
 def test_fused_runner_control_flow_matches_eager(grid, monkeypatch):
     """The runner's control flow on the CPU, its graphs replaced by a
     stand-in that runs the captured function again on each replay: the
     same history through the runner and eagerly gives the same metrics,
-    parameters and bitfield bit for bit (warm-up steps, the step's capture
-    and replays, the padded step's graph dropped for the flat one's at
-    FLAT_AFTER, the refresh graphs of both parities, a refresh parity
-    that alternates over the whole run, fit calls that start and end
-    mid-block, graphs kept across fit calls). "cascades-exposure": a
-    five-cascade scene (--scale 8: the padded step to the end, the union
-    grid's refresh) with the colmap refresh's erode, --use_exposure (rays
-    with an exposure column) and --random_bg. Then a replaced occupancy is
-    copied into the captured one, and a replaced parameter makes the runner
-    capture anew after new warm-up steps."""
+    parameters, Adam state and bitfield bit for bit (warm-up steps, the
+    step's capture and replays, the padded step's graph dropped for the
+    flat one's at FLAT_AFTER, the refresh graphs of both parities, a
+    refresh parity that alternates over the whole run, fit calls that
+    start and end mid-block, graphs kept across fit calls).
+    "cascades-exposure": a five-cascade scene (--scale 8: the padded step
+    to the end, the union grid's refresh) with the colmap refresh's erode,
+    --use_exposure (rays with an exposure column) and --random_bg. "ext":
+    LowRank under --optimize_ext at a --pose_lr that moves dR and dT,
+    which with their Adam group are held bit for bit too. Then a replaced
+    occupancy is copied into the captured one, and a replaced parameter
+    (under --optimize_ext: dT) makes the runner capture anew after new
+    warm-up steps."""
     kw = dict(grid=grid) if grid == "LowRank" else dict(
         grid=grid, T=14, N_max=128, N_tables=2, hash_grad_samples=4)
     if grid == "cascades-exposure":
         kw = dict(scale=8.0, dataset_name="colmap", use_exposure=True,
                   random_bg=True, exposures=True, batch_size=128)
+    elif grid == "ext":
+        kw = dict(grid="LowRank", optimize_ext=True, pose_lr=1e-3)
     eager = _fused_system(**kw)
     assert eager.erode == (grid == "cascades-exposure")
     want = _fit_history(eager)
@@ -568,6 +592,12 @@ def test_fused_runner_control_flow_matches_eager(grid, monkeypatch):
     for (name, a), b in zip(eager.model.state_dict().items(),
                             system.model.state_dict().values()):
         assert torch.equal(a, b), name
+    assert set(eager.ext) == set(system.ext) == (
+        {"dR", "dT"} if grid == "ext" else set())
+    for name, a in eager.ext.items():
+        assert a.abs().max() > 0, name     # the poses moved
+        assert torch.equal(a, system.ext[name]), name
+    assert _adam_states_equal(eager, system)
     assert torch.equal(eager.occ.density_bitfield,
                        system.occ.density_bitfield)
 
@@ -580,11 +610,18 @@ def test_fused_runner_control_flow_matches_eager(grid, monkeypatch):
     runner.bind()
     assert system.occ is occ and torch.equal(occ.density_bitfield, new_bits)
     assert runner.step_graph is not None
-    first = system.model.sigma_mlp[0]     # a replaced parameter
-    system.model.sigma_mlp[0] = torch.nn.Parameter(first.detach().clone())
-    groups = system.optimizer.param_groups[0]["params"]
-    groups[next(i for i, p in enumerate(groups) if p is first)] = \
-        system.model.sigma_mlp[0]
+    if grid == "ext":                     # a replaced pose correction
+        first = system.ext["dT"]
+        system.ext["dT"] = torch.nn.Parameter(first.detach().clone())
+        replaced, groups = system.ext["dT"], \
+            system.optimizer.param_groups[1]["params"]
+    else:                                 # a replaced parameter
+        first = system.model.sigma_mlp[0]
+        system.model.sigma_mlp[0] = torch.nn.Parameter(
+            first.detach().clone())
+        replaced, groups = system.model.sigma_mlp[0], \
+            system.optimizer.param_groups[0]["params"]
+    groups[next(i for i, p in enumerate(groups) if p is first)] = replaced
     system.fit(1)
     assert system.fused is runner and runner.step_graph is None \
         and runner.warm == 1
